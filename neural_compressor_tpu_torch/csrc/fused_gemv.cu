@@ -1,0 +1,174 @@
+// Fused W4A8 decode GEMV (M == 1): [RMSNorm prologue] -> int8 activation
+// quantization -> grouped int4 dot -> [silu(g)*u] [+ bias] [+ residual] ->
+// one bf16 store.
+//
+// Replaces: neural_compressor_tpu/kernels/fused_matvec.py _fused_impl
+//   (K4, kernel body _make_kernel).
+//
+// Bound on this card: bytes. Every weight nibble is used once (2*K*N int8
+//   operations on K*N/2 bytes), far below the ~600 operations per byte where
+//   the int8 tensor cores would become the limit, so the kernel's job is to
+//   stream "hopper_nk" weights (K*N/2 bytes) plus their float32 scales
+//   (K/G*N*4 bytes) at the memory rate.
+//
+// Design: the TPU kernel quantizes the activation once, at grid step 0,
+//   into scratch that later steps reuse, because a TPU grid runs in order.
+//   Hopper blocks run in parallel and in no order, so every block recomputes
+//   the sum of squares, the max and the int8 codes of the whole activation
+//   (K <= 11008 bytes of codes fit shared memory; x comes from L2). Then
+//   each warp owns 4 output columns: lanes read consecutive 16-byte vectors
+//   (32 codes) of a column, dot them with __dp4a against the shared codes,
+//   sum each group's 4 vectors exactly in int32 with two shuffles, and
+//   add group partial * scale (an exact product) in float64, rounded once
+//   to float32. With the sum of squares also in float64, the sums carry
+//   29 bits more than the float32 result, so their order almost never
+//   shows: the kernel and its plain version (kernels/fused_matvec.py)
+//   agree bit for bit on the main path's inputs. silu pairs column n with
+//   column n + N/2 of the same concatenated gate_up weight.
+#include "nctt_common.cuh"
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int COLS_PER_WARP = 4;
+constexpr int TN = WARPS * COLS_PER_WARP;  // output columns per block
+
+// sum over one column's K codes, float64 across groups; valid in all lanes
+__device__ __forceinline__ float dot_column(const uint8_t* __restrict__ col,
+                                            const int8_t* __restrict__ sx,
+                                            const float* __restrict__ scales,
+                                            int n, int N, int K, int G,
+                                            int lane) {
+  const int nvec = K / 32;  // 16-byte vectors in the column
+  const int vpg = G / 32;   // vectors per group (a multiple of 4)
+  double acc = 0.0;
+  for (int v0 = 0; v0 < nvec; v0 += 32) {
+    const int v = v0 + lane;
+    int part = 0;
+    if (v < nvec) {
+      const uint4 pk = *reinterpret_cast<const uint4*>(col + (size_t)v * 16);
+      const int4 xa = *reinterpret_cast<const int4*>(sx + v * 32);
+      const int4 xb = *reinterpret_cast<const int4*>(sx + v * 32 + 16);
+      uint32_t lo, hi;
+      nctt::unpack8(pk.x, lo, hi);
+      part = __dp4a((int)lo, xa.x, part);
+      part = __dp4a((int)hi, xa.y, part);
+      nctt::unpack8(pk.y, lo, hi);
+      part = __dp4a((int)lo, xa.z, part);
+      part = __dp4a((int)hi, xa.w, part);
+      nctt::unpack8(pk.z, lo, hi);
+      part = __dp4a((int)lo, xb.x, part);
+      part = __dp4a((int)hi, xb.y, part);
+      nctt::unpack8(pk.w, lo, hi);
+      part = __dp4a((int)lo, xb.z, part);
+      part = __dp4a((int)hi, xb.w, part);
+    }
+    // lanes 4i..4i+3 hold 4 consecutive vectors = 128 codes of one group
+    part += __shfl_xor_sync(nctt::FULL_MASK, part, 1);
+    part += __shfl_xor_sync(nctt::FULL_MASK, part, 2);
+    if ((lane & 3) == 0 && v < nvec)
+      acc += (double)part * (double)scales[(size_t)(v / vpg) * N + n];
+  }
+  return (float)nctt::warp_sum(acc);
+}
+
+__global__ void __launch_bounds__(THREADS)
+fused_gemv_kernel(const __nv_bfloat16* __restrict__ x,
+                  const float* __restrict__ rms_w,
+                  const uint8_t* __restrict__ w,
+                  const float* __restrict__ scales,
+                  const float* __restrict__ bias,
+                  const __nv_bfloat16* __restrict__ residual,
+                  __nv_bfloat16* __restrict__ y, int K, int N, int G,
+                  int n_out, int silu, float eps) {
+  extern __shared__ __align__(16) int8_t sx[];  // K int8 activation codes
+  __shared__ double red_ss[WARPS];
+  __shared__ float red_am[WARPS];
+  __shared__ float s_scale[2];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  // prologue, pass 1: sum of x^2 (RMSNorm) and max |z|, z = x * w_rms
+  double ss = 0.0;
+  float am = 0.f;
+  for (int k = tid; k < K; k += THREADS) {
+    const float xf = __bfloat162float(x[k]);
+    const float z = rms_w ? xf * rms_w[k] : xf;
+    ss += (double)xf * (double)xf;
+    am = fmaxf(am, fabsf(z));
+  }
+  ss = nctt::warp_sum(ss);
+  am = nctt::warp_max(am);
+  if (lane == 0) {
+    red_ss[warp] = ss;
+    red_am[warp] = am;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    ss = lane < WARPS ? red_ss[lane] : 0.0;
+    am = lane < WARPS ? red_am[lane] : 0.f;
+    ss = nctt::warp_sum(ss);
+    am = nctt::warp_max(am);
+    if (lane == 0) {
+      float s = am * (1.0f / 127.0f);  // as XLA compiles amax / 127
+      if (s <= 0.f) s = 1.0f;
+      const float inv =
+          rms_w ? (float)(1.0 / sqrt(ss / K + (double)eps)) : 1.0f;
+      s_scale[0] = s;
+      s_scale[1] = s * inv;
+    }
+  }
+  __syncthreads();
+  const float s = s_scale[0], ssc = s_scale[1];
+  // pass 2: int8 codes, round half to even as jnp.round / torch.round
+  for (int k = tid; k < K; k += THREADS) {
+    const float xf = __bfloat162float(x[k]);
+    const float z = rms_w ? xf * rms_w[k] : xf;
+    const float q = fminf(fmaxf(rintf(__fdiv_rn(z, s)), -128.f), 127.f);
+    sx[k] = (int8_t)q;
+  }
+  __syncthreads();
+
+  const size_t wrow = (size_t)K / 2;
+  for (int j = 0; j < COLS_PER_WARP; ++j) {
+    const int n = blockIdx.x * TN + warp * COLS_PER_WARP + j;
+    if (n >= n_out) break;  // uniform across the warp
+    const float g = dot_column(w + (size_t)n * wrow, sx, scales, n, N, K, G,
+                               lane);
+    float u = 0.f;
+    if (silu)
+      u = dot_column(w + (size_t)(n + n_out) * wrow, sx, scales, n + n_out, N,
+                     K, G, lane);
+    if (lane == 0) {
+      float v;
+      if (silu) {
+        const float ga = g * ssc, ua = u * ssc;
+        v = ga * (float)(1.0 / (1.0 + exp(-(double)ga))) * ua;
+      } else {
+        v = g * ssc;
+      }
+      if (bias) v += bias[n];
+      if (residual) v += __bfloat162float(residual[n]);
+      y[n] = __float2bfloat16_rn(v);
+    }
+  }
+}
+
+}  // namespace
+
+// x bf16 [K]; rms_w f32 [K] or null; w uint8 [N, K/2]; scales f32 [K/G, N];
+// bias f32 [n_out] or null; residual bf16 [n_out] or null; y bf16 [n_out].
+// n_out = N/2 with silu, else N. Needs K % 128 == 0, G % 128 == 0, K <= 48K.
+NCTT_API int nctt_fused_gemv(const void* x, const void* rms_w, const void* w,
+                             const void* scales, const void* bias,
+                             const void* residual, void* y, int K, int N,
+                             int G, int n_out, int silu, float eps,
+                             void* stream) {
+  const int blocks = (n_out + TN - 1) / TN;
+  fused_gemv_kernel<<<blocks, THREADS, K, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)x, (const float*)rms_w, (const uint8_t*)w,
+      (const float*)scales, (const float*)bias,
+      (const __nv_bfloat16*)residual, (__nv_bfloat16*)y, K, N, G, n_out, silu,
+      eps);
+  return (int)cudaGetLastError();
+}

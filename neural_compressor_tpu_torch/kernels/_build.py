@@ -1,0 +1,164 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``neural_compressor_tpu_torch/csrc`` are compiled at
+first use, never at import: ``nvcc`` for ``sm_90a``, one process per
+source, all started together, then linked into one shared library with a
+plain C interface that ``ctypes`` loads. The build goes to
+``csrc/_build/<digest>/``, keyed by a hash of the sources and flags, so a
+second process reuses it and an edited source rebuilds. A failed build
+raises with nvcc's standard error.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = CSRC / "_build"
+LIB_NAME = "libnctt_kernels.so"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry -> argument types; every entry returns cudaGetLastError()
+SIGNATURES = {
+    # xq, w, scales, x_scale, y, M, N, K, G, stream
+    "nctt_w4a8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, rms_w, w, scales, bias, residual, y, K, N, G, n_out, silu, eps, stream
+    "nctt_fused_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                        _P],
+    # q, k_cache, v_cache, out, B, H, Hkv, T, D, pos, scale, stream
+    "nctt_decode_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+# seconds the build took in this process; 0.0 when an earlier build was reused
+build_seconds: float | None = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def digest() -> str:
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels (if this digest is not built yet); return the
+    shared library's path. The compiler's resource report (registers,
+    shared memory, spills) is kept beside it in ``nvcc.log``."""
+    global build_seconds
+    out_dir = BUILD_ROOT / digest()
+    lib = out_dir / LIB_NAME
+    if lib.exists():
+        if build_seconds is None:
+            build_seconds = 0.0
+        return lib
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-"))
+    try:
+        jobs = []
+        for src in _sources():
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)]
+            jobs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        log, errors = [], []
+        for src, _obj, proc in jobs:
+            out, err = proc.communicate()
+            log.append(f"== {src.name}\n{out}{err}")
+            if proc.returncode:
+                errors.append(f"nvcc failed on {src.name} "
+                              f"(exit {proc.returncode}):\n{err}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp / LIB_NAME),
+             *(str(obj) for _s, obj, _p in jobs)],
+            capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        (tmp / "nvcc.log").write_text("\n".join(log))
+        try:
+            os.rename(tmp, out_dir)
+        except OSError:
+            if not lib.exists():  # lost a race only if the winner finished
+                raise
+    finally:
+        if tmp.exists():
+            shutil.rmtree(tmp, ignore_errors=True)
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error."""
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_handle(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t, name: str, dtype, device, shape) -> None:
+    """Validate one kernel operand: device, dtype, shape, contiguity and
+    16-byte alignment (the kernels load 16-byte vectors)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")

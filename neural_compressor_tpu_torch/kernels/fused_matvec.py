@@ -1,0 +1,170 @@
+"""Fused W4A8 decode GEMV (M == 1) with its prologue and epilogues.
+
+In this order, in one launch:
+  * optional RMSNorm prologue by scale invariance: per-token symmetric
+    int8 codes of ``z = x·w_rms`` equal those of ``x·w_rms/rms``, so the
+    kernel quantizes z and multiplies the activation scale by
+    ``rsqrt(mean(x²) + eps)``; the normalized activation never exists;
+  * int8 activation quantization;
+  * the grouped int4 dot (int32 per group, float64 across groups, rounded
+    once to float32, where K4 sums groups in float32);
+  * epilogues: ``silu(g)·u`` over a concatenated gate_up weight (u is
+    column ``n + N/2``), bias, residual; one bf16 store.
+
+Ports ``neural_compressor_tpu/kernels/fused_matvec.py`` ``_fused_impl``
+(K4, kernel body ``_make_kernel``). The CUDA kernel is
+``csrc/fused_gemv.cu``; eligibility (``fused_ok``, ``_pick_tn``) follows
+the JAX module exactly, minus its TPU check.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.packing import HOPPER_LAYOUT, PackedWeight
+from . import _build
+
+
+def fused_ok(pw: PackedWeight, n_batch_tokens: int = 1) -> bool:
+    """The fused kernel serves single-row decode on symmetric int4
+    "hopper_nk" weights with 128-multiple groups and N."""
+    K, N = pw.orig_shape
+    G = pw.group_size if pw.group_size > 0 else K
+    return (pw.layout == HOPPER_LAYOUT and pw.bits == 4
+            and pw.dtype == "int" and pw.zeros is None
+            and n_batch_tokens == 1 and K % 8 == 0 and K % G == 0
+            and G % 128 == 0 and N % 128 == 0)
+
+
+def _pick_tn(n_out: int, allow_ragged: bool = False) -> int:
+    for tn in (512, 256, 128):
+        if n_out % tn == 0:
+            return tn
+    if allow_ragged and n_out > 8192 and n_out % 128 == 0:
+        return 512
+    return 0
+
+
+def fused_gemv_plain(x, rms_w, w, scales, bias, residual, *, eps: float,
+                     silu: bool, out_dtype) -> torch.Tensor:
+    """Plain PyTorch version of the kernel. x [K]; rms_w f32 [K] or None;
+    w uint8 "hopper_nk" [N, K/2]; scales f32 [K/G, N]; bias f32 [n_out] or
+    None; residual [n_out] or None -> [n_out] in ``out_dtype``.
+
+    The sum of squares, the sum over groups and the sigmoid run in float64
+    and round once, so the summation order almost never shows and the
+    kernel matches this bit for bit."""
+    from ..ops.packing import unpack_codes_hopper
+
+    f64 = torch.float64
+    xf = x.reshape(-1).to(torch.float32)
+    K = xf.shape[0]
+    if rms_w is not None:
+        ss = torch.sum(xf.to(f64) * xf.to(f64))
+        eps64 = torch.tensor(eps, dtype=torch.float32).to(f64)  # as passed
+        inv = (1.0 / torch.sqrt(ss / K + eps64)).to(torch.float32)
+        z = xf * rms_w
+    else:
+        inv = torch.ones((), dtype=torch.float32, device=x.device)
+        z = xf
+    s = torch.amax(torch.abs(z)) * (1.0 / 127)
+    s = torch.where(s <= 0, torch.ones_like(s), s)
+    codes = torch.clamp(torch.round(z / s), -128, 127)
+    ssc = s * inv
+    ng, N = scales.shape
+    G = K // ng
+    wq = unpack_codes_hopper(w).to(torch.float32).reshape(ng, G, N)
+    d = torch.bmm(codes.reshape(ng, 1, G), wq)[:, 0]          # [ng, N] exact
+    acc = (d.to(f64) * scales.to(f64)).sum(dim=0).to(torch.float32)
+    if silu:
+        n_out = N // 2
+        gacc, uacc = acc[:n_out] * ssc, acc[n_out:] * ssc
+        sig = (1.0 / (1.0 + torch.exp(-gacc.to(f64)))).to(torch.float32)
+        y = gacc * sig * uacc
+    else:
+        y = acc * ssc
+    if bias is not None:
+        y = y + bias
+    if residual is not None:
+        y = y + residual.reshape(-1).to(torch.float32)
+    return y.to(out_dtype)
+
+
+def fused_gemv(x, rms_w, w, scales, bias, residual, *, eps: float,
+               silu: bool, out_dtype) -> torch.Tensor:
+    """The fused GEMV on the card (``csrc/fused_gemv.cu``); the plain
+    version for CPU tensors. Arguments as in ``fused_gemv_plain``."""
+    if x.device.type == "cpu":
+        return fused_gemv_plain(x, rms_w, w, scales, bias, residual, eps=eps,
+                                silu=silu, out_dtype=out_dtype)
+    dev = x.device
+    K = x.numel()
+    ng, N = scales.shape
+    G = K // ng if ng else 0
+    n_out = N // 2 if silu else N
+    if not (K % 128 == 0 and G % 128 == 0 and ng * G == K
+            and K <= 48 * 1024 and (not silu or N % 2 == 0)):
+        raise ValueError(f"fused_gemv needs K % 128 == 0, G % 128 == 0 and "
+                         f"K <= 49152 (K={K}, G={G}, N={N})")
+    if out_dtype != torch.bfloat16:
+        raise ValueError(f"fused_gemv stores bf16, not {out_dtype}")
+    x = x.reshape(K)
+    _build.require(x, "x", torch.bfloat16, dev, (K,))
+    _build.require(w, "w", torch.uint8, dev, (N, K // 2))
+    _build.require(scales, "scales", torch.float32, dev, (ng, N))
+    ptrs = []
+    for t, name, dtype, shape in ((rms_w, "rms_w", torch.float32, (K,)),
+                                  (bias, "bias", torch.float32, (n_out,)),
+                                  (residual, "residual", torch.bfloat16,
+                                   (n_out,))):
+        if t is None:
+            ptrs.append(None)
+        else:
+            t = t.reshape(shape)
+            _build.require(t, name, dtype, dev, shape)
+            ptrs.append(t.data_ptr())
+    y = torch.empty(n_out, dtype=torch.bfloat16, device=dev)
+    err = _build.library().nctt_fused_gemv(
+        x.data_ptr(), ptrs[0], w.data_ptr(), scales.data_ptr(), ptrs[1],
+        ptrs[2], y.data_ptr(), K, N, G, n_out, int(silu), float(eps),
+        _build.stream_handle(dev))
+    _build.check(err, "nctt_fused_gemv")
+    fused_gemv.launches += 1
+    return y
+
+
+fused_gemv.launches = 0
+
+
+def fused_matvec(x: torch.Tensor, pw: PackedWeight, *, rms_w=None,
+                 eps: float = 0.0, bias=None, residual=None,
+                 silu_gate: bool = False, out_dtype=None):
+    """y = [rms-norm ->] act-quant -> x @ dequant(Wq) [-> silu(g)*u]
+    [+ bias] [+ residual], in one launch (M == 1 only).
+
+    Returns None when the weight or shape is outside the fused envelope;
+    callers then take the modular path."""
+    out_dtype = out_dtype or x.dtype
+    lead = x.shape[:-1]
+    K, N = pw.orig_shape
+    M = 1
+    for d in lead:
+        M *= d
+    if not fused_ok(pw, M):
+        return None
+    if silu_gate and bias is not None:
+        # the epilogue adds the bias after silu(g)*u, which is not the
+        # gate_up bias semantics silu(g+b_g)*(u+b_u)
+        return None
+    n_out = (N // 2) if silu_gate else N
+    allow_ragged = (not silu_gate and bias is None and residual is None)
+    if not _pick_tn(n_out, allow_ragged=allow_ragged):
+        return None
+    y = fused_gemv(
+        x.reshape(K),
+        None if rms_w is None else rms_w.to(torch.float32),
+        pw.packed, pw.scales,
+        None if bias is None else bias.to(torch.float32),
+        None if residual is None else residual.reshape(n_out),
+        eps=float(eps), silu=silu_gate, out_dtype=out_dtype)
+    return y.reshape(*lead, n_out)
