@@ -1,13 +1,15 @@
 """neural_compressor_tpu_torch — the PyTorch/CUDA port of
 ``neural_compressor_tpu``.
 
-This slice serves RTN-int4 W4A8 Llama models with greedy decoding through
-three hand-written Hopper kernels (``kernels/``, sources in ``csrc/``):
-build or load a model, quantize it, convert it for serving, generate.
+It serves RTN-int4 W4A8 Llama models with greedy decoding through
+hand-written Hopper kernels (``kernels/``, sources in ``csrc/``): build or
+load a model, quantize it, convert it for serving, then generate, or serve
+many requests through the continuous-batching engine over contiguous or
+paged KV caches.
 
     from neural_compressor_tpu_torch import (
         RTNConfig, build_quantized, fuse_for_serving, to_w4a8_serving,
-        enable_fused_decode, generate)
+        enable_fused_decode, generate, ContinuousBatchingEngine)
 
 It imports PyTorch, never JAX. Entry points run on the CUDA card unless
 the caller passes ``device="cpu"``, where each kernel's plain PyTorch
@@ -20,3 +22,4 @@ from .quantization import (RTNConfig, enable_fused_decode, fuse_for_serving,
 from .models import (LLAMA_PRESETS, LlamaConfig, LlamaForCausalLM,
                      build_quantized, from_jax_params)
 from .generation import generate, greedy_search
+from .serving import ContinuousBatchingEngine

@@ -3,7 +3,10 @@
 The counterpart of ``neural_compressor_tpu.generation.generate``'s greedy
 path: a prefill fills a contiguous KV cache, then a decode loop feeds back
 the argmax token. PyTorch runs eagerly, so there is no cached program;
-the loop is plain Python over the model's forward.
+the loop is plain Python over the model's forward. A batch of B > 1
+prompts decodes through the batched attention kernel (K7); serving many
+requests over contiguous or paged caches is
+``serving.ContinuousBatchingEngine``'s work.
 
 Sampling and beam search raise ``NotImplementedError`` until they are
 ported.

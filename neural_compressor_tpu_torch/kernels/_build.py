@@ -38,6 +38,17 @@ SIGNATURES = {
                         _P],
     # q, k_cache, v_cache, out, B, H, Hkv, T, D, pos, scale, stream
     "nctt_decode_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_cache, v_cache, pos, out, B, H, Hkv, T, D, scale, stream
+    "nctt_batched_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                      _F, _P],
+    # q, k_pages, k_scales, v_pages, v_scales, block_tables, lengths, out,
+    # B, H, Hkv, P, page, PMAX, D, quant, scale, stream
+    "nctt_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _F, _P],
+    # k_new, v_new, k_pages, k_scales, v_pages, v_scales, block_tables, pos,
+    # B, Hkv, P, page, PMAX, D, quant, stream
+    "nctt_paged_write_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

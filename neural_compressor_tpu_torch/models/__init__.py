@@ -1,2 +1,3 @@
 from .llama import (LLAMA_PRESETS, KVCache, LlamaConfig, LlamaForCausalLM,
-                    build_quantized, from_jax_params, init_kv_cache)
+                    PagedKVCache, build_quantized, from_jax_params,
+                    init_kv_cache, init_paged_pool)

@@ -1,14 +1,17 @@
-"""Llama-family causal LM in PyTorch: the bf16 contiguous-cache path.
+"""Llama-family causal LM in PyTorch: bf16 contiguous and paged caches.
 
 The counterpart of ``neural_compressor_tpu.models.llama`` for rotary style
-"half" without scaling, a bf16 head-major KV cache [B, Hkv, T, D], dense
-prefill attention, and B=1 decode through the port's kernels. Module and
-parameter names follow the JAX model, so its flat state maps onto this
-model's ``state_dict`` (``from_jax_params``).
+"half" without scaling and dense prefill attention, decoding through the
+port's kernels: over a bf16 head-major KV cache [B, Hkv, T, D] at B=1 (K5)
+and at B > 1 with per-slot positions (K7), and over a paged pool of bf16
+rows or int8 codes (``PagedKVCache``: K12 writes the row, K11 attends).
+Module and parameter names follow the JAX model, so its flat state maps
+onto this model's ``state_dict`` (``from_jax_params``).
 
 Off this path the model raises ``NotImplementedError`` naming the JAX
-function it waits for: quantized or paged caches, B > 1 decode, the
-chunked long prefill, other rotary styles and scalings.
+function it waits for: quantized contiguous caches, fp8 and int4 pools,
+multi-token windows over pages, the chunked long prefill, other rotary
+styles and scalings.
 """
 
 from __future__ import annotations
@@ -131,15 +134,100 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
             for _ in range(cfg.num_hidden_layers)]
 
 
-def _update_rows(cache_arr: torch.Tensor, new: torch.Tensor, cache_pos: int):
-    """Write ``new`` [B, H, S, D] into ``cache_arr`` [B, H, T, D] at token
-    ``cache_pos``, IN PLACE (JAX returns an updated copy); returns it."""
-    if not isinstance(cache_pos, int):
+class PagedKVCache(NamedTuple):
+    """Paged KV cache: a shared page pool plus per-slot block tables. Pages
+    are [page_size, D] rows per KV head, bf16, or int8 codes with
+    per-(token, head) float32 scales. Pool page 0 is the engine's trash
+    page. Consumed by ``kernels/paged_attention.py``; the port writes rows
+    into the pool in place."""
+
+    k_pages: torch.Tensor             # [P, Hkv, page, D] bf16 | int8
+    k_scales: torch.Tensor | None     # [P, Hkv, page] f32 (int8 pools)
+    v_pages: torch.Tensor
+    v_scales: torch.Tensor | None
+    block_tables: torch.Tensor        # [B, PMAX] int32 page ids per slot
+
+    @property
+    def page_size(self) -> int:
+        return self.k_pages.shape[2]
+
+
+def init_paged_pool(cfg: LlamaConfig, n_pages: int, batch: int, max_len: int,
+                    page_size: int = 128, dtype=None,
+                    quantized: bool | str = False, device=None):
+    """Per-layer ``PagedKVCache`` pools with empty block tables: bf16 rows,
+    or int8 codes (``quantized=True`` or ``"int8"``) with scales of 1."""
+    dtype = dtype or cfg.dtype
+    device = resolve_device(device)
+    fmt = ("int8" if quantized is True else str(quantized)) if quantized \
+        else None
+    if fmt not in (None, "int8"):
         raise NotImplementedError(
-            "per-slot cache positions wait for the port of the batched "
-            "path of neural_compressor_tpu.models.llama._update_rows")
-    S = new.shape[2]
-    cache_arr[:, :, cache_pos:cache_pos + S] = new.to(cache_arr.dtype)
+            f"{fmt} page pools wait for the port of "
+            "neural_compressor_tpu.models.llama.init_paged_pool's "
+            f"{fmt} branch with _kv_quant4_asym_codes (int4) or the fp8 "
+            "branch of _kv_quant, and their paged kernels")
+    pmax = (max_len + page_size - 1) // page_size
+    shape = (n_pages, cfg.num_key_value_heads, page_size, cfg.head_dim)
+    out = []
+    for _ in range(cfg.num_hidden_layers):
+        bt = torch.zeros((batch, pmax), dtype=torch.int32, device=device)
+        if fmt:
+            out.append(PagedKVCache(
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.ones(shape[:-1], dtype=torch.float32, device=device),
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.ones(shape[:-1], dtype=torch.float32, device=device),
+                bt))
+        else:
+            out.append(PagedKVCache(
+                torch.zeros(shape, dtype=dtype, device=device), None,
+                torch.zeros(shape, dtype=dtype, device=device), None, bt))
+    return out
+
+
+def _kv_quant(x: torch.Tensor, fmt: str = "int8"):
+    """[B, H, S, D] -> int8 codes + per-(token, head) float32 scale, as
+    ``neural_compressor_tpu.models.llama._kv_quant`` computes them."""
+    if fmt != "int8":
+        raise NotImplementedError(
+            f"{fmt} KV codes wait for the port of the {fmt} branch of "
+            "neural_compressor_tpu.models.llama._kv_quant")
+    from ..kernels.paged_attention import kv_quant_int8
+
+    return kv_quant_int8(x)
+
+
+def _paged_write_row(cache: PagedKVCache, k_new, v_new, pos):
+    """Write the new K/V rows [B, Hkv, 1, D] into their pages at per-slot
+    ``pos`` [B] (page id from the block table), in place, through the
+    paged write kernel (K12). JAX falls back to an XLA scatter off its
+    kernel's envelope; the port's kernel covers every shape."""
+    from ..kernels.paged_attention import paged_write_rows
+
+    return paged_write_rows(cache, k_new, v_new, pos)
+
+
+def _update_rows(cache_arr: torch.Tensor, new: torch.Tensor, cache_pos):
+    """Write ``new`` [B, H, S, D] into ``cache_arr`` [B, H, T, D] at token
+    ``cache_pos``: an int, or a [B] tensor of per-row starts (continuous
+    batching), IN PLACE (JAX returns an updated copy); returns it.
+
+    Each start is clamped to [0, T - S], as ``jax.lax.dynamic_update_slice``
+    clamps it (slicing past the end would silently write fewer rows). A
+    tensor ``cache_pos`` stays on its device: no host sync."""
+    S, T = new.shape[2], cache_arr.shape[2]
+    new = new.to(cache_arr.dtype)
+    if not isinstance(cache_pos, torch.Tensor):
+        start = min(max(int(cache_pos), 0), T - S)
+        cache_arr[:, :, start:start + S] = new
+        return cache_arr
+    B = cache_arr.shape[0]
+    dev = cache_arr.device
+    start = cache_pos.reshape(-1).to(device=dev, dtype=torch.int64).expand(B)
+    rows = start.clamp(0, T - S)[:, None] + torch.arange(S, device=dev)
+    cache_arr[torch.arange(B, device=dev)[:, None], :, rows] = \
+        new.transpose(1, 2)
     return cache_arr
 
 
@@ -264,25 +352,38 @@ class LlamaAttention(nn.Module):
         """Cache update + attention on head-major q/k/v; returns the
         flattened attention output [B, S, H*D] and the cache. Shared by the
         modular forward and the fused decode layer."""
-        from ..kernels.decode_attention import (decode_attention,
-                                                use_fused_decode_attention)
+        from ..kernels.decode_attention import decode_attention
 
         cfg = self.cfg
         B, S = q.shape[0], q.shape[2]
         H, D = cfg.num_attention_heads, cfg.head_dim
         new_cache = None
+        if isinstance(cache, PagedKVCache):
+            from ..kernels.paged_attention import paged_decode_attention
+
+            if S != 1:
+                raise NotImplementedError(
+                    "multi-token windows over paged caches (speculative "
+                    "serving) wait for the port of neural_compressor_tpu."
+                    "kernels.paged_attention.paged_write_window (K13) and "
+                    "paged_window_attention")
+            pos_b = (cache_pos if isinstance(cache_pos, torch.Tensor)
+                     else torch.tensor(cache_pos, device=q.device))
+            pos_b = pos_b.reshape(-1).to(device=q.device,
+                                         dtype=torch.int32).expand(B)
+            new_cache = _paged_write_row(cache, k, v, pos_b)
+            out = paged_decode_attention(q, new_cache, pos_b + 1)
+            out = out.to(x_dtype).transpose(1, 2)
+            return out.reshape(B, S, H * D), new_cache
         if cache is not None:
             if not isinstance(cache, KVCache):
                 raise NotImplementedError(
-                    "quantized and paged caches wait for the port of "
-                    "neural_compressor_tpu.models.llama.LlamaAttention._attend"
-                    " (K6, K11, K12)")
+                    "quantized caches wait for the port of "
+                    "neural_compressor_tpu.models.llama.QuantKVCache "
+                    "and decode_attention_quant (K6)")
             if S == 1:
-                if not use_fused_decode_attention(B):
-                    raise NotImplementedError(
-                        "B > 1 decode waits for the port of "
-                        "neural_compressor_tpu.kernels.decode_attention."
-                        "batched_decode_attention (K7)")
+                # B == 1 with an int position on the B=1 kernel (K5), B > 1
+                # and per-slot positions on the batched one (K7)
                 out, k_all, v_all = decode_attention(
                     q, k, v, cache.k, cache.v, cache_pos)
                 out = out.to(x_dtype).transpose(1, 2)

@@ -198,10 +198,21 @@ def test_decode_attention_plain_matches_k5(H, Hkv, pos):
     assert np.abs(_f32(to) - _f32(jo)).max() <= 1e-2
 
 
-def test_decode_attention_b2_raises():
-    q, kn, vn, kc, vc = _attn_inputs(2, 4, 4, 8, 32, seed=0)
-    with pytest.raises(NotImplementedError, match="batched_decode_attention"):
-        decode_attention(_t(q), _t(kn), _t(vn), _t(kc), _t(vc), 3)
+def test_decode_attention_b2_matches_jax():
+    """B = 2 through the port's ``decode_attention`` (the rows written in
+    place, then K7's plain version) against JAX's (the B=1 kernel K5 in
+    interpret mode): the same cache rows bit for bit, the output within
+    1e-2 of max|out| (K7 rounds exp(s - m) to bf16 and divides after PV,
+    K5 normalises before the cast)."""
+    q, kn, vn, kc, vc = _attn_inputs(2, 4, 4, 64, 128, seed=0)
+    jo, jk, jv = j_decode_attention(q, kn, vn, kc, vc, 9)
+    tk, tv = _t(kc), _t(vc)
+    to, tk2, tv2 = decode_attention(_t(q), _t(kn), _t(vn), tk, tv, 9)
+    assert tk2 is tk and tv2 is tv          # the port updates in place
+    np.testing.assert_array_equal(_f32(tk2), _f32(jk))
+    np.testing.assert_array_equal(_f32(tv2), _f32(jv))
+    assert to.dtype == torch.bfloat16 and tuple(to.shape) == (2, 4, 1, 128)
+    assert np.abs(_f32(to) - _f32(jo)).max() <= 1e-2 * np.abs(_f32(jo)).max()
 
 
 def test_wrappers_take_plain_versions_on_cpu_and_count_nothing():

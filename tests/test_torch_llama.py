@@ -175,6 +175,23 @@ def test_greedy_tokens_equal_on_trained_checkpoints(name, served):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("served", [False, True], ids=["bf16", "w4a8"])
+def test_greedy_search_b2_matches_jax(served):
+    """B = 2 prompts through ``greedy_search``: every decode step goes
+    through the batched attention kernel (K7's plain version) in the port,
+    JAX's batch through its own dispatch (K7 needs B*Hkv >= 16, so here
+    its XLA attention). Tokens equal for 6 new tokens on this seed."""
+    if served:
+        jm, tm = _served_pair(seed=2)
+    else:
+        jm = _jax_model(seed=2)
+        tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg), device="cpu")
+    ids = np.concatenate([_ids(8, seed=3), _ids(8, seed=4)])
+    want = np.asarray(j_greedy(jm, jnp.asarray(ids), max_new_tokens=6))
+    got = nct.greedy_search(tm, torch.from_numpy(ids), max_new_tokens=6)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_off_path_raises():
     jm = _jax_model()
     tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg), device="cpu")
@@ -183,8 +200,10 @@ def test_off_path_raises():
         nct.generate(tm, ids, do_sample=True)
     with pytest.raises(NotImplementedError, match="beam_search"):
         nct.generate(tm, ids, num_beams=2)
-    with pytest.raises(NotImplementedError, match="K7"):
-        nct.greedy_search(tm, torch.cat([ids, ids]), max_new_tokens=3)
+    with pytest.raises(NotImplementedError, match="paged_write_window"):
+        pool = tl.init_paged_pool(tm.cfg, 3, 1, 32, page_size=16,
+                                  device="cpu")
+        tm(ids, torch.arange(4)[None], pool, torch.tensor([0]))
     with pytest.raises(NotImplementedError, match="QuantKVCache"):
         tl.init_kv_cache(tm.cfg, 1, 8, quantized=True, device="cpu")
     with pytest.raises(NotImplementedError, match="_rope"):

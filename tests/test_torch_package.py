@@ -74,7 +74,8 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
 
 def test_each_kernel_wrapper_counts_its_launches():
     names = [fn.__name__ for fn in kernels.KERNEL_WRAPPERS]
-    assert names == ["w4a8_gemm", "fused_gemv", "decode_attn"]
+    assert names == ["w4a8_gemm", "fused_gemv", "decode_attn",
+                     "batched_decode_attn", "paged_attn", "paged_write"]
     for fn in kernels.KERNEL_WRAPPERS:
         assert isinstance(fn.launches, int)
         fn.launches += 3
@@ -84,7 +85,9 @@ def test_each_kernel_wrapper_counts_its_launches():
 
 def test_every_kernel_has_a_source_and_a_c_entry():
     sources = {p.name for p in _build.CSRC.glob("*.cu")}
-    assert sources == {"w4a8_gemm.cu", "fused_gemv.cu", "decode_attention.cu"}
+    assert sources == {"w4a8_gemm.cu", "fused_gemv.cu", "decode_attention.cu",
+                       "batched_decode_attention.cu", "paged_attention.cu",
+                       "paged_write.cu"}
     text = "".join((_build.CSRC / s).read_text() for s in sources)
     for entry in _build.SIGNATURES:
         assert f"NCTT_API int {entry}(" in text
