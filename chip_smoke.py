@@ -31,7 +31,18 @@ non-zero:
      max_len=1024)``: 16 greedy requests (prompts of 16, 100 and 371
      tokens, 48-64 new tokens) over contiguous bf16 caches, then over a
      paged int8 pool, ``run(chunk=8)``, with exact launch counts derived
-     from the engine's counters, and one B=8 decode dispatch profiled.
+     from the engine's counters, and one B=8 decode dispatch profiled;
+  7. weight-only (W4A16) serving: K8 and K9 against their plain versions
+     at the llama2-7b asym-int4 g128 shapes (timed as in 2) and over the
+     formats, groups and shapes the path does not give them (int2, nf4,
+     fp4, int8 codes, per-channel, double quant, perm, bias, pre_scale,
+     ragged M and N, f32 x); a full-width 2-layer W4A16 model on the card
+     against the CPU with the plain K8/K9 forced;
+  8. after the W4A8 model is freed, llama2-7b asym-int4 g128 W4A16 at full
+     width and depth: three greedy requests at B=1 and 16 through the
+     8-slot engine (contiguous bf16), exact launch counts of K8, K9, K5
+     and K7 and the dequantize-then-matmul calls (M > 256 only),
+     profiled as in 5.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path and its times.
 """
@@ -39,6 +50,7 @@ lists every kernel with its launches on the main path and its times.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import subprocess
@@ -72,9 +84,9 @@ def card_peaks(name: str) -> dict:
     """Published dense peaks (NVIDIA data sheets) of the card's variant."""
     if "PCIe" in name:
         return {"bytes_s": 2.0e12, "int8_s": 1513e12, "bf16_s": 756e12,
-                "source": "H100 PCIe data sheet"}
+                "f32_s": 51e12, "source": "H100 PCIe data sheet"}
     return {"bytes_s": 3.35e12, "int8_s": 1979e12, "bf16_s": 989e12,
-            "source": "H100 SXM data sheet"}
+            "f32_s": 67e12, "source": "H100 SXM data sheet"}
 
 
 def bound(nbytes: float, ops: float, peak_ops: float, peaks: dict):
@@ -503,7 +515,7 @@ def phase_envelope(torch, nct) -> None:
     L = cfg.num_hidden_layers
     if not torch.equal(got.cpu(), want):
         bad.append(f"GQA model tokens {got.tolist()} vs {want.tolist()}")
-    if grew != [4 * L + 1, 15 * (4 * L + 1), 15 * L, 0, 0, 0]:
+    if grew != [4 * L + 1, 15 * (4 * L + 1), 15 * L, 0, 0, 0, 0, 0]:
         bad.append(f"GQA model launches {grew}")
     print(f"envelope: {n} kernel shapes and a 2-layer GQA model "
           f"(16 greedy tokens), card vs plain: "
@@ -740,7 +752,7 @@ def phase_model_check(torch, nct) -> None:
 
 def phase_serve(torch, nct) -> dict:
     from neural_compressor_tpu_torch import kernels
-    from neural_compressor_tpu_torch.layers.woq_linear import _dequant_dot
+    from neural_compressor_tpu_torch.kernels import dequant_dot
     from neural_compressor_tpu_torch.models.llama import init_kv_cache
 
     t0 = time.perf_counter()
@@ -777,7 +789,7 @@ def phase_serve(torch, nct) -> dict:
             del caches, logits
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    _dequant_dot.calls = 0
+    dequant_dot.calls = 0
     req_s, outs = [], []
     for ids in prompts:
         torch.cuda.synchronize()
@@ -787,12 +799,13 @@ def phase_serve(torch, nct) -> dict:
         torch.cuda.synchronize()
         req_s.append(time.perf_counter() - t)
     launches = {fn.__name__: fn.launches for fn in kernels.KERNEL_WRAPPERS}
-    fallbacks = _dequant_dot.calls
+    fallbacks = dequant_dot.calls
     steps = NEW_TOKENS - 1
     want = {"w4a8_gemm": len(PROMPTS) * (4 * LAYERS + 1),
             "fused_gemv": len(PROMPTS) * steps * (4 * LAYERS + 1),
             "decode_attn": len(PROMPTS) * steps * LAYERS,
-            "batched_decode_attn": 0, "paged_attn": 0, "paged_write": 0}
+            "batched_decode_attn": 0, "paged_attn": 0, "paged_write": 0,
+            "dequant_gemm": 0, "vpu_gemv": 0}
     print(f"kernels {json.dumps(launches)} expected {json.dumps(want)} "
           f"dequant-and-dot fallbacks {fallbacks}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -870,7 +883,7 @@ def phase_engine_serve(torch, nct, model) -> dict:
     from the engine's counters, then one B=8 decode dispatch profiled.
     Returns {mode: launches}."""
     from neural_compressor_tpu_torch import kernels
-    from neural_compressor_tpu_torch.layers.woq_linear import _dequant_dot
+    from neural_compressor_tpu_torch.kernels import dequant_dot
 
     V = model.cfg.vocab_size
     gen = torch.Generator().manual_seed(6)
@@ -883,12 +896,12 @@ def phase_engine_serve(torch, nct, model) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        _dequant_dot.calls = 0
+        dequant_dot.calls = 0
         eng, reqs, seconds = serve_engine(torch, nct, model, mode, prompts,
                                           new, n_slots=SLOTS,
                                           max_len=MAX_LEN, page_size=PAGE)
         launches = {fn.__name__: fn.launches for fn in kernels.KERNEL_WRAPPERS}
-        fallbacks = _dequant_dot.calls
+        fallbacks = dequant_dot.calls
         m = eng.metrics()
         steps = CHUNK * m["decode_dispatches"]
         chunks = m["prefill_chunk_dispatches"]
@@ -897,7 +910,8 @@ def phase_engine_serve(torch, nct, model) -> dict:
                 "fused_gemv": 0, "decode_attn": 0,
                 "batched_decode_attn": 0 if paged else LAYERS * steps,
                 "paged_attn": LAYERS * steps if paged else 0,
-                "paged_write": LAYERS * steps if paged else 0}
+                "paged_write": LAYERS * steps if paged else 0,
+                "dequant_gemm": 0, "vpu_gemv": 0}
         counters = {k: m[k] for k in (
             "requests", "prompt_tokens", "generated_tokens",
             "prefill_chunk_dispatches", "decode_dispatches",
@@ -945,6 +959,538 @@ def phase_engine_serve(torch, nct, model) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ W4A16
+WOQ_MS = (8, 100, 256)          # K8 rows timed at the llama2-7b shapes
+WOQ_UNIT_M = 8                  # K8's row of the kernels line: one 8-slot step
+
+
+def woq_tol(torch, x, pw, y_ref, k9: bool, extra=None):
+    """Elementwise tolerance of a W4A16 kernel against its plain version,
+    each sum bounded over the terms it adds, plus a bf16 rounding of the
+    output (2^-7 |y| when y is bf16; ``extra`` adds the magnitude of a
+    second rounding, e.g. a bias add).
+      * K9 (and its plain version) adds G terms a group and K/G groups,
+        factored as s (sum u x - (2^(b-1) + z) sum x): each side is within
+        (G + K/G + 4) 2^-24 (|x| @ A), A = s (u + |2^(b-1) + z|), the
+        terms the factored sums add before they cancel.
+      * K8's weights equal its plain version's bit for bit (the same f32
+        dequantization rounded to bf16) and the bf16 products are exact,
+        so only the order of the K-term f32 sum differs: the tensor cores'
+        chain of m16n8k16 steps on the card, a blocked matmul in the plain
+        version. Each side is taken within 8 sqrt(K) 2^-24 (|x| @ |W|),
+        the probabilistic bound of a K-term sum at lambda = 8."""
+    from neural_compressor_tpu_torch.ops import (dequantize_packed,
+                                                 resolve_double_quant,
+                                                 unpack_codes)
+
+    pw = resolve_double_quant(pw)
+    K, N = pw.orig_shape
+    xa = x.reshape(-1, K).float().abs()
+    if k9:
+        G = pw.group_size if pw.group_size > 0 else K
+        if pw.perm is not None:
+            xa = xa[:, pw.perm.long()]
+        u = unpack_codes(pw.packed, pw.bits, G, K, signed=False).float()
+        off = torch.full_like(pw.scales, float(1 << (pw.bits - 1)))
+        if pw.zeros is not None:
+            off = off + pw.zeros
+        A = ((u.reshape(-1, G, N) + off.abs()[:, None, :])
+             * pw.scales[:, None, :]).reshape(K, N)
+        per_side = (G + K // G + 4) * 2.0 ** -24
+    else:
+        A = dequantize_packed(pw, torch.float32).abs()
+        per_side = 8 * K ** 0.5 * 2.0 ** -24
+    tol = (2 * per_side) * (xa @ A)
+    tol = tol.reshape(y_ref.shape)
+    if y_ref.dtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * y_ref.float().abs()
+    if extra is not None:
+        tol = tol + 2.0 ** -7 * extra.float().abs()
+    del A
+    return tol
+
+
+def woq_weight(torch, gen, K, N, G=128, scheme="asym", dtype="int", bits=4,
+               **pack_kw):
+    from neural_compressor_tpu_torch.ops import pack_qtensor, quantize_tensor
+
+    w = torch.randn((K, N), generator=gen, device="cuda") * K ** -0.5
+    return pack_qtensor(quantize_tensor(w, bits=bits, group_size=G,
+                                        scheme=scheme, dtype=dtype),
+                        **pack_kw)
+
+
+def woq_operands(pw):
+    """The kernel operands of a weight: packed words, f32 scales, f32 zero
+    points or None."""
+    return (pw.packed, pw.scales, pw.zeros)
+
+
+def woq_faults(s, z):
+    """Faults planted in a kernel's scales and zero points, each of which
+    ``woq_tol`` must catch: (name, scales, zeros)."""
+    g7 = s.clone()
+    g7[7] *= 1.25
+    return (("zeros dropped", s, None),
+            ("scales one group late", s.roll(1, dims=0), z),
+            ("group 7 scale x1.25", g7, z))
+
+
+def phase_woq_kernels(torch, nct, peaks: dict) -> dict:
+    """K8 and K9 at the llama2-7b asym-int4 g128 shapes of the W4A16 path:
+    K9 at M = 1, K8 at M = 8, 100 and 256, each against its plain version,
+    with its time (weights rotated through >200 MB of copies, so L2 is
+    cold), the plain version's, the yardstick ``torch.matmul`` of the
+    bf16-dequantized weight (dequantization not timed; never called by the
+    port) and the bound. At M = 1 and 8 the kernel also runs on faulty
+    scales or zero points (``woq_faults``), and the tolerance must flag
+    each fault."""
+    from neural_compressor_tpu_torch.kernels import dequant_matmul as dm
+    from neural_compressor_tpu_torch.ops import dequantize_packed
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(21)
+    rows = {"k8": [], "k9": []}
+    missed = []
+    for name, (K, N) in SHAPES.items():
+        pw = woq_weight(torch, gen, K, N)
+        wbf = dequantize_packed(pw, torch.bfloat16)
+        wbytes = K * N // 2 + 2 * (K // G) * N * 4
+        cps = [tuple(t.clone() for t in woq_operands(pw))
+               for _ in range(n_copies(wbytes))]
+        lcps = [wbf] + [wbf.clone() for _ in range(
+            n_copies(K * N * 2) - 1)]
+        for M in (1,) + WOQ_MS:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            if M == 1:
+                kw = dict(bits=4, group_size=G, out_dtype=torch.bfloat16)
+                yk = dm.vpu_gemv(x, *woq_operands(pw), **kw)
+                yp = dm.vpu_gemv_plain(x, *woq_operands(pw), **kw)
+                run = [lambda c=c: dm.vpu_gemv(x, *c, **kw) for c in cps]
+                plain = [lambda: dm.vpu_gemv_plain(x, *woq_operands(pw),
+                                                   **kw)]
+                ops, peak = 2 * K * N, peaks["f32_s"]
+            else:
+                kw = dict(bits=4, group_size=G, layout="tpu_strided",
+                          out_dtype=torch.bfloat16)
+                yk = dm.dequant_gemm(x, *woq_operands(pw), None, **kw)
+                yp = dm.dequant_gemm_plain(x, *woq_operands(pw), None, **kw)
+                run = [lambda c=c: dm.dequant_gemm(x, *c, None, **kw)
+                       for c in cps]
+                plain = [lambda: dm.dequant_gemm_plain(
+                    x, *woq_operands(pw), None, **kw)]
+                ops, peak = 2 * M * N * K, peaks["bf16_s"]
+            torch.cuda.synchronize()
+            tol = woq_tol(torch, x, pw, yp, k9=M == 1)
+            d = (yk.float() - yp.float()).abs()
+            err, ratio = float(d.max()), float((d / tol).max())
+            ok = bool(torch.isfinite(yk).all()) and bool((d <= tol).all())
+            if M in (1, WOQ_UNIT_M):
+                for fault, fs, fz in woq_faults(pw.scales, pw.zeros):
+                    yf = (dm.vpu_gemv(x, pw.packed, fs, fz, **kw) if M == 1
+                          else dm.dequant_gemm(x, pw.packed, fs, fz, None,
+                                               **kw))
+                    df = (yf.float() - yp.float()).abs()
+                    caught = int((df > tol).sum())
+                    print(f"{'k9' if M == 1 else 'k8'} {name} M={M} planted "
+                          f"fault '{fault}': {caught}/{M * N} outputs "
+                          f"outside the tolerance, max d/tol="
+                          f"{float((df / tol).max()):.3g}", flush=True)
+                    if not caught:
+                        missed.append(f"{name} M={M} {fault}")
+                    del yf, df
+            ms = timed_ms(torch, run, 100 if M == 1 else 30)
+            pms = timed_ms(torch, plain, 3)
+            lms = timed_ms(torch, [lambda b=b: torch.matmul(x, b)
+                                   for b in lcps], 30)
+            nbytes = M * K * 2 + wbytes + M * N * 2
+            bms, by = bound(nbytes, ops, peak, peaks)
+            kind = "k9" if M == 1 else "k8"
+            rows[kind].append(dict(shape=name, M=M, K=K, N=N, err=err,
+                                   tol_ratio=ratio, ok=ok, ms=ms, plain_ms=pms,
+                                   library_ms=lms, bound_ms=bms,
+                                   bound_by=by))
+            print(f"{kind} {name:8s} M={M:4d} K={K:5d} N={N:5d} asym int4 "
+                  f"g{G} max_abs_err={err:.3e} "
+                  f"max_tol={float(tol.max()):.3e} max d/tol={ratio:.3g} "
+                  f"ok={ok} ms={ms:.4f} "
+                  f"plain_ms={pms:.4f} library_ms={lms:.4f} "
+                  f"bound_ms={bms:.4f} ({by})", flush=True)
+        del cps, lcps, wbf
+    bad = [r for rs in rows.values() for r in rs if not r["ok"]]
+    if bad:
+        fail(f"K8/K9 disagree with their plain versions: {bad}")
+    if missed:
+        fail(f"the K8/K9 tolerance missed planted faults: {missed}")
+    return rows
+
+
+def phase_woq_envelope(torch, nct) -> None:
+    """K8 and K9 over the weight formats, groups and shapes the llama2-7b
+    path does not give them, each against its plain version within
+    ``woq_tol``; then ``WOQLinear`` on the card against its copy on the
+    CPU (the plain K9 at M == 1, the plain K8 above) with double quant, a
+    row permutation, a bias and a pre-scale; f32 activations."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.kernels import dequant_matmul as dm
+    from neural_compressor_tpu_torch.layers import WOQLinear
+    from neural_compressor_tpu_torch.ops import apply_double_quant
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    bad, n = [], 0
+    worst = [0.0]   # the largest d / tol of a case
+
+    def x_of(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def cpu(pw):
+        return pw._replace(**{f: (None if getattr(pw, f) is None
+                                  else getattr(pw, f).cpu())
+                              for f in ("packed", "scales", "zeros", "perm",
+                                        "sq_scales", "sq_zeros")})
+
+    def check(label, x, pw, k9, out_dtype=torch.bfloat16):
+        nonlocal n
+        fn = dm.vpu_matvec if k9 else dm.dequant_matmul
+        before = (kernels.vpu_gemv.launches if k9
+                  else kernels.dequant_gemm.launches)
+        yk = fn(x, pw, out_dtype=out_dtype)
+        after = (kernels.vpu_gemv.launches if k9
+                 else kernels.dequant_gemm.launches)
+        yp = fn(x.cpu(), cpu(pw), out_dtype=out_dtype).to("cuda")
+        torch.cuda.synchronize()
+        d = (yk.float() - yp.float()).abs()
+        tol = woq_tol(torch, x, pw, yp, k9)
+        worst[0] = max(worst[0], float((d / tol).max()))
+        if not (after == before + 1 and bool(torch.isfinite(yk).all())
+                and bool((d <= tol).all())):
+            bad.append(f"{label} err={float(d.max()):.3e}")
+        n += 1
+
+    # formats x groups (K8 at M = 17, K9 at M = 1 where it applies)
+    formats = [("sym", "int", 4), ("asym", "int", 4), ("sym", "int", 2),
+               ("asym", "int", 2), ("sym", "nf4", 4), ("sym", "fp4", 4),
+               ("sym", "int", 8), ("asym", "int", 8)]
+    for scheme, dtype, bits in formats:
+        for Gs in (32, 64, 128, -1):
+            pw = woq_weight(torch, gen, 512, 384, G=Gs, scheme=scheme,
+                            dtype=dtype, bits=bits)
+            tag = f"{scheme} {dtype} b{bits} G={Gs} ({pw.layout})"
+            check(f"k8 M=17 {tag}", x_of(17, 512), pw, k9=False)
+            if pw.layout == "tpu_strided" and dtype == "int":
+                check(f"k9 {tag}", x_of(1, 512), pw, k9=True)
+    # "int8"-layout codes of 4-bit weights, M and N edges, 3-D x
+    pw = woq_weight(torch, gen, 256, 256, G=32, force_int8=True)
+    check("k8 force_int8 asym4 M=5", x_of(5, 256), pw, k9=False)
+    pw = woq_weight(torch, gen, 1024, 128 * 7, G=64)
+    for M in (1, 2, 17, 255, 256):
+        check(f"k8 M={M} N=896", x_of(M, 1024), pw, k9=False)
+    check("k9 N=896", x_of(1, 1024), pw, k9=True)
+    check("k8 3-D x (2, 3)", x_of(2, 3, 1024), pw, k9=False)
+    check("k9 3-D x (1, 1)", x_of(1, 1, 1024), pw, k9=True)
+    pw = woq_weight(torch, gen, 4096, 32000, G=128)
+    check("k8 M=2 N=32000", x_of(2, 4096), pw, k9=False)
+    check("k8 M=255 N=32000", x_of(255, 4096), pw, k9=False)
+    # f32 activations: K9 computes in f32; K8's tensor cores take bf16
+    pw = woq_weight(torch, gen, 512, 384, G=64)
+    check("k9 f32 x, f32 out", x_of(1, 512, dtype=torch.float32), pw,
+          k9=True, out_dtype=torch.float32)
+    try:
+        dm.dequant_matmul(x_of(8, 512, dtype=torch.float32), pw)
+        bad.append("k8 took f32 activations on the card")
+    except ValueError:
+        n += 1
+    del pw
+
+    # WOQLinear: card (auto: K9 at M == 1, K8 above) vs the CPU forced on
+    # the plain versions, with the module's own glue
+    cases = [("dq", dict(dq=True)), ("perm", dict(perm=True)),
+             ("bias", dict(bias=True)), ("pre_scale", dict(pre=True)),
+             ("all", dict(dq=True, perm=True, bias=True, pre=True))]
+    K, N = 1024, 384
+    for label, c in cases:
+        perm = (torch.randperm(K, generator=torch.Generator().manual_seed(7))
+                .to(torch.int32).cuda() if c.get("perm") else None)
+        pw = woq_weight(torch, gen, K, N, G=64, perm=perm)
+        if c.get("dq"):
+            pw = apply_double_quant(pw, bits=8, group_size=4)
+        bias = (0.1 * x_of(N) if c.get("bias") else None)
+        pre = (1.0 + 0.5 * torch.rand((K,), generator=gen, device="cuda")
+               if c.get("pre") else None)
+        mod = WOQLinear(pw, bias=bias, pre_scale=pre)
+        ref = copy.deepcopy(mod).to("cpu")
+        for M in (1, 9):
+            x = x_of(M, K)
+            yk = mod(x)
+            ref.impl = "vpu" if M == 1 else "pallas"
+            yp = ref(x.cpu()).to("cuda")
+            torch.cuda.synchronize()
+            xs = x if pre is None else (x / pre.to(x.dtype))
+            nob = yp if bias is None else (yp - bias.to(yp.dtype))
+            tol = woq_tol(torch, xs, pw, yp, k9=M == 1,
+                          extra=nob if bias is not None else None)
+            d = (yk.float() - yp.float()).abs()
+            worst[0] = max(worst[0], float((d / tol).max()))
+            if not (bool(torch.isfinite(yk).all()) and bool((d <= tol).all())):
+                bad.append(f"WOQLinear {label} M={M} err={float(d.max()):.3e}")
+            n += 1
+    print(f"woq envelope: {n} cases (formats, groups, M, N, 3-D x, f32 x, "
+          f"double quant, perm, bias, pre_scale), card vs plain: "
+          f"{'all within tolerance' if not bad else bad}, largest d/tol="
+          f"{worst[0]:.3g}", flush=True)
+    if bad:
+        fail(f"K8/K9 outside the llama2-7b shapes: {bad}")
+
+
+def set_woq_impl(model, impl: str) -> None:
+    """Set every WOQLinear's ``woq_matmul`` impl (the CPU reference takes
+    the plain K8 for prefill, the plain K9 for decode)."""
+    from neural_compressor_tpu_torch.layers import WOQLinear
+
+    for m in model.modules():
+        if type(m) is WOQLinear:
+            m.impl = impl
+
+
+def woq_model(nct, cfg_or_preset, seed, device=None):
+    """llama2-7b (or a cut of it) quantized weight-only, asym int4 g128
+    with the lm_head, q/k/v and gate/up fused: the W4A16 path."""
+    model = nct.build_quantized(cfg_or_preset, nct.RTNConfig(
+        dtype="int4", group_size=G, use_sym=False, quant_lm_head=True),
+        seed=seed, device=device)
+    nct.fuse_for_serving(model)
+    return model
+
+
+def phase_woq_model_check(torch, nct) -> None:
+    """A full-width 2-layer llama2-7b asym-int4 W4A16 model on the card
+    (K8 prefill, K9 decode) against the same weights on the CPU with the
+    plain K8 and K9 forced: a 32-token prefill, then 8 greedy steps; tokens
+    equal, logits within 5e-2 of max|logit|."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.models.llama import (LLAMA_PRESETS,
+                                                          LlamaConfig,
+                                                          init_kv_cache)
+
+    torch.set_num_threads(8)
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(**dict(LLAMA_PRESETS["llama2-7b"], num_hidden_layers=2))
+    m_gpu = woq_model(nct, cfg, seed=7, device="cuda")
+    m_cpu = copy.deepcopy(m_gpu).to("cpu")
+    ids = torch.randint(0, cfg.vocab_size, (1, 32),
+                        generator=torch.Generator().manual_seed(8))
+
+    @torch.no_grad()
+    def run(model, on_cpu):
+        dev = model.device
+        caches = init_kv_cache(cfg, 1, 64, device=dev)
+        if on_cpu:
+            set_woq_impl(model, "pallas")
+        logits, caches = model(ids.to(dev), torch.arange(32, device=dev)[None],
+                               caches, 0)
+        if on_cpu:
+            set_woq_impl(model, "vpu")
+        out_logits, toks = [logits[:, -1].float().cpu()], []
+        tok = torch.argmax(logits[:, -1], -1)[:, None]
+        for i in range(8):
+            toks.append(int(tok))
+            pos = 32 + i
+            logits, caches = model(tok, torch.full((1, 1), pos, device=dev),
+                                   caches, pos)
+            out_logits.append(logits[:, -1].float().cpu())
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+        toks.append(int(tok))
+        return torch.cat(out_logits), toks
+
+    kernels.reset_launch_counts()
+    lg_gpu, tok_gpu = run(m_gpu, False)
+    grew = {"dequant_gemm": kernels.dequant_gemm.launches,
+            "vpu_gemv": kernels.vpu_gemv.launches}
+    lg_cpu, tok_cpu = run(m_cpu, True)
+    err = float((lg_gpu - lg_cpu).abs().max())
+    ref = float(lg_cpu.abs().max())
+    n_proj = 4 * cfg.num_hidden_layers + 1
+    ok = (tok_gpu == tok_cpu and math.isfinite(err) and err <= 5e-2 * ref
+          and grew == {"dequant_gemm": n_proj, "vpu_gemv": 8 * n_proj})
+    print(f"woq model check (2 layers, full width, asym int4 g{G}): tokens "
+          f"equal={tok_gpu == tok_cpu} max|logit diff|={err:.4e} "
+          f"tol={5e-2 * ref:.4e} card launches {grew} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not ok:
+        fail(f"W4A16 card vs CPU: tokens {tok_gpu} vs {tok_cpu}, err {err}, "
+             f"launches {grew}")
+    del m_cpu, m_gpu
+
+
+def phase_woq_serve(torch, nct):
+    """The slice's path: llama2-7b asym-int4 g128 W4A16 at full width and
+    depth, three greedy requests at B=1 (prompts of 16, 100 and 371
+    tokens, 48 new each, max_len 1024): K8 prefills the two short prompts,
+    the 371-token one takes dequantize-then-matmul (M > 256), K9 and K5
+    decode. Exact launch counts; then one prefill and 8 decode steps
+    profiled. Returns (launches, model)."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.kernels import dequant_dot
+    from neural_compressor_tpu_torch.models.llama import init_kv_cache
+
+    t0 = time.perf_counter()
+    model = woq_model(nct, "llama2-7b", seed=0)
+    torch.cuda.synchronize()
+    print(f"llama2-7b W4A16 (asym int4 g{G}) built in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+          flush=True)
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, model.cfg.vocab_size, (1, P), generator=gen)
+               for P in PROMPTS]
+    nct.greedy_search(model, prompts[0], max_new_tokens=4, max_len=MAX_LEN)
+    prefill_ms = []
+    with torch.no_grad():
+        for ids in prompts:
+            ids = ids.cuda()
+            caches = init_kv_cache(model.cfg, 1, MAX_LEN)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, _ = model(ids, None, caches, 0)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.perf_counter() - t) * 1e3)
+            if not bool(torch.isfinite(logits).all()):
+                fail("non-finite W4A16 prefill logits")
+            del caches, logits
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    dequant_dot.calls = 0
+    req_s, outs = [], []
+    for ids in prompts:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(nct.greedy_search(model, ids, max_new_tokens=NEW_TOKENS,
+                                      max_len=MAX_LEN))
+        torch.cuda.synchronize()
+        req_s.append(time.perf_counter() - t)
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNEL_WRAPPERS}
+    dots = dequant_dot.calls
+    steps = NEW_TOKENS - 1
+    n_proj = 4 * LAYERS + 1
+    short = sum(P <= 256 for P in PROMPTS)
+    want = {"w4a8_gemm": 0, "fused_gemv": 0,
+            "decode_attn": len(PROMPTS) * steps * LAYERS,
+            "batched_decode_attn": 0, "paged_attn": 0, "paged_write": 0,
+            "dequant_gemm": short * n_proj,
+            "vpu_gemv": len(PROMPTS) * steps * n_proj}
+    want_dots = (len(PROMPTS) - short) * n_proj
+    print(f"woq kernels {json.dumps(launches)} expected {json.dumps(want)}; "
+          f"dequantize-then-matmul calls {dots} (expected {want_dots}, "
+          f"M > 256 only); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for ids, out, s_, pms in zip(prompts, outs, req_s, prefill_ms):
+        P = ids.shape[1]
+        if (tuple(out.shape) != (1, P + NEW_TOKENS)
+                or not torch.equal(out[:, :P].cpu(), ids.to(torch.int32))
+                or int(out.min()) < 0
+                or int(out.max()) >= model.cfg.vocab_size):
+            fail(f"bad W4A16 greedy output for prompt {P}: {out}")
+        print(f"woq request prompt={P} new={NEW_TOKENS}: {s_ * 1e3:.1f} ms, "
+              f"prefill {pms:.2f} ms, decode "
+              f"{steps / (s_ - pms / 1e3):.2f} tok/s (first new tokens "
+              f"{out[0, P:P + 8].tolist()})", flush=True)
+    if launches != want or dots != want_dots:
+        fail(f"W4A16 launch counts {launches} != {want} or dequantize-"
+             f"then-matmul calls {dots} != {want_dots}")
+    phase_profile(torch, model, prompts[1])
+    return launches, model
+
+
+def phase_woq_engine(torch, nct, model) -> dict:
+    """The W4A16 llama2-7b behind ``ContinuousBatchingEngine(n_slots=8,
+    max_len=1024)``: 16 greedy requests over contiguous bf16 caches. Each
+    decode step runs K8 at M = 8 and K7; a prefill chunk of one row
+    (M = 256) runs K8, a chunk of 2+ rows (M >= 512) dequantize-then-
+    matmul. The chunks' row counts are observed, the counts derived from
+    them and the engine's counters; one B=8 decode dispatch profiled."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.kernels import dequant_dot
+
+    V = model.cfg.vocab_size
+    gen = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, V, (PROMPTS[i % len(PROMPTS)],),
+                             generator=gen).numpy()
+               for i in range(ENGINE_REQUESTS)]
+    new = [48 + (7 * i) % 17 for i in range(ENGINE_REQUESTS)]   # 48-64
+    eng = nct.ContinuousBatchingEngine(model, n_slots=SLOTS, max_len=MAX_LEN)
+    chunk_rows = []
+    prefill_forward = eng._prefill_forward
+
+    def observed(target, ids, *args):
+        chunk_rows.append(int(ids.shape[0]))
+        return prefill_forward(target, ids, *args)
+
+    eng._prefill_forward = observed
+    reqs = [eng.submit(p, max_new_tokens=m) for p, m in zip(prompts, new)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    dequant_dot.calls = 0
+    t = time.perf_counter()
+    done = eng.run(chunk=CHUNK)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = {fn.__name__: fn.launches for fn in kernels.KERNEL_WRAPPERS}
+    dots = dequant_dot.calls
+    if sorted(r.uid for r in done) != sorted(r.uid for r in reqs):
+        fail(f"W4A16 engine finished {len(done)} of {len(reqs)} requests")
+    m = eng.metrics()
+    steps = CHUNK * m["decode_dispatches"]
+    n_proj = 4 * LAYERS + 1
+    C = eng.prefill_chunk
+    k8_chunks = sum(r * C <= 256 for r in chunk_rows)
+    if len(chunk_rows) != m["prefill_chunk_dispatches"]:
+        fail(f"{len(chunk_rows)} prefill chunks seen, the engine counted "
+             f"{m['prefill_chunk_dispatches']}")
+    want = {"w4a8_gemm": 0, "fused_gemv": 0, "decode_attn": 0,
+            "batched_decode_attn": LAYERS * steps, "paged_attn": 0,
+            "paged_write": 0, "dequant_gemm": n_proj * (steps + k8_chunks),
+            "vpu_gemv": 0}
+    want_dots = n_proj * (len(chunk_rows) - k8_chunks)
+    counters = {k: m[k] for k in (
+        "requests", "prompt_tokens", "generated_tokens",
+        "prefill_chunk_dispatches", "decode_dispatches",
+        "combined_dispatches", "preemptions")}
+    print(f"woq engine contiguous ({SLOTS} x {MAX_LEN} rows, bf16): "
+          f"{len(reqs)} requests in {seconds:.3f} s, generated "
+          f"{m['generated_tok_s']:.2f} tok/s (metrics wall "
+          f"{m['wall_s']:.3f} s), {json.dumps(counters)}, prefill chunk "
+          f"rows {chunk_rows} (chunk {C}), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"woq engine kernels {json.dumps(launches)} expected "
+          f"{json.dumps(want)}; dequantize-then-matmul calls {dots} "
+          f"(expected {want_dots}, M > 256 only)", flush=True)
+    for r, p, n_ in zip(reqs, prompts, new):
+        if (len(r.generated) != n_ or min(r.generated) < 0
+                or max(r.generated) >= V
+                or not all(math.isfinite(x) for x in r.logprobs)):
+            fail(f"W4A16 engine: bad output for a {len(p)}-token prompt: "
+                 f"{r.generated}")
+    print(f"woq engine first new tokens {[r.generated[:4] for r in reqs[:3]]}",
+          flush=True)
+    if launches != want or dots != want_dots:
+        fail(f"W4A16 engine: launch counts {launches} != {want} or "
+             f"dequantize-then-matmul calls {dots} != {want_dots}")
+    eng = nct.ContinuousBatchingEngine(model, n_slots=SLOTS, max_len=MAX_LEN)
+    for p in prompts[:SLOTS]:
+        eng.submit(p, max_new_tokens=64)
+    while eng.queue or "prefill" in eng.slot_state:
+        eng.run(max_steps=1, chunk=1)
+    profile_window(torch, f"woq engine decode dispatch, 8 slots x {CHUNK} "
+                   "steps", lambda: eng.step_many(CHUNK))
+    eng.run()
+    del eng
+    return launches
+
+
+
 def main() -> None:
     import torch
 
@@ -982,15 +1528,23 @@ def main() -> None:
 
     rows = phase_kernels(torch, nct, peaks)
     erows = phase_engine_kernels(torch, nct, peaks)
+    wrows = phase_woq_kernels(torch, nct, peaks)
     phase_envelope(torch, nct)
     phase_engine_envelope(torch)
+    phase_woq_envelope(torch, nct)
     phase_model_check(torch, nct)
     phase_engine_check(torch, nct)
+    phase_woq_model_check(torch, nct)
     launches, model, prompts = phase_serve(torch, nct)
     phase_profile(torch, model, prompts[1])
     by_path = {"greedy_b1": launches}
     for mode, counts in phase_engine_serve(torch, nct, model).items():
         by_path[f"engine_{mode}"] = counts
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path["woq_greedy_b1"], model = phase_woq_serve(torch, nct)
+    by_path["woq_engine_contiguous"] = phase_woq_engine(torch, nct, model)
     del model
     print(f"launches by main path: {json.dumps(by_path)}", flush=True)
 
@@ -1016,6 +1570,12 @@ def main() -> None:
     pwrite_u = unit([r for r in erows["paged_write"] if r["pool"] == "int8"],
                     layers, bytes_)
     pwrite_u["max_abs_err"] = max(r["err"] for r in erows["paged_write"])
+    mixed = lambda rs: ("operations" if all(  # noqa: E731
+        r["bound_by"] == "operations" for r in rs) else "bytes")
+    k8_u = unit([r for r in wrows["k8"] if r["M"] == WOQ_UNIT_M], per_layer,
+                mixed)
+    k8_u["max_abs_err"] = max(r["err"] for r in wrows["k8"])
+    k9_u = unit(wrows["k9"], per_layer, mixed)
     entries = [
         ("w4a8_gemm", "neural_compressor_tpu_torch/csrc/w4a8_gemm.cu",
          "neural_compressor_tpu/kernels/w4a8_matmul.py:88 (_w4a8_impl, K1); "
@@ -1037,6 +1597,12 @@ def main() -> None:
         ("paged_write", "neural_compressor_tpu_torch/csrc/paged_write.cu",
          "neural_compressor_tpu/kernels/paged_attention.py:641, :661 "
          "(_paged_write_impl, K12)", pwrite_u),
+        ("dequant_gemm", "neural_compressor_tpu_torch/csrc/dequant_matmul.cu",
+         "neural_compressor_tpu/kernels/dequant_matmul.py:397 "
+         "(_dequant_matmul_impl, K8)", k8_u),
+        ("vpu_gemv", "neural_compressor_tpu_torch/csrc/dequant_matmul.cu",
+         "neural_compressor_tpu/kernels/dequant_matmul.py:286 "
+         "(_vpu_matvec_impl, K9)", k9_u),
     ]
     print(smi, flush=True)
     print("unit of the kernels line: w4a8_gemm = one 128-token prefill "
@@ -1045,9 +1611,12 @@ def main() -> None:
           "pos 517 (32 layers); batched_decode_attn = one 8-slot decode "
           f"step at positions {SLOT_POS} (32 layers); paged_attn and "
           "paged_write = the same step over the int8 pool of 128-row pages "
-          "(32 layers; paged_write has no single library call for int8). "
-          "launches: the sum over the main paths (B=1 greedy, the engine "
-          "contiguous, the engine paged int8), each counted from 0",
+          "(32 layers; paged_write has no single library call for int8); "
+          "dequant_gemm = one 8-slot W4A16 decode step (32 x 4 + lm_head "
+          "at M = 8); vpu_gemv = one B=1 W4A16 decode step (32 x 4 + "
+          "lm_head). launches: the sum over the main paths (W4A8: B=1 "
+          "greedy, the engine contiguous, the engine paged int8; W4A16: "
+          "B=1 greedy, the engine contiguous), each counted from 0",
           flush=True)
     kernels_line = {"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,

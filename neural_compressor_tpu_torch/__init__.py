@@ -1,11 +1,12 @@
 """neural_compressor_tpu_torch — the PyTorch/CUDA port of
 ``neural_compressor_tpu``.
 
-It serves RTN-int4 W4A8 Llama models with greedy decoding through
+It serves RTN-quantized Llama models with greedy decoding through
 hand-written Hopper kernels (``kernels/``, sources in ``csrc/``): build or
-load a model, quantize it, convert it for serving, then generate, or serve
-many requests through the continuous-batching engine over contiguous or
-paged KV caches.
+load a model, quantize it (weight-only ``WOQLinear``: sym or asym int4,
+int2, int8, nf4, fp4), optionally convert symmetric int4 to W4A8 serving,
+then generate, or serve many requests through the continuous-batching
+engine over contiguous or paged KV caches.
 
     from neural_compressor_tpu_torch import (
         RTNConfig, build_quantized, fuse_for_serving, to_w4a8_serving,

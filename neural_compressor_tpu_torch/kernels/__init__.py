@@ -11,9 +11,12 @@ from .decode_attention import (batched_decode_attention, batched_decode_attn,
 from .paged_attention import (paged_attn, paged_attn_plain,
                               paged_decode_attention, paged_write,
                               paged_write_plain, paged_write_rows)
+from .dequant_matmul import (dequant_dot, dequant_gemm, dequant_gemm_plain,
+                             set_default_impl, vpu_gemv, vpu_gemv_plain,
+                             vpu_matvec, woq_matmul)
 
 KERNEL_WRAPPERS = (w4a8_gemm, fused_gemv, decode_attn, batched_decode_attn,
-                   paged_attn, paged_write)
+                   paged_attn, paged_write, dequant_gemm, vpu_gemv)
 
 
 def reset_launch_counts() -> None:

@@ -29,7 +29,9 @@ COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C entry -> argument types; every entry returns cudaGetLastError()
+_L, _IP = ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
+# C entry -> argument types; every launching entry returns
+# cudaGetLastError(), every "_plan" entry 0 or cudaErrorInvalidValue
 SIGNATURES = {
     # xq, w, scales, x_scale, y, M, N, K, G, stream
     "nctt_w4a8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -49,6 +51,18 @@ SIGNATURES = {
     # B, Hkv, P, page, PMAX, D, quant, stream
     "nctt_paged_write_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _P],
+    # x, w, scales, zeros, codebook, out, part, M, N, K, G, bits,
+    # layout_int8, out_bf16, splits, chunks_per_split, stream
+    "nctt_dequant_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _P],
+    # M, N, K, G, bits, layout_int8, n_sm, wbytes -> splits, chunks_per_split
+    "nctt_dequant_gemm_plan": [_I, _I, _I, _I, _I, _I, _I, _L, _IP, _IP],
+    # x, w, scales, zeros, out, part, N, K, G, bits, x_bf16, out_bf16,
+    # splits, groups_per_split, stream
+    "nctt_vpu_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P],
+    # N, K, G, bits, n_sm -> splits, groups_per_split
+    "nctt_vpu_gemv_plan": [_I, _I, _I, _I, _I, _IP, _IP],
 }
 
 _lock = threading.Lock()

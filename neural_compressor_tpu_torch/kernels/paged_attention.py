@@ -170,7 +170,8 @@ def paged_write_plain(k_new, v_new, k_pages, k_scales, v_pages, v_scales,
     [B, Hkv, D] bf16; pools and block tables as in the module docstring;
     ``pos`` [B] int32. Rows whose page index is past the block table are
     dropped. Several slots writing one page row (idle slots on the trash
-    page) leave one of their rows there, unspecified which."""
+    page) leave the last slot's row there (the kernel leaves one of them,
+    unspecified which)."""
     quant = _check_pool(k_pages, k_scales)
     page = k_pages.shape[2]
     PMAX = block_tables.shape[1]
@@ -179,6 +180,13 @@ def paged_write_plain(k_new, v_new, k_pages, k_scales, v_pages, v_scales,
     rows = torch.nonzero((p >= 0) & (j < PMAX)).reshape(-1)
     pid = block_tables.to(torch.int64)[rows, j[rows]]
     off = p[rows] % page
+    # one writer a target row: an index assignment with duplicate targets
+    # may mix their elements across threads; the last slot's row stands
+    key = pid * page + off
+    uniq, inv = torch.unique(key, return_inverse=True)
+    last = torch.full_like(uniq, -1).scatter_reduce(
+        0, inv, torch.arange(key.numel(), device=key.device), reduce="amax")
+    rows, pid, off = rows[last], pid[last], off[last]
     if quant:
         kc, ks = kv_quant_int8(k_new[rows])
         vc, vs = kv_quant_int8(v_new[rows])

@@ -630,16 +630,23 @@ def _tensor_from_numpy(arr) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
-def from_jax_params(flat: dict, cfg: LlamaConfig, device=None) -> LlamaForCausalLM:
+def from_jax_params(flat: dict, cfg: LlamaConfig, device=None,
+                    meta: dict | None = None) -> LlamaForCausalLM:
     """Build the port's model from a JAX llama's flat state.
 
     ``flat`` maps dotted names ("model.layers.0.self_attn.q_proj.kernel",
     "model.embed_tokens.embedding", ...) to numpy arrays. A quantized
-    projection ("<path>.packed" + "<path>.scales", symmetric int4
-    "tpu_strided") becomes a ``WOQLinear`` holding the same bytes; fused
-    "qkv_proj"/"gate_up_proj" entries replace their parts. Serve the result
-    with ``fuse_for_serving`` / ``to_w4a8_serving`` /
-    ``enable_fused_decode`` as a model from ``build_quantized``."""
+    projection ("<path>.packed", "<path>.scales" and, where the JAX module
+    has them, ".zeros", ".perm", ".sq_scales", ".sq_zeros", ".bias",
+    ".pre_scale") becomes a ``WOQLinear`` holding the same bytes; fused
+    "qkv_proj"/"gate_up_proj" entries replace their parts.
+
+    ``meta`` maps each quantized module's path to its static attributes
+    as the JAX package's ``save_load`` records them ("bits",
+    "group_size", "wdtype", "layout", "impl"). Every quantized projection
+    needs its entry: the arrays alone cannot tell symmetric int4 words
+    from nf4/fp4 codebook indices. Serve the result like a model from
+    ``build_quantized``."""
     from ..layers.module_utils import get_module, replace_module
     from ..layers.woq_linear import WOQLinear
     from ..ops.packing import PackedWeight
@@ -650,22 +657,30 @@ def from_jax_params(flat: dict, cfg: LlamaConfig, device=None) -> LlamaForCausal
     quantized = sorted({k[:-len(".packed")] for k in tensors
                         if k.endswith(".packed")})
     for path in quantized:
-        if path + ".zeros" in tensors:
-            raise NotImplementedError(
-                "asymmetric JAX weights wait for the port of "
-                "neural_compressor_tpu.ops.qtensor.quantize_int_asym")
-        packed = tensors[path + ".packed"]
-        scales = tensors[path + ".scales"].to(torch.float32)
-        bias = tensors.get(path + ".bias")
-        if packed.dtype != torch.int32:
-            raise NotImplementedError(
-                f"{path}: only int4 'tpu_strided' JAX weights carry across")
-        K, N = packed.shape[0] * 8, packed.shape[1]
-        pw = PackedWeight(packed.to(device), scales.to(device), None, bits=4,
-                          group_size=K // scales.shape[0], dtype="int",
-                          orig_shape=(K, N), layout="tpu_strided")
         parent_path, _, name = path.rpartition(".")
-        mod = WOQLinear(pw, None if bias is None else bias.to(device))
+        K = (cfg.hidden_size if name in ("qkv_proj", "gate_up_proj")
+             else get_module(model, path).in_features)
+        m = (meta or {}).get(path)
+        if m is None:
+            raise ValueError(f"from_jax_params: {path} is quantized and has "
+                             "no meta (bits, group_size, wdtype, layout)")
+
+        def opt(suffix):
+            t = tensors.get(path + suffix)
+            return None if t is None else t.to(device)
+
+        packed, scales = opt(".packed"), opt(".scales")
+        G = m["group_size"] if m["group_size"] > 0 else K
+        if -(-K // G) != scales.shape[0]:
+            raise ValueError(f"{path}: {scales.shape[0]} scale groups do not "
+                             f"fit K={K} at group size {G}")
+        pw = PackedWeight(packed, scales, opt(".zeros"), bits=m["bits"],
+                          group_size=m["group_size"], dtype=m["wdtype"],
+                          orig_shape=(K, packed.shape[-1]), layout=m["layout"],
+                          perm=opt(".perm"), sq_scales=opt(".sq_scales"),
+                          sq_zeros=opt(".sq_zeros"))
+        mod = WOQLinear(pw, opt(".bias"), impl=m.get("impl", "auto"),
+                        pre_scale=opt(".pre_scale"))
         if name in ("qkv_proj", "gate_up_proj"):
             parent = get_module(model, parent_path)
             setattr(parent, name, mod)

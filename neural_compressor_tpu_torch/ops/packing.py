@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from .qtensor import FLOAT_CODE_DTYPES, QTensor
+from .qtensor import CODEBOOKS, FLOAT_CODE_DTYPES, QTensor
 
 LANE_BITS = 32
 HOPPER_LAYOUT = "hopper_nk"
@@ -39,6 +39,12 @@ class PackedWeight(NamedTuple):
     ``scales``: float32 [K/G, N]. ``zeros``: optional float32 [K/G, N].
     ``bits`` / ``group_size`` / ``dtype`` / ``orig_shape``: as in QTensor.
     ``layout``: "tpu_strided" | "hopper_nk" | "int8".
+    ``perm``: optional int32 [K] input-row permutation: stored row i holds
+        original input row ``perm[i]``; the matmul gathers ``x[..., perm]``
+        and dequantization scatters the rows back.
+    ``sq_scales`` / ``sq_zeros``: double quantization. When set, ``scales``
+        holds int8 codes of the group scales and these hold their float32
+        scale (and zero point) per super-group, [ng2, N].
     """
 
     packed: torch.Tensor
@@ -49,6 +55,9 @@ class PackedWeight(NamedTuple):
     dtype: str
     orig_shape: tuple[int, int]
     layout: str
+    perm: torch.Tensor | None = None
+    sq_scales: torch.Tensor | None = None
+    sq_zeros: torch.Tensor | None = None
 
 
 def _to_int32_bits(words: torch.Tensor) -> torch.Tensor:
@@ -80,12 +89,14 @@ def pack_codes(codes: torch.Tensor, bits: int, group_size: int,
 
 def unpack_codes(packed: torch.Tensor, bits: int, group_size: int, K: int,
                  signed: bool) -> torch.Tensor:
-    """Inverse of ``pack_codes``: int32 [K/P, N] -> int8 codes [K, N]."""
+    """Inverse of ``pack_codes``: int32 [K/P, N] -> int8 codes [K, N]
+    (``signed=False`` keeps the raw unsigned fields)."""
     P = LANE_BITS // bits
     G = group_size if group_size > 0 else K
     N = packed.shape[-1]
-    p = (packed.to(torch.int64) & 0xFFFFFFFF).reshape(K // G, G // P, N)
+    p = packed.reshape(K // G, G // P, N)
     mask = (1 << bits) - 1
+    # an arithmetic shift of the int32 words, then the mask: the field bits
     planes = [(p >> (bits * s)) & mask for s in range(P)]
     codes = torch.cat(planes, dim=1).reshape(K, N)
     if signed:
@@ -124,10 +135,12 @@ def unpack_to_codes(pw: PackedWeight) -> torch.Tensor:
 
 
 def hopper_eligible(pw: PackedWeight) -> bool:
-    """Symmetric int4 integer weights in the tpu_strided layout: exactly
-    the weights ``to_w4a8_serving`` serves on the integer path."""
+    """Symmetric int4 integer weights in the tpu_strided layout, without a
+    row permutation or double-quantized scales: exactly the weights
+    ``to_w4a8_serving`` serves on the integer path."""
     return (pw.layout == "tpu_strided" and pw.bits == 4
-            and pw.dtype == "int" and pw.zeros is None)
+            and pw.dtype == "int" and pw.zeros is None
+            and pw.perm is None and pw.sq_scales is None)
 
 
 def to_hopper(pw: PackedWeight) -> PackedWeight:
@@ -149,13 +162,17 @@ def to_tpu_strided(pw: PackedWeight) -> PackedWeight:
     return pw._replace(packed=packed, layout="tpu_strided")
 
 
-def pack_qtensor(qt: QTensor) -> PackedWeight:
+def pack_qtensor(qt: QTensor, force_int8: bool = False,
+                 perm: torch.Tensor | None = None) -> PackedWeight:
     """QTensor -> PackedWeight in the tpu_strided layout where it applies
-    (else unpacked "int8"), as ``neural_compressor_tpu`` packs it."""
+    (else unpacked "int8"), as ``neural_compressor_tpu`` packs it.
+    ``perm``: the QTensor's rows are already in permuted (group-contiguous)
+    order; it is recorded for the matmul."""
     K, N = qt.orig_shape
     G = qt.group_size
     P = LANE_BITS // qt.bits if qt.bits in (2, 4) else 0
-    if qt.bits in (2, 4) and K % G == 0 and G % P == 0:
+    if (not force_int8 and qt.bits in (2, 4) and K % G == 0
+            and G % P == 0):
         packed = pack_codes(qt.codes[:K], qt.bits, G,
                             offset_binary=qt.dtype not in FLOAT_CODE_DTYPES)
         layout = "tpu_strided"
@@ -167,15 +184,71 @@ def pack_qtensor(qt: QTensor) -> PackedWeight:
         scales=qt.scales.to(torch.float32),
         zeros=None if qt.zeros is None else qt.zeros.to(torch.float32),
         bits=qt.bits, group_size=G, dtype=qt.dtype, orig_shape=(K, N),
-        layout=layout)
+        layout=layout,
+        perm=(None if perm is None
+              else torch.as_tensor(perm, dtype=torch.int32,
+                                   device=packed.device)))
+
+
+def effective_scales(pw: PackedWeight) -> torch.Tensor:
+    """float32 group scales, dequantizing double-quantized (int8) ones."""
+    if pw.sq_scales is None:
+        return pw.scales.to(torch.float32)
+    ng, N = pw.scales.shape
+    ng2 = pw.sq_scales.shape[0]
+    c = pw.scales.to(torch.float32).reshape(ng2, ng // ng2, N)
+    if pw.sq_zeros is not None:
+        c = c - pw.sq_zeros[:, None, :]
+    return (c * pw.sq_scales[:, None, :]).reshape(ng, N)
+
+
+def resolve_double_quant(pw: PackedWeight) -> PackedWeight:
+    """float32 scales from a double-quantized weight (no-op otherwise), as
+    every consumer resolves them before its kernel."""
+    if pw.sq_scales is None:
+        return pw
+    return pw._replace(scales=effective_scales(pw), sq_scales=None,
+                       sq_zeros=None)
+
+
+def apply_double_quant(pw: PackedWeight, bits: int = 8, group_size: int = 256,
+                       sym: bool = False) -> PackedWeight:
+    """Quantize the scale tensor itself: the [ng, N] scales are grouped
+    along the group axis in super-groups of ``group_size`` (the largest
+    divisor of ng not above it) and stored as int8 codes with a float32
+    scale (and zero point) per super-group. The JAX package runs this
+    eagerly, so its divisions are true divisions, as here."""
+    if not 2 <= bits <= 8:
+        raise ValueError("double-quant codes are stored int8: 2 <= bits <= 8")
+    half = float(1 << (bits - 1))
+    scales = pw.scales.to(torch.float32)
+    ng, N = scales.shape
+    G2 = min(group_size, ng)
+    while ng % G2:
+        G2 -= 1
+    s = scales.reshape(ng // G2, G2, N)
+    if sym:
+        qmax = half - 1
+        s2 = s.abs().amax(dim=1) / qmax
+        s2 = torch.where(s2 <= 0, torch.ones_like(s2), s2)
+        codes = torch.clamp(torch.round(s / s2[:, None, :]), -half, qmax)
+        z2 = None
+    else:
+        mx, mn = s.amax(dim=1), s.amin(dim=1)
+        s2 = (mx - mn) / (2.0 * half - 1.0)
+        s2 = torch.where(s2 <= 0, torch.ones_like(s2), s2)
+        z2 = torch.round(-mn / s2) - half
+        codes = torch.clamp(torch.round(s / s2[:, None, :])
+                            + (z2[:, None, :] + half),
+                            0, 2.0 * half - 1.0) - half
+    return pw._replace(scales=codes.reshape(ng, N).to(torch.int8),
+                       sq_scales=s2, sq_zeros=z2)
 
 
 def dequantize_packed(pw: PackedWeight, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Full dequantization to [K, N] (the reference the kernels are held to)."""
-    if pw.dtype in FLOAT_CODE_DTYPES:
-        raise NotImplementedError(
-            "codebook weights wait for the port of "
-            "neural_compressor_tpu.ops.packing._dequantize_packed_arrays")
+    """Full dequantization to [K, N] in the original row order (the
+    reference the kernels are held to)."""
+    pw = resolve_double_quant(pw)
     K, N = pw.orig_shape
     G = pw.group_size if pw.group_size > 0 else K
     codes = unpack_to_codes(pw)
@@ -183,8 +256,15 @@ def dequantize_packed(pw: PackedWeight, out_dtype=torch.bfloat16) -> torch.Tenso
     if rem:
         # "int8" layout stores K unpadded rows; scales cover ceil(K/G) groups
         codes = torch.nn.functional.pad(codes, (0, 0, 0, G - rem))
-    vals = codes.reshape(-1, G, N).to(torch.float32)
-    if pw.zeros is not None:
-        vals = vals - pw.zeros[:, None, :]
-    w = vals * pw.scales[:, None, :]
-    return w.reshape(-1, N)[:K].to(out_dtype)
+    codes = codes.reshape(-1, G, N)
+    if pw.dtype in FLOAT_CODE_DTYPES:
+        vals = CODEBOOKS[pw.dtype].to(codes.device)[codes.to(torch.int64)]
+    else:
+        vals = codes.to(torch.float32)
+        if pw.zeros is not None:
+            vals = vals - pw.zeros[:, None, :]
+    w = (vals * pw.scales[:, None, :]).reshape(-1, N)[:K].to(out_dtype)
+    if pw.perm is not None:
+        # stored row i is original row perm[i]
+        w = torch.zeros_like(w).index_copy_(0, pw.perm.to(torch.int64), w)
+    return w

@@ -21,6 +21,8 @@ from ..ops.packing import HOPPER_LAYOUT, PackedWeight, hopper_eligible
 
 
 def _fusible(mods) -> bool:
+    """Same module type and quantization; no input scale, row permutation
+    or double-quantized scales (their per-module meta would differ)."""
     ref = mods[0]
     if type(ref) not in (WOQLinear, W4A8Linear):
         return False
@@ -31,7 +33,10 @@ def _fusible(mods) -> bool:
                 or m.wdtype != ref.wdtype or m.layout != ref.layout
                 or m.in_features != ref.in_features
                 or (m.zeros is None) != (ref.zeros is None)
-                or (m.bias is None) != (ref.bias is None)):
+                or (m.bias is None) != (ref.bias is None)
+                or m.pre_scale is not None
+                or m.perm is not None
+                or m.sq_scales is not None):
             return False
     return True
 
@@ -50,7 +55,7 @@ def _concat_woq(mods):
         layout=ref.layout)
     bias = (torch.cat([m.bias for m in mods])
             if ref.bias is not None else None)
-    return type(ref)(pw, bias=bias)
+    return type(ref)(pw, bias=bias, impl=ref.impl)
 
 
 def fuse_for_serving(model) -> int:
@@ -79,7 +84,8 @@ def to_w4a8_serving(model) -> int:
     ``W4A8Linear`` on the "hopper_nk" layout, in place. Same int4 codes;
     activations are quantized to int8 per token at run time, so no
     calibration is needed. Other weights (asymmetric, other widths) keep
-    their ``WOQLinear``. Returns the number of modules converted."""
+    their ``WOQLinear`` and its K8/K9 kernels. Returns the number of
+    modules converted."""
     n = n_skip = 0
     for path, mod in list(named_modules(model)):
         if type(mod) is not WOQLinear:
@@ -88,7 +94,8 @@ def to_w4a8_serving(model) -> int:
         if not hopper_eligible(pw):
             n_skip += 1
             continue
-        replace_module(model, path, W4A8Linear(pw, bias=mod.bias))
+        replace_module(model, path, W4A8Linear(
+            pw, bias=mod.bias, impl=mod.impl, pre_scale=mod.pre_scale))
         n += 1
     if n_skip:
         logger.info("to_w4a8_serving: left %d non-sym-int4 module(s) as "

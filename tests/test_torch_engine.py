@@ -24,10 +24,13 @@ import torch
 
 from flax import nnx
 
+from neural_compressor_tpu.layers.module_utils import \
+    named_modules as j_named_modules
 from neural_compressor_tpu.models import llama as jl
 from neural_compressor_tpu.quantization import RTNConfig as JRTNConfig
 from neural_compressor_tpu.quantization import fuse as jfuse
 from neural_compressor_tpu.quantization import quantize as j_quantize
+from neural_compressor_tpu.quantization.save_load import _module_meta
 from neural_compressor_tpu.serving.engine import \
     ContinuousBatchingEngine as JEngine
 import neural_compressor_tpu_torch as nct
@@ -60,6 +63,13 @@ def flat_state(model) -> dict:
             for path, v in nnx.state(model).flat_state()}
 
 
+def jax_meta(model) -> dict:
+    """Each quantized module's static attributes, as JAX's save_load
+    records them (``from_jax_params`` needs them)."""
+    return {path: _module_meta(m) for path, m in j_named_modules(model)
+            if type(m).__name__ in ("WOQLinear", "W4A8Linear")}
+
+
 def port_cfg(jcfg) -> tl.LlamaConfig:
     return tl.LlamaConfig(**{f.name: getattr(jcfg, f.name)
                              for f in dataclasses.fields(jcfg)
@@ -74,7 +84,8 @@ def serve_pair(jm, served: bool):
                                   quant_lm_head=True))
         jfuse.fuse_for_serving(jm)
         jfuse.to_w4a8_serving(jm)
-    tm = tl.from_jax_params(flat_state(jm), port_cfg(jm.cfg), device="cpu")
+    tm = tl.from_jax_params(flat_state(jm), port_cfg(jm.cfg), device="cpu",
+                            meta=jax_meta(jm))
     if served:
         nct.to_w4a8_serving(tm)
         nct.enable_fused_decode(tm)

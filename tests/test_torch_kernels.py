@@ -84,26 +84,26 @@ def test_w4a8_gemm_with_group_32():
 def test_w4a8linear_outside_envelope_takes_jax_fallback():
     # N = 128 is not a multiple of the 256-wide tile: JAX's w4a8_matmul
     # takes its bf16 dequant-and-dot, and so must W4A8Linear
-    from neural_compressor_tpu_torch.layers.woq_linear import _dequant_dot
+    from neural_compressor_tpu_torch.kernels import dequant_dot
 
     jpw, tpw = _weights(256, 128, seed=5)
     x = _x(3, 256, seed=6)
     jy = np.asarray(j_w4a8(x, jpw))
-    before = _dequant_dot.calls
+    before = dequant_dot.calls
     ty = W4A8Linear(tpw)(_t(x)).numpy()
-    assert _dequant_dot.calls == before + 1
+    assert dequant_dot.calls == before + 1
     assert np.abs(ty - jy).max() <= 1e-6 * np.abs(jy).max()
 
 
 @pytest.mark.parametrize("M", [1, 6])
 def test_w4a8linear_matches_k1_in_envelope(M):
-    from neural_compressor_tpu_torch.layers.woq_linear import _dequant_dot
+    from neural_compressor_tpu_torch.kernels import dequant_dot
 
     jpw, tpw = _weights(512, 256, seed=7)
     x = _x(M, 512, seed=8)
-    before = _dequant_dot.calls
+    before = dequant_dot.calls
     ty = W4A8Linear(tpw)(_t(x)).numpy()
-    assert _dequant_dot.calls == before
+    assert dequant_dot.calls == before
     jy = np.asarray(j_w4a8(x, jpw))
     assert np.abs(ty - jy).max() <= 1e-5 * np.abs(jy).max()
 

@@ -18,10 +18,13 @@ import jax.numpy as jnp
 from flax import nnx
 
 from neural_compressor_tpu.generation import greedy_search as j_greedy
+from neural_compressor_tpu.layers.module_utils import \
+    named_modules as j_named_modules
 from neural_compressor_tpu.models import llama as jl
 from neural_compressor_tpu.quantization import RTNConfig as JRTNConfig
 from neural_compressor_tpu.quantization import quantize as j_quantize
 from neural_compressor_tpu.quantization import fuse as jfuse
+from neural_compressor_tpu.quantization.save_load import _module_meta
 import neural_compressor_tpu_torch as nct
 from neural_compressor_tpu_torch.models import llama as tl
 
@@ -33,6 +36,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _flat(model) -> dict:
     return {".".join(str(p) for p in path): np.asarray(v[...])
             for path, v in nnx.state(model).flat_state()}
+
+
+def _meta(model) -> dict:
+    """Each quantized module's static attributes, as JAX's save_load
+    records them (``from_jax_params`` needs them)."""
+    return {path: _module_meta(m) for path, m in j_named_modules(model)
+            if type(m).__name__ in ("WOQLinear", "W4A8Linear")}
 
 
 def _port_cfg(jcfg) -> tl.LlamaConfig:
@@ -64,7 +74,8 @@ def _ids(n, vocab=512, seed=0):
 
 def test_bf16_prefill_logits_match():
     jm = _jax_model()
-    tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg), device="cpu")
+    tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg), device="cpu",
+                            meta=_meta(jm))
     ids = _ids(16)
     jy = _f32(jm(jnp.asarray(ids)))
     ty = _f32(tm(torch.from_numpy(ids)))
@@ -94,7 +105,8 @@ def _served_pair(seed=0):
     jfuse.fuse_for_serving(jm)
     jfuse.to_w4a8_serving(jm)
     assert jfuse.enable_fused_decode(jm) == 0  # nothing fuses off the TPU
-    tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg), device="cpu")
+    tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg), device="cpu",
+                            meta=_meta(jm))
     assert nct.to_w4a8_serving(tm) == 2 * 4 + 1
     assert nct.enable_fused_decode(tm) == 2 and tm.model.norm_in_head
     return jm, tm
@@ -167,7 +179,8 @@ def test_greedy_tokens_equal_on_trained_checkpoints(name, served):
         jfuse.fuse_for_serving(jm)
         jfuse.to_w4a8_serving(jm)
     want = np.asarray(j_greedy(jm, jnp.asarray(ids), max_new_tokens=24))
-    tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg), device="cpu")
+    tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg), device="cpu",
+                            meta=_meta(jm))
     if served:
         nct.to_w4a8_serving(tm)
         assert nct.enable_fused_decode(tm) == jm.cfg.num_hidden_layers
@@ -185,7 +198,8 @@ def test_greedy_search_b2_matches_jax(served):
         jm, tm = _served_pair(seed=2)
     else:
         jm = _jax_model(seed=2)
-        tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg), device="cpu")
+        tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg),
+                                device="cpu", meta=_meta(jm))
     ids = np.concatenate([_ids(8, seed=3), _ids(8, seed=4)])
     want = np.asarray(j_greedy(jm, jnp.asarray(ids), max_new_tokens=6))
     got = nct.greedy_search(tm, torch.from_numpy(ids), max_new_tokens=6)
@@ -194,7 +208,8 @@ def test_greedy_search_b2_matches_jax(served):
 
 def test_off_path_raises():
     jm = _jax_model()
-    tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg), device="cpu")
+    tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg), device="cpu",
+                            meta=_meta(jm))
     ids = torch.from_numpy(_ids(4))
     with pytest.raises(NotImplementedError, match="sample"):
         nct.generate(tm, ids, do_sample=True)

@@ -75,7 +75,8 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
 def test_each_kernel_wrapper_counts_its_launches():
     names = [fn.__name__ for fn in kernels.KERNEL_WRAPPERS]
     assert names == ["w4a8_gemm", "fused_gemv", "decode_attn",
-                     "batched_decode_attn", "paged_attn", "paged_write"]
+                     "batched_decode_attn", "paged_attn", "paged_write",
+                     "dequant_gemm", "vpu_gemv"]
     for fn in kernels.KERNEL_WRAPPERS:
         assert isinstance(fn.launches, int)
         fn.launches += 3
@@ -87,7 +88,7 @@ def test_every_kernel_has_a_source_and_a_c_entry():
     sources = {p.name for p in _build.CSRC.glob("*.cu")}
     assert sources == {"w4a8_gemm.cu", "fused_gemv.cu", "decode_attention.cu",
                        "batched_decode_attention.cu", "paged_attention.cu",
-                       "paged_write.cu"}
+                       "paged_write.cu", "dequant_matmul.cu"}
     text = "".join((_build.CSRC / s).read_text() for s in sources)
     for entry in _build.SIGNATURES:
         assert f"NCTT_API int {entry}(" in text
@@ -133,6 +134,15 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version(tmp_path,
     kv = torch.empty(1, 4, 16, 64, dtype=torch.bfloat16, device=meta)
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.decode_attn(q, kv, kv, 3)
+    xb = torch.empty(4, 256, dtype=torch.bfloat16, device=meta)
+    wq = torch.empty(32, 128, dtype=torch.int32, device=meta)
+    sc2 = torch.empty(2, 128, dtype=torch.float32, device=meta)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.dequant_gemm(xb, wq, sc2, None, None, bits=4, group_size=128,
+                             layout="tpu_strided", out_dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.vpu_gemv(xb[0], wq, sc2, sc2, bits=4, group_size=128,
+                         out_dtype=torch.bfloat16)
 
 
 def test_wrappers_check_their_operands():
@@ -147,6 +157,23 @@ def test_wrappers_check_their_operands():
     kv = torch.empty(1, 4, 16, 48, dtype=torch.bfloat16, device=meta)
     with pytest.raises(ValueError, match="D in"):
         kernels.decode_attn(q, kv, kv, 3)
+    xb = torch.empty(4, 256, dtype=torch.bfloat16, device=meta)
+    with pytest.raises(ValueError, match="N % 128"):
+        kernels.dequant_gemm(xb, torch.empty(32, 96, dtype=torch.int32,
+                                             device=meta),
+                             torch.empty(2, 96, device=meta), None, None,
+                             bits=4, group_size=128, layout="tpu_strided",
+                             out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 activations"):
+        kernels.dequant_gemm(xb.float(), None, torch.empty(2, 128,
+                                                           device=meta),
+                             None, None, bits=4, group_size=128,
+                             layout="tpu_strided", out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="int2/int4"):
+        kernels.vpu_gemv(xb[0], torch.empty(256, 128, dtype=torch.int8,
+                                            device=meta),
+                         torch.empty(2, 128, device=meta), None, bits=8,
+                         group_size=128, out_dtype=torch.bfloat16)
 
 
 def test_digest_follows_the_sources(tmp_path, monkeypatch):

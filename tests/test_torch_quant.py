@@ -139,9 +139,18 @@ def test_dequantize_packed_equal(out):
         np.testing.assert_array_equal(tw.numpy(), jw)
 
 
-def test_off_path_quantization_raises():
-    w = torch.from_numpy(_weights())
-    with pytest.raises(NotImplementedError, match="quantize_int_asym"):
-        tqt.quantize_tensor(w, bits=4, scheme="asym")
-    with pytest.raises(NotImplementedError, match="quantize_codebook"):
-        tqt.quantize_tensor(w, dtype="nf4")
+def test_asym_and_nf4_quantization_match_jax():
+    """Asymmetric int4 and NF4 RTN, which the first slice left raising,
+    give JAX's codes, scales and zero points
+    (``tests/test_torch_woq_quant.py`` covers the rest)."""
+    w = _weights()
+    for kw in (dict(bits=4, scheme="asym"), dict(dtype="nf4")):
+        jq = jqt.quantize_tensor(jnp.asarray(w), group_size=128, **kw)
+        tq = tqt.quantize_tensor(torch.from_numpy(w), group_size=128, **kw)
+        np.testing.assert_array_equal(tq.codes.numpy(), np.asarray(jq.codes))
+        np.testing.assert_array_equal(tq.scales.numpy(),
+                                      np.asarray(jq.scales))
+        assert (tq.zeros is None) == (jq.zeros is None)
+        if tq.zeros is not None:
+            np.testing.assert_array_equal(tq.zeros.numpy(),
+                                          np.asarray(jq.zeros))
