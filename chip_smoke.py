@@ -9,46 +9,60 @@ non-zero:
   1. build the CUDA kernels from ``neural_compressor_tpu_torch/csrc``;
   2. each kernel against its plain PyTorch version at the llama2-7b shapes
      of the main path (B=1 decode and prefill; the 8-slot engine's decode
-     over a 1024-row cache and over pools of 128-row pages), with its time,
-     the plain version's time, one PyTorch yardstick call (``library_ms``,
-     never used by the port) and the least time the card could take
-     (``bound_ms``);
+     over a 1024-row cache and over pools of 128-row pages; W4A16's K8 and
+     K9; the quantized caches' K6 (int8, fp8), K7's quantized branch and
+     K11/K12 over fp8 and int4 pools), with its time, the plain version's
+     time, one PyTorch yardstick call (``library_ms``, never used by the
+     port) and the least time the card could take (``bound_ms``); K8/K9
+     and the quantized-cache kernels also on planted faults (zeros
+     dropped, scales a group or a token late, a K6 that attends the
+     quantized new row, a K11 without int4 offsets, a K12 that writes the
+     wrong nibble), each of which the tolerance must flag;
   3. the kernels at shapes llama2-7b does not give them (GQA, other head
-     widths, ragged M, N and T, group 32, a bias, positions at 0, at page
-     boundaries and past the end, zero-length and idle slots, a shared
-     trash page) against their plain versions, and a small GQA model's
-     greedy tokens on the card against the CPU; then a full-width 2-layer
-     model on the card (kernels) against the same weights on the CPU
-     (plain versions): 32-token prefill, 8 greedy steps; and the same
-     2-layer model served by the engine on the card and on the CPU in
-     each pool mode (contiguous bf16, paged bf16, paged int8);
-  4. llama2-7b at full width and depth, RTN int4 g128 W4A8, answering
+     widths, ragged M, N and T, group 32, a bias, every W4A16 format,
+     positions at 0, at page boundaries and past the end, all-zero K/V
+     rows, int4 writes to both nibbles of a byte row, zero-length and idle
+     slots, a shared trash page) against their plain versions, and a small
+     GQA model's greedy tokens on the card against the CPU;
+  4. full-width 2-layer models built with ``RTNConfig +
+     KVCacheQuantConfig`` on the card (kernels) against the same weights
+     on the CPU (plain versions), W4A8 with fused B=1 decode and W4A16, in
+     each KV format (bf16, int8, fp8, int4): a 32-token prefill and 8
+     greedy steps, tokens equal (over int4 caches, but at near-ties of the
+     CPU's top-2 logits; one W4A16 model that parts at one is run too);
+     and the W4A8 model served by the engine on the card and on the CPU
+     in each pool mode (contiguous bf16/int8/fp8/int4, paged
+     bf16/int8/fp8/int4);
+  5. llama2-7b at full width and depth, RTN int4 g128 W4A8, answering
      three greedy requests at B=1 (prompts of 16, 100 and 371 tokens, 48
      new tokens each, max_len 1024), with exact kernel launch counts;
-  5. where the time goes at B=1: one prefill and 8 decode steps under
+  6. where the time goes at B=1: one prefill and 8 decode steps under
      torch.profiler (wall time, device busy time, top kernels);
-  6. the same llama2-7b behind ``ContinuousBatchingEngine(n_slots=8,
+  7. the same llama2-7b behind ``ContinuousBatchingEngine(n_slots=8,
      max_len=1024)``: 16 greedy requests (prompts of 16, 100 and 371
      tokens, 48-64 new tokens) over contiguous bf16 caches, then over a
      paged int8 pool, ``run(chunk=8)``, with exact launch counts derived
      from the engine's counters, and one B=8 decode dispatch profiled;
-  7. weight-only (W4A16) serving: K8 and K9 against their plain versions
-     at the llama2-7b asym-int4 g128 shapes (timed as in 2) and over the
-     formats, groups and shapes the path does not give them (int2, nf4,
-     fp4, int8 codes, per-channel, double quant, perm, bias, pre_scale,
-     ragged M and N, f32 x); a full-width 2-layer W4A16 model on the card
-     against the CPU with the plain K8/K9 forced;
   8. after the W4A8 model is freed, llama2-7b asym-int4 g128 W4A16 at full
-     width and depth: three greedy requests at B=1 and 16 through the
-     8-slot engine (contiguous bf16), exact launch counts of K8, K9, K5
-     and K7 and the dequantize-then-matmul calls (M > 256 only),
-     profiled as in 5.
+     width and depth (built with ``RTNConfig + KVCacheQuantConfig``):
+     three greedy requests at B=1 and 16 through the 8-slot engine over
+     bf16 caches, exact launch counts of K8, K9, K5 and K7 and the
+     dequantize-then-matmul calls (M > 256 only), profiled as in 6;
+  9. the same model with quantized KV caches: the three B=1 requests over
+     int8 and over fp8 caches (K6, K12 writing the row), and the 16 engine
+     requests over contiguous int8/fp8 (K7 quant, K12) and int4 caches and
+     paged fp8/int4 pools (K11, K12), with tok/s, cache bytes, peak memory, exact launch
+     counts and one decode window profiled per format.
+Development runs name checks of phases 2-4 as arguments (``python3
+chip_smoke.py kv_kernels kv_envelope``): the build, those checks, no
+serving and no result line.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path and its times.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -73,6 +87,7 @@ TOL = {"gemm": 1e-5, "gemv": 1e-2, "attn": 1e-2, "batched": 1e-2,
 SLOTS, PAGE, CHUNK = 8, 128, 8
 SLOT_POS = (0, 127, 128, 300, 517, 640, 901, 1023)
 ENGINE_REQUESTS = 16
+KV_FORMATS = ("int8", "fp8_e4m3", "int4")
 
 
 def fail(msg: str) -> None:
@@ -114,6 +129,58 @@ def timed_ms(torch, fns, iters: int) -> float:
 
 def n_copies(nbytes: int) -> int:
     return max(2, math.ceil(200e6 / max(nbytes, 1)))
+
+
+T_START = time.perf_counter()
+
+
+def timed_phase(name: str, fn):
+    """Run one phase; print its wall time and the time since the start."""
+    t = time.perf_counter()
+    out = fn()
+    print(f"phase {name}: {time.perf_counter() - t:.1f} s (at "
+          f"{time.perf_counter() - T_START:.1f} s)", flush=True)
+    return out
+
+
+# the kernels-line entries of the wrappers that count their launches per
+# cache format: wrapper -> {entry: formats}
+FORMAT_ENTRIES = {
+    "batched_decode_attn": {"batched_decode_attn": ("bf16",),
+                            "batched_decode_attn_quant": ("int8",
+                                                          "fp8_e4m3")},
+    "paged_attn": {"paged_attn": ("bf16", "int8"),
+                   "paged_attn_fp8": ("fp8_e4m3",),
+                   "paged_attn_int4": ("int4",)},
+    "paged_write": {"paged_write": ("bf16", "int8"),
+                    "paged_write_fp8": ("fp8_e4m3",),
+                    "paged_write_int4": ("int4",)}}
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the last reset, by kernels-line entry
+    (``FORMAT_ENTRIES`` splits a wrapper's per-format counts)."""
+    from neural_compressor_tpu_torch import kernels
+
+    out = {}
+    for fn in kernels.KERNEL_WRAPPERS:
+        if isinstance(fn.launches, dict):
+            for entry, fmts in FORMAT_ENTRIES[fn.__name__].items():
+                out[entry] = sum(fn.launches[f] for f in fmts)
+        else:
+            out[fn.__name__] = fn.launches
+    return out
+
+
+def expect(**nonzero) -> dict:
+    """Expected launch counts: the named kernels at their counts, every
+    other kernel wrapper at 0."""
+    want = {name: 0 for name in launch_counts()}
+    unknown = set(nonzero) - set(want)
+    if unknown:
+        fail(f"no kernel wrappers named {sorted(unknown)}")
+    want.update(nonzero)
+    return want
 
 
 def phase_kernels(torch, nct, peaks: dict) -> dict:
@@ -509,13 +576,14 @@ def phase_envelope(torch, nct) -> None:
     ids = torch.randint(0, 512, (1, 12),
                         generator=torch.Generator().manual_seed(4))
     want = nct.greedy_search(m_cpu, ids, max_new_tokens=16, max_len=64)
-    before = [fn.launches for fn in kernels.KERNEL_WRAPPERS]
+    kernels.reset_launch_counts()
     got = nct.greedy_search(m_gpu, ids, max_new_tokens=16, max_len=64)
-    grew = [fn.launches - b for fn, b in zip(kernels.KERNEL_WRAPPERS, before)]
+    grew = launch_counts()
     L = cfg.num_hidden_layers
     if not torch.equal(got.cpu(), want):
         bad.append(f"GQA model tokens {got.tolist()} vs {want.tolist()}")
-    if grew != [4 * L + 1, 15 * (4 * L + 1), 15 * L, 0, 0, 0, 0, 0]:
+    if grew != expect(w4a8_gemm=4 * L + 1, fused_gemv=15 * (4 * L + 1),
+                      decode_attn=15 * L):
         bad.append(f"GQA model launches {grew}")
     print(f"envelope: {n} kernel shapes and a 2-layer GQA model "
           f"(16 greedy tokens), card vs plain: "
@@ -610,8 +678,70 @@ def phase_engine_envelope(torch) -> None:
         fail(f"engine kernels outside the llama2-7b shapes: {bad}")
 
 
-ENGINE_MODES = {"contiguous": {}, "paged_bf16": dict(paged=True),
-                "paged_int8": dict(paged=True)}
+# engine mode -> (engine arguments, KV-cache format or None for bf16)
+ENGINE_MODES = {"contiguous": ({}, None),
+                "paged_bf16": (dict(paged=True), None),
+                "paged_int8": (dict(paged=True), "int8"),
+                "contiguous_int8": ({}, "int8"),
+                "contiguous_fp8": ({}, "fp8_e4m3"),
+                "contiguous_int4": ({}, "int4"),
+                "paged_fp8": (dict(paged=True), "fp8_e4m3"),
+                "paged_int4": (dict(paged=True), "int4")}
+# the modes this slice adds (quantized KV caches)
+KV_MODES = ("contiguous_int8", "contiguous_fp8", "contiguous_int4",
+            "paged_fp8", "paged_int4")
+
+
+@contextlib.contextmanager
+def unpack_once():
+    """Within the block each packed weight is unpacked once: the plain
+    kernel versions unpack their weight on every call, which sets the pace
+    of a full-width reference model on the CPU. The codes (int8, as the
+    unpackers return them) are held until the block ends; callers only
+    read them."""
+    from neural_compressor_tpu_torch.kernels import dequant_matmul
+    from neural_compressor_tpu_torch.ops import packing
+
+    held = {}
+
+    def once(fn):
+        def unpack(packed, *args, **kw):
+            key = (id(packed), fn.__name__, args, tuple(sorted(kw.items())))
+            hit = held.get(key)
+            if hit is None or hit[0] is not packed:
+                hit = held[key] = (packed, fn(packed, *args, **kw))
+            return hit[1]
+        return unpack
+
+    saved = [(packing, "unpack_codes_hopper"), (packing, "unpack_codes"),
+             (dequant_matmul, "unpack_codes")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    for mod, name, fn in saved:
+        setattr(mod, name, once(fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        held.clear()
+
+
+def set_kv_format(model, fmt) -> None:
+    """Flag ``model``'s KV-cache format as ``KVCacheQuantConfig`` does;
+    None for bf16 caches."""
+    model.kv_cache_quantized = fmt is not None
+    model.kv_cache_format = fmt or "int8"
+
+
+def engine_for(nct, model, mode, **kw):
+    """A ``ContinuousBatchingEngine`` in ``mode`` on ``model``; the model's
+    KV format is set for the engine's allocation and cleared after."""
+    mode_kw, fmt = ENGINE_MODES[mode]
+    set_kv_format(model, fmt)
+    try:
+        return nct.ContinuousBatchingEngine(model, **{**kw, **mode_kw})
+    finally:
+        set_kv_format(model, None)
 
 
 def serve_engine(torch, nct, model, mode, prompts, new_tokens,
@@ -619,9 +749,7 @@ def serve_engine(torch, nct, model, mode, prompts, new_tokens,
     """A fresh engine in ``mode`` on ``model``'s device, the prompts
     submitted, run dry; returns (engine, requests, seconds)."""
     on_card = model.device.type == "cuda"
-    model.kv_cache_quantized = mode == "paged_int8"
-    model.kv_cache_format = "int8"
-    eng = nct.ContinuousBatchingEngine(model, **{**kw, **ENGINE_MODES[mode]})
+    eng = engine_for(nct, model, mode, **kw)
     reqs = [eng.submit(p, max_new_tokens=m)
             for p, m in zip(prompts, new_tokens)]
     if on_card:
@@ -631,7 +759,6 @@ def serve_engine(torch, nct, model, mode, prompts, new_tokens,
     if on_card:
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    model.kv_cache_quantized = False
     if sorted(r.uid for r in done) != sorted(r.uid for r in reqs):
         fail(f"engine ({mode}) finished {len(done)} of {len(reqs)} requests")
     return eng, reqs, seconds
@@ -640,7 +767,9 @@ def serve_engine(torch, nct, model, mode, prompts, new_tokens,
 def phase_engine_check(torch, nct) -> None:
     """A full-width 2-layer llama2-7b served by the engine on the card
     (kernels) and on the CPU (plain versions), the same weights and
-    requests, in each pool mode: the tokens must be equal."""
+    requests, in each pool mode (``ENGINE_MODES``: bf16, and the int8,
+    fp8 and int4 caches and pools): the tokens must be equal and the
+    mode's kernels must have run."""
     from neural_compressor_tpu_torch import kernels
     from neural_compressor_tpu_torch.models.llama import (LLAMA_PRESETS,
                                                           LlamaConfig)
@@ -656,26 +785,45 @@ def phase_engine_check(torch, nct) -> None:
     nct.enable_fused_decode(m_cpu)
     m_gpu = copy.deepcopy(m_cpu).to("cuda")
     gen = torch.Generator().manual_seed(5)
+    lens = (12, 20, 5, 33)
     prompts = [torch.randint(0, cfg.vocab_size, (P,), generator=gen).numpy()
-               for P in (12, 20, 5)]
-    new = (5, 4, 5)
+               for P in lens]
+    new = (5, 4, 5, 3)
+    # the quantized caches' modes: fewer new tokens (the CPU side of a
+    # decode step at full width sets this phase's time)
+    new_kv = (3, 2, 3, 2)
     kw = dict(n_slots=4, max_len=128, prefill_chunk=16, page_size=32)
     path = {"contiguous": ("batched_decode_attn",),
             "paged_bf16": ("paged_attn", "paged_write"),
-            "paged_int8": ("paged_attn", "paged_write")}
+            "paged_int8": ("paged_attn", "paged_write"),
+            "contiguous_int8": ("batched_decode_attn_quant", "paged_write"),
+            "contiguous_fp8": ("batched_decode_attn_quant",
+                               "paged_write_fp8"),
+            # int4 contiguous caches attend in plain PyTorch, as in JAX
+            "contiguous_int4": ("w4a8_gemm",),
+            "paged_fp8": ("paged_attn_fp8", "paged_write_fp8"),
+            "paged_int4": ("paged_attn_int4", "paged_write_int4")}
     for mode in ENGINE_MODES:
+        # the earlier modes: 3 requests on 4 slots; the quantized caches:
+        # 4 requests on the engine's 8 slots
+        n = 4 if mode in KV_MODES else 3
+        mkw = dict(kw, n_slots=8) if mode in KV_MODES else kw
+        t1 = time.perf_counter()
         kernels.reset_launch_counts()
-        _e, got, _s = serve_engine(torch, nct, m_gpu, mode, prompts, new,
-                                   chunk=2, **kw)
-        launched = {fn.__name__: fn.launches for fn in kernels.KERNEL_WRAPPERS}
-        _e, want, _s = serve_engine(torch, nct, m_cpu, mode, prompts, new,
-                                    chunk=2, **kw)
+        mnew = (new_kv if mode in KV_MODES else new)[:n]
+        _e, got, _s = serve_engine(torch, nct, m_gpu, mode, prompts[:n],
+                                   mnew, chunk=2, **mkw)
+        launched = launch_counts()
+        with unpack_once():
+            _e, want, _s = serve_engine(torch, nct, m_cpu, mode, prompts[:n],
+                                        mnew, chunk=2, **mkw)
         toks = [r.generated for r in got]
         ok = (toks == [r.generated for r in want]
               and all(launched[k] > 0 for k in path[mode]))
         print(f"engine check {mode} (2 layers, full width): card tokens "
-              f"{toks} cpu tokens {[r.generated for r in want]} "
-              f"launches {launched}", flush=True)
+              f"{toks} cpu tokens {[r.generated for r in want]} launches "
+              f"{ {k: v for k, v in launched.items() if v} } "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
         if not ok:
             fail(f"engine {mode}: card and CPU differ or the path's kernels "
                  "did not run")
@@ -698,55 +846,115 @@ def unit(rows, pick, bound_by) -> dict:
     return out
 
 
+def two_layer_check(torch, label, m_cpu, m_gpu, ids, woq: bool,
+                    formats=(None,) + KV_FORMATS) -> None:
+    """A full-width 2-layer model on the card (kernels) against the same
+    weights on the CPU (plain versions; W4A16 forced onto the plain K8 for
+    the prefill and the plain K9 for decode), in each KV format of
+    ``formats`` (None for bf16): a 32-token prefill, then 8 greedy steps.
+    The card decodes freely; the CPU is fed the card's tokens, so each step
+    compares the two on the same inputs: logits within 5e-2 of
+    max|logit|, and the greedy tokens equal at every step. int4 caches
+    alone may part at a near-tie: a step where the CPU's top-2 gap is at
+    most the logit difference measured there (W4A16's K8/K9 round apart
+    from their plain versions by float32 ulps, which move int4 codes by a
+    whole step; printed with the gap and the difference). Exact launch
+    counts of the card's run."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.models.llama import init_kv_cache
+
+    cfg = m_cpu.cfg
+    L, P = cfg.num_hidden_layers, ids.shape[1]
+    n_proj = 4 * L + 1
+
+    @torch.no_grad()
+    def run(model, fmt, forced=None):
+        dev = model.device
+        caches = init_kv_cache(cfg, 1, 64, quantized=fmt or False,
+                               device=dev)
+        cpu = woq and dev.type == "cpu"
+        if cpu:
+            set_woq_impl(model, "pallas")
+        logits, caches = model(ids.to(dev), torch.arange(P, device=dev)[None],
+                               caches, 0)
+        if cpu:
+            set_woq_impl(model, "vpu")
+        rows, toks = [logits[0, -1].float().cpu()], []
+        for i in range(8):
+            tok = int(torch.argmax(rows[-1])) if forced is None else forced[i]
+            toks.append(tok)
+            pos = P + i
+            logits, caches = model(torch.tensor([[tok]], device=dev),
+                                   torch.full((1, 1), pos, device=dev),
+                                   caches, pos)
+            rows.append(logits[0, -1].float().cpu())
+        return torch.stack(rows), toks
+
+    for fmt in formats:
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        lg_gpu, tok_gpu = run(m_gpu, fmt)
+        launched = launch_counts()
+        with unpack_once():
+            lg_cpu, _ = run(m_cpu, fmt, forced=tok_gpu)
+        diff = (lg_gpu - lg_cpu).abs().amax(dim=1)          # per step
+        err, ref = float(diff.max()), float(lg_cpu.abs().max())
+        cpu_tok = lg_cpu.argmax(dim=1).tolist()
+        card_tok = tok_gpu + [int(lg_gpu[-1].argmax())]
+        ties, parted = [], []
+        for i, (a, b) in enumerate(zip(card_tok, cpu_tok)):
+            if a != b:
+                gap = float(lg_cpu[i, b] - lg_cpu[i, a])
+                tie = fmt == "int4" and gap <= float(diff[i])
+                (ties if tie else parted).append(
+                    dict(step=i, card=a, cpu=b, gap=gap,
+                         diff=float(diff[i])))
+        # B=1 decode: K5 (bf16) or K6 attends; K12 writes int8/fp8 rows
+        attn = {None: {"decode_attn": 8 * L}, "int4": {},
+                "int8": {"decode_attn_quant": 8 * L, "paged_write": 8 * L},
+                "fp8_e4m3": {"decode_attn_quant": 8 * L,
+                             "paged_write_fp8": 8 * L}}[fmt]
+        want = expect(**({"w4a8_gemm": n_proj, "fused_gemv": 8 * n_proj}
+                         if not woq else
+                         {"dequant_gemm": n_proj, "vpu_gemv": 8 * n_proj}),
+                      **attn)
+        ok = (not parted and math.isfinite(err) and err <= 5e-2 * ref
+              and launched == want)
+        print(f"{label} {fmt or 'bf16'} (2 layers, full width): tokens "
+              f"equal={not ties and not parted} near-ties {ties} "
+              f"max|logit diff|={err:.4e} tol={5e-2 * ref:.4e} card "
+              f"launches { {k: v for k, v in launched.items() if v} } "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        if not ok:
+            fail(f"{label} {fmt}: card tokens {card_tok} vs CPU {cpu_tok} "
+                 f"(parted {parted}), err {err}, launches {launched} != "
+                 f"{want}")
+
+
 def phase_model_check(torch, nct) -> None:
+    """``two_layer_check`` for W4A8 with fused B=1 decode (K1, K4, and K5
+    or, over int8/fp8 caches, K6 through ``_fused_call``), the model built
+    with ``RTNConfig + KVCacheQuantConfig`` (the flag checked)."""
     from neural_compressor_tpu_torch.models.llama import (LLAMA_PRESETS,
-                                                          LlamaConfig,
-                                                          init_kv_cache)
+                                                          LlamaConfig)
 
     torch.set_num_threads(8)
     params = dict(LLAMA_PRESETS["llama2-7b"], num_hidden_layers=2)
     cfg = LlamaConfig(**params)
-    t0 = time.perf_counter()
     m_cpu = nct.build_quantized(
-        cfg, nct.RTNConfig(dtype="int4", group_size=G, quant_lm_head=True),
-        seed=1, device="cpu")
+        cfg, nct.RTNConfig(dtype="int4", group_size=G, quant_lm_head=True)
+        + nct.KVCacheQuantConfig(dtype="fp8"), seed=1, device="cpu")
+    if not (m_cpu.kv_cache_quantized and m_cpu.kv_cache_format == "fp8_e4m3"
+            and type(m_cpu.lm_head).__name__ == "WOQLinear"):
+        fail("RTNConfig + KVCacheQuantConfig did not quantize the lm_head "
+             "and flag the fp8 cache")
     nct.fuse_for_serving(m_cpu)
     nct.to_w4a8_serving(m_cpu)
     nct.enable_fused_decode(m_cpu)
     m_gpu = copy.deepcopy(m_cpu).to("cuda")
     gen = torch.Generator().manual_seed(1)
     ids = torch.randint(0, cfg.vocab_size, (1, 32), generator=gen)
-
-    @torch.no_grad()
-    def run(model):
-        dev = model.device
-        caches = init_kv_cache(cfg, 1, 64, device=dev)
-        x = ids.to(dev)
-        logits, caches = model(x, torch.arange(32, device=dev)[None], caches,
-                               0)
-        out_logits, toks = [logits[:, -1].float().cpu()], []
-        tok = torch.argmax(logits[:, -1], -1)[:, None]
-        for i in range(8):
-            toks.append(int(tok))
-            pos = 32 + i
-            logits, caches = model(tok, torch.full((1, 1), pos, device=dev),
-                                   caches, pos)
-            out_logits.append(logits[:, -1].float().cpu())
-            tok = torch.argmax(logits[:, -1], -1)[:, None]
-        toks.append(int(tok))
-        return torch.cat(out_logits), toks
-
-    lg_gpu, tok_gpu = run(m_gpu)
-    lg_cpu, tok_cpu = run(m_cpu)
-    err = float((lg_gpu - lg_cpu).abs().max())
-    ref = float(lg_cpu.abs().max())
-    ok = (tok_gpu == tok_cpu and math.isfinite(err) and err <= 5e-2 * ref)
-    print(f"model check (2 layers, full width): tokens equal="
-          f"{tok_gpu == tok_cpu} max|logit diff|={err:.4e} "
-          f"tol={5e-2 * ref:.4e} ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
-    if not ok:
-        fail(f"card vs CPU: tokens {tok_gpu} vs {tok_cpu}, err {err}")
+    two_layer_check(torch, "model check W4A8", m_cpu, m_gpu, ids, woq=False)
     del m_cpu, m_gpu
 
 
@@ -798,14 +1006,12 @@ def phase_serve(torch, nct) -> dict:
                                       max_len=MAX_LEN))
         torch.cuda.synchronize()
         req_s.append(time.perf_counter() - t)
-    launches = {fn.__name__: fn.launches for fn in kernels.KERNEL_WRAPPERS}
+    launches = launch_counts()
     fallbacks = dequant_dot.calls
     steps = NEW_TOKENS - 1
-    want = {"w4a8_gemm": len(PROMPTS) * (4 * LAYERS + 1),
-            "fused_gemv": len(PROMPTS) * steps * (4 * LAYERS + 1),
-            "decode_attn": len(PROMPTS) * steps * LAYERS,
-            "batched_decode_attn": 0, "paged_attn": 0, "paged_write": 0,
-            "dequant_gemm": 0, "vpu_gemv": 0}
+    want = expect(w4a8_gemm=len(PROMPTS) * (4 * LAYERS + 1),
+                  fused_gemv=len(PROMPTS) * steps * (4 * LAYERS + 1),
+                  decode_attn=len(PROMPTS) * steps * LAYERS)
     print(f"kernels {json.dumps(launches)} expected {json.dumps(want)} "
           f"dequant-and-dot fallbacks {fallbacks}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -900,18 +1106,16 @@ def phase_engine_serve(torch, nct, model) -> dict:
         eng, reqs, seconds = serve_engine(torch, nct, model, mode, prompts,
                                           new, n_slots=SLOTS,
                                           max_len=MAX_LEN, page_size=PAGE)
-        launches = {fn.__name__: fn.launches for fn in kernels.KERNEL_WRAPPERS}
+        launches = launch_counts()
         fallbacks = dequant_dot.calls
         m = eng.metrics()
         steps = CHUNK * m["decode_dispatches"]
         chunks = m["prefill_chunk_dispatches"]
         paged = mode != "contiguous"
-        want = {"w4a8_gemm": (4 * LAYERS + 1) * (steps + chunks),
-                "fused_gemv": 0, "decode_attn": 0,
-                "batched_decode_attn": 0 if paged else LAYERS * steps,
-                "paged_attn": LAYERS * steps if paged else 0,
-                "paged_write": LAYERS * steps if paged else 0,
-                "dequant_gemm": 0, "vpu_gemv": 0}
+        want = expect(w4a8_gemm=(4 * LAYERS + 1) * (steps + chunks),
+                      batched_decode_attn=0 if paged else LAYERS * steps,
+                      paged_attn=LAYERS * steps if paged else 0,
+                      paged_write=LAYERS * steps if paged else 0)
         counters = {k: m[k] for k in (
             "requests", "prompt_tokens", "generated_tokens",
             "prefill_chunk_dispatches", "decode_dispatches",
@@ -943,10 +1147,8 @@ def phase_engine_serve(torch, nct, model) -> dict:
         out[mode] = launches
 
         # where the time goes: one B=8 decode dispatch with every slot live
-        model.kv_cache_quantized = paged
-        eng = nct.ContinuousBatchingEngine(
-            model, n_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE,
-            **ENGINE_MODES[mode])
+        eng = engine_for(nct, model, mode, n_slots=SLOTS, max_len=MAX_LEN,
+                         page_size=PAGE)
         for p in prompts[:SLOTS]:
             eng.submit(p, max_new_tokens=64)
         while eng.queue or "prefill" in eng.slot_state:
@@ -954,7 +1156,6 @@ def phase_engine_serve(torch, nct, model) -> dict:
         profile_window(torch, f"engine {mode} decode dispatch, 8 slots x "
                        f"{CHUNK} steps", lambda: eng.step_many(CHUNK))
         eng.run()
-        model.kv_cache_quantized = False
         del eng
     return out
 
@@ -1254,73 +1455,45 @@ def set_woq_impl(model, impl: str) -> None:
             m.impl = impl
 
 
-def woq_model(nct, cfg_or_preset, seed, device=None):
+def woq_model(nct, cfg_or_preset, seed, device=None, kv=None):
     """llama2-7b (or a cut of it) quantized weight-only, asym int4 g128
-    with the lm_head, q/k/v and gate/up fused: the W4A16 path."""
-    model = nct.build_quantized(cfg_or_preset, nct.RTNConfig(
-        dtype="int4", group_size=G, use_sym=False, quant_lm_head=True),
-        seed=seed, device=device)
+    with the lm_head, q/k/v and gate/up fused: the W4A16 path; with ``kv``
+    built through ``RTNConfig + KVCacheQuantConfig(dtype=kv)`` (the same
+    weights, the model flagged for ``kv`` caches)."""
+    cfg = nct.RTNConfig(dtype="int4", group_size=G, use_sym=False,
+                        quant_lm_head=True)
+    if kv is not None:
+        cfg = cfg + nct.KVCacheQuantConfig(dtype=kv)
+    model = nct.build_quantized(cfg_or_preset, cfg, seed=seed, device=device)
     nct.fuse_for_serving(model)
     return model
 
 
 def phase_woq_model_check(torch, nct) -> None:
-    """A full-width 2-layer llama2-7b asym-int4 W4A16 model on the card
-    (K8 prefill, K9 decode) against the same weights on the CPU with the
-    plain K8 and K9 forced: a 32-token prefill, then 8 greedy steps; tokens
-    equal, logits within 5e-2 of max|logit|."""
-    from neural_compressor_tpu_torch import kernels
+    """``two_layer_check`` for a full-width 2-layer llama2-7b asym-int4
+    W4A16 model (K8 prefill, K9 decode, and K5 or K6 attention), and for
+    a second model over int4 caches, one whose tokens part at a
+    near-tie."""
     from neural_compressor_tpu_torch.models.llama import (LLAMA_PRESETS,
-                                                          LlamaConfig,
-                                                          init_kv_cache)
+                                                          LlamaConfig)
 
     torch.set_num_threads(8)
-    t0 = time.perf_counter()
     cfg = LlamaConfig(**dict(LLAMA_PRESETS["llama2-7b"], num_hidden_layers=2))
-    m_gpu = woq_model(nct, cfg, seed=7, device="cuda")
+    m_gpu = woq_model(nct, cfg, seed=7, device="cuda", kv="int4")
     m_cpu = copy.deepcopy(m_gpu).to("cpu")
     ids = torch.randint(0, cfg.vocab_size, (1, 32),
                         generator=torch.Generator().manual_seed(8))
-
-    @torch.no_grad()
-    def run(model, on_cpu):
-        dev = model.device
-        caches = init_kv_cache(cfg, 1, 64, device=dev)
-        if on_cpu:
-            set_woq_impl(model, "pallas")
-        logits, caches = model(ids.to(dev), torch.arange(32, device=dev)[None],
-                               caches, 0)
-        if on_cpu:
-            set_woq_impl(model, "vpu")
-        out_logits, toks = [logits[:, -1].float().cpu()], []
-        tok = torch.argmax(logits[:, -1], -1)[:, None]
-        for i in range(8):
-            toks.append(int(tok))
-            pos = 32 + i
-            logits, caches = model(tok, torch.full((1, 1), pos, device=dev),
-                                   caches, pos)
-            out_logits.append(logits[:, -1].float().cpu())
-            tok = torch.argmax(logits[:, -1], -1)[:, None]
-        toks.append(int(tok))
-        return torch.cat(out_logits), toks
-
-    kernels.reset_launch_counts()
-    lg_gpu, tok_gpu = run(m_gpu, False)
-    grew = {"dequant_gemm": kernels.dequant_gemm.launches,
-            "vpu_gemv": kernels.vpu_gemv.launches}
-    lg_cpu, tok_cpu = run(m_cpu, True)
-    err = float((lg_gpu - lg_cpu).abs().max())
-    ref = float(lg_cpu.abs().max())
-    n_proj = 4 * cfg.num_hidden_layers + 1
-    ok = (tok_gpu == tok_cpu and math.isfinite(err) and err <= 5e-2 * ref
-          and grew == {"dequant_gemm": n_proj, "vpu_gemv": 8 * n_proj})
-    print(f"woq model check (2 layers, full width, asym int4 g{G}): tokens "
-          f"equal={tok_gpu == tok_cpu} max|logit diff|={err:.4e} "
-          f"tol={5e-2 * ref:.4e} card launches {grew} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    if not ok:
-        fail(f"W4A16 card vs CPU: tokens {tok_gpu} vs {tok_cpu}, err {err}, "
-             f"launches {grew}")
+    two_layer_check(torch, f"woq model check (asym int4 g{G})", m_cpu, m_gpu,
+                    ids, woq=True)
+    del m_cpu, m_gpu
+    # a model whose int4-cache run parts at a near-tie: seed 10 built on the
+    # CPU, prompt of seed 9 (the CPU's top-2 logits tie at step 5)
+    m_cpu = woq_model(nct, cfg, seed=10, device="cpu", kv="int4")
+    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    ids = torch.randint(0, cfg.vocab_size, (1, 32),
+                        generator=torch.Generator().manual_seed(9))
+    two_layer_check(torch, f"woq model check (asym int4 g{G}, seed 10)",
+                    m_cpu, m_gpu, ids, woq=True, formats=("int4",))
     del m_cpu, m_gpu
 
 
@@ -1336,12 +1509,18 @@ def phase_woq_serve(torch, nct):
     from neural_compressor_tpu_torch.models.llama import init_kv_cache
 
     t0 = time.perf_counter()
-    model = woq_model(nct, "llama2-7b", seed=0)
+    # built with RTNConfig + KVCacheQuantConfig for the KV phases (the
+    # same weights); the flag is cleared here, for bf16 caches
+    model = woq_model(nct, "llama2-7b", seed=0, kv="int8")
     torch.cuda.synchronize()
     print(f"llama2-7b W4A16 (asym int4 g{G}) built in "
           f"{time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
+          f"KV flags {model.kv_cache_quantized} {model.kv_cache_format}",
           flush=True)
+    if not (model.kv_cache_quantized and model.kv_cache_format == "int8"):
+        fail("RTNConfig + KVCacheQuantConfig did not flag the int8 cache")
+    set_kv_format(model, None)
     gen = torch.Generator().manual_seed(2)
     prompts = [torch.randint(0, model.cfg.vocab_size, (1, P), generator=gen)
                for P in PROMPTS]
@@ -1370,16 +1549,14 @@ def phase_woq_serve(torch, nct):
                                       max_len=MAX_LEN))
         torch.cuda.synchronize()
         req_s.append(time.perf_counter() - t)
-    launches = {fn.__name__: fn.launches for fn in kernels.KERNEL_WRAPPERS}
+    launches = launch_counts()
     dots = dequant_dot.calls
     steps = NEW_TOKENS - 1
     n_proj = 4 * LAYERS + 1
     short = sum(P <= 256 for P in PROMPTS)
-    want = {"w4a8_gemm": 0, "fused_gemv": 0,
-            "decode_attn": len(PROMPTS) * steps * LAYERS,
-            "batched_decode_attn": 0, "paged_attn": 0, "paged_write": 0,
-            "dequant_gemm": short * n_proj,
-            "vpu_gemv": len(PROMPTS) * steps * n_proj}
+    want = expect(decode_attn=len(PROMPTS) * steps * LAYERS,
+                  dequant_gemm=short * n_proj,
+                  vpu_gemv=len(PROMPTS) * steps * n_proj)
     want_dots = (len(PROMPTS) - short) * n_proj
     print(f"woq kernels {json.dumps(launches)} expected {json.dumps(want)}; "
           f"dequantize-then-matmul calls {dots} (expected {want_dots}, "
@@ -1437,7 +1614,7 @@ def phase_woq_engine(torch, nct, model) -> dict:
     done = eng.run(chunk=CHUNK)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t
-    launches = {fn.__name__: fn.launches for fn in kernels.KERNEL_WRAPPERS}
+    launches = launch_counts()
     dots = dequant_dot.calls
     if sorted(r.uid for r in done) != sorted(r.uid for r in reqs):
         fail(f"W4A16 engine finished {len(done)} of {len(reqs)} requests")
@@ -1449,10 +1626,8 @@ def phase_woq_engine(torch, nct, model) -> dict:
     if len(chunk_rows) != m["prefill_chunk_dispatches"]:
         fail(f"{len(chunk_rows)} prefill chunks seen, the engine counted "
              f"{m['prefill_chunk_dispatches']}")
-    want = {"w4a8_gemm": 0, "fused_gemv": 0, "decode_attn": 0,
-            "batched_decode_attn": LAYERS * steps, "paged_attn": 0,
-            "paged_write": 0, "dequant_gemm": n_proj * (steps + k8_chunks),
-            "vpu_gemv": 0}
+    want = expect(batched_decode_attn=LAYERS * steps,
+                  dequant_gemm=n_proj * (steps + k8_chunks))
     want_dots = n_proj * (len(chunk_rows) - k8_chunks)
     counters = {k: m[k] for k in (
         "requests", "prompt_tokens", "generated_tokens",
@@ -1491,6 +1666,628 @@ def phase_woq_engine(torch, nct, model) -> dict:
 
 
 
+# --------------------------------------------------------- quantized KV caches
+def kv_tol(ref):
+    """Elementwise tolerance of a quantized-cache attention kernel against
+    its plain version: one bf16 rounding of each output (2^-7 |ref|, plus
+    2^-20 near 0). Kernel and plain version sum in float64 over exact
+    products and round once, so they agree bit for bit but where the order
+    of a float64 sum tips a rounding; the tolerance admits one such flip
+    an output and no more."""
+    return 2.0 ** -7 * ref.float().abs() + 2.0 ** -20
+
+
+def kv_rows(kq, rows, fmt):
+    """bf16 rows [..., T, D] as a cache of ``fmt`` quantized the port's way:
+    (codes, scales) for int8/fp8, (token-half-split bytes, scales,
+    offsets) for int4 page pools."""
+    if fmt == "int4":
+        c4, sc, off = kq.kv_quant4_asym_codes(rows)
+        return kq.kv_pack_page_int4(c4), sc, off
+    return kq.kv_quant(rows, fmt)
+
+
+def kv_dequant_rows(torch, kq, cache, fmt):
+    """The bf16 rows a cache of ``fmt`` holds ([..., T, D])."""
+    if fmt == "int4":
+        codes, sc, off = cache
+        c = torch.cat([codes & 15, codes >> 4], dim=-2).float()
+        return ((c - 8) * sc[..., None] + off[..., None]).to(torch.bfloat16)
+    return kq.kv_dequant(cache[0], cache[1], torch.bfloat16)
+
+
+def phase_kv_kernels(torch, nct, peaks: dict) -> dict:
+    """The kernels of the quantized-KV path at the llama2-7b shapes, each
+    against its plain version within ``kv_tol`` (K12: bit for bit), timed
+    as in phase 2 (operands rotated through >200 MB of copies, so L2 is
+    cold), beside the yardstick ``scaled_dot_product_attention`` over the
+    dequantized bf16 rows (dequantization not timed; never called by the
+    port) and the bound:
+      * K6 (int8, fp8) at B=1 over a 1024-row cache, pos 0, 517, 1023;
+      * K7's quantized branch (int8, fp8), 8 slots at ``SLOT_POS``;
+      * K11 and K12 (fp8, int4) over pools of 128-row pages at that step.
+    Then planted faults, each of which the tolerance must flag: a K6 that
+    attends the quantized new row, scales one token late (K6, K7, K11), a
+    K11 int4 that drops the offsets, a K12 int4 that writes the wrong
+    nibble."""
+    from neural_compressor_tpu_torch import kernels as K
+    from neural_compressor_tpu_torch.ops import kv_quant as kq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16 = torch.bfloat16
+    rows = {k: [] for k in ("k6", "k7q", "k11_fp8", "k11_int4", "k12_fp8",
+                            "k12_int4")}
+    missed = []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    def record(kind, label, out, ref, ms, pms, lms, nbytes, ops, fmt,
+               exact=False):
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        tol = torch.zeros_like(d) if exact else kv_tol(ref)
+        err = float(d.max())
+        ok = bool(torch.isfinite(out.float()).all()) and bool((d <= tol).all())
+        ratio = (0.0 if err == 0 else float("inf") if exact
+                 else float((d / tol).max()))
+        bms, by = bound(nbytes, ops, peaks["bf16_s"], peaks)
+        rows[kind].append(dict(label=label, fmt=fmt, err=err, tol_ratio=ratio,
+                               ok=ok, ms=ms, plain_ms=pms, library_ms=lms,
+                               bound_ms=bms, bound_by=by))
+        lib = "null" if lms is None else f"{lms:.4f}"
+        print(f"{kind} {label} max_abs_err={err:.3e} max d/tol={ratio:.3g} "
+              f"ok={ok} ms={ms:.4f} plain_ms={pms:.4f} library_ms={lib} "
+              f"bound_ms={bms:.4f} ({by})", flush=True)
+
+    def fault(kind, name, out, ref, exact=False):
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        tol = torch.zeros_like(d) if exact else kv_tol(ref)
+        caught = int((d > tol).sum())
+        print(f"{kind} planted fault '{name}': {caught}/{d.numel()} outputs "
+              f"outside the tolerance", flush=True)
+        if not caught:
+            missed.append(f"{kind} {name}")
+
+    # K6: one B=1 decode step's layer over a 1024-row cache
+    H = Hkv = HEADS
+    D, T = HEAD_DIM, MAX_LEN
+    q = randn(1, H, D)
+    q4 = q[:, :, None]
+    kn, vn = randn(1, Hkv, D), randn(1, Hkv, D)
+    for fmt in ("int8", "fp8_e4m3"):
+        caches = [(*kq.kv_quant(randn(1, Hkv, T, D), fmt),
+                   *kq.kv_quant(randn(1, Hkv, T, D), fmt))
+                  for _ in range(n_copies(2 * Hkv * T * (D + 4)))]
+        c0 = caches[0]
+        for pos in ATTN_POS:
+            L = pos + 1
+            out = K.decode_attn_quant(q, kn, vn, *c0, pos)
+            ref = K.decode_attn_quant_plain(q, kn, vn, *c0, pos)
+            ms = timed_ms(torch, [lambda c=c: K.decode_attn_quant(
+                q, kn, vn, *c, pos) for c in caches], 200)
+            pms = timed_ms(torch, [lambda: K.decode_attn_quant_plain(
+                q, kn, vn, *c0, pos)], 10)
+            deq = [(kq.kv_dequant(c[0][:, :, :L], c[1][:, :, :L], bf16),
+                    kq.kv_dequant(c[2][:, :, :L], c[3][:, :, :L], bf16))
+                   for c in caches]
+            lms = timed_ms(torch, [lambda a=a, b=b: sdpa(q4, a, b)
+                                   for a, b in deq], 200)
+            del deq
+            record("k6", f"{fmt} B=1 H={H} D={D} T={T} pos={pos}", out, ref,
+                   ms, pms, lms, 2 * H * D * 2 + 2 * Hkv * D * 2
+                   + 2 * Hkv * L * (D + 4), 4 * H * L * D, fmt)
+        pos = UNIT_POS
+        ref = K.decode_attn_quant_plain(kn, kn, vn, *c0, pos)
+        # the new row carries the softmax (q = k_new); a K6 that attended
+        # the row's codes instead of the raw row
+        kd = kq.kv_dequant(*kq.kv_quant(kn, fmt), bf16)
+        vd = kq.kv_dequant(*kq.kv_quant(vn, fmt), bf16)
+        fault("k6", f"{fmt}: the quantized new row attended",
+              K.decode_attn_quant(kn, kd, vd, *c0, pos), ref)
+        kc, ks, vc, vs = c0
+        fault("k6", f"{fmt}: scales one token late",
+              K.decode_attn_quant(q, kn, vn, kc, ks.roll(1, -1), vc,
+                                  vs.roll(1, -1), pos),
+              K.decode_attn_quant_plain(q, kn, vn, *c0, pos))
+        del caches, c0
+
+    # K7 quantized: one layer's decode step of the 8-slot contiguous engine
+    B = SLOTS
+    pos = torch.tensor(SLOT_POS, dtype=torch.int32, device=dev)
+    Lv = pos.to(torch.int64) + 1
+    n_vis = int(Lv.sum())
+    Lmax = int(Lv.max())
+    mask = (torch.arange(Lmax, device=dev)[None, :] < Lv[:, None])[:, None,
+                                                                   None]
+    q = randn(B, H, D)
+    q4 = q[:, :, None]
+    for fmt in ("int8", "fp8_e4m3"):
+        caches = [(*kq.kv_quant(randn(B, Hkv, T, D), fmt),
+                   *kq.kv_quant(randn(B, Hkv, T, D), fmt))
+                  for _ in range(n_copies(2 * B * Hkv * T * (D + 4)))]
+        kc, ks, vc, vs = caches[0]
+        out = K.batched_decode_attn(q, kc, vc, pos, ks, vs)
+        ref = K.batched_decode_attn_plain(q, kc, vc, pos, ks, vs)
+        ms = timed_ms(torch, [lambda c=c: K.batched_decode_attn(
+            q, c[0], c[2], pos, c[1], c[3]) for c in caches], 200)
+        pms = timed_ms(torch, [lambda: K.batched_decode_attn_plain(
+            q, kc, vc, pos, ks, vs)], 5)
+        deq = [(kq.kv_dequant(c[0][:, :, :Lmax], c[1][:, :, :Lmax], bf16),
+                kq.kv_dequant(c[2][:, :, :Lmax], c[3][:, :, :Lmax], bf16))
+               for c in caches]
+        lms = timed_ms(torch, [lambda a=a, b=b: sdpa(q4, a, b,
+                                                      attn_mask=mask)
+                               for a, b in deq], 200)
+        del deq
+        record("k7q", f"{fmt} B={B} H={H} D={D} T={T} pos={SLOT_POS}", out,
+               ref, ms, pms, lms, 2 * Hkv * n_vis * (D + 4) + 2 * B * H * D * 2
+               + B * 4, 4 * H * n_vis * D, fmt)
+        fault("k7q", f"{fmt}: scales one token late",
+              K.batched_decode_attn(q, kc, vc, pos, ks.roll(1, -1),
+                                    vs.roll(1, -1)), ref)
+        del caches
+
+    # K11 and K12 over pools of 128-row pages holding the same slots
+    pmax = T // PAGE
+    n_pages = B * pmax + 1                      # page 0 is the trash page
+    bt = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                         .manual_seed(12)) + 1).reshape(B, pmax)
+    bt = bt.to(torch.int32).to(dev)
+    lengths = (pos + 1).contiguous()
+    kn, vn = randn(B, Hkv, D), randn(B, Hkv, D)
+    attn, write = K.paged_attn, K.paged_write
+    for fmt, tag in (("fp8_e4m3", "fp8"), ("int4", "int4")):
+        int4 = fmt == "int4"
+        code_bytes = D // 2 if int4 else D
+        row_bytes = code_bytes + (8 if int4 else 4)
+
+        def pool():
+            k = kv_rows(kq, randn(n_pages, Hkv, PAGE, D), fmt)
+            v = kv_rows(kq, randn(n_pages, Hkv, PAGE, D), fmt)
+            # (k_pages, k_scales, v_pages, v_scales, k_offs, v_offs)
+            return (k[0], k[1], v[0], v[1],
+                    k[2] if int4 else None, v[2] if int4 else None)
+
+        def args(p):
+            return (p[0], p[1], p[2], p[3], bt, lengths, p[4], p[5])
+
+        pools = [pool() for _ in range(n_copies(2 * n_pages * Hkv * PAGE
+                                                * row_bytes))]
+        p0 = pools[0]
+        out = attn(q, *args(p0))
+        ref = K.paged_attn_plain(q, *args(p0))
+        ms = timed_ms(torch, [lambda p=p: attn(q, *args(p)) for p in pools],
+                      200)
+        pms = timed_ms(torch, [lambda: K.paged_attn_plain(q, *args(p0))], 5)
+
+        def gathered(p, which):
+            pages, sc, off = ((p[0], p[1], p[4]) if which == "k"
+                              else (p[2], p[3], p[5]))
+            cache = (pages, sc, off) if int4 else (pages, sc)
+            rows_ = kv_dequant_rows(torch, kq, cache, fmt)  # [P, Hkv, page, D]
+            g = rows_[bt.long()].transpose(1, 2).reshape(B, Hkv, T, D)
+            return g[:, :, :Lmax].contiguous()
+
+        gk = [(gathered(p, "k"), gathered(p, "v")) for p in pools]
+        lms = timed_ms(torch, [lambda a=a, b=b: sdpa(q4, a, b,
+                                                      attn_mask=mask)
+                               for a, b in gk], 200)
+        del gk
+        record(f"k11_{tag}", f"{tag} B={B} H={H} D={D} page={PAGE} "
+               f"pmax={pmax} lengths={tuple(lengths.tolist())}", out, ref,
+               ms, pms, lms, 2 * Hkv * n_vis * row_bytes + 2 * B * H * D * 2
+               + B * pmax * 4 + B * 4, 4 * H * n_vis * D, fmt)
+        kp, ks, vp, vs, ko, vo = p0
+        fault(f"k11_{tag}", "scales one token late",
+              attn(q, kp, ks.roll(1, -1), vp, vs.roll(1, -1), bt, lengths,
+                   ko, vo), ref)
+        if int4:
+            fault("k11_int4", "offsets dropped",
+                  attn(q, kp, ks, vp, vs, bt, lengths, torch.zeros_like(ko),
+                       torch.zeros_like(vo)), ref)
+        del pools
+
+        # K12: the 8 slots' new rows at their positions
+        p1 = pool()
+        p_ref = [None if t is None else t.clone() for t in p1]
+
+        def wargs(p, at):
+            return (p[0], p[1], p[2], p[3], bt, at, p[4], p[5])
+
+        write(kn, vn, *wargs(p1, pos))
+        K.paged_write_plain(kn, vn, *wargs(p_ref, pos))
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(p1, p_ref) if a is not None)
+        ms = timed_ms(torch, [lambda: write(kn, vn, *wargs(p1, pos))], 500)
+        pms = timed_ms(torch, [lambda: K.paged_write_plain(
+            kn, vn, *wargs(p_ref, pos))], 20)
+        nbytes = (2 * B * Hkv * D * 2 + 2 * B * Hkv * D * (2 if int4 else 1)
+                  + 2 * B * Hkv * (8 if int4 else 4) + B * 8)
+        rows[f"k12_{tag}"].append(dict(
+            label=f"{tag} B={B} Hkv={Hkv} D={D} page={PAGE} pos={SLOT_POS}",
+            fmt=fmt, err=err, tol_ratio=0.0 if err == 0 else float("inf"),
+            ok=err == 0.0, ms=ms, plain_ms=pms, library_ms=None,
+            bound_ms=bound(nbytes, 0, peaks["bf16_s"], peaks)[0],
+            bound_by="bytes"))
+        print(f"k12_{tag} B={B} Hkv={Hkv} D={D} page={PAGE} pos={SLOT_POS} "
+              f"max_abs_err={err:.3e} (bit for bit) ok={err == 0.0} "
+              f"ms={ms:.4f} plain_ms={pms:.4f} library_ms=null (no single "
+              f"call quantizes and scatters a row) bound_ms="
+              f"{rows[f'k12_{tag}'][-1]['bound_ms']:.4f} (bytes)", flush=True)
+        if int4:
+            # a write to the partner token's nibble: the same byte row, the
+            # other half of the page
+            half = PAGE // 2
+            wrong = torch.where(pos % PAGE >= half, pos - half, pos + half)
+            p2 = pool()
+            p2_ref = [None if t is None else t.clone() for t in p2]
+            write(kn, vn, *wargs(p2, wrong))
+            K.paged_write_plain(kn, vn, *wargs(p2_ref, pos))
+            fault("k12_int4", "the wrong nibble written", p2[0], p2_ref[0],
+                  exact=True)
+            del p2, p2_ref
+        del p1, p_ref
+    bad = [r for rs in rows.values() for r in rs if not r["ok"]]
+    if bad:
+        fail(f"KV-cache kernel disagrees with its plain version: {bad}")
+    if missed:
+        fail(f"the KV-cache kernels' tolerance missed planted faults: "
+             f"{missed}")
+    return rows
+
+
+def phase_kv_envelope(torch) -> None:
+    """The quantized-KV kernels where llama2-7b does not take them, each
+    equal to its plain version bit for bit: GQA with 4 and 8 query heads a
+    KV head, head widths 64 (and 32, 256), all-zero K/V rows (scale 1,
+    offset 0), positions at 0, T - 1 and past the end, int4 writes at page
+    rows 0, 63, 64 and 127 (both nibbles of one byte row, in both orders),
+    zero-length and idle slots on the trash page, rows past the block
+    table, and two slots writing one trash-page row (that row excepted)."""
+    from neural_compressor_tpu_torch import kernels as K
+    from neural_compressor_tpu_torch.ops import kv_quant as kq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(37)
+    bad, n = [], 0
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def check(label, a, b):
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            bad.append(label)
+
+    def with_zero_rows(x):
+        x = x.clone()
+        x[..., 3, :] = 0          # a row of zeros: scale 1 (offset 0)
+        return x
+
+    # K6 and K7: GQA, head widths, zero rows, positions at the edges
+    for H, Hkv, D in ((16, 4, 64), (16, 2, 128), (8, 1, 32), (8, 2, 256)):
+        T = 96
+        for fmt in ("int8", "fp8_e4m3"):
+            kc, ks = kq.kv_quant(with_zero_rows(randn(2, Hkv, T, D)), fmt)
+            vc, vs = kq.kv_quant(with_zero_rows(randn(2, Hkv, T, D)), fmt)
+            tag = f"H={H} Hkv={Hkv} D={D} {fmt}"
+            for pos in (0, 3, T - 1, T, T + 3):
+                q, kn, vn = randn(1, H, D), randn(1, Hkv, D), randn(1, Hkv, D)
+                if pos == 3:
+                    kn, vn = kn * 0, vn * 0
+                check(f"k6 {tag} pos={pos}",
+                      K.decode_attn_quant(q, kn, vn, kc[:1].contiguous(),
+                                          ks[:1].contiguous(),
+                                          vc[:1].contiguous(),
+                                          vs[:1].contiguous(), pos),
+                      K.decode_attn_quant_plain(q, kn, vn, kc[:1], ks[:1],
+                                                vc[:1], vs[:1], pos))
+                n += 1
+            q = randn(2, H, D)
+            p = torch.tensor([3, T + 3], dtype=torch.int32, device=dev)
+            check(f"k7q {tag}", K.batched_decode_attn(q, kc, vc, p, ks, vs),
+                  K.batched_decode_attn_plain(q, kc, vc, p, ks, vs))
+            n += 1
+
+    # K11 and K12 over fp8 and int4 pools
+    for (H, Hkv, D, page), fmt in zip(
+            ((16, 4, 64, 16), (16, 2, 128, 128), (8, 1, 32, 32),
+             (32, 32, 128, 128), (16, 8, 256, 16), (8, 2, 64, 128)),
+            ("fp8_e4m3", "int4", "int4", "fp8_e4m3", "fp8_e4m3", "int4")):
+        int4 = fmt == "int4"
+        attn, write = K.paged_attn, K.paged_write
+        pmax, B = 3, 5
+        n_pages = (B - 1) * pmax + 1
+        k = kv_rows(kq, with_zero_rows(randn(n_pages, Hkv, page, D)),
+                    fmt)
+        v = kv_rows(kq, with_zero_rows(randn(n_pages, Hkv, page, D)),
+                    fmt)
+        pool = (k[0], k[1], v[0], v[1], k[2] if int4 else None,
+                v[2] if int4 else None)
+        bt = torch.arange(1, n_pages, dtype=torch.int32,
+                          device=dev).reshape(B - 1, pmax)
+        bt = torch.cat([bt, torch.zeros((1, pmax), dtype=torch.int32,
+                                        device=dev)])       # slot 4 idle
+        lengths = torch.tensor([1, page, 2 * page + 1, 0, pmax * page + 5],
+                               dtype=torch.int32, device=dev)
+        q = randn(B, H, D)
+        tag = f"H={H} Hkv={Hkv} D={D} page={page} {fmt}"
+        a = (pool[0], pool[1], pool[2], pool[3], bt, lengths, pool[4],
+             pool[5])
+        check(f"k11 {tag}", attn(q, *a), K.paged_attn_plain(q, *a))
+        n += 1
+        # writes: rows 0, page/2 - 1, page/2 and page - 1 of pages (both
+        # nibbles of byte rows 0 and page/2 - 1), the trash-page row of two
+        # idle slots, and a row past the table, dropped
+        bt_w = bt.clone()
+        bt_w[3] = 0
+        half = page // 2
+        for wpos in ([0, half - 1, 2 * page + half, pmax * page - 1,
+                      pmax * page - 1],
+                     [half, page - 1, 2 * page, pmax * page - 1,
+                      pmax * page + 2]):
+            wp = torch.tensor(wpos, dtype=torch.int32, device=dev)
+            kn, vn = randn(B, Hkv, D), randn(B, Hkv, D)
+            kn[1] = 0                       # an all-zero row
+            p_k = [None if t is None else t.clone() for t in pool]
+            p_p = [None if t is None else t.clone() for t in pool]
+            write(kn, vn, p_k[0], p_k[1], p_k[2], p_k[3], bt_w, wp, p_k[4],
+                  p_k[5])
+            K.paged_write_plain(kn, vn, p_p[0], p_p[1], p_p[2], p_p[3], bt_w,
+                                wp, p_p[4], p_p[5])
+            torch.cuda.synchronize()
+            for a_, b_ in zip(p_k, p_p):
+                if a_ is None:
+                    continue
+                a_, b_ = a_.clone(), b_.clone()
+                trash = (half - 1) if (int4 and a_.dtype == torch.uint8) \
+                    else page - 1
+                a_[0, :, trash] = 0          # the contended trash row
+                b_[0, :, trash] = 0
+                check(f"k12 {tag} pos={wpos}", a_.view(torch.uint8)
+                      if a_.dtype == torch.float8_e4m3fn else a_,
+                      b_.view(torch.uint8)
+                      if b_.dtype == torch.float8_e4m3fn else b_)
+            n += 1
+            pool = tuple(p_p)          # the next writes patch these bytes
+    # int4 writes at rows 63, 64 and 127 of a 128-row page, one at a time,
+    # so both nibbles of byte row 63 are written in turn
+    Hkv, D, page = 4, 128, 128
+    k = kv_rows(kq, randn(2, Hkv, page, D), "int4")
+    v = kv_rows(kq, randn(2, Hkv, page, D), "int4")
+    pk = [k[0], k[1], v[0], v[1], k[2], v[2]]
+    pp = [t.clone() for t in pk]
+    bt = torch.tensor([[1]], dtype=torch.int32, device=dev)
+    for r in (63, 64, 127, 0):
+        wp = torch.tensor([r], dtype=torch.int32, device=dev)
+        kn, vn = randn(1, Hkv, D), randn(1, Hkv, D)
+        K.paged_write(kn, vn, pk[0], pk[1], pk[2], pk[3], bt, wp, pk[4],
+                      pk[5])
+        K.paged_write_plain(kn, vn, pp[0], pp[1], pp[2], pp[3], bt, wp,
+                            pp[4], pp[5])
+        for a_, b_ in zip(pk, pp):
+            check(f"k12 int4 page row {r}", a_, b_)
+        n += 1
+    print(f"kv envelope: {n} kernel shapes, card vs plain: "
+          f"{'all equal' if not bad else bad}", flush=True)
+    if bad:
+        fail(f"quantized-KV kernels outside the llama2-7b shapes: {bad}")
+
+
+def phase_kv_serve(torch, nct, model) -> dict:
+    """The slice's path at full width and depth: llama2-7b asym-int4 g128
+    W4A16 (built with ``RTNConfig + KVCacheQuantConfig``) with int8 and with
+    fp8 caches, three greedy requests at B=1 each (prompts of 16, 100 and
+    371 tokens, 48 new, max_len 1024): prefill on the codes, K6 decode
+    attention, K9 decode projections, K8 (M <= 256) and dequantize-then-
+    matmul prefill. Exact launch counts; tok/s and peak memory; one decode
+    window of 8 steps profiled per format. Returns {format: launches}."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.kernels import dequant_dot
+    from neural_compressor_tpu_torch.models.llama import init_kv_cache
+
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, model.cfg.vocab_size, (1, P), generator=gen)
+               for P in PROMPTS]
+    steps = NEW_TOKENS - 1
+    n_proj = 4 * LAYERS + 1
+    short = sum(P <= 256 for P in PROMPTS)
+    out = {}
+    for fmt in ("int8", "fp8_e4m3"):
+        set_kv_format(model, fmt)
+        nct.greedy_search(model, prompts[0], max_new_tokens=4,
+                          max_len=MAX_LEN)
+        prefill_ms = []
+        with torch.no_grad():
+            for ids in prompts:
+                caches = init_kv_cache(model.cfg, 1, MAX_LEN, quantized=fmt,
+                                       device=model.device)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                model(ids.cuda(), None, caches, 0)
+                torch.cuda.synchronize()
+                prefill_ms.append((time.perf_counter() - t) * 1e3)
+                del caches
+        gc.collect()       # earlier engines' caches, held by cycles
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        dequant_dot.calls = 0
+        req_s, outs = [], []
+        for ids in prompts:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs.append(nct.greedy_search(model, ids,
+                                          max_new_tokens=NEW_TOKENS,
+                                          max_len=MAX_LEN))
+            torch.cuda.synchronize()
+            req_s.append(time.perf_counter() - t)
+        launches = launch_counts()
+        dots = dequant_dot.calls
+        # K6 attends, K12 writes the row (paged_write for int8 codes)
+        write = "paged_write" if fmt == "int8" else "paged_write_fp8"
+        want = expect(decode_attn_quant=len(PROMPTS) * steps * LAYERS,
+                      **{write: len(PROMPTS) * steps * LAYERS},
+                      dequant_gemm=short * n_proj,
+                      vpu_gemv=len(PROMPTS) * steps * n_proj)
+        want_dots = (len(PROMPTS) - short) * n_proj
+        cache_gib = (2 * LAYERS * HEADS * MAX_LEN * (HEAD_DIM + 4)) / 2**30
+        print(f"kv {fmt} B=1 kernels {json.dumps(launches)} expected "
+              f"{json.dumps(want)}; dequantize-then-matmul calls {dots} "
+              f"(expected {want_dots}); peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({fmt} "
+              f"cache of {MAX_LEN} rows: {cache_gib:.3f} GiB)", flush=True)
+        for ids, o, s_, pms in zip(prompts, outs, req_s, prefill_ms):
+            P = ids.shape[1]
+            if (tuple(o.shape) != (1, P + NEW_TOKENS)
+                    or not torch.equal(o[:, :P].cpu(), ids.to(torch.int32))
+                    or int(o.min()) < 0
+                    or int(o.max()) >= model.cfg.vocab_size):
+                fail(f"bad {fmt} greedy output for prompt {P}: {o}")
+            print(f"kv {fmt} request prompt={P} new={NEW_TOKENS}: "
+                  f"{s_ * 1e3:.1f} ms, prefill {pms:.2f} ms, decode "
+                  f"{steps / (s_ - pms / 1e3):.2f} tok/s (first new tokens "
+                  f"{o[0, P:P + 8].tolist()})", flush=True)
+        if launches != want or dots != want_dots:
+            fail(f"{fmt} B=1 launch counts {launches} != {want} or "
+                 f"dequantize-then-matmul calls {dots} != {want_dots}")
+        out[fmt] = launches
+
+        ids = prompts[1].cuda()
+        P = ids.shape[1]
+        with torch.no_grad():
+            caches = init_kv_cache(model.cfg, 1, MAX_LEN, quantized=fmt,
+                                   device=model.device)
+            model(ids, None, caches, 0)
+            tok = ids[:, -1:]
+
+            def decode8():
+                for i in range(8):
+                    model(tok, torch.full((1, 1), P + i, device="cuda"),
+                          caches, P + i)
+
+            decode8()
+            profile_window(torch, f"kv {fmt} B=1 decode x8", decode8)
+            del caches
+    set_kv_format(model, None)
+    return out
+
+
+def phase_kv_engine(torch, nct, model) -> dict:
+    """The W4A16 llama2-7b behind ``ContinuousBatchingEngine(n_slots=8,
+    max_len=1024)``, 16 greedy requests ``run(chunk=8)`` over contiguous
+    int8, fp8 and int4 caches and paged fp8 and int4 pools of 128-row
+    pages. Each decode step runs K8 at M = 8 and, per layer, K7's quantized
+    branch (int8, fp8), the int4 code-domain attention (plain PyTorch, as
+    in JAX), or K12 + K11 (fp8, int4 pools); prefill chunk row counts are
+    observed to derive K8 (M <= 256) against dequantize-then-matmul. Exact
+    launch counts, tok/s, cache bytes and peak memory; one B=8 decode
+    dispatch profiled per mode. Returns {mode: launches}."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.kernels import dequant_dot
+
+    V = model.cfg.vocab_size
+    gen = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, V, (PROMPTS[i % len(PROMPTS)],),
+                             generator=gen).numpy()
+               for i in range(ENGINE_REQUESTS)]
+    new = [48 + (7 * i) % 17 for i in range(ENGINE_REQUESTS)]   # 48-64
+    n_proj = 4 * LAYERS + 1
+    out = {}
+    for mode in KV_MODES:
+        _kw, fmt = ENGINE_MODES[mode]
+        paged = mode.startswith("paged")
+        eng = engine_for(nct, model, mode, n_slots=SLOTS, max_len=MAX_LEN,
+                         page_size=PAGE)
+        chunk_rows = []
+        prefill_forward = eng._prefill_forward
+
+        def observed(target, ids, *args, _f=prefill_forward):
+            chunk_rows.append(int(ids.shape[0]))
+            return _f(target, ids, *args)
+
+        eng._prefill_forward = observed
+        reqs = [eng.submit(p, max_new_tokens=m) for p, m in zip(prompts, new)]
+        gc.collect()       # earlier engines' caches, held by cycles
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        dequant_dot.calls = 0
+        t = time.perf_counter()
+        done = eng.run(chunk=CHUNK)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = launch_counts()
+        dots = dequant_dot.calls
+        if sorted(r.uid for r in done) != sorted(r.uid for r in reqs):
+            fail(f"kv engine {mode} finished {len(done)} of {len(reqs)}")
+        m = eng.metrics()
+        steps = CHUNK * m["decode_dispatches"]
+        C = eng.prefill_chunk
+        k8_chunks = sum(r * C <= 256 for r in chunk_rows)
+        if len(chunk_rows) != m["prefill_chunk_dispatches"]:
+            fail(f"{mode}: {len(chunk_rows)} prefill chunks seen, the engine "
+                 f"counted {m['prefill_chunk_dispatches']}")
+        attn = {"contiguous_int8": dict(batched_decode_attn_quant=1,
+                                        paged_write=1),
+                "contiguous_fp8": dict(batched_decode_attn_quant=1,
+                                       paged_write_fp8=1),
+                "contiguous_int4": {},
+                "paged_fp8": dict(paged_attn_fp8=1, paged_write_fp8=1),
+                "paged_int4": dict(paged_attn_int4=1,
+                                   paged_write_int4=1)}[mode]
+        want = expect(dequant_gemm=n_proj * (steps + k8_chunks),
+                      **{k: LAYERS * steps for k in attn})
+        want_dots = n_proj * (len(chunk_rows) - k8_chunks)
+        counters = {k: m[k] for k in (
+            "requests", "prompt_tokens", "generated_tokens",
+            "prefill_chunk_dispatches", "decode_dispatches",
+            "combined_dispatches", "preemptions")}
+        kv = (f"{eng.n_pages} pages of {PAGE} rows" if paged
+              else f"{SLOTS} x {MAX_LEN} rows")
+        print(f"kv engine {mode} ({kv}, {m['kv_cache_format']}, "
+              f"{m['kv_cache_bytes'] / 2**30:.3f} GiB of cache): {len(reqs)} "
+              f"requests in {seconds:.3f} s, generated "
+              f"{m['generated_tok_s']:.2f} tok/s (metrics wall "
+              f"{m['wall_s']:.3f} s), {json.dumps(counters)}, prefill chunk "
+              f"rows {chunk_rows} (chunk {C}), peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        print(f"kv engine {mode} kernels {json.dumps(launches)} expected "
+              f"{json.dumps(want)}; dequantize-then-matmul calls {dots} "
+              f"(expected {want_dots}, M > 256 only)", flush=True)
+        for r, p, n_ in zip(reqs, prompts, new):
+            if (len(r.generated) != n_ or min(r.generated) < 0
+                    or max(r.generated) >= V
+                    or not all(math.isfinite(x) for x in r.logprobs)):
+                fail(f"kv engine {mode}: bad output for a {len(p)}-token "
+                     f"prompt: {r.generated}")
+        print(f"kv engine {mode} first new tokens "
+              f"{[r.generated[:4] for r in reqs[:3]]}", flush=True)
+        if launches != want or dots != want_dots:
+            fail(f"kv engine {mode}: launch counts {launches} != {want} or "
+                 f"dequantize-then-matmul calls {dots} != {want_dots}")
+        out[mode] = launches
+        del eng
+        eng = engine_for(nct, model, mode, n_slots=SLOTS, max_len=MAX_LEN,
+                         page_size=PAGE)
+        for p in prompts[:SLOTS]:
+            eng.submit(p, max_new_tokens=64)
+        while eng.queue or "prefill" in eng.slot_state:
+            eng.run(max_steps=1, chunk=1)
+        profile_window(torch, f"kv engine {mode} decode dispatch, 8 slots x "
+                       f"{CHUNK} steps", lambda: eng.step_many(CHUNK))
+        del eng        # not run dry: the profile was all it was for
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -1526,26 +2323,54 @@ def main() -> None:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("  " + line.strip(), flush=True)
 
-    rows = phase_kernels(torch, nct, peaks)
-    erows = phase_engine_kernels(torch, nct, peaks)
-    wrows = phase_woq_kernels(torch, nct, peaks)
-    phase_envelope(torch, nct)
-    phase_engine_envelope(torch)
-    phase_woq_envelope(torch, nct)
-    phase_model_check(torch, nct)
-    phase_engine_check(torch, nct)
-    phase_woq_model_check(torch, nct)
-    launches, model, prompts = phase_serve(torch, nct)
-    phase_profile(torch, model, prompts[1])
+    checks = {"kernels": lambda: phase_kernels(torch, nct, peaks),
+              "engine_kernels": lambda: phase_engine_kernels(torch, nct,
+                                                             peaks),
+              "woq_kernels": lambda: phase_woq_kernels(torch, nct, peaks),
+              "kv_kernels": lambda: phase_kv_kernels(torch, nct, peaks),
+              "envelope": lambda: phase_envelope(torch, nct),
+              "engine_envelope": lambda: phase_engine_envelope(torch),
+              "woq_envelope": lambda: phase_woq_envelope(torch, nct),
+              "kv_envelope": lambda: phase_kv_envelope(torch),
+              "model_check": lambda: phase_model_check(torch, nct),
+              "engine_check": lambda: phase_engine_check(torch, nct),
+              "woq_model_check": lambda: phase_woq_model_check(torch, nct)}
+    if len(sys.argv) > 1:
+        # a development run: only the named checks, no serving, no result
+        unknown = [a for a in sys.argv[1:] if a not in checks]
+        if unknown:
+            fail(f"unknown checks {unknown}; choose from {sorted(checks)}")
+        for a in sys.argv[1:]:
+            checks[a]()
+        print(f"checks {sys.argv[1:]} passed", flush=True)
+        return
+    results = {k: timed_phase(k, fn) for k, fn in checks.items()}
+    rows, erows = results["kernels"], results["engine_kernels"]
+    wrows, kvrows = results["woq_kernels"], results["kv_kernels"]
+    launches, model, prompts = timed_phase(
+        "serve", lambda: phase_serve(torch, nct))
+    timed_phase("profile", lambda: phase_profile(torch, model, prompts[1]))
     by_path = {"greedy_b1": launches}
-    for mode, counts in phase_engine_serve(torch, nct, model).items():
+    for mode, counts in timed_phase(
+            "engine_serve",
+            lambda: phase_engine_serve(torch, nct, model)).items():
         by_path[f"engine_{mode}"] = counts
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    by_path["woq_greedy_b1"], model = phase_woq_serve(torch, nct)
-    by_path["woq_engine_contiguous"] = phase_woq_engine(torch, nct, model)
+    by_path["woq_greedy_b1"], model = timed_phase(
+        "woq_serve", lambda: phase_woq_serve(torch, nct))
+    by_path["woq_engine_contiguous"] = timed_phase(
+        "woq_engine", lambda: phase_woq_engine(torch, nct, model))
+    for fmt, counts in timed_phase(
+            "kv_serve", lambda: phase_kv_serve(torch, nct, model)).items():
+        by_path[f"kv_greedy_b1_{fmt}"] = counts
+    for mode, counts in timed_phase(
+            "kv_engine", lambda: phase_kv_engine(torch, nct, model)).items():
+        by_path[f"kv_engine_{mode}"] = counts
     del model
+    print(f"all phases done in {time.perf_counter() - T_START:.1f} s",
+          flush=True)
     print(f"launches by main path: {json.dumps(by_path)}", flush=True)
 
     proj = ("qkv", "o", "gate_up", "down")
@@ -1576,6 +2401,16 @@ def main() -> None:
                 mixed)
     k8_u["max_abs_err"] = max(r["err"] for r in wrows["k8"])
     k9_u = unit(wrows["k9"], per_layer, mixed)
+
+    def kv_unit(kind, pick=lambda r: True):
+        u = unit([r for r in kvrows[kind] if pick(r)], layers, bytes_)
+        u["max_abs_err"] = max(r["err"] for r in kvrows[kind])
+        return u
+
+    int8_at_unit = lambda r: (r["fmt"] == "int8"  # noqa: E731
+                              and r["label"].endswith(f"pos={UNIT_POS}"))
+    k6_u = kv_unit("k6", int8_at_unit)
+    k7q_u = kv_unit("k7q", lambda r: r["fmt"] == "int8")
     entries = [
         ("w4a8_gemm", "neural_compressor_tpu_torch/csrc/w4a8_gemm.cu",
          "neural_compressor_tpu/kernels/w4a8_matmul.py:88 (_w4a8_impl, K1); "
@@ -1603,6 +2438,31 @@ def main() -> None:
         ("vpu_gemv", "neural_compressor_tpu_torch/csrc/dequant_matmul.cu",
          "neural_compressor_tpu/kernels/dequant_matmul.py:286 "
          "(_vpu_matvec_impl, K9)", k9_u),
+        ("decode_attn_quant",
+         "neural_compressor_tpu_torch/csrc/decode_attention.cu",
+         "neural_compressor_tpu/kernels/decode_attention.py:482 "
+         "(_decode_attn_quant_ro_impl, K6)", k6_u),
+        ("batched_decode_attn_quant",
+         "neural_compressor_tpu_torch/csrc/batched_decode_attention.cu",
+         "neural_compressor_tpu/kernels/decode_attention.py:666 "
+         "(_batched_attn_impl, K7, int8/fp8 branch)", k7q_u),
+        ("paged_attn_fp8",
+         "neural_compressor_tpu_torch/csrc/paged_attention.cu",
+         "neural_compressor_tpu/kernels/paged_attention.py:489 "
+         "(_paged_attn_impl_v2, K11, fp8 pools)", kv_unit("k11_fp8")),
+        ("paged_attn_int4",
+         "neural_compressor_tpu_torch/csrc/paged_attention.cu",
+         "neural_compressor_tpu/kernels/paged_attention.py:489 "
+         "(_paged_attn_impl_v2, K11, int4 pools)", kv_unit("k11_int4")),
+        ("paged_write_fp8", "neural_compressor_tpu_torch/csrc/paged_write.cu",
+         "neural_compressor_tpu/kernels/paged_attention.py:641 "
+         "(_paged_write_impl, _write_kernel_quant, K12, fp8)",
+         kv_unit("k12_fp8")),
+        ("paged_write_int4",
+         "neural_compressor_tpu_torch/csrc/paged_write.cu",
+         "neural_compressor_tpu/kernels/paged_attention.py:615 "
+         "(_paged_write_impl, _write_kernel_int4, K12, int4)",
+         kv_unit("k12_int4")),
     ]
     print(smi, flush=True)
     print("unit of the kernels line: w4a8_gemm = one 128-token prefill "
@@ -1614,10 +2474,19 @@ def main() -> None:
           "(32 layers; paged_write has no single library call for int8); "
           "dequant_gemm = one 8-slot W4A16 decode step (32 x 4 + lm_head "
           "at M = 8); vpu_gemv = one B=1 W4A16 decode step (32 x 4 + "
-          "lm_head). launches: the sum over the main paths (W4A8: B=1 "
-          "greedy, the engine contiguous, the engine paged int8; W4A16: "
-          "B=1 greedy, the engine contiguous), each counted from 0",
-          flush=True)
+          "lm_head); decode_attn_quant = one B=1 decode step at pos 517 "
+          "over the int8 cache (32 layers; fp8 in the log); "
+          "batched_decode_attn_quant = the 8-slot step over the int8 "
+          "cache (32 layers); paged_attn_fp8/int4 and paged_write_fp8/int4 "
+          "= the 8-slot step over the fp8/int4 pool (32 layers; no single "
+          "library call writes a quantized row); paged_write and "
+          "paged_write_fp8 also count the decode rows K12 writes into "
+          "contiguous int8 and fp8 caches. launches: the sum over "
+          "the main paths (W4A8: B=1 greedy, the engine contiguous, the "
+          "engine paged int8; W4A16: B=1 greedy, the engine contiguous; "
+          "W4A16 with quantized KV caches: B=1 greedy over int8 and fp8, "
+          "the engine over contiguous int8, fp8 and int4 caches and paged "
+          "fp8 and int4 pools), each counted from 0", flush=True)
     kernels_line = {"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[n] for c in by_path.values()),

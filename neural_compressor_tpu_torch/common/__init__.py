@@ -1,5 +1,6 @@
 from .config import (
     BaseConfig,
+    ComposableConfig,
     ConfigRegistry,
     config_registry,
     register_config,

@@ -9,8 +9,11 @@ same thing to both packages:
 * ``to_config_mapping(model_info)`` resolves ``{(op_name, op_type): config}``;
 * ``register_config`` names each config class after its algorithm.
 
-Tuning expansion, composable configs and (de)serialization wait for the
-port of the tuning loop.
+* ``a + b`` composes configs into a ``ComposableConfig`` that ``quantize``
+  applies member by member (e.g. RTN weights + a quantized KV cache).
+
+Tuning expansion and (de)serialization wait for the port of the tuning
+loop.
 """
 
 from __future__ import annotations
@@ -88,8 +91,13 @@ class BaseConfig:
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self.to_dict()})"
 
+    def __add__(self, other: "BaseConfig") -> "ComposableConfig":
+        if isinstance(other, ComposableConfig):
+            return ComposableConfig([self, *other.config_list])
+        return ComposableConfig([self, other])
+
     @classmethod
-    def supported_op_types(cls) -> tuple[str, ...]:
+    def supported_op_types(cls) -> tuple[str, ...] | None:
         return ("Linear",)
 
     def _match(self, pattern: str, op_name: str, op_type: str) -> bool:
@@ -135,4 +143,29 @@ class BaseConfig:
                     cfg = local
                     break
             mapping[(op_name, op_type)] = cfg
+        return mapping
+
+
+class ComposableConfig(BaseConfig):
+    """Several algorithm configs applied together (e.g. WOQ + KV-cache);
+    ``quantize`` applies the members in order."""
+
+    name = "composable"
+
+    def __init__(self, config_list: list[BaseConfig]):
+        super().__init__()
+        self.config_list = list(config_list)
+
+    def __add__(self, other: BaseConfig) -> "ComposableConfig":
+        if isinstance(other, ComposableConfig):
+            return ComposableConfig([*self.config_list, *other.config_list])
+        return ComposableConfig([*self.config_list, other])
+
+    def to_dict(self) -> dict[str, Any]:
+        return {cfg.name: cfg.to_dict() for cfg in self.config_list}
+
+    def to_config_mapping(self, model_info):
+        mapping: dict[tuple[str, str], BaseConfig] = {}
+        for cfg in self.config_list:
+            mapping.update(cfg.to_config_mapping(model_info))
         return mapping

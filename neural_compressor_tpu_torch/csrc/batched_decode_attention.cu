@@ -1,31 +1,37 @@
-// Batched single-token decode attention over an already-updated bf16
-// head-major KV cache, one position per slot.
+// Batched single-token decode attention over an already-updated head-major
+// KV cache, one position per slot: bf16 rows, or int8 / fp8-e4m3 codes with
+// per-(token, head) float32 scales.
 //
 // Replaces: neural_compressor_tpu/kernels/decode_attention.py
-//   _batched_attn_impl / _kernel_batched (K7), bf16 caches.
+//   _batched_attn_impl / _kernel_batched (K7), bf16 caches and the quant
+//   branch (int8 / fp8 codes).
 //
 // Semantics (as K7): q [B, H, D] against caches [B, Hkv, T, D] that already
 //   hold each slot's new row at pos[b] (int32 [B], read here on the device:
-//   no host sync per layer); float32 scores times 1/sqrt(D); keys t > pos[b]
-//   masked out (a slot at or past T - 1 attends every row: the engine parks
-//   its idle slots on row T - 1 and lets them run on); p = exp(s - m)
+//   no host sync per layer); scores s = f32(q . k) [* k_scale] * 1/sqrt(D)
+//   (two float32 products, in K7's order); keys t > pos[b] masked out (a
+//   slot at or past T - 1 attends every row: the engine parks its idle
+//   slots on row T - 1 and lets them run on); p = exp(s - m) [* v_scale]
 //   rounded to bf16 for the PV product; l = sum exp(s - m) unrounded; the
-//   output is acc / l, normalised after PV as K7 does (K5 normalises first);
-//   rep = H/Hkv query heads per KV head; bf16 output.
+//   output is acc / l, normalised after PV as K7 does (K5 normalises
+//   first); rep = H/Hkv query heads per KV head; bf16 output. Quantized
+//   caches hold the slot's OWN quantized new row (the port writes its codes
+//   before the launch, as JAX does at B > 1).
 //
 // Bound on this card: bytes. Each visited cache row is read once for
-//   2*rep*D flops: 2*Hkv*(pos[b]+1)*D*2 bytes of K and V per slot.
+//   2*rep*D flops: 2*Hkv*(pos[b]+1)*D*2 bytes of K and V per slot for bf16,
+//   2*Hkv*(pos[b]+1)*(D+4) for codes and scales.
 //
 // Design: one block per (slot, KV head), B*Hkv blocks (256 at B = 8 for
 //   llama2-7b, against K5's 32); its rep query rows share every K and V row
 //   it reads. The block visits only rows t <= min(pos[b], T-1). Warps take
 //   rows round-robin and lanes split D, so each warp reads a whole row
-//   coalesced. Sums run in float64 over exact bf16 products and are rounded
-//   once, so their order almost never shows: the kernel and its plain
-//   version (kernels/decode_attention.py) agree bit for bit. The TPU kernel
-//   chunks T with an online softmax; one pass over the visited rows gives
-//   its result where one chunk covers them. A simple first kernel: no
-//   split of T across blocks, no TMA.
+//   coalesced. Sums run in float64 over exact products (bf16 x bf16, int8
+//   or e4m3) and are rounded once, so their order almost never shows: the
+//   kernel and its plain version (kernels/decode_attention.py) agree bit
+//   for bit. The TPU kernel chunks T with an online softmax; one pass over
+//   the visited rows gives its result where one chunk covers them. A
+//   simple first kernel: no split of T across blocks, no TMA.
 #include "nctt_common.cuh"
 
 namespace {
@@ -34,32 +40,18 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_REP = 8;
 
-template <int DPL>  // D / 32 elements per lane
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p,
-                                         float (&out)[DPL]) {
-  if constexpr (DPL == 1) {
-    out[0] = __bfloat162float(p[0]);
-  } else {
-    // DPL bf16 = 2*DPL bytes, 4-byte aligned for DPL >= 2
-#pragma unroll
-    for (int i = 0; i < DPL; i += 2) {
-      const __nv_bfloat162 v =
-          *reinterpret_cast<const __nv_bfloat162*>(p + i);
-      out[i] = __bfloat162float(v.x);
-      out[i + 1] = __bfloat162float(v.y);
-    }
-  }
-}
-
-template <int DPL>
+template <int DPL, typename C>
 __global__ void __launch_bounds__(THREADS)
 batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                                const __nv_bfloat16* __restrict__ kc,
-                                const __nv_bfloat16* __restrict__ vc,
+                                const C* __restrict__ kc,
+                                const C* __restrict__ vc,
+                                const float* __restrict__ ks,
+                                const float* __restrict__ vs,
                                 const int* __restrict__ pos,
                                 __nv_bfloat16* __restrict__ out, int H,
                                 int Hkv, int T, float scale) {
   constexpr int D = DPL * 32;
+  constexpr bool QUANT = !std::is_same<C, __nv_bfloat16>::value;
   extern __shared__ __align__(16) double smem[];
   const int rep = H / Hkv;
   const int hk = blockIdx.x, b = blockIdx.y;
@@ -71,9 +63,11 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   float* sp = sq + rep * D;                           // [rep][T]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t head = ((size_t)b * Hkv + hk) * (size_t)T * D;
-  const __nv_bfloat16* kh = kc + head;
-  const __nv_bfloat16* vh = vc + head;
+  const size_t bh = (size_t)b * Hkv + hk;
+  const C* kh = kc + bh * (size_t)T * D;
+  const C* vh = vc + bh * (size_t)T * D;
+  const float* ksh = QUANT ? ks + bh * (size_t)T : nullptr;
+  const float* vsh = QUANT ? vs + bh * (size_t)T : nullptr;
   const __nv_bfloat16* qh = q + ((size_t)b * H + (size_t)hk * rep) * D;
 
   for (int i = tid; i < rep * D; i += THREADS) sq[i] = __bfloat162float(qh[i]);
@@ -82,7 +76,7 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   // pass 1: scores
   for (int t = warp; t < L; t += WARPS) {
     float kv[DPL];
-    load_row<DPL>(kh + (size_t)t * D + lane * DPL, kv);
+    nctt::load_row<DPL>(kh + (size_t)t * D + lane * DPL, kv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= rep) break;
@@ -91,12 +85,17 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < DPL; ++e)
         d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
       d = nctt::warp_sum(d);
-      if (lane == 0) sp[r * T + t] = (float)d * scale;
+      if (lane == 0) {
+        float s = (float)d;
+        if constexpr (QUANT) s = s * ksh[t];
+        sp[r * T + t] = s * scale;
+      }
     }
   }
   __syncthreads();
 
-  // softmax numerators per query row: p = bf16(exp(s - m)), l unrounded
+  // softmax numerators per query row: p = bf16(f32(exp(s - m)) [* v_scale]),
+  // l unrounded
   for (int r = warp; r < rep; r += WARPS) {
     float* row = sp + r * T;
     float m = -INFINITY;
@@ -106,7 +105,9 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int t = lane; t < L; t += 32) {
       const double e = exp((double)row[t] - (double)m);
       l += e;
-      row[t] = __bfloat162float(__float2bfloat16_rn((float)e));
+      float pe = (float)e;
+      if constexpr (QUANT) pe = pe * vsh[t];
+      row[t] = __bfloat162float(__float2bfloat16_rn(pe));
     }
     l = nctt::warp_sum(l);
     if (lane == 0) sl[r] = l;
@@ -121,7 +122,7 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < DPL; ++e) o[r][e] = 0.0;
   for (int t = warp; t < L; t += WARPS) {
     float vv[DPL];
-    load_row<DPL>(vh + (size_t)t * D + lane * DPL, vv);
+    nctt::load_row<DPL>(vh + (size_t)t * D + lane * DPL, vv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= rep) break;
@@ -147,43 +148,64 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DPL>
-int launch(const void* q, const void* k, const void* v, const void* pos,
-           void* out, int B, int H, int Hkv, int T, float scale,
-           cudaStream_t stream) {
+template <int DPL, typename C>
+int launch(const void* q, const void* k, const void* v, const void* ks,
+           const void* vs, const void* pos, void* out, int B, int H, int Hkv,
+           int T, float scale, cudaStream_t stream) {
   const int D = DPL * 32, rep = H / Hkv;
   const size_t smem = sizeof(double) * ((size_t)WARPS * rep * D + rep) +
       sizeof(float) * ((size_t)rep * D + (size_t)rep * T);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        batched_decode_attention_kernel<DPL>,
+        batched_decode_attention_kernel<DPL, C>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  batched_decode_attention_kernel<DPL><<<dim3(Hkv, B), THREADS, smem,
-                                         stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int*)pos, (__nv_bfloat16*)out, H, Hkv,
-      T, scale);
+  batched_decode_attention_kernel<DPL, C><<<dim3(Hkv, B), THREADS, smem,
+                                            stream>>>(
+      (const __nv_bfloat16*)q, (const C*)k, (const C*)v, (const float*)ks,
+      (const float*)vs, (const int*)pos, (__nv_bfloat16*)out, H, Hkv, T,
+      scale);
   return (int)cudaGetLastError();
+}
+
+template <typename C>
+int dispatch(const void* q, const void* k, const void* v, const void* ks,
+             const void* vs, const void* pos, void* out, int B, int H,
+             int Hkv, int T, int D, float scale, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch<1, C>(q, k, v, ks, vs, pos, out, B, H, Hkv, T,
+                                 scale, s);
+    case 64: return launch<2, C>(q, k, v, ks, vs, pos, out, B, H, Hkv, T,
+                                 scale, s);
+    case 128: return launch<4, C>(q, k, v, ks, vs, pos, out, B, H, Hkv, T,
+                                  scale, s);
+    case 256: return launch<8, C>(q, k, v, ks, vs, pos, out, B, H, Hkv, T,
+                                  scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// q bf16 [B, H, D]; caches bf16 [B, Hkv, T, D] holding each slot's row
-// pos[b]; pos int32 [B]; out bf16 [B, H, D]. D in {32, 64, 128, 256};
-// 1 <= H/Hkv <= 8.
+// q bf16 [B, H, D]; caches [B, Hkv, T, D] holding each slot's row pos[b]:
+// bf16 (code 0; ks/vs null), int8 (code 1) or e4m3 (code 2) with scales
+// f32 [B, Hkv, T]; pos int32 [B]; out bf16 [B, H, D]. D in
+// {32, 64, 128, 256}; 1 <= H/Hkv <= 8.
 NCTT_API int nctt_batched_decode_attention(const void* q, const void* k,
-                                           const void* v, const void* pos,
+                                           const void* v, const void* ks,
+                                           const void* vs, const void* pos,
                                            void* out, int B, int H, int Hkv,
-                                           int T, int D, float scale,
-                                           void* stream) {
+                                           int T, int D, int code,
+                                           float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 32: return launch<1>(q, k, v, pos, out, B, H, Hkv, T, scale, s);
-    case 64: return launch<2>(q, k, v, pos, out, B, H, Hkv, T, scale, s);
-    case 128: return launch<4>(q, k, v, pos, out, B, H, Hkv, T, scale, s);
-    case 256: return launch<8>(q, k, v, pos, out, B, H, Hkv, T, scale, s);
+  switch (code) {
+    case 0: return dispatch<__nv_bfloat16>(q, k, v, ks, vs, pos, out, B, H,
+                                           Hkv, T, D, scale, s);
+    case 1: return dispatch<int8_t>(q, k, v, ks, vs, pos, out, B, H, Hkv, T,
+                                    D, scale, s);
+    case 2: return dispatch<nctt::fp8e4m3>(q, k, v, ks, vs, pos, out, B, H,
+                                           Hkv, T, D, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,9 @@
-// B = 1 single-token decode attention over a bf16 head-major KV cache.
+// B = 1 single-token decode attention over a head-major KV cache: bf16 rows
+// (K5), or int8 / fp8-e4m3 codes with per-(token, head) float32 scales (K6).
 //
 // Replaces: neural_compressor_tpu/kernels/decode_attention.py
-//   _decode_attn_ro_impl / _kernel_ro (K5).
+//   _decode_attn_ro_impl / _kernel_ro (K5), and
+//   _decode_attn_quant_ro_impl / _kernel_q_ro (K6).
 //
 // Semantics (as K5): q [B, H, D] against caches [B, Hkv, T, D] that already
 //   hold the new row at `pos` (the port writes it in place before the
@@ -9,20 +11,29 @@
 //   1/sqrt(D); keys t > pos masked out; softmax; probabilities cast to bf16
 //   before the PV product; float32 accumulation; rep = H/Hkv query heads per
 //   KV head; bf16 output.
+// Semantics (as K6): the same over codes, with the RAW bf16 new row
+//   (k_new, v_new [B, Hkv, D]) at `pos` and scale 1 there, whatever the
+//   cache holds at pos (the port writes the row's codes after the launch);
+//   pos is read on the device, and at pos >= T every code row is attended
+//   and no raw row is folded in, as the TPU kernel's mask leaves them:
+//   s = f32(q . k) * f32(k_scale * 1/sqrt(D)); p = f32(exp(s - m) / l) *
+//   v_scale, rounded to bf16 for PV. int8 and e4m3 codes convert to float
+//   exactly (e4m3 through Hopper's conversion to half).
 //
 // Bound on this card: bytes. Each visited cache row is read once for
-//   2*rep*D flops: 2*Hkv*(pos+1)*D*2 bytes of K and V per layer.
+//   2*rep*D flops: 2*Hkv*(pos+1)*D*2 bytes of K and V per layer for bf16,
+//   2*Hkv*min(pos+1, T)*(D+4) for codes and scales.
 //
 // Design: one block per (batch, KV head); its rep query rows share every K
 //   and V row it reads. The block visits only rows t <= pos (the -1e30 mask
 //   makes the others contribute exactly 0). Warps take rows round-robin and
 //   lanes split D, so each warp reads a whole row coalesced. Sums run in
-//   float64 over exact bf16 products and are rounded once, so their order
+//   float64 over exact products and are rounded once, so their order
 //   almost never shows: the kernel and its plain version
 //   (kernels/decode_attention.py) agree bit for bit, and an int8
 //   activation quantization downstream sees the same values on the card
-//   and on the CPU. In order: scores s = f32(sum q*k) * scale into shared
-//   memory; per query row l = sum exp(f64(s) - m); p = bf16(f32(e / l));
+//   and on the CPU. In order: scores into shared memory; per query row
+//   l = sum exp(f64(s) - m); p = bf16(f32(e / l) [* v_scale]);
 //   o = bf16(f32(sum p*v)) with a cross-warp sum in shared memory. A simple
 //   first kernel: only Hkv*B blocks, no split of T across blocks.
 #include "nctt_common.cuh"
@@ -32,22 +43,6 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_REP = 8;
-
-template <int DPL>  // D / 32 elements per lane
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p,
-                                         float (&out)[DPL]) {
-  if constexpr (DPL == 1) {
-    out[0] = __bfloat162float(p[0]);
-  } else {
-    // DPL bf16 = 2*DPL bytes, 4-byte aligned for DPL >= 2
-#pragma unroll
-    for (int i = 0; i < DPL; i += 2) {
-      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p + i);
-      out[i] = __bfloat162float(v.x);
-      out[i + 1] = __bfloat162float(v.y);
-    }
-  }
-}
 
 template <int DPL>
 __global__ void __launch_bounds__(THREADS)
@@ -77,7 +72,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   // pass 1: scores
   for (int t = warp; t < L; t += WARPS) {
     float kv[DPL];
-    load_row<DPL>(kh + (size_t)t * D + lane * DPL, kv);
+    nctt::load_row<DPL>(kh + (size_t)t * D + lane * DPL, kv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= rep) break;
@@ -115,7 +110,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < DPL; ++e) o[r][e] = 0.0;
   for (int t = warp; t < L; t += WARPS) {
     float vv[DPL];
-    load_row<DPL>(vh + (size_t)t * D + lane * DPL, vv);
+    nctt::load_row<DPL>(vh + (size_t)t * D + lane * DPL, vv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= rep) break;
@@ -159,6 +154,158 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   return (int)cudaGetLastError();
 }
 
+// K6: the same walk over int8 / e4m3 codes (C), the raw new row at pos
+template <int DPL, typename C>
+__global__ void __launch_bounds__(THREADS)
+decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ kn,
+                              const __nv_bfloat16* __restrict__ vn,
+                              const C* __restrict__ kc,
+                              const float* __restrict__ ks,
+                              const C* __restrict__ vc,
+                              const float* __restrict__ vs,
+                              __nv_bfloat16* __restrict__ out, int H, int Hkv,
+                              int T, const int* __restrict__ pos_b,
+                              float scale) {
+  constexpr int D = DPL * 32;
+  extern __shared__ __align__(16) double smem[];
+  const int rep = H / Hkv;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  // pos at or past T: every code row, no raw row (JAX's mask keeps all T)
+  const int pos = pos_b[b];
+  const int L = min(max(pos, 0), T - 1) + 1;          // visited rows
+  double* sred = smem;                                // [WARPS][rep][D]
+  float* sq = reinterpret_cast<float*>(sred + WARPS * rep * D);  // [rep][D]
+  float* sp = sq + rep * D;                           // [rep][L]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t bh = (size_t)b * Hkv + hk;
+  const C* kh = kc + bh * (size_t)T * D;
+  const C* vh = vc + bh * (size_t)T * D;
+  const float* ksh = ks + bh * (size_t)T;
+  const float* vsh = vs + bh * (size_t)T;
+  const __nv_bfloat16* knh = kn + bh * D;
+  const __nv_bfloat16* vnh = vn + bh * D;
+  const __nv_bfloat16* qh = q + ((size_t)b * H + (size_t)hk * rep) * D;
+
+  for (int i = tid; i < rep * D; i += THREADS) sq[i] = __bfloat162float(qh[i]);
+  __syncthreads();
+
+  // pass 1: scores, s = f32(q . k) * f32(k_scale * scale)
+  for (int t = warp; t < L; t += WARPS) {
+    float kv[DPL];
+    if (t == pos)
+      nctt::load_row<DPL>(knh + lane * DPL, kv);
+    else
+      nctt::load_row<DPL>(kh + (size_t)t * D + lane * DPL, kv);
+    const float ksc = (t == pos ? 1.0f : ksh[t]) * scale;
+#pragma unroll
+    for (int r = 0; r < MAX_REP; ++r) {
+      if (r >= rep) break;
+      double d = 0.0;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e)
+        d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
+      d = nctt::warp_sum(d);
+      if (lane == 0) sp[r * L + t] = (float)d * ksc;
+    }
+  }
+  __syncthreads();
+
+  // softmax per query row; p = bf16(f32(e / l) * v_scale)
+  for (int r = warp; r < rep; r += WARPS) {
+    float* row = sp + r * L;
+    float m = -INFINITY;
+    for (int t = lane; t < L; t += 32) m = fmaxf(m, row[t]);
+    m = nctt::warp_max(m);
+    double l = 0.0;
+    for (int t = lane; t < L; t += 32) l += exp((double)row[t] - (double)m);
+    l = nctt::warp_sum(l);
+    for (int t = lane; t < L; t += 32) {
+      const double e = exp((double)row[t] - (double)m);
+      const float vsc = t == pos ? 1.0f : vsh[t];
+      row[t] = __bfloat162float(__float2bfloat16_rn((float)(e / l) * vsc));
+    }
+  }
+  __syncthreads();
+
+  // pass 2: PV, each warp over its rows, then a cross-warp sum
+  double o[MAX_REP][DPL];
+#pragma unroll
+  for (int r = 0; r < MAX_REP; ++r)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) o[r][e] = 0.0;
+  for (int t = warp; t < L; t += WARPS) {
+    float vv[DPL];
+    if (t == pos)
+      nctt::load_row<DPL>(vnh + lane * DPL, vv);
+    else
+      nctt::load_row<DPL>(vh + (size_t)t * D + lane * DPL, vv);
+#pragma unroll
+    for (int r = 0; r < MAX_REP; ++r) {
+      if (r >= rep) break;
+      const double p = sp[r * L + t];
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) o[r][e] += p * (double)vv[e];
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < MAX_REP; ++r) {
+    if (r >= rep) break;
+#pragma unroll
+    for (int e = 0; e < DPL; ++e)
+      sred[(warp * rep + r) * D + lane * DPL + e] = o[r][e];
+  }
+  __syncthreads();
+  __nv_bfloat16* oh = out + ((size_t)b * H + (size_t)hk * rep) * D;
+  for (int i = tid; i < rep * D; i += THREADS) {
+    double acc = 0.0;
+#pragma unroll
+    for (int wi = 0; wi < WARPS; ++wi) acc += sred[wi * rep * D + i];
+    oh[i] = __float2bfloat16_rn((float)acc);
+  }
+}
+
+template <int DPL, typename C>
+int launch_quant(const void* q, const void* kn, const void* vn,
+                 const void* kc, const void* ks, const void* vc,
+                 const void* vs, void* out, int B, int H, int Hkv, int T,
+                 const int* pos, float scale, cudaStream_t stream) {
+  const int D = DPL * 32, rep = H / Hkv;
+  const size_t smem = sizeof(double) * (size_t)WARPS * rep * D +
+      sizeof(float) * ((size_t)rep * D + (size_t)rep * T);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_attention_quant_kernel<DPL, C>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  decode_attention_quant_kernel<DPL, C><<<dim3(Hkv, B), THREADS, smem,
+                                          stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
+      (const __nv_bfloat16*)vn, (const C*)kc, (const float*)ks, (const C*)vc,
+      (const float*)vs, (__nv_bfloat16*)out, H, Hkv, T, pos, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename C>
+int dispatch_quant(const void* q, const void* kn, const void* vn,
+                   const void* kc, const void* ks, const void* vc,
+                   const void* vs, void* out, int B, int H, int Hkv, int T,
+                   int D, const int* pos, float scale, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch_quant<1, C>(q, kn, vn, kc, ks, vc, vs, out, B, H,
+                                       Hkv, T, pos, scale, s);
+    case 64: return launch_quant<2, C>(q, kn, vn, kc, ks, vc, vs, out, B, H,
+                                       Hkv, T, pos, scale, s);
+    case 128: return launch_quant<4, C>(q, kn, vn, kc, ks, vc, vs, out, B, H,
+                                        Hkv, T, pos, scale, s);
+    case 256: return launch_quant<8, C>(q, kn, vn, kc, ks, vc, vs, out, B, H,
+                                        Hkv, T, pos, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // q bf16 [B, H, D]; caches bf16 [B, Hkv, T, D] holding row `pos`;
@@ -175,4 +322,24 @@ NCTT_API int nctt_decode_attention(const void* q, const void* k,
     case 256: return launch<8>(q, k, v, out, B, H, Hkv, T, pos, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// q bf16 [B, H, D]; k_new/v_new bf16 [B, Hkv, D] (the raw new rows, folded
+// in at pos[b]); codes int8 (fp8 = 0) or e4m3 (fp8 = 1) [B, Hkv, T, D];
+// scales f32 [B, Hkv, T]; pos int32 [B] on the device (pos >= T: all T
+// code rows, no raw row); out bf16 [B, H, D]. D in {32, 64, 128, 256};
+// 1 <= H/Hkv <= 8.
+NCTT_API int nctt_decode_attention_quant(const void* q, const void* kn,
+                                         const void* vn, const void* kc,
+                                         const void* ks, const void* vc,
+                                         const void* vs, void* out, int B,
+                                         int H, int Hkv, int T, int D,
+                                         const void* pos_b, int fp8,
+                                         float scale, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* pos = (const int*)pos_b;
+  return fp8 ? dispatch_quant<nctt::fp8e4m3>(q, kn, vn, kc, ks, vc, vs, out,
+                                             B, H, Hkv, T, D, pos, scale, s)
+             : dispatch_quant<int8_t>(q, kn, vn, kc, ks, vc, vs, out, B, H,
+                                      Hkv, T, D, pos, scale, s);
 }

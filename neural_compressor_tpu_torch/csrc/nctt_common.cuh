@@ -2,8 +2,13 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 #define NCTT_API extern "C" __attribute__((visibility("default")))
 
@@ -41,6 +46,77 @@ __device__ __forceinline__ void unpack8(uint32_t w, uint32_t& lo4,
   od = __vsub4(od ^ 0x08080808u, 0x08080808u);
   lo4 = __byte_perm(ev, od, 0x5140);
   hi4 = __byte_perm(ev, od, 0x7362);
+}
+
+// One fp8-e4m3 code (the bits of torch.float8_e4m3fn), a type of its own so
+// that the loaders below can tell it from an int8 code.
+struct fp8e4m3 {
+  uint8_t bits;
+};
+
+// Cache rows and codes as float, exactly: bf16 values, int8 codes, and
+// e4m3 codes through Hopper's conversion to half (every e4m3 value,
+// subnormals included, is a half).
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
+__device__ __forceinline__ float to_float(fp8e4m3 x) {
+  return __half2float(
+      __half(__nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)x.bits, __NV_E4M3)));
+}
+
+// float -> e4m3 bits, round to nearest even (the caller clips to +-448)
+__device__ __forceinline__ uint8_t to_e4m3(float x) {
+  return (uint8_t)__nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);
+}
+
+// N consecutive bytes from an N-aligned address, in one load for N <= 8
+template <int N>
+__device__ __forceinline__ void load_bytes(const void* p, uint8_t (&b)[N]) {
+  if constexpr (N == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    memcpy(b, &v, 8);
+  } else if constexpr (N == 4) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+    memcpy(b, &v, 4);
+  } else if constexpr (N == 2) {
+    const uint16_t v = *reinterpret_cast<const uint16_t*>(p);
+    memcpy(b, &v, 2);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) b[i] = reinterpret_cast<const uint8_t*>(p)[i];
+  }
+}
+
+// DPL consecutive elements of a cache row as float: bf16 rows by bf16x2
+// loads (4-byte aligned for DPL >= 2), one-byte codes (int8, e4m3) by one
+// load of DPL bytes
+template <int DPL, typename C>
+__device__ __forceinline__ void load_row(const C* p, float (&out)[DPL]) {
+  if constexpr (std::is_same<C, __nv_bfloat16>::value) {
+    if constexpr (DPL == 1) {
+      out[0] = __bfloat162float(p[0]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < DPL; i += 2) {
+        const __nv_bfloat162 v =
+            *reinterpret_cast<const __nv_bfloat162*>(p + i);
+        out[i] = __bfloat162float(v.x);
+        out[i + 1] = __bfloat162float(v.y);
+      }
+    }
+  } else {
+    static_assert(sizeof(C) == 1, "one-byte codes");
+    uint8_t b[DPL];
+    load_bytes<DPL>(p, b);
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) {
+      C c;
+      memcpy(&c, &b[e], 1);
+      out[e] = to_float(c);
+    }
+  }
 }
 
 }  // namespace nctt

@@ -1,34 +1,42 @@
-// Single-token decode attention over a paged KV pool (bf16 rows, or int8
-// codes with per-(token, head) float32 scales).
+// Single-token decode attention over a paged KV pool: bf16 rows, int8 or
+// fp8-e4m3 codes with per-(token, head) float32 scales, or int4
+// token-half-split nibbles with per-(token, head) affine scale and offset.
 //
 // Replaces: neural_compressor_tpu/kernels/paged_attention.py
-//   _paged_attn_impl_v2 / _paged_kernel_v2 (K11), bf16 and int8 pools,
-//   without window or softcap.
+//   _paged_attn_impl_v2 / _paged_kernel_v2 (K11), bf16, int8, fp8 and int4
+//   pools, without window or softcap.
 //
-// Semantics (as K11): q [B, H, D]; pools [P, Hkv, page, D]; scales
-//   [P, Hkv, page]; block_tables int32 [B, PMAX] map a slot's logical page
-//   j to a pool page; lengths int32 [B] count the slot's rows, the new one
-//   included (written before the launch by paged_write.cu). Row t of slot b
-//   is row t % page of pool page block_tables[b, t / page]. Scores
-//   s = f32(q . k) [* k_scale] * 1/sqrt(D) (two float32 products, in K11's
-//   order); rows t >= lengths[b] masked; p = exp(s - m) [* v_scale],
-//   rounded to bf16 for the PV product; l = sum exp(s - m) unrounded;
+// Semantics (as K11): q [B, H, D]; pools [P, Hkv, page, D] (int4:
+//   [P, Hkv, page/2, D] bytes, token r in the low nibble of byte row r and
+//   token r + page/2 in the high, value = scale * (nibble - 8) + off);
+//   scales and offsets [P, Hkv, page]; block_tables int32 [B, PMAX] map a
+//   slot's logical page j to a pool page; lengths int32 [B] count the
+//   slot's rows, the new one included (written before the launch by
+//   paged_write.cu). Row t of slot b is row t % page of pool page
+//   block_tables[b, t / page]. Scores s = f32(q . k) [* k_scale]
+//   [+ f32(sum q) * k_off] * 1/sqrt(D) (float32 operations in K11's order,
+//   none fused); rows t >= lengths[b] masked; p = exp(s - m) [* v_scale],
+//   rounded to bf16 for the PV product; l = sum exp(s - m) unrounded; int4
+//   adds corr = sum_t f32(exp(s - m)) * v_off[t] to the PV sum in float32;
 //   out = acc / max(l, 1e-30). A slot of length 0 gives exact zeros.
 //
 // Bound on this card: bytes. Each visited row is read once: 2*Hkv*len*D
-//   code bytes (x2 for bf16) plus 2*Hkv*len*4 scale bytes per slot.
+//   code bytes (x2 for bf16, /2 for int4) plus 2*Hkv*len*4 scale bytes
+//   (x2 with int4 offsets) per slot.
 //
 // Design: one block per (slot, KV head); its rep query rows share every
 //   row it reads. The block walks the slot's block table up to
 //   min(lengths[b], PMAX*page) rows: warps take rows round-robin, lanes
-//   split D. Idle engine slots have every block-table entry 0 (the trash
-//   page) and a full length: they read page 0 again and again, which is
-//   valid memory, and their output is never used. Sums run in float64 over
-//   exact products (bf16 x bf16, bf16 x int8) and are rounded once, so the
-//   kernel and its plain version (kernels/paged_attention.py) agree bit
-//   for bit. The TPU kernel's online softmax over 4-page groups equals this
-//   one pass where one group covers the visited pages. A simple first
-//   kernel: no split of the rows across blocks, no TMA or cp.async.
+//   split D (an int4 lane loads its DPL bytes of the token's byte row and
+//   keeps one nibble of each). Idle engine slots have every block-table
+//   entry 0 (the trash page) and a full length: they read page 0 again and
+//   again, which is valid memory, and their output is never used. Sums run
+//   in float64 over exact products (bf16 x bf16, int8, e4m3 or a nibble)
+//   and are rounded once, so the kernel and its plain version
+//   (kernels/paged_attention.py) agree bit for bit. The TPU kernel's online
+//   softmax over 4-page groups equals this one pass where one group covers
+//   the visited pages. A simple first kernel: no split of the rows across
+//   blocks, no TMA or cp.async.
 #include "nctt_common.cuh"
 
 namespace {
@@ -37,33 +45,57 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_REP = 8;
 
-template <int DPL, bool QUANT>
-__device__ __forceinline__ void load_row(const void* base, size_t off,
-                                         float (&out)[DPL]) {
-  if constexpr (QUANT) {
-    const int8_t* p = reinterpret_cast<const int8_t*>(base) + off;
+// pool formats, as kernels/paged_attention.py numbers them
+constexpr int BF16 = 0, INT8 = 1, FP8 = 2, INT4 = 3;
+
+template <int FMT>
+struct Code;
+template <> struct Code<BF16> { using T = __nv_bfloat16; };
+template <> struct Code<INT8> { using T = int8_t; };
+template <> struct Code<FP8> { using T = nctt::fp8e4m3; };
+template <> struct Code<INT4> { using T = uint8_t; };
+
+// lane's DPL elements of row r of pool page `pid` (head hk) as float
+template <int DPL, int FMT>
+__device__ __forceinline__ void load_page_row(const void* pages, int pid,
+                                              int hk, int Hkv, int page,
+                                              int r, int lane,
+                                              float (&out)[DPL]) {
+  constexpr int D = DPL * 32;
+  using C = typename Code<FMT>::T;
+  if constexpr (FMT == INT4) {
+    const int half = page >> 1;
+    const size_t brow = ((size_t)pid * Hkv + hk) * half + r % half;
+    uint8_t b[DPL];
+    nctt::load_bytes<DPL>(reinterpret_cast<const uint8_t*>(pages) +
+                              brow * D + lane * DPL, b);
+    const bool hi = r >= half;
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) out[e] = (float)p[e];
+    for (int e = 0; e < DPL; ++e)
+      out[e] = (float)((int)(hi ? b[e] >> 4 : b[e] & 15) - 8);
   } else {
-    const __nv_bfloat16* p =
-        reinterpret_cast<const __nv_bfloat16*>(base) + off;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) out[e] = __bfloat162float(p[e]);
+    const size_t row = ((size_t)pid * Hkv + hk) * page + r;
+    nctt::load_row<DPL>(reinterpret_cast<const C*>(pages) + row * D +
+                            lane * DPL, out);
   }
 }
 
-template <int DPL, bool QUANT>
+template <int DPL, int FMT>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const void* __restrict__ kp,
                        const float* __restrict__ ks,
+                       const float* __restrict__ ko,
                        const void* __restrict__ vp,
                        const float* __restrict__ vs,
+                       const float* __restrict__ vo,
                        const int* __restrict__ bt,
                        const int* __restrict__ lengths,
                        __nv_bfloat16* __restrict__ out, int H, int Hkv,
                        int page, int PMAX, float scale) {
   constexpr int D = DPL * 32;
+  constexpr bool QUANT = FMT != BF16;
+  constexpr bool AFFINE = FMT == INT4;
   extern __shared__ __align__(16) double smem[];
   const int rep = H / Hkv;
   const int W = PMAX * page;
@@ -79,19 +111,32 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
   double* sred = smem;                                // [WARPS][rep][D]
   double* sl = sred + WARPS * rep * D;                // [rep]
-  float* sq = reinterpret_cast<float*>(sl + rep);     // [rep][D]
-  float* sp = sq + rep * D;                           // [rep][W]
+  double* scorr = sl + rep;                           // [rep] (int4)
+  float* sq = reinterpret_cast<float*>(scorr + rep);  // [rep][D]
+  float* sqsum = sq + rep * D;                        // [rep] (int4)
+  float* sp = sqsum + rep;                            // [rep][W]
   const int* btb = bt + (size_t)b * PMAX;
   const __nv_bfloat16* qh = q + ((size_t)b * H + (size_t)hk * rep) * D;
 
   for (int i = tid; i < rep * D; i += THREADS) sq[i] = __bfloat162float(qh[i]);
   __syncthreads();
+  if constexpr (AFFINE) {
+    // sum of each query row, for the rank-1 offset term of the scores
+    for (int r = warp; r < rep; r += WARPS) {
+      double qs = 0.0;
+      for (int d = lane; d < D; d += 32) qs += (double)sq[r * D + d];
+      qs = nctt::warp_sum(qs);
+      if (lane == 0) sqsum[r] = (float)qs;
+    }
+    __syncthreads();
+  }
 
   // pass 1: scores
   for (int t = warp; t < L; t += WARPS) {
-    const size_t srow = ((size_t)btb[t / page] * Hkv + hk) * page + t % page;
+    const int pid = btb[t / page], rr = t % page;
+    const size_t sidx = ((size_t)pid * Hkv + hk) * page + rr;
     float kv[DPL];
-    load_row<DPL, QUANT>(kp, srow * D + lane * DPL, kv);
+    load_page_row<DPL, FMT>(kp, pid, hk, Hkv, page, rr, lane, kv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= rep) break;
@@ -102,43 +147,53 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       d = nctt::warp_sum(d);
       if (lane == 0) {
         float s = (float)d;
-        if constexpr (QUANT) s = s * ks[srow];
-        sp[r * W + t] = s * scale;
+        if constexpr (QUANT) s = __fmul_rn(s, ks[sidx]);
+        if constexpr (AFFINE) s = __fadd_rn(s, __fmul_rn(sqsum[r], ko[sidx]));
+        sp[r * W + t] = __fmul_rn(s, scale);
       }
     }
   }
   __syncthreads();
 
-  // softmax numerators: p = bf16(f32(exp(s - m)) [* v_scale]), l unrounded
+  // softmax numerators: p = bf16(f32(exp(s - m)) [* v_scale]), l unrounded;
+  // int4: corr = sum f32(exp(s - m)) * v_off
   for (int r = warp; r < rep; r += WARPS) {
     float* row = sp + r * W;
     float m = -INFINITY;
     for (int t = lane; t < L; t += 32) m = fmaxf(m, row[t]);
     m = nctt::warp_max(m);
-    double l = 0.0;
+    double l = 0.0, corr = 0.0;
     for (int t = lane; t < L; t += 32) {
       const double e = exp((double)row[t] - (double)m);
       l += e;
       float pe = (float)e;
-      if constexpr (QUANT)
-        pe = pe * vs[((size_t)btb[t / page] * Hkv + hk) * page + t % page];
+      if constexpr (QUANT) {
+        const size_t sidx = ((size_t)btb[t / page] * Hkv + hk) * page +
+            t % page;
+        if constexpr (AFFINE) corr += (double)pe * (double)vo[sidx];
+        pe = __fmul_rn(pe, vs[sidx]);
+      }
       row[t] = __bfloat162float(__float2bfloat16_rn(pe));
     }
     l = nctt::warp_sum(l);
-    if (lane == 0) sl[r] = l;
+    if constexpr (AFFINE) corr = nctt::warp_sum(corr);
+    if (lane == 0) {
+      sl[r] = l;
+      scorr[r] = corr;
+    }
   }
   __syncthreads();
 
-  // pass 2: PV, each warp over its rows, then a cross-warp sum and / l
+  // pass 2: PV, each warp over its rows, then a cross-warp sum, + corr, / l
   double o[MAX_REP][DPL];
 #pragma unroll
   for (int r = 0; r < MAX_REP; ++r)
 #pragma unroll
     for (int e = 0; e < DPL; ++e) o[r][e] = 0.0;
   for (int t = warp; t < L; t += WARPS) {
-    const size_t srow = ((size_t)btb[t / page] * Hkv + hk) * page + t % page;
     float vv[DPL];
-    load_row<DPL, QUANT>(vp, srow * D + lane * DPL, vv);
+    load_page_row<DPL, FMT>(vp, btb[t / page], hk, Hkv, page, t % page, lane,
+                            vv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= rep) break;
@@ -159,67 +214,78 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     double acc = 0.0;
 #pragma unroll
     for (int wi = 0; wi < WARPS; ++wi) acc += sred[wi * rep * D + i];
-    oh[i] = __float2bfloat16_rn((float)acc / fmaxf((float)sl[i / D], 1e-30f));
+    float a = (float)acc;
+    if constexpr (AFFINE) a = __fadd_rn(a, (float)scorr[i / D]);
+    oh[i] = __float2bfloat16_rn(
+        __fdiv_rn(a, fmaxf((float)sl[i / D], 1e-30f)));
   }
 }
 
-template <int DPL, bool QUANT>
-int launch(const void* q, const void* kp, const void* ks, const void* vp,
-           const void* vs, const void* bt, const void* lengths, void* out,
-           int B, int H, int Hkv, int page, int PMAX, float scale,
-           cudaStream_t stream) {
+template <int DPL, int FMT>
+int launch(const void* q, const void* kp, const void* ks, const void* ko,
+           const void* vp, const void* vs, const void* vo, const void* bt,
+           const void* lengths, void* out, int B, int H, int Hkv, int page,
+           int PMAX, float scale, cudaStream_t stream) {
   const int D = DPL * 32, rep = H / Hkv;
-  const size_t smem = sizeof(double) * ((size_t)WARPS * rep * D + rep) +
-      sizeof(float) * ((size_t)rep * D + (size_t)rep * PMAX * page);
+  const size_t smem = sizeof(double) * ((size_t)WARPS * rep * D + 2 * rep) +
+      sizeof(float) * ((size_t)rep * D + rep + (size_t)rep * PMAX * page);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<DPL, QUANT>,
+        paged_attention_kernel<DPL, FMT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  paged_attention_kernel<DPL, QUANT><<<dim3(Hkv, B), THREADS, smem,
-                                       stream>>>(
-      (const __nv_bfloat16*)q, kp, (const float*)ks, vp, (const float*)vs,
-      (const int*)bt, (const int*)lengths, (__nv_bfloat16*)out, H, Hkv, page,
-      PMAX, scale);
+  paged_attention_kernel<DPL, FMT><<<dim3(Hkv, B), THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, kp, (const float*)ks, (const float*)ko, vp,
+      (const float*)vs, (const float*)vo, (const int*)bt, (const int*)lengths,
+      (__nv_bfloat16*)out, H, Hkv, page, PMAX, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool QUANT>
-int dispatch(const void* q, const void* kp, const void* ks, const void* vp,
-             const void* vs, const void* bt, const void* lengths, void* out,
-             int B, int H, int Hkv, int page, int PMAX, int D, float scale,
-             cudaStream_t s) {
+template <int FMT>
+int dispatch(const void* q, const void* kp, const void* ks, const void* ko,
+             const void* vp, const void* vs, const void* vo, const void* bt,
+             const void* lengths, void* out, int B, int H, int Hkv, int page,
+             int PMAX, int D, float scale, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<1, QUANT>(q, kp, ks, vp, vs, bt, lengths, out, B,
-                                     H, Hkv, page, PMAX, scale, s);
-    case 64: return launch<2, QUANT>(q, kp, ks, vp, vs, bt, lengths, out, B,
-                                     H, Hkv, page, PMAX, scale, s);
-    case 128: return launch<4, QUANT>(q, kp, ks, vp, vs, bt, lengths, out, B,
-                                      H, Hkv, page, PMAX, scale, s);
-    case 256: return launch<8, QUANT>(q, kp, ks, vp, vs, bt, lengths, out, B,
-                                      H, Hkv, page, PMAX, scale, s);
+    case 32: return launch<1, FMT>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
+                                   out, B, H, Hkv, page, PMAX, scale, s);
+    case 64: return launch<2, FMT>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
+                                   out, B, H, Hkv, page, PMAX, scale, s);
+    case 128: return launch<4, FMT>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
+                                    out, B, H, Hkv, page, PMAX, scale, s);
+    case 256: return launch<8, FMT>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
+                                    out, B, H, Hkv, page, PMAX, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q bf16 [B, H, D]; k/v pages bf16 or int8 [P, Hkv, page, D]; k/v scales
-// f32 [P, Hkv, page] (int8 pools; null for bf16); block_tables int32
-// [B, PMAX]; lengths int32 [B]; out bf16 [B, H, D]. D in {32, 64, 128, 256};
-// 1 <= H/Hkv <= 8.
+// q bf16 [B, H, D]; k/v pages [P, Hkv, page, D] bf16 (fmt 0), int8 (1) or
+// e4m3 (2), or [P, Hkv, page/2, D] int4 bytes (3); k/v scales f32
+// [P, Hkv, page] (null for bf16); k/v offsets f32 [P, Hkv, page] (int4
+// only); block_tables int32 [B, PMAX]; lengths int32 [B]; out bf16
+// [B, H, D]. `page` counts tokens. D in {32, 64, 128, 256}; 1 <= H/Hkv <= 8.
 NCTT_API int nctt_paged_decode_attention(const void* q, const void* kp,
-                                         const void* ks, const void* vp,
-                                         const void* vs, const void* bt,
+                                         const void* ks, const void* ko,
+                                         const void* vp, const void* vs,
+                                         const void* vo, const void* bt,
                                          const void* lengths, void* out,
                                          int B, int H, int Hkv, int P,
-                                         int page, int PMAX, int D, int quant,
+                                         int page, int PMAX, int D, int fmt,
                                          float scale, void* stream) {
   (void)P;
   cudaStream_t s = (cudaStream_t)stream;
-  return quant ? dispatch<true>(q, kp, ks, vp, vs, bt, lengths, out, B, H,
-                                Hkv, page, PMAX, D, scale, s)
-               : dispatch<false>(q, kp, ks, vp, vs, bt, lengths, out, B, H,
-                                 Hkv, page, PMAX, D, scale, s);
+  switch (fmt) {
+    case BF16: return dispatch<BF16>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
+                                     out, B, H, Hkv, page, PMAX, D, scale, s);
+    case INT8: return dispatch<INT8>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
+                                     out, B, H, Hkv, page, PMAX, D, scale, s);
+    case FP8: return dispatch<FP8>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
+                                   out, B, H, Hkv, page, PMAX, D, scale, s);
+    case INT4: return dispatch<INT4>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
+                                     out, B, H, Hkv, page, PMAX, D, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -1,8 +1,9 @@
 """Greedy generation for the port's causal LMs.
 
 The counterpart of ``neural_compressor_tpu.generation.generate``'s greedy
-path: a prefill fills a contiguous KV cache, then a decode loop feeds back
-the argmax token. PyTorch runs eagerly, so there is no cached program;
+path: a prefill fills a contiguous KV cache (in the model's KV format:
+bf16, or int8, fp8-e4m3 or int4 codes when ``KVCacheQuantConfig`` flagged
+the model), then a decode loop feeds back the argmax token. PyTorch runs eagerly, so there is no cached program;
 the loop is plain Python over the model's forward. A batch of B > 1
 prompts decodes through the batched attention kernel (K7); serving many
 requests over contiguous or paged caches is
@@ -18,7 +19,7 @@ from typing import Callable
 
 import torch
 
-from ..models.llama import init_kv_cache
+from ..models.llama import init_kv_cache, model_kv_format
 
 
 def _pick_greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -64,7 +65,9 @@ def greedy_search(model, input_ids, max_new_tokens: int = 32,
     if total < P + max_new_tokens - 1:
         raise ValueError(f"max_len={total} cannot hold {P} prompt tokens "
                          f"and {max_new_tokens} new ones")
-    caches = init_kv_cache(model.cfg, B, total, device=model.device)
+    caches = init_kv_cache(model.cfg, B, total,
+                           quantized=model_kv_format(model),
+                           device=model.device)
     return _prefill_and_loop(model, ids, caches, max_new_tokens,
                              eos_token_id, _pick_greedy)
 

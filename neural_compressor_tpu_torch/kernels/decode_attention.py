@@ -1,29 +1,42 @@
-"""Single-token decode attention over a bf16 head-major KV cache: B=1
-(K5) and batched with per-slot positions (K7).
+"""Single-token decode attention over a head-major KV cache: B=1 over bf16
+(K5) and over int8/fp8 codes (K6), and batched with per-slot positions
+over bf16 or int8/fp8 codes (K7).
 
 q [B, H, D] against caches [B, Hkv, T, D]; the ``rep = H / Hkv`` query
 heads of a KV head share its rows (GQA). Scores are float32 times
 ``1/sqrt(D)``, keys after ``pos`` are masked out, the softmax
-probabilities are cast to the cache dtype (bf16) before the PV product.
-K5 sums in float32; the port sums in float64 over the exact bf16 products
-and rounds once, so the summation order almost never shows (the
-two differ by less than float32's rounding).
+probabilities are cast to bf16 before the PV product. The TPU kernels sum
+in float32; the port sums in float64 over the exact products and rounds
+once, so the summation order almost never shows (the two differ by less
+than float32's rounding).
 
-Ports ``neural_compressor_tpu/kernels/decode_attention.py``
-``_decode_attn_ro_impl`` / ``_kernel_ro`` (K5). The TPU kernel reads the
-cache read-only and folds the new K/V row in by a select at ``pos``; JAX
-writes that row into the cache right after the kernel. The port writes the
-row into the cache first, in place, and then attends: the kernel sees the
-same values (the select uses the row cast to the cache dtype), and the
-cache is updated without a copy. The CUDA kernel is
-``csrc/decode_attention.cu``; it visits only the rows ``t <= pos``, which
-is what the -1e30 mask leaves of the softmax.
-
-K7 ports ``_batched_attn_impl`` / ``_kernel_batched`` for bf16 caches
-(``csrc/batched_decode_attention.cu``): per-slot ``pos`` [B] read on the
-device, and K7's order of operations, which normalises after PV (K5
-normalises before the bf16 cast). Its int8/fp8 branch waits for
-``QuantKVCache`` and K6.
+Ports ``neural_compressor_tpu/kernels/decode_attention.py``:
+  * K5, ``_decode_attn_ro_impl`` / ``_kernel_ro`` (``decode_attn``,
+    ``csrc/decode_attention.cu``). The TPU kernel reads the cache
+    read-only and folds the new K/V row in by a select at ``pos``; JAX
+    writes that row into the cache right after the kernel. The port writes
+    the row into the cache first, in place, and then attends: the kernel
+    sees the same values (the select uses the row cast to the cache
+    dtype), and the cache is updated without a copy. It visits only the
+    rows ``t <= pos``, which is what the -1e30 mask leaves of the softmax.
+  * K6, ``_decode_attn_quant_ro_impl`` / ``_kernel_q_ro``
+    (``decode_attn_quant``, a second entry of ``csrc/decode_attention.cu``):
+    K5 over int8 or fp8-e4m3 codes with per-(token, head) float32 scales.
+    The scores are ``f32(q . code) * f32(k_scale * D^-1/2)``, the
+    normalised probabilities times ``v_scale`` are cast to bf16 for PV.
+    The new row is folded in RAW (bf16, scale 1) at ``pos``: the kernel
+    never reads the cache there, so its codes may be written before or
+    after (``decode_attention_quant`` writes them after, as JAX does).
+    Per-slot positions are read on the device; at ``pos >= T`` (a slot
+    running on past its end inside a multi-step dispatch) it attends all
+    T code rows and no raw row, as the TPU kernel's mask leaves them.
+  * K7, ``_batched_attn_impl`` / ``_kernel_batched``
+    (``batched_decode_attn``, bf16 caches or int8/fp8 codes, its launches
+    counted per format; ``csrc/batched_decode_attention.cu``): per-slot
+    ``pos`` [B] read on the device, and K7's order of operations, which
+    normalises after PV (K5 normalises before the bf16 cast); scales
+    multiply the scores before ``D^-1/2`` and the probabilities before
+    the bf16 cast.
 """
 
 from __future__ import annotations
@@ -116,25 +129,172 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
 
 
 # ---------------------------------------------------------------------------
+# K6: B=1 attention over int8/fp8 codes, the raw new row folded in at pos
+# ---------------------------------------------------------------------------
+
+_CODE_DTYPES = (torch.int8, torch.float8_e4m3fn)
+
+
+def _as_f64(codes: torch.Tensor) -> torch.Tensor:
+    """Cache rows (bf16, int8 or fp8 codes) as float64, exactly."""
+    if codes.dtype == torch.float8_e4m3fn:
+        codes = codes.to(torch.bfloat16)
+    return codes.to(torch.float64)
+
+
+def pos_vector(pos, B: int, device) -> torch.Tensor:
+    """``pos`` (an int, or a tensor of one or B positions) as a contiguous
+    int32 [B] tensor on ``device``; a tensor is not read back."""
+    if not isinstance(pos, torch.Tensor):
+        return torch.full((B,), int(pos), dtype=torch.int32, device=device)
+    return pos.reshape(-1).to(device=device,
+                              dtype=torch.int32).expand(B).contiguous()
+
+
+def decode_attn_quant_plain(q, k_new, v_new, k_codes, k_scale, v_codes,
+                            v_scale, pos) -> torch.Tensor:
+    """Plain PyTorch version of K6: q [B, H, D] bf16; ``k_new``/``v_new``
+    [B, Hkv, D] bf16, the raw new rows; codes [B, Hkv, T, D] int8 or fp8;
+    scales [B, Hkv, T] float32; ``pos`` an int or int32 [B] -> [B, H, D]
+    bf16. Row ``pos[b]`` is the raw new row with scale 1, whatever the
+    cache holds there; a slot at ``pos >= T`` attends all T code rows and
+    no raw row, as the TPU kernel's mask leaves them.
+
+    ``_kernel_q_ro``'s order of operations: ``s = f32(q . k) *
+    f32(k_scale * D^-1/2)``, keys after ``pos`` masked, ``p =
+    f32(exp(s - m) / l) * v_scale`` rounded to bf16 for PV. Sums in float64
+    over exact products, rounded once, as the CUDA kernel does."""
+    B, H, D = q.shape
+    Hkv, T = k_codes.shape[1], k_codes.shape[2]
+    rep = H // Hkv
+    f64, f32 = torch.float64, torch.float32
+    dev = q.device
+    p = pos_vector(pos, B, dev).to(torch.int64)
+    t = torch.arange(T, device=dev)[None, :]
+    raw = (t == p[:, None])[:, None, :]                       # [B, 1, T]
+    valid = (t <= p.clamp(0, T - 1)[:, None])[:, None, None]  # [B,1,1,T]
+    k = torch.where(raw[..., None], k_new.to(f64)[:, :, None],
+                    _as_f64(k_codes))
+    v = torch.where(raw[..., None], v_new.to(f64)[:, :, None],
+                    _as_f64(v_codes))
+    one = torch.ones((), dtype=f32, device=dev)
+    ks = torch.where(raw, one, k_scale)
+    vs = torch.where(raw, one, v_scale)
+    scale = torch.tensor(1.0 / (D ** 0.5), dtype=f32)
+    qr = q.reshape(B, Hkv, rep, D).to(f64)
+    s = torch.einsum("bgrd,bgtd->bgrt", qr, k).to(f32) \
+        * (ks * scale)[:, :, None, :]
+    s = torch.where(valid, s, torch.tensor(-1e30, device=dev))
+    e = torch.exp(s.to(f64) - s.amax(dim=-1, keepdim=True).to(f64))
+    e = torch.where(valid, e, torch.zeros((), dtype=f64, device=dev))
+    pr = (e / e.sum(dim=-1, keepdim=True)).to(f32) * vs[:, :, None, :]
+    o = torch.einsum("bgrt,bgtd->bgrd", pr.to(torch.bfloat16).to(f64), v)
+    return o.to(f32).reshape(B, H, D).to(q.dtype)
+
+
+def _k6_smem(rep: int, D: int, T: int) -> int:
+    # csrc/decode_attention.cu: cross-warp float64 partials, q rows, score
+    # rows over up to T rows
+    return 8 * 8 * rep * D + 4 * (rep * D + rep * T)
+
+
+def decode_attn_quant(q, k_new, v_new, k_codes, k_scale, v_codes, v_scale,
+                      pos) -> torch.Tensor:
+    """K6 on the card (``csrc/decode_attention.cu``,
+    ``nctt_decode_attention_quant``); the plain version for CPU tensors.
+    Arguments as in ``decode_attn_quant_plain``; ``pos`` stays on the
+    device (the kernel reads it, no host sync)."""
+    if q.device.type == "cpu":
+        return decode_attn_quant_plain(q, k_new, v_new, k_codes, k_scale,
+                                       v_codes, v_scale, pos)
+    dev = q.device
+    B, H, D = q.shape
+    _b, Hkv, T, _d = k_codes.shape
+    rep = H // Hkv if Hkv else 0
+    if not (D in (32, 64, 128, 256) and Hkv * rep == H and 1 <= rep <= 8
+            and T >= 1):
+        raise ValueError(f"decode_attn_quant needs D in (32, 64, 128, 256) "
+                         f"and 1 <= H/Hkv <= 8 (H={H}, Hkv={Hkv}, D={D}, "
+                         f"T={T})")
+    if k_codes.dtype not in _CODE_DTYPES:
+        raise ValueError(f"decode_attn_quant takes int8 or fp8 codes, not "
+                         f"{k_codes.dtype}")
+    if _k6_smem(rep, D, T) > 227 * 1024:
+        raise ValueError(f"decode_attn_quant: T={T} needs "
+                         f"{_k6_smem(rep, D, T)} bytes of shared memory, "
+                         "more than a block has")
+    cdt = k_codes.dtype
+    pos = pos_vector(pos, B, dev)
+    _build.require(q, "q", torch.bfloat16, dev, (B, H, D))
+    _build.require(k_new, "k_new", torch.bfloat16, dev, (B, Hkv, D))
+    _build.require(v_new, "v_new", torch.bfloat16, dev, (B, Hkv, D))
+    _build.require(k_codes, "k_codes", cdt, dev, (B, Hkv, T, D))
+    _build.require(v_codes, "v_codes", cdt, dev, (B, Hkv, T, D))
+    _build.require(k_scale, "k_scale", torch.float32, dev, (B, Hkv, T))
+    _build.require(v_scale, "v_scale", torch.float32, dev, (B, Hkv, T))
+    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
+    err = _build.library().nctt_decode_attention_quant(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_codes.data_ptr(),
+        k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
+        out.data_ptr(), B, H, Hkv, T, D, pos.data_ptr(),
+        int(cdt == torch.float8_e4m3fn), 1.0 / (D ** 0.5),
+        _build.stream_handle(dev))
+    _build.check(err, "nctt_decode_attention_quant")
+    decode_attn_quant.launches += 1
+    return out
+
+
+decode_attn_quant.launches = 0
+
+
+def decode_attention_quant(q, k_new, v_new, cache, pos):
+    """Single-token attention over an int8/fp8 ``QuantKVCache``
+    (``neural_compressor_tpu``'s ``decode_attention_quant``): K6 attends
+    the raw new row at ``pos``, then the row's codes and scales are written
+    into the cache IN PLACE (K12, ``models.llama._write_quant_row``).
+    q [B, H, 1, D]; ``k_new``/``v_new`` [B, Hkv, 1, D]; ``pos`` an int or
+    a tensor of per-slot positions, never read back. Returns
+    (out [B, H, 1, D], cache)."""
+    from ..models.llama import _write_quant_row
+
+    B = q.shape[0]
+    if q.shape[2] != 1:
+        raise ValueError("decode attention is single-token")
+    if cache.fmt == "int4":
+        raise ValueError("int4 caches take the grouped code-domain "
+                         "attention (models.llama._grouped_attention_int4)")
+    pos = pos_vector(pos, B, q.device)
+    out = decode_attn_quant(q[:, :, 0].contiguous(),
+                            k_new[:, :, 0].contiguous(),
+                            v_new[:, :, 0].contiguous(), cache.k_codes,
+                            cache.k_scale, cache.v_codes, cache.v_scale, pos)
+    return out[:, :, None], _write_quant_row(cache, k_new, v_new, pos)
+
+
+# ---------------------------------------------------------------------------
 # K7: batched single-token attention over an already-updated cache
 # ---------------------------------------------------------------------------
 
 
 def batched_decode_attn_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                              v_cache: torch.Tensor,
-                              pos: torch.Tensor) -> torch.Tensor:
+                              v_cache: torch.Tensor, pos: torch.Tensor,
+                              k_scale: torch.Tensor | None = None,
+                              v_scale: torch.Tensor | None = None
+                              ) -> torch.Tensor:
     """Plain PyTorch version of K7: q [B, H, D] bf16; caches [B, Hkv, T, D]
-    bf16 already holding each slot's row ``pos[b]``; ``pos`` int32 [B]
-    (a slot at or past T - 1 attends every row) -> [B, H, D] bf16.
+    (bf16, or int8/fp8 codes with per-(token, head) float32 ``k_scale``/
+    ``v_scale`` [B, Hkv, T]) already holding each slot's row ``pos[b]``;
+    ``pos`` int32 [B] (a slot at or past T - 1 attends every row) ->
+    [B, H, D] bf16.
 
-    K7's order of operations: float32 scores times ``1/sqrt(D)``, keys
-    after ``pos[b]`` masked, ``exp(s - m)`` rounded to bf16 for the PV
-    product, ``l = sum exp(s - m)`` unrounded, and ``acc / l`` at the end
-    (``decode_attention.py:596-614``). Sums run in float64 over exact
-    products and round once, as the CUDA kernel does. The TPU kernel takes
-    its running max over T-chunks; one pass over the visited rows gives the
-    final max, which is what it computes whenever one chunk covers them
-    (T <= 1024 at D = 128)."""
+    K7's order of operations: float32 scores [times ``k_scale``] times
+    ``1/sqrt(D)``, keys after ``pos[b]`` masked, ``exp(s - m)`` [times
+    ``v_scale``] rounded to bf16 for the PV product, ``l = sum exp(s - m)``
+    unrounded, and ``acc / l`` at the end (``decode_attention.py:570-614``).
+    Sums run in float64 over exact products and round once, as the CUDA
+    kernel does. The TPU kernel takes its running max over T-chunks; one
+    pass over the visited rows gives the final max, which is what it
+    computes whenever one chunk covers them (T <= 1024 at D = 128)."""
     B, H, D = q.shape
     Hkv, T = k_cache.shape[1], k_cache.shape[2]
     rep = H // Hkv
@@ -143,14 +303,20 @@ def batched_decode_attn_plain(q: torch.Tensor, k_cache: torch.Tensor,
     valid = (torch.arange(T, device=q.device)[None, :]
              <= last[:, None])[:, None, None, :]              # [B,1,1,T]
     qr = q.reshape(B, Hkv, rep, D).to(f64)
-    s = torch.einsum("bgrd,bgtd->bgrt", qr, k_cache.to(f64)).to(
-        torch.float32) * (1.0 / (D ** 0.5))
+    s = torch.einsum("bgrd,bgtd->bgrt", qr, _as_f64(k_cache)).to(
+        torch.float32)
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, :]
+    s = s * (1.0 / (D ** 0.5))
     s = torch.where(valid, s, torch.tensor(-1e30, device=q.device))
     e = torch.exp(s.to(f64) - s.amax(dim=-1, keepdim=True).to(f64))
     e = torch.where(valid, e, torch.zeros((), dtype=f64, device=q.device))
     l = e.sum(dim=-1, keepdim=True).to(torch.float32)
-    p = e.to(torch.float32).to(torch.bfloat16)
-    acc = torch.einsum("bgrt,bgtd->bgrd", p.to(f64), v_cache.to(f64))
+    pe = e.to(torch.float32)
+    if v_scale is not None:
+        pe = pe * v_scale[:, :, None, :]
+    p = pe.to(torch.bfloat16)
+    acc = torch.einsum("bgrt,bgtd->bgrd", p.to(f64), _as_f64(v_cache))
     out = acc.to(torch.float32) / l
     return out.reshape(B, H, D).to(q.dtype)
 
@@ -161,42 +327,61 @@ def _batched_smem(rep: int, D: int, T: int) -> int:
     return 8 * 8 * rep * D + 4 * (rep * D + rep * T) + 8 * rep
 
 
+# cache dtype -> (format name, csrc/batched_decode_attention.cu's code)
+_K7_FORMATS = {torch.bfloat16: ("bf16", 0), torch.int8: ("int8", 1),
+               torch.float8_e4m3fn: ("fp8_e4m3", 2)}
+
+
 def batched_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
-                        v_cache: torch.Tensor,
-                        pos: torch.Tensor) -> torch.Tensor:
-    """K7 on the card (``csrc/batched_decode_attention.cu``); the plain
-    version for CPU tensors. Arguments as in ``batched_decode_attn_plain``;
-    ``pos`` stays on the device (the kernel reads it, no host sync)."""
+                        v_cache: torch.Tensor, pos: torch.Tensor,
+                        k_scale: torch.Tensor | None = None,
+                        v_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """K7 on the card (``csrc/batched_decode_attention.cu``) over bf16
+    caches, or int8/fp8-e4m3 codes with their scales; the plain version for
+    CPU tensors. Arguments as in ``batched_decode_attn_plain``; ``pos``
+    stays on the device (the kernel reads it, no host sync). Launches are
+    counted per cache format in ``batched_decode_attn.launches``."""
     if q.device.type == "cpu":
-        return batched_decode_attn_plain(q, k_cache, v_cache, pos)
+        return batched_decode_attn_plain(q, k_cache, v_cache, pos, k_scale,
+                                         v_scale)
+    name = "batched_decode_attn"
     dev = q.device
     B, H, D = q.shape
     _b, Hkv, T, _d = k_cache.shape
     rep = H // Hkv if Hkv else 0
     if not (D in (32, 64, 128, 256) and Hkv * rep == H and 1 <= rep <= 8
             and T >= 1):
-        raise ValueError(f"batched_decode_attn needs D in (32, 64, 128, 256) "
-                         f"and "
+        raise ValueError(f"{name} needs D in (32, 64, 128, 256) and "
                          f"1 <= H/Hkv <= 8 (H={H}, Hkv={Hkv}, D={D}, T={T})")
     if _batched_smem(rep, D, T) > 227 * 1024:
-        raise ValueError(f"batched_decode_attn: T={T} needs "
-                         f"{_batched_smem(rep, D, T)} bytes of shared memory, "
-                         "more than a block has")
+        raise ValueError(f"{name}: T={T} needs {_batched_smem(rep, D, T)} "
+                         "bytes of shared memory, more than a block has")
+    cdt = k_cache.dtype
+    fmt, code = _K7_FORMATS.get(cdt, (None, None))
+    if fmt is None or (code == 0) != (k_scale is None):
+        raise ValueError(f"{name}: {cdt} caches "
+                         f"{'with' if k_scale is not None else 'without'} "
+                         "scales")
     _build.require(q, "q", torch.bfloat16, dev, (B, H, D))
-    _build.require(k_cache, "k_cache", torch.bfloat16, dev, (B, Hkv, T, D))
-    _build.require(v_cache, "v_cache", torch.bfloat16, dev, (B, Hkv, T, D))
+    _build.require(k_cache, "k_cache", cdt, dev, (B, Hkv, T, D))
+    _build.require(v_cache, "v_cache", cdt, dev, (B, Hkv, T, D))
+    if code:
+        _build.require(k_scale, "k_scale", torch.float32, dev, (B, Hkv, T))
+        _build.require(v_scale, "v_scale", torch.float32, dev, (B, Hkv, T))
     _build.require(pos, "pos", torch.int32, dev, (B,))
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
     err = _build.library().nctt_batched_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), B, H, Hkv, T, D, 1.0 / (D ** 0.5),
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        k_scale.data_ptr() if code else None,
+        v_scale.data_ptr() if code else None, pos.data_ptr(),
+        out.data_ptr(), B, H, Hkv, T, D, code, 1.0 / (D ** 0.5),
         _build.stream_handle(dev))
     _build.check(err, "nctt_batched_decode_attention")
-    batched_decode_attn.launches += 1
+    batched_decode_attn.launches[fmt] += 1
     return out
 
 
-batched_decode_attn.launches = 0
+batched_decode_attn.launches = dict.fromkeys(("bf16", "int8", "fp8_e4m3"), 0)
 
 
 def batched_decode_attention(q, k_cache, v_cache, pos, k_scale=None,
@@ -204,21 +389,16 @@ def batched_decode_attention(q, k_cache, v_cache, pos, k_scale=None,
     """Single-token attention over an ALREADY-UPDATED cache, per-slot
     positions (``neural_compressor_tpu``'s ``batched_decode_attention``).
 
-    q [B, H, 1, D]; caches [B, Hkv, T, D] bf16; ``pos`` an int or a [B]
-    tensor. Returns out [B, H, 1, D] in q's dtype. Unlike the TPU kernel,
-    which returns None off its envelope (B == 1, B*Hkv < 16, D or T not a
+    q [B, H, 1, D]; caches [B, Hkv, T, D] bf16, or int8/fp8 codes with
+    ``k_scale``/``v_scale`` [B, Hkv, T]; ``pos`` an int or a [B] tensor.
+    Returns out [B, H, 1, D] in q's dtype. Unlike the TPU kernel, which
+    returns None off its envelope (B == 1, B*Hkv < 16, D or T not a
     multiple of 128) for an XLA fallback, the port's kernel covers those
     shapes; off its own envelope it raises."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "quantized caches in batched decode attention wait for the port "
-            "of neural_compressor_tpu.models.llama.QuantKVCache and the "
-            "int8/fp8 branch of batched_decode_attention (K6, K7 quant)")
     B, H, S, D = q.shape
     if S != 1:
         raise ValueError("batched decode attention is single-token")
-    if not isinstance(pos, torch.Tensor):
-        pos = torch.full((B,), int(pos), dtype=torch.int32, device=q.device)
-    pos = pos.reshape(-1).to(torch.int32).expand(B).contiguous()
-    out = batched_decode_attn(q[:, :, 0].contiguous(), k_cache, v_cache, pos)
+    pos = pos_vector(pos, B, q.device)
+    out = batched_decode_attn(q[:, :, 0].contiguous(), k_cache, v_cache,
+                              pos, k_scale, v_scale)
     return out[:, :, None]

@@ -1,17 +1,25 @@
-"""Llama-family causal LM in PyTorch: bf16 contiguous and paged caches.
+"""Llama-family causal LM in PyTorch: bf16 and quantized KV caches,
+contiguous and paged.
 
 The counterpart of ``neural_compressor_tpu.models.llama`` for rotary style
 "half" without scaling and dense prefill attention, decoding through the
 port's kernels: over a bf16 head-major KV cache [B, Hkv, T, D] at B=1 (K5)
-and at B > 1 with per-slot positions (K7), and over a paged pool of bf16
-rows or int8 codes (``PagedKVCache``: K12 writes the row, K11 attends).
-Module and parameter names follow the JAX model, so its flat state maps
-onto this model's ``state_dict`` (``from_jax_params``).
+and at B > 1 with per-slot positions (K7); over a ``QuantKVCache`` of
+int8 or fp8-e4m3 codes with per-(token, head) scales at B=1 (K6, which
+folds the raw new row in at ``pos``) and at B > 1 (K7's quantized branch,
+on the written codes), the new rows written by K12 as if the cache were a
+pool of one page a slot, or of int4 D-half-split nibbles with affine
+scale/offset per (token, head, D-half) (``_grouped_attention_int4``, plain
+PyTorch on every device, as the JAX package runs it in XLA); and over a
+paged pool of bf16 rows, int8 or fp8 codes, or int4 token-half-split
+nibbles (``PagedKVCache``: K12 writes the row, K11 attends). Module and
+parameter names follow the JAX model, so its flat state maps onto this
+model's ``state_dict`` (``from_jax_params``).
 
 Off this path the model raises ``NotImplementedError`` naming the JAX
-function it waits for: quantized contiguous caches, fp8 and int4 pools,
-multi-token windows over pages, the chunked long prefill, other rotary
-styles and scalings.
+function it waits for: multi-token windows over pages, the chunked long
+prefill, calibrated per-channel int4 K scales, other rotary styles and
+scalings.
 """
 
 from __future__ import annotations
@@ -25,6 +33,16 @@ from torch import nn
 
 from ..common.device import resolve_device
 from ..layers.linear import Embed, Linear
+from ..ops.kv_quant import KV_CODE_DTYPES as _KV_CODE_DTYPES
+from ..ops.kv_quant import kv_codes_int8 as _kv_codes_int8
+from ..ops.kv_quant import kv_dequant as _kv_dequant
+from ..ops.kv_quant import kv_dequant4_asym as _kv_dequant4_asym
+from ..ops.kv_quant import kv_format
+from ..ops.kv_quant import kv_pack_page_int4 as _kv_pack_page_int4
+from ..ops.kv_quant import kv_quant as _kv_quant
+from ..ops.kv_quant import kv_quant4_asym as _kv_quant4_asym
+from ..ops.kv_quant import kv_quant4_asym_codes as _kv_quant4_asym_codes
+from ..ops.kv_quant import kv_unpack_int4 as _kv_unpack_int4
 
 
 @dataclasses.dataclass
@@ -118,84 +136,144 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
+class QuantKVCache(NamedTuple):
+    """Quantized per-layer KV cache with per-(token, head) scales. Codes are
+    int8 or fp8-e4m3 [B, Hkv, T, D] with scales [B, Hkv, T]; or int4:
+    offset-binary nibbles packed half-split along D, [B, Hkv, T, D/2]
+    uint8, asymmetric per (token, head, D-half), ``x ~= scale *
+    (nibble - 8) + off`` with scale/off [B, Hkv, T, 2] float32. The format
+    is carried by the codes' dtype. The port writes rows in place."""
+
+    k_codes: torch.Tensor
+    k_scale: torch.Tensor
+    v_codes: torch.Tensor
+    v_scale: torch.Tensor
+    k_off: torch.Tensor | None = None    # [B, Hkv, T, 2] (int4 only)
+    v_off: torch.Tensor | None = None
+
+    @property
+    def fmt(self) -> str:
+        return kv_format(self.k_codes)
+
+
+def _kv_fmt(quantized: bool | str) -> str | None:
+    """``quantized`` as a cache format: False -> None, True -> "int8"."""
+    if not quantized:
+        return None
+    fmt = "int8" if quantized is True else str(quantized)
+    if fmt not in _KV_CODE_DTYPES:
+        raise ValueError(f"KV format {fmt!r}: expected one of "
+                         f"{tuple(_KV_CODE_DTYPES)}")
+    return fmt
+
+
+def model_kv_format(model) -> str | None:
+    """The KV cache format ``KVCacheQuantConfig`` flagged on ``model``
+    ("int8", "fp8_e4m3" or "int4"), or None for bf16 caches: what JAX's
+    ``_alloc_caches`` and engine allocate. Raises ``ValueError`` for an
+    unknown format."""
+    if not getattr(model, "kv_cache_quantized", False):
+        return None
+    return _kv_fmt(getattr(model, "kv_cache_format", "int8"))
+
+
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, dtype=None,
                   quantized: bool | str = False, device=None):
-    """One bf16 ``KVCache`` per layer, zero-filled."""
-    if quantized:
-        raise NotImplementedError(
-            "quantized KV caches wait for the port of "
-            "neural_compressor_tpu.models.llama.QuantKVCache and "
-            "decode_attention_quant (K6)")
+    """One zero-filled cache per layer: a bf16 ``KVCache``, or with
+    ``quantized`` (True / "int8", "fp8_e4m3", "int4") a ``QuantKVCache``
+    with scales of 1 (and offsets of 0)."""
     dtype = dtype or cfg.dtype
     device = resolve_device(device)
     shape = (batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
-    return [KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                    torch.zeros(shape, dtype=dtype, device=device))
-            for _ in range(cfg.num_hidden_layers)]
+    fmt = _kv_fmt(quantized)
+    L = cfg.num_hidden_layers
+
+    def z(shp, dt):
+        return torch.zeros(shp, dtype=dt, device=device)
+
+    def one(shp):
+        return torch.ones(shp, dtype=torch.float32, device=device)
+
+    if fmt == "int4":
+        cshape = shape[:-1] + (cfg.head_dim // 2,)
+        sshape = shape[:-1] + (2,)
+        return [QuantKVCache(z(cshape, torch.uint8), one(sshape),
+                             z(cshape, torch.uint8), one(sshape),
+                             z(sshape, torch.float32),
+                             z(sshape, torch.float32)) for _ in range(L)]
+    if fmt:
+        cdt = _KV_CODE_DTYPES[fmt]
+        return [QuantKVCache(z(shape, cdt), one(shape[:-1]), z(shape, cdt),
+                             one(shape[:-1])) for _ in range(L)]
+    return [KVCache(z(shape, dtype), z(shape, dtype)) for _ in range(L)]
 
 
 class PagedKVCache(NamedTuple):
     """Paged KV cache: a shared page pool plus per-slot block tables. Pages
-    are [page_size, D] rows per KV head, bf16, or int8 codes with
-    per-(token, head) float32 scales. Pool page 0 is the engine's trash
-    page. Consumed by ``kernels/paged_attention.py``; the port writes rows
-    into the pool in place."""
+    are [page_size, D] rows per KV head: bf16; int8 or fp8-e4m3 codes with
+    per-(token, head) float32 scales [P, Hkv, page]; or int4
+    token-half-split bytes [P, Hkv, page/2, D] (token r in the low nibble
+    of byte row r, token r + page/2 in the high), asymmetric per (token,
+    head): ``x ~= scale * (nibble - 8) + off`` with scales and offsets
+    [P, Hkv, page]. Pool page 0 is the engine's trash page. Consumed by
+    ``kernels/paged_attention.py``; the port writes rows into the pool in
+    place."""
 
-    k_pages: torch.Tensor             # [P, Hkv, page, D] bf16 | int8
-    k_scales: torch.Tensor | None     # [P, Hkv, page] f32 (int8 pools)
-    v_pages: torch.Tensor
+    k_pages: torch.Tensor             # [P, Hkv, page, D] bf16|int8|fp8
+    k_scales: torch.Tensor | None     # [P, Hkv, page] f32 (quantized pools)
+    v_pages: torch.Tensor             # int4: [P, Hkv, page/2, D] uint8
     v_scales: torch.Tensor | None
     block_tables: torch.Tensor        # [B, PMAX] int32 page ids per slot
+    k_offs: torch.Tensor | None = None   # [P, Hkv, page] f32 (int4 only)
+    v_offs: torch.Tensor | None = None
 
     @property
     def page_size(self) -> int:
-        return self.k_pages.shape[2]
+        s = self.k_pages.shape[2]
+        # int4 pools hold two tokens a byte row
+        return s * 2 if self.k_pages.dtype == torch.uint8 else s
 
 
 def init_paged_pool(cfg: LlamaConfig, n_pages: int, batch: int, max_len: int,
                     page_size: int = 128, dtype=None,
                     quantized: bool | str = False, device=None):
     """Per-layer ``PagedKVCache`` pools with empty block tables: bf16 rows,
-    or int8 codes (``quantized=True`` or ``"int8"``) with scales of 1."""
+    or with ``quantized`` (True / "int8", "fp8_e4m3", "int4") codes with
+    scales of 1 (int4: offsets of 0; pages of a multiple of 16 rows)."""
     dtype = dtype or cfg.dtype
     device = resolve_device(device)
-    fmt = ("int8" if quantized is True else str(quantized)) if quantized \
-        else None
-    if fmt not in (None, "int8"):
-        raise NotImplementedError(
-            f"{fmt} page pools wait for the port of "
-            "neural_compressor_tpu.models.llama.init_paged_pool's "
-            f"{fmt} branch with _kv_quant4_asym_codes (int4) or the fp8 "
-            "branch of _kv_quant, and their paged kernels")
+    fmt = _kv_fmt(quantized)
+    if fmt == "int4" and page_size % 16:
+        raise ValueError(f"int4 pages need page_size % 16 == 0 "
+                         f"(page_size={page_size})")
     pmax = (max_len + page_size - 1) // page_size
     shape = (n_pages, cfg.num_key_value_heads, page_size, cfg.head_dim)
+    sshape = shape[:-1]
+
+    def z(shp, dt):
+        return torch.zeros(shp, dtype=dt, device=device)
+
+    def one():
+        return torch.ones(sshape, dtype=torch.float32, device=device)
+
     out = []
     for _ in range(cfg.num_hidden_layers):
         bt = torch.zeros((batch, pmax), dtype=torch.int32, device=device)
-        if fmt:
-            out.append(PagedKVCache(
-                torch.zeros(shape, dtype=torch.int8, device=device),
-                torch.ones(shape[:-1], dtype=torch.float32, device=device),
-                torch.zeros(shape, dtype=torch.int8, device=device),
-                torch.ones(shape[:-1], dtype=torch.float32, device=device),
-                bt))
+        if fmt == "int4":
+            cshape = (n_pages, cfg.num_key_value_heads, page_size // 2,
+                      cfg.head_dim)
+            out.append(PagedKVCache(z(cshape, torch.uint8), one(),
+                                    z(cshape, torch.uint8), one(), bt,
+                                    z(sshape, torch.float32),
+                                    z(sshape, torch.float32)))
+        elif fmt:
+            cdt = _KV_CODE_DTYPES[fmt]
+            out.append(PagedKVCache(z(shape, cdt), one(), z(shape, cdt),
+                                    one(), bt))
         else:
-            out.append(PagedKVCache(
-                torch.zeros(shape, dtype=dtype, device=device), None,
-                torch.zeros(shape, dtype=dtype, device=device), None, bt))
+            out.append(PagedKVCache(z(shape, dtype), None, z(shape, dtype),
+                                    None, bt))
     return out
-
-
-def _kv_quant(x: torch.Tensor, fmt: str = "int8"):
-    """[B, H, S, D] -> int8 codes + per-(token, head) float32 scale, as
-    ``neural_compressor_tpu.models.llama._kv_quant`` computes them."""
-    if fmt != "int8":
-        raise NotImplementedError(
-            f"{fmt} KV codes wait for the port of the {fmt} branch of "
-            "neural_compressor_tpu.models.llama._kv_quant")
-    from ..kernels.paged_attention import kv_quant_int8
-
-    return kv_quant_int8(x)
 
 
 def _paged_write_row(cache: PagedKVCache, k_new, v_new, pos):
@@ -231,13 +309,85 @@ def _update_rows(cache_arr: torch.Tensor, new: torch.Tensor, cache_pos):
     return cache_arr
 
 
+def _write_quant(cache: QuantKVCache, k, v, cache_pos) -> QuantKVCache:
+    """Quantize the new K/V rows [B, Hkv, S, D] in the cache's format and
+    write codes, scales (and int4 offsets) at ``cache_pos``, in place."""
+    if cache.fmt == "int4":
+        kc, ks, ko = _kv_quant4_asym(k)
+        vc, vs, vo = _kv_quant4_asym(v)
+        new = (kc, ks, vc, vs, ko, vo)
+    else:
+        kc, ks = _kv_quant(k, fmt=cache.fmt)
+        vc, vs = _kv_quant(v, fmt=cache.fmt)
+        new = (kc, ks, vc, vs, None, None)
+    for arr, rows in zip(cache, new):
+        if arr is not None:
+            _update_rows(arr, rows, cache_pos)
+    return cache
+
+
+def _write_quant_row(cache: QuantKVCache, k, v, cache_pos) -> QuantKVCache:
+    """Quantize and write each slot's one new K/V row [B, Hkv, 1, D] into
+    an int8/fp8 cache at per-slot ``cache_pos`` (an int or a [B] tensor,
+    never read back), in place, through the paged write kernel (K12): a
+    contiguous [B, Hkv, T, D] cache is a pool of B pages of T rows with the
+    block table ``arange(B)``. K12's codes and scales are ``_kv_quant``'s,
+    bit for bit. A position at or past T writes nothing (JAX's
+    ``dynamic_update_slice`` clamps it onto row T - 1): only a slot running
+    on past its end inside a multi-step dispatch reaches it, and only that
+    slot's discarded tokens could see the difference."""
+    from ..kernels.decode_attention import pos_vector
+    from ..kernels.paged_attention import paged_write
+
+    B, dev = k.shape[0], k.device
+    bt = torch.arange(B, dtype=torch.int32, device=dev).reshape(B, 1)
+    paged_write(k[:, :, 0].contiguous(), v[:, :, 0].contiguous(),
+                cache.k_codes, cache.k_scale, cache.v_codes, cache.v_scale,
+                bt, pos_vector(cache_pos, B, dev))
+    return cache
+
+
+def update_cache(cache, k, v, cache_pos, dtype):
+    """Write new K/V rows [B, H, S, D] into a ``KVCache`` or
+    ``QuantKVCache`` (quantizing per token-head) and return ``(k_all,
+    v_all, cache)`` with k_all/v_all dequantized to ``dtype``, as
+    ``neural_compressor_tpu.models.llama.update_cache``; the cache is
+    updated in place."""
+    if isinstance(cache, QuantKVCache):
+        c = _write_quant(cache, k, v, cache_pos)
+        if c.fmt == "int4":
+            return (_kv_dequant4_asym(c.k_codes, c.k_scale, c.k_off, dtype),
+                    _kv_dequant4_asym(c.v_codes, c.v_scale, c.v_off, dtype),
+                    c)
+        return (_kv_dequant(c.k_codes, c.k_scale, dtype),
+                _kv_dequant(c.v_codes, c.v_scale, dtype), c)
+    k_all = _update_rows(cache.k, k, cache_pos)
+    v_all = _update_rows(cache.v, v, cache_pos)
+    return k_all.to(dtype), v_all.to(dtype), KVCache(k_all, v_all)
+
+
 _DENSE_MASK_ELEMS = 16 * 1024 * 1024  # ~4096^2; S*T above this would chunk
+_F64 = torch.float64
 
 
-def _grouped_attention(q, k, v, mask, D):
+def _softmax_f32(s: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis of float32 scores: exp and sum in float64,
+    one rounding to float32."""
+    e = torch.exp(s.to(_F64) - s.amax(dim=-1, keepdim=True).to(_F64))
+    return (e / e.sum(dim=-1, keepdim=True)).to(torch.float32)
+
+
+def _masked(s: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask[:, :, None], s,
+                       torch.tensor(-1e30, device=s.device))
+
+
+def _grouped_attention(q, k, v, mask, D, k_scale=None, v_scale=None):
     """GQA-grouped SDPA: q [B, H, S, D] against k/v [B, Hkv, T, D] without
     repeating K/V; float32 scores, bf16 probabilities for PV. ``mask``
-    [B or 1, 1, S, T] bool. Returns [B, H, S, D].
+    [B or 1, 1, S, T] bool. ``k_scale``/``v_scale`` [B, Hkv, T]: per-(token,
+    head) cache scales (``QuantKVCache``) folded into the scores and the
+    probabilities, so k/v can be the raw codes. Returns [B, H, S, D].
 
     The sums run in float64 over exact bf16 products and round once (JAX
     sums in float32), so the summation order almost never shows: the card
@@ -246,15 +396,69 @@ def _grouped_attention(q, k, v, mask, D):
     B, H, S, _ = q.shape
     Hkv = k.shape[1]
     rep = H // Hkv
-    f64 = torch.float64
-    qg = q.reshape(B, Hkv, rep, S, D).to(f64)
-    s = torch.einsum("bgrsd,bgtd->bgrst", qg, k.to(f64)).to(torch.float32)
+    qg = q.reshape(B, Hkv, rep, S, D).to(_F64)
+    s = torch.einsum("bgrsd,bgtd->bgrst", qg, k.to(_F64)).to(torch.float32)
+    if k_scale is not None:
+        s = s * k_scale[:, :, None, None, :]
     s = s / torch.sqrt(torch.tensor(float(D), dtype=torch.float32))
-    s = torch.where(mask[:, :, None], s, torch.tensor(-1e30, device=s.device))
-    e = torch.exp(s.to(f64) - s.amax(dim=-1, keepdim=True).to(f64))
-    p = (e / e.sum(dim=-1, keepdim=True)).to(torch.float32).to(v.dtype)
-    out = torch.einsum("bgrst,bgtd->bgrsd", p.to(f64), v.to(f64))
+    p = _softmax_f32(_masked(s, mask))
+    if v_scale is not None:
+        p = p * v_scale[:, :, None, None, :]
+    out = torch.einsum("bgrst,bgtd->bgrsd", p.to(v.dtype).to(_F64),
+                       v.to(_F64))
     return out.to(torch.float32).reshape(B, H, S, D).to(q.dtype)
+
+
+def _grouped_attention_int4(q, k_packed, v_packed, mask, D, k_scale, v_scale,
+                            k_off=None, v_off=None):
+    """``_grouped_attention`` on D-half-split int4 caches
+    (``neural_compressor_tpu.models.llama._grouped_attention_int4``): the
+    score is the sum of two half-D dots over the centered nibbles, each
+    times its half's scale, plus the rank-1 offset terms ``off_h * sum(q
+    over half h)``; the output is two half-D PV products over
+    ``bf16(p * vscale_h)`` plus ``p @ voff_h`` broadcast over the half.
+    Dense masks only. Sums in float64, one rounding each, as in
+    ``_grouped_attention``."""
+    B, H, S, _ = q.shape
+    Hkv = k_packed.shape[1]
+    rep = H // Hkv
+    h = D // 2
+    f32 = torch.float32
+    qg = q.reshape(B, Hkv, rep, S, D).to(_F64)
+
+    def nibbles(packed):
+        return (((packed & 15).to(torch.int8) - 8).to(_F64),
+                ((packed >> 4).to(torch.int8) - 8).to(_F64))
+
+    def sc(a, i):
+        return a[..., i][:, :, None, None, :]
+
+    k_lo, k_hi = nibbles(k_packed)
+    s_lo = torch.einsum("bgrsd,bgtd->bgrst", qg[..., :h], k_lo).to(f32)
+    s_hi = torch.einsum("bgrsd,bgtd->bgrst", qg[..., h:], k_hi).to(f32)
+    s = s_lo * sc(k_scale, 0) + s_hi * sc(k_scale, 1)
+    if k_off is not None:
+        qs_lo = qg[..., :h].sum(dim=-1).to(f32)[..., None]
+        qs_hi = qg[..., h:].sum(dim=-1).to(f32)[..., None]
+        s = s + qs_lo * sc(k_off, 0) + qs_hi * sc(k_off, 1)
+    s = s / torch.sqrt(torch.tensor(float(D), dtype=f32))
+    p = _softmax_f32(_masked(s, mask))
+    v_lo, v_hi = nibbles(v_packed)
+    dt = q.dtype
+
+    def pv(i, v_half):
+        pb = (p * sc(v_scale, i)).to(dt).to(_F64)
+        return torch.einsum("bgrst,bgtd->bgrsd", pb, v_half).to(f32)
+
+    o_lo, o_hi = pv(0, v_lo), pv(1, v_hi)
+    if v_off is not None:
+        p64 = p.to(_F64)
+        o_lo = o_lo + torch.einsum("bgrst,bgt->bgrs", p64,
+                                   v_off[..., 0].to(_F64)).to(f32)[..., None]
+        o_hi = o_hi + torch.einsum("bgrst,bgt->bgrs", p64,
+                                   v_off[..., 1].to(_F64)).to(f32)[..., None]
+    out = torch.cat([o_lo, o_hi], dim=-1)
+    return out.reshape(B, H, S, D).to(dt)
 
 
 class RMSNorm(nn.Module):
@@ -375,12 +579,10 @@ class LlamaAttention(nn.Module):
             out = paged_decode_attention(q, new_cache, pos_b + 1)
             out = out.to(x_dtype).transpose(1, 2)
             return out.reshape(B, S, H * D), new_cache
+        if isinstance(cache, QuantKVCache):
+            return self._attend_quant(x_dtype, q, k, v, mask, cache,
+                                      cache_pos)
         if cache is not None:
-            if not isinstance(cache, KVCache):
-                raise NotImplementedError(
-                    "quantized caches wait for the port of "
-                    "neural_compressor_tpu.models.llama.QuantKVCache "
-                    "and decode_attention_quant (K6)")
             if S == 1:
                 # B == 1 with an int position on the B=1 kernel (K5), B > 1
                 # and per-slot positions on the batched one (K7)
@@ -394,6 +596,46 @@ class LlamaAttention(nn.Module):
             k, v = k_all.to(x_dtype), v_all.to(x_dtype)
         out = _grouped_attention(q, k, v, mask, D)
         return out.transpose(1, 2).reshape(B, S, H * D), new_cache
+
+    def _attend_quant(self, x_dtype, q, k, v, mask, cache: QuantKVCache,
+                      cache_pos):
+        """``_attend`` over a ``QuantKVCache``, with the JAX package's two
+        decode semantics. At B == 1 and S == 1, int8/fp8 caches take K6,
+        which attends the RAW new row at ``pos`` (scale 1) and only then
+        writes its codes. Otherwise the rows are quantized and written
+        first and attention runs on the codes: K7's quantized branch at
+        S == 1, ``_grouped_attention`` with scales folded for a prefill,
+        and ``_grouped_attention_int4`` for int4 caches at every S.
+        int8/fp8 decode rows are written by K12 (``_write_quant_row``);
+        positions stay on the device."""
+        from ..kernels.decode_attention import (batched_decode_attention,
+                                                decode_attention_quant,
+                                                pos_vector)
+
+        cfg = self.cfg
+        B, S = q.shape[0], q.shape[2]
+        H, D = cfg.num_attention_heads, cfg.head_dim
+        fmt = cache.fmt
+        if S == 1 and fmt != "int4":
+            pos = pos_vector(cache_pos, B, q.device)
+            if B == 1:
+                out, c = decode_attention_quant(q, k, v, cache, pos)
+            else:
+                c = _write_quant_row(cache, k, v, pos)
+                out = batched_decode_attention(q, c.k_codes, c.v_codes, pos,
+                                               c.k_scale, c.v_scale)
+            out = out.to(x_dtype).transpose(1, 2)
+            return out.reshape(B, S, H * D), c
+        c = _write_quant(cache, k, v, cache_pos)
+        if fmt == "int4":
+            out = _grouped_attention_int4(q, c.k_codes, c.v_codes, mask, D,
+                                          c.k_scale, c.v_scale, c.k_off,
+                                          c.v_off)
+        else:
+            out = _grouped_attention(q, c.k_codes.to(x_dtype),
+                                     c.v_codes.to(x_dtype), mask, D,
+                                     c.k_scale, c.v_scale)
+        return out.transpose(1, 2).reshape(B, S, H * D), c
 
 
 class LlamaMLP(nn.Module):
@@ -603,11 +845,22 @@ def build_quantized(preset_or_cfg, quant_config, seed: int = 0,
         holder = _LayerHolder(LlamaDecoderLayer(cfg, device, gen))
         _quantize(holder, quant_config)
         model.model.layers.append(holder.layer)
-    if getattr(quant_config, "quant_lm_head", False):
+        # model-level flags an entry set on the per-layer holder (the KV
+        # cache format) belong to the model, or serving allocates bf16
+        if getattr(holder, "kv_cache_quantized", False):
+            model.kv_cache_quantized = True
+            model.kv_cache_format = holder.kv_cache_format
+    if _quant_lm_head(quant_config):
         holder = _LayerHolder(model.lm_head)
         _quantize(holder, quant_config)
         model.lm_head = holder.layer
     return model
+
+
+def _quant_lm_head(quant_config) -> bool:
+    """Whether any member of a (composable) config quantizes the lm_head."""
+    members = getattr(quant_config, "config_list", [quant_config])
+    return any(getattr(c, "quant_lm_head", False) for c in members)
 
 
 class _LayerHolder(nn.Module):
@@ -631,7 +884,8 @@ def _tensor_from_numpy(arr) -> torch.Tensor:
 
 
 def from_jax_params(flat: dict, cfg: LlamaConfig, device=None,
-                    meta: dict | None = None) -> LlamaForCausalLM:
+                    meta: dict | None = None,
+                    kv_cache_format: str | None = None) -> LlamaForCausalLM:
     """Build the port's model from a JAX llama's flat state.
 
     ``flat`` maps dotted names ("model.layers.0.self_attn.q_proj.kernel",
@@ -645,8 +899,10 @@ def from_jax_params(flat: dict, cfg: LlamaConfig, device=None,
     as the JAX package's ``save_load`` records them ("bits",
     "group_size", "wdtype", "layout", "impl"). Every quantized projection
     needs its entry: the arrays alone cannot tell symmetric int4 words
-    from nf4/fp4 codebook indices. Serve the result like a model from
-    ``build_quantized``."""
+    from nf4/fp4 codebook indices. ``kv_cache_format``, the JAX model's
+    ``kv_cache_format`` static attribute where its ``kv_cache_quantized``
+    is set ("int8", "fp8_e4m3", "int4"), flags the port's model the same
+    way. Serve the result like a model from ``build_quantized``."""
     from ..layers.module_utils import get_module, replace_module
     from ..layers.woq_linear import WOQLinear
     from ..ops.packing import PackedWeight
@@ -699,4 +955,7 @@ def from_jax_params(flat: dict, cfg: LlamaConfig, device=None,
     with torch.no_grad():
         for k, t in tensors.items():
             state[k].copy_(t.to(state[k].dtype))
+    if kv_cache_format:
+        model.kv_cache_quantized = True
+        model.kv_cache_format = _kv_fmt(kv_cache_format)
     return model

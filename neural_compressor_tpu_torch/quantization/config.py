@@ -1,8 +1,8 @@
-"""Weight-only config classes of the port (RTN so far).
+"""Config classes of the port: weight-only RTN and KV-cache quantization.
 
 The same user-facing knobs and tuning semantics as
 ``neural_compressor_tpu.quantization.config``; op granularity is the
-module type name ("Linear").
+module type name ("Linear"; "...Attention" for the KV cache).
 """
 
 from __future__ import annotations
@@ -97,3 +97,38 @@ class _WOQBase(BaseConfig):
 @register_config("rtn", priority=70)
 class RTNConfig(_WOQBase):
     """Round-to-nearest weight-only quantization."""
+
+
+@register_config("kv_cache", priority=8)
+class KVCacheQuantConfig(BaseConfig):
+    """KV-cache quantization: int8, fp8-e4m3 or int4 codes with per-(token,
+    head) scales (int4: asymmetric, with offsets). Applies to the attention
+    modules that hold a KV cache; the cache is one model-level allocation,
+    so the format is model-global (``algorithms/kv_cache.py``)."""
+
+    params_list = ("dtype",)
+
+    def __init__(self, dtype="int8", per_head_scales=True,
+                 per_channel_k=False, white_list=DEFAULT_WHITE_LIST):
+        super().__init__(white_list=white_list)
+        self.dtype = dtype
+        self.per_head_scales = per_head_scales
+        # int4 only: calibrated per-(kv-head, channel) K scales
+        self.per_channel_k = per_channel_k
+
+    @classmethod
+    def supported_op_types(cls):
+        return None  # matched by type suffix below
+
+    def to_config_mapping(self, model_info):
+        mapping = {}
+        for n, t in model_info:
+            if not (t.endswith("Attention") or t.endswith("KVCache")):
+                continue
+            cfg = self
+            for pattern, local in self._local_configs.items():
+                if self._match(pattern, n, t):
+                    cfg = local
+                    break
+            mapping[(n, t)] = cfg
+        return mapping

@@ -10,18 +10,23 @@ extra ``stop_token_ids`` (kept in the output, like EOS), multi-token
 callback per decided token, the raw-distribution logprob of each token,
 and ``cancel``.
 
-Two pool modes, as in the JAX engine:
-  * contiguous (``paged=False``): one bf16 KV cache [n_slots, Hkv, max_len,
-    D] per layer; decode runs the batched attention kernel (K7) with
-    per-slot positions;
-  * paged (``paged=True``): a shared page pool (bf16, or int8 codes when the
-    model is flagged ``kv_cache_quantized``) plus per-slot block tables;
+Two pool modes, as in the JAX engine, each in the model's KV format (bf16,
+or int8, fp8-e4m3 or int4 codes when the model is flagged
+``kv_cache_quantized`` with a ``kv_cache_format``, as
+``KVCacheQuantConfig`` flags it):
+  * contiguous (``paged=False``): one KV cache [n_slots, Hkv, max_len, D]
+    per layer (a ``QuantKVCache`` when quantized); decode runs the batched
+    attention kernel (K7, its quantized branch for int8/fp8, their rows
+    written by K12; int4 caches attend on their codes in plain PyTorch)
+    with per-slot positions (one slot over int8/fp8 codes takes K6, as
+    JAX's B=1 decode does);
+  * paged (``paged=True``): a shared page pool plus per-slot block tables;
     decode writes each row with K12 and attends with K11. Prefill streams
-    through ``prefill_streams`` contiguous staging rows, copied (int8:
-    quantized) into pages when a prompt completes; requests are admitted
-    only when the pool can hold them, and pool pressure preempts the
-    latest-arrived slot, which later re-prefills prompt + generated and
-    continues exactly.
+    through ``prefill_streams`` contiguous bf16 staging rows, copied
+    (quantized, for a quantized pool) into pages when a prompt completes;
+    requests are admitted only when the pool can hold them, and pool
+    pressure preempts the latest-arrived slot, which later re-prefills
+    prompt + generated and continues exactly.
 
 Every iteration runs at most one dispatch: a batched prefill chunk over
 every prefilling slot, ``chunk`` decode steps over all slots, or both
@@ -35,8 +40,9 @@ both engines count the same dispatches for the same submissions.
 The JAX engine's ``_s4_prepare`` re-lays int4 weights for the TPU inside
 each program; the port's weights are in their serving layout already, so it
 has no counterpart. Sampling, speculative decoding, the prefix cache,
-top-N logprobs, latent (MLA) pools, fp8 and int4 pools and quantized
-contiguous caches raise ``NotImplementedError`` naming what they wait for.
+top-N logprobs and latent (MLA) pools raise ``NotImplementedError`` naming
+what they wait for. The contiguous cache keeps ``max_len`` rows: the JAX
+engine's speculative margin comes with speculation.
 """
 
 from __future__ import annotations
@@ -50,7 +56,9 @@ import numpy as np
 import torch
 
 from ..common import logger
-from ..models.llama import _kv_quant, init_kv_cache, init_paged_pool
+from ..models.llama import (_kv_pack_page_int4, _kv_quant,
+                            _kv_quant4_asym_codes, init_kv_cache,
+                            init_paged_pool, model_kv_format)
 
 
 @dataclasses.dataclass
@@ -150,8 +158,8 @@ class ContinuousBatchingEngine:
             logger.info("prefill_chunk %d -> %d (must divide max_len %d)",
                         prefill_chunk, c, max_len)
         self.prefill_chunk = c
-        quantized = (getattr(model, "kv_cache_format", "int8")
-                     if getattr(model, "kv_cache_quantized", False) else False)
+        quantized = model_kv_format(model)
+        self.kv_cache_format = quantized or "bf16"
         self.paged = paged
         self._cache_rows = max_len
         if paged:
@@ -176,13 +184,8 @@ class ContinuousBatchingEngine:
             self._free_staging = list(range(self.prefill_streams - 1, -1, -1))
             self._staging_of: dict[int, int] = {}  # slot -> staging row
         else:
-            if quantized:
-                raise NotImplementedError(
-                    "quantized contiguous caches wait for the port of "
-                    "neural_compressor_tpu.models.llama.QuantKVCache with "
-                    "decode_attention_quant (K6) and the int8/fp8 branch of "
-                    "batched_decode_attention (K7)")
             self.caches = init_kv_cache(self.cfg, n_slots, max_len,
+                                        quantized=quantized,
                                         device=self.device)
             self.prefill_streams = n_slots
         self._uid = itertools.count()
@@ -302,7 +305,17 @@ class ContinuousBatchingEngine:
         s = dict(self.stats)
         s["generated_tok_s"] = (s["generated_tokens"] / s["wall_s"]
                                 if s["wall_s"] > 0 else 0.0)
+        s["kv_cache_format"] = self.kv_cache_format
+        s["kv_cache_bytes"] = self.kv_cache_bytes()
         return s
+
+    def kv_cache_bytes(self) -> int:
+        """Bytes of the KV caches or page pools (codes, scales, offsets),
+        block tables and staging rows excluded."""
+        held = self.pools if self.paged else self.caches
+        return sum(t.numel() * t.element_size() for c in held for t in c
+                   if t is not None and t is not getattr(c, "block_tables",
+                                                         None))
 
     # ------------------------------------------------------------- internals
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
@@ -319,12 +332,14 @@ class ContinuousBatchingEngine:
         positions = starts[:, None] + torch.arange(C, device=self.device,
                                                    dtype=starts.dtype)
         ridx = rows.to(torch.int64)
-        sub = [type(c)(*(t[ridx] for t in c)) for c in target]
+        sub = [type(c)(*(None if t is None else t[ridx] for t in c))
+               for c in target]
         logits, sub = self.model(ids, positions=positions, caches=sub,
                                  cache_pos=starts)
         for c, s in zip(target, sub):
             for t, ts in zip(c, s):
-                t[ridx] = ts
+                if t is not None:
+                    t[ridx] = ts
         last = logits[torch.arange(n, device=self.device),
                       last_idx.to(torch.int64)]
         return _greedy_token(last)
@@ -504,20 +519,30 @@ class ContinuousBatchingEngine:
 
     @torch.no_grad()
     def _stage_copy(self, row: int, pid: int, start: int) -> None:
-        """Copy staging row ``row``'s rows [start, start + page) into pool
-        page ``pid`` of every layer; int8 pools quantize them per (token,
-        head) as the paged write does."""
+        """Copy staging row ``row``'s bf16 rows [start, start + page) into
+        pool page ``pid`` of every layer, quantized per (token, head) as
+        the paged write quantizes them (JAX's ``_stage_copy_fn``): int8 and
+        fp8 with ``_kv_quant``, int4 with ``_kv_quant4_asym_codes`` packed
+        token-half-split."""
         page = self.page_size
         for pool, cache in zip(self.pools, self.staging):
             kr = cache.k[row, :, start:start + page]      # [Hkv, page, D]
             vr = cache.v[row, :, start:start + page]
-            if pool.k_scales is not None:
-                kc, ks = _kv_quant(kr)
-                vc, vs = _kv_quant(vr)
-                pool.k_pages[pid] = kc
-                pool.k_scales[pid] = ks
-                pool.v_pages[pid] = vc
-                pool.v_scales[pid] = vs
+            if pool.k_offs is not None:
+                for src, pages, scales, offs in (
+                        (kr, pool.k_pages, pool.k_scales, pool.k_offs),
+                        (vr, pool.v_pages, pool.v_scales, pool.v_offs)):
+                    c4, sc, off = _kv_quant4_asym_codes(src)
+                    pages[pid] = _kv_pack_page_int4(c4)
+                    scales[pid] = sc
+                    offs[pid] = off
+            elif pool.k_scales is not None:
+                fmt = self.kv_cache_format
+                for src, pages, scales in ((kr, pool.k_pages, pool.k_scales),
+                                           (vr, pool.v_pages, pool.v_scales)):
+                    c, sc = _kv_quant(src, fmt)
+                    pages[pid] = c
+                    scales[pid] = sc
             else:
                 pool.k_pages[pid] = kr.to(pool.k_pages.dtype)
                 pool.v_pages[pid] = vr.to(pool.v_pages.dtype)

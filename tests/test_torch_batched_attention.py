@@ -115,9 +115,14 @@ def test_batched_int_pos_is_every_slot_at_that_pos():
     b = tda.batched_decode_attention(_t(q), _t(k), _t(v),
                                      torch.full((3,), 17, dtype=torch.int32))
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="K6"):
-        tda.batched_decode_attention(_t(q), _t(k), _t(v), 17,
-                                     k_scale=torch.ones(3, 2, 64))
+    # the same over int8 codes with scales (K7's quantized branch)
+    kc, ks = tl._kv_quant(_t(k), "int8")
+    vc, vs = tl._kv_quant(_t(v), "int8")
+    a = tda.batched_decode_attention(_t(q), kc, vc, 17, ks, vs)
+    b = tda.batched_decode_attention(_t(q), kc, vc,
+                                     torch.full((3,), 17, dtype=torch.int32),
+                                     ks, vs)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("S,starts", [

@@ -238,13 +238,14 @@ def test_engine_off_path_raises():
     eng = E(m, n_slots=2, max_len=32)
     with pytest.raises(NotImplementedError, match="_sample_step"):
         eng.submit(np.arange(3), do_sample=True)
+    # quantized caches and pools are served (tests/test_torch_kv_engine.py);
+    # a format JAX does not know is refused in either mode
     m.kv_cache_quantized = True
-    with pytest.raises(NotImplementedError, match="QuantKVCache"):
-        E(m, n_slots=2, max_len=32)
-    for fmt in ("fp8_e4m3", "int4"):
-        m.kv_cache_format = fmt
-        with pytest.raises(NotImplementedError, match=fmt):
-            E(m, n_slots=2, max_len=32, paged=True, page_size=16)
+    m.kv_cache_format = "int3"
+    for paged in (False, True):
+        with pytest.raises(ValueError, match="int3"):
+            E(m, n_slots=2, max_len=32, paged=paged, page_size=16)
+    m.kv_cache_quantized = False
     m.use_latent_cache = True
     with pytest.raises(NotImplementedError, match="latent"):
         E(m, n_slots=2, max_len=32)

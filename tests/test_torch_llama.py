@@ -219,8 +219,10 @@ def test_off_path_raises():
         pool = tl.init_paged_pool(tm.cfg, 3, 1, 32, page_size=16,
                                   device="cpu")
         tm(ids, torch.arange(4)[None], pool, torch.tensor([0]))
-    with pytest.raises(NotImplementedError, match="QuantKVCache"):
-        tl.init_kv_cache(tm.cfg, 1, 8, quantized=True, device="cpu")
+    # quantized caches are ported (tests/test_torch_kv_attention.py); a
+    # format JAX does not know is refused
+    with pytest.raises(ValueError, match="int3"):
+        tl.init_kv_cache(tm.cfg, 1, 8, quantized="int3", device="cpu")
     with pytest.raises(NotImplementedError, match="_rope"):
         tl.LlamaForCausalLM(tl.LlamaConfig(**dict(
             SMALL, rope_style="interleaved_partial")), device="cpu")

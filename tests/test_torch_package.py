@@ -73,15 +73,25 @@ def test_device_none_means_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_each_kernel_wrapper_counts_its_launches():
+    """One wrapper per C entry; the kernels that take several cache
+    formats count their launches per format."""
     names = [fn.__name__ for fn in kernels.KERNEL_WRAPPERS]
     assert names == ["w4a8_gemm", "fused_gemv", "decode_attn",
-                     "batched_decode_attn", "paged_attn", "paged_write",
-                     "dequant_gemm", "vpu_gemv"]
+                     "decode_attn_quant", "batched_decode_attn",
+                     "paged_attn", "paged_write", "dequant_gemm", "vpu_gemv"]
+    by_format = {"batched_decode_attn": ["bf16", "int8", "fp8_e4m3"],
+                 "paged_attn": ["bf16", "int8", "fp8_e4m3", "int4"],
+                 "paged_write": ["bf16", "int8", "fp8_e4m3", "int4"]}
     for fn in kernels.KERNEL_WRAPPERS:
-        assert isinstance(fn.launches, int)
-        fn.launches += 3
+        if fn.__name__ in by_format:
+            assert list(fn.launches) == by_format[fn.__name__]
+            fn.launches["int8"] += 3
+        else:
+            assert isinstance(fn.launches, int)
+            fn.launches += 3
     kernels.reset_launch_counts()
-    assert all(fn.launches == 0 for fn in kernels.KERNEL_WRAPPERS)
+    assert all(sum(fn.launches.values()) == 0 if isinstance(fn.launches, dict)
+               else fn.launches == 0 for fn in kernels.KERNEL_WRAPPERS)
 
 
 def test_every_kernel_has_a_source_and_a_c_entry():
