@@ -44,7 +44,8 @@ non-zero:
      paged int8 pool, ``run(chunk=8)``, with exact launch counts derived
      from the engine's counters, and one B=8 decode dispatch profiled;
   8. after the W4A8 model is freed, llama2-7b asym-int4 g128 W4A16 at full
-     width and depth (built with ``RTNConfig + KVCacheQuantConfig``):
+     width, cut to ``WOQ_LAYERS`` = 16 of its 32 layers for the run's time
+     limit (built with ``RTNConfig + KVCacheQuantConfig``):
      three greedy requests at B=1 and 16 through the 8-slot engine over
      bf16 caches, exact launch counts of K8, K9, K5 and K7 and the
      dequantize-then-matmul calls (M > 256 only), profiled as in 6;
@@ -52,9 +53,21 @@ non-zero:
      int8 and over fp8 caches (K6, K12 writing the row), and the 16 engine
      requests over contiguous int8/fp8 (K7 quant, K12) and int4 caches and
      paged fp8/int4 pools (K11, K12), with tok/s, cache bytes, peak memory, exact launch
-     counts and one decode window profiled per format.
+     counts and one decode window profiled per format;
+ 10. greedy speculation: K13 (the verify window's write) and K11's W-query
+     window against their plain versions at the 8-slot engine's shapes in
+     every pool format, with planted faults (phase 2's ``spec_kernels``);
+     K5, K6, K7 and K11 over contexts of 16,384-65,536 rows, which their
+     score rows in device memory allow (phase 3's ``spec_envelope``);
+     prompt lookup, draft-verify and the speculative engine in every pool
+     mode on full-width 2-layer models, card against CPU (phase 4's
+     ``spec_model_check``); and on the full-depth W4A8 model of phase 5,
+     ``bench.py``'s B=1 prompt-lookup path and the 8-slot speculative
+     engine over contiguous bf16 caches and the paged int8 pool, against
+     greedy and the plain engine, exact launch counts, one spec dispatch
+     profiled.
 Development runs name checks of phases 2-4 as arguments (``python3
-chip_smoke.py kv_kernels kv_envelope``): the build, those checks, no
+chip_smoke.py spec_kernels spec_envelope``): the build, those checks, no
 serving and no result line.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path and its times.
@@ -88,6 +101,7 @@ SLOTS, PAGE, CHUNK = 8, 128, 8
 SLOT_POS = (0, 127, 128, 300, 517, 640, 901, 1023)
 ENGINE_REQUESTS = 16
 KV_FORMATS = ("int8", "fp8_e4m3", "int4")
+POOL_FORMATS = ("bf16",) + KV_FORMATS
 
 
 def fail(msg: str) -> None:
@@ -154,7 +168,12 @@ FORMAT_ENTRIES = {
                    "paged_attn_int4": ("int4",)},
     "paged_write": {"paged_write": ("bf16", "int8"),
                     "paged_write_fp8": ("fp8_e4m3",),
-                    "paged_write_int4": ("int4",)}}
+                    "paged_write_int4": ("int4",)},
+    # the speculative verify window's kernels, every pool format in one
+    # entry (the full-depth main path runs the int8 pool; the 2-layer check
+    # runs each format)
+    "paged_write_window_kernel": {"paged_write_window": POOL_FORMATS},
+    "paged_window_attn": {"paged_window_attn": POOL_FORMATS}}
 
 
 def launch_counts() -> dict:
@@ -1155,13 +1174,13 @@ def phase_engine_serve(torch, nct, model) -> dict:
             eng.run(max_steps=1, chunk=1)
         profile_window(torch, f"engine {mode} decode dispatch, 8 slots x "
                        f"{CHUNK} steps", lambda: eng.step_many(CHUNK))
-        eng.run()
-        del eng
+        del eng        # not run dry: the profile was all it was for
     return out
 
 
 # ------------------------------------------------------------------ W4A16
 WOQ_MS = (8, 100, 256)          # K8 rows timed at the llama2-7b shapes
+WOQ_LAYERS = 16                 # depth of the served W4A16 model (phases 8-9)
 WOQ_UNIT_M = 8                  # K8's row of the kernels line: one 8-slot step
 
 
@@ -1499,7 +1518,8 @@ def phase_woq_model_check(torch, nct) -> None:
 
 def phase_woq_serve(torch, nct):
     """The slice's path: llama2-7b asym-int4 g128 W4A16 at full width and
-    depth, three greedy requests at B=1 (prompts of 16, 100 and 371
+    ``WOQ_LAYERS`` of its 32 layers, three greedy requests at B=1
+    (prompts of 16, 100 and 371
     tokens, 48 new each, max_len 1024): K8 prefills the two short prompts,
     the 371-token one takes dequantize-then-matmul (M > 256), K9 and K5
     decode. Exact launch counts; then one prefill and 8 decode steps
@@ -1511,9 +1531,18 @@ def phase_woq_serve(torch, nct):
     t0 = time.perf_counter()
     # built with RTNConfig + KVCacheQuantConfig for the KV phases (the
     # same weights); the flag is cleared here, for bf16 caches
-    model = woq_model(nct, "llama2-7b", seed=0, kv="int8")
+    from neural_compressor_tpu_torch.models.llama import (LLAMA_PRESETS,
+                                                          LlamaConfig)
+
+    # cut to WOQ_LAYERS of llama2-7b's 32 layers, full width: the chip
+    # check's time limit (PERF.md §4)
+    cfg = LlamaConfig(**dict(LLAMA_PRESETS["llama2-7b"],
+                             num_hidden_layers=WOQ_LAYERS))
+    model = woq_model(nct, cfg, seed=0, kv="int8")
+    nl = model.cfg.num_hidden_layers
     torch.cuda.synchronize()
-    print(f"llama2-7b W4A16 (asym int4 g{G}) built in "
+    print(f"llama2-7b W4A16 (asym int4 g{G}, {WOQ_LAYERS} of "
+          f"{LAYERS} layers) built in "
           f"{time.perf_counter() - t0:.1f} s, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
           f"KV flags {model.kv_cache_quantized} {model.kv_cache_format}",
@@ -1552,9 +1581,9 @@ def phase_woq_serve(torch, nct):
     launches = launch_counts()
     dots = dequant_dot.calls
     steps = NEW_TOKENS - 1
-    n_proj = 4 * LAYERS + 1
+    n_proj = 4 * nl + 1
     short = sum(P <= 256 for P in PROMPTS)
-    want = expect(decode_attn=len(PROMPTS) * steps * LAYERS,
+    want = expect(decode_attn=len(PROMPTS) * steps * nl,
                   dequant_gemm=short * n_proj,
                   vpu_gemv=len(PROMPTS) * steps * n_proj)
     want_dots = (len(PROMPTS) - short) * n_proj
@@ -1591,6 +1620,7 @@ def phase_woq_engine(torch, nct, model) -> dict:
     from neural_compressor_tpu_torch.kernels import dequant_dot
 
     V = model.cfg.vocab_size
+    nl = model.cfg.num_hidden_layers
     gen = torch.Generator().manual_seed(6)
     prompts = [torch.randint(0, V, (PROMPTS[i % len(PROMPTS)],),
                              generator=gen).numpy()
@@ -1620,13 +1650,13 @@ def phase_woq_engine(torch, nct, model) -> dict:
         fail(f"W4A16 engine finished {len(done)} of {len(reqs)} requests")
     m = eng.metrics()
     steps = CHUNK * m["decode_dispatches"]
-    n_proj = 4 * LAYERS + 1
+    n_proj = 4 * nl + 1
     C = eng.prefill_chunk
     k8_chunks = sum(r * C <= 256 for r in chunk_rows)
     if len(chunk_rows) != m["prefill_chunk_dispatches"]:
         fail(f"{len(chunk_rows)} prefill chunks seen, the engine counted "
              f"{m['prefill_chunk_dispatches']}")
-    want = expect(batched_decode_attn=LAYERS * steps,
+    want = expect(batched_decode_attn=nl * steps,
                   dequant_gemm=n_proj * (steps + k8_chunks))
     want_dots = n_proj * (len(chunk_rows) - k8_chunks)
     counters = {k: m[k] for k in (
@@ -1660,8 +1690,7 @@ def phase_woq_engine(torch, nct, model) -> dict:
         eng.run(max_steps=1, chunk=1)
     profile_window(torch, f"woq engine decode dispatch, 8 slots x {CHUNK} "
                    "steps", lambda: eng.step_many(CHUNK))
-    eng.run()
-    del eng
+    del eng        # not run dry: the profile was all it was for
     return launches
 
 
@@ -2081,9 +2110,724 @@ def phase_kv_envelope(torch) -> None:
         fail(f"quantized-KV kernels outside the llama2-7b shapes: {bad}")
 
 
+# ------------------------------------------------------------ speculation
+SPEC_K, SPEC_N = 8, 2
+SPEC_W = SPEC_K + 1           # a verify window: the last token + k proposals
+# window starts of the 8 slots at the engine's shapes: in-page, crossing
+# into the next page (122), a page's first row (640), overshooting the
+# table (1020: rows 1024-1028 go to the trash page), and two idle slots
+# parked at max_len - 1 on all-trash block tables
+SPEC_POS = (0, 122, 300, 517, 640, 1020, MAX_LEN - 1, MAX_LEN - 1)
+SPEC_IDLE = (6, 7)
+
+
+def spec_pool(torch, kq, randn, n_pages, Hkv, page, D, fmt):
+    """A random pool (k_pages, k_scales, v_pages, v_scales, k_offs,
+    v_offs) in ``fmt``, its rows quantized the port's way."""
+    if fmt == "bf16":
+        return (randn(n_pages, Hkv, page, D), None,
+                randn(n_pages, Hkv, page, D), None, None, None)
+    k = kv_rows(kq, randn(n_pages, Hkv, page, D), fmt)
+    v = kv_rows(kq, randn(n_pages, Hkv, page, D), fmt)
+    int4 = fmt == "int4"
+    return (k[0], k[1], v[0], v[1], k[2] if int4 else None,
+            v[2] if int4 else None)
+
+
+def pool_bytes_equal(torch, a, b, skip_trash=True) -> bool:
+    """Two pools byte for byte, page 0 (the trash page, which several idle
+    slots write in one launch) excepted."""
+    for x, y in zip(a, b):
+        if x is None:
+            continue
+        if x.dtype == torch.float8_e4m3fn:
+            x, y = x.view(torch.uint8), y.view(torch.uint8)
+        if skip_trash:
+            x, y = x[1:], y[1:]
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def phase_spec_kernels(torch, nct, peaks: dict) -> dict:
+    """The speculative verify window's kernels at the llama2-7b engine's
+    shapes: 8 slots, Hkv 32, D 128, pools of 128-row pages, W = 9 at
+    ``SPEC_POS`` (in-page, crossing, overshooting, idle), in each pool
+    format (bf16, int8, fp8, int4):
+      * K13 (``paged_write_window_kernel``) byte for byte equal to its plain
+        version on every page but the trash page; planted faults flagged:
+        the crossing block left unwritten, the partner nibble dropped
+        (int4), the window one row late;
+      * K11's W-query window (``paged_window_attn``) bit for bit equal to
+        its plain version, and each window row w bit for bit equal to
+        single-query K11 at length ``lengths - W + w + 1``; a planted fault
+        flagged: every row attending the whole window.
+    Timed as in phase 2, beside the bound and a library yardstick never
+    used by the port: index assignment of the bf16 window rows into a bf16
+    pool (K13; no single call quantizes and scatters), and
+    ``scaled_dot_product_attention`` with a causal mask over the rows
+    gathered out of the pages, dequantized (K11's window)."""
+    from neural_compressor_tpu_torch import kernels as K
+    from neural_compressor_tpu_torch.kernels.paged_attention import \
+        window_targets
+    from neural_compressor_tpu_torch.ops import kv_quant as kq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16 = torch.bfloat16
+    rows = {"k13": [], "k11w": []}
+    missed, bad = [], []
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    B, H, Hkv, D, T, W = SLOTS, HEADS, HEADS, HEAD_DIM, MAX_LEN, SPEC_W
+    pmax = T // PAGE
+    n_pages = (B - len(SPEC_IDLE)) * pmax + 1   # page 0 is the trash page
+    bt = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                         .manual_seed(42)) + 1).reshape(-1, pmax)
+    bt = torch.cat([bt, torch.zeros((len(SPEC_IDLE), pmax),
+                                    dtype=bt.dtype)]).to(torch.int32).to(dev)
+    pos = torch.tensor(SPEC_POS, dtype=torch.int32, device=dev)
+    lengths = (pos + W).contiguous()
+    kn, vn = randn(B, Hkv, W, D), randn(B, Hkv, W, D)
+    q = randn(B, H, W, D)
+    # keys each slot's window needs (at most the table), and per row
+    Lrow = (lengths.long()[:, None] - W + torch.arange(W, device=dev)[None]
+            + 1).clamp(0, pmax * PAGE)                    # [B, W]
+    n_vis = int(Lrow.max(dim=1).values.sum())
+    n_pairs = int(Lrow.sum())
+    Lmax = int(Lrow.max())
+    mask = (torch.arange(Lmax, device=dev)[None, None, :]
+            < Lrow[:, :, None])[:, None]                  # [B, 1, W, Lmax]
+
+    def record(kind, label, fmt, err, ok, ms, pms, lms, nbytes, ops):
+        bms, by = bound(nbytes, ops, peaks["bf16_s"], peaks)
+        rows[kind].append(dict(label=label, fmt=fmt, err=err, ok=ok, ms=ms,
+                               plain_ms=pms, library_ms=lms, bound_ms=bms,
+                               bound_by=by))
+        lib = "null" if lms is None else f"{lms:.4f}"
+        print(f"{kind} {label} max_abs_err={err:.3e} (bit for bit) ok={ok} "
+              f"ms={ms:.4f} plain_ms={pms:.4f} library_ms={lib} "
+              f"bound_ms={bms:.4f} ({by})", flush=True)
+        if not ok:
+            bad.append(f"{kind} {label}")
+
+    def planted(kind, name, caught, total):
+        print(f"{kind} planted fault '{name}': {caught}/{total} outputs "
+              "differ", flush=True)
+        if not caught:
+            missed.append(f"{kind} {name}")
+
+    def pool_diff(a, b) -> int:
+        n = 0
+        for x, y in zip(a, b):
+            if x is None:
+                continue
+            if x.dtype == torch.float8_e4m3fn:
+                x, y = x.view(torch.uint8), y.view(torch.uint8)
+            n += int((x[1:] != y[1:]).sum())
+        return n
+
+    for fmt in POOL_FORMATS:
+        int4 = fmt == "int4"
+        esize = {"bf16": 2, "int8": 1, "fp8_e4m3": 1, "int4": 0.5}[fmt]
+        sc_bytes = {"bf16": 0, "int8": 4, "fp8_e4m3": 4, "int4": 8}[fmt]
+
+        def wargs(p, at, table=bt):
+            return (p[0], p[1], p[2], p[3], table, at, p[4], p[5])
+
+        # K13: the 8 slots' windows at their starts
+        p1 = spec_pool(torch, kq, randn, n_pages, Hkv, PAGE, D, fmt)
+        p_ref = [None if t is None else t.clone() for t in p1]
+        K.paged_write_window_kernel(kn, vn, *wargs(p1, pos))
+        K.paged_write_window_plain(kn, vn, *wargs(p_ref, pos))
+        torch.cuda.synchronize()
+        ok = pool_bytes_equal(torch, p1, p_ref)
+        err = max(float((a[1:].float() - b[1:].float()).abs().max())
+                  for a, b in zip(p1, p_ref) if a is not None)
+        ms = timed_ms(torch, [lambda: K.paged_write_window_kernel(
+            kn, vn, *wargs(p1, pos))], 500)
+        pms = timed_ms(torch, [lambda: K.paged_write_window_plain(
+            kn, vn, *wargs(p_ref, pos))], 10)
+        lms = None
+        if fmt == "bf16":
+            pid, r = window_targets(bt, pos, PAGE, W)
+            kr, vr = kn.transpose(1, 2), vn.transpose(1, 2)  # [B, W, Hkv, D]
+
+            def index_assign():
+                p1[0][pid, :, r] = kr
+                p1[2][pid, :, r] = vr
+
+            lms = timed_ms(torch, [index_assign], 500)
+        nbytes = (2 * B * W * Hkv * D * 2 + 2 * B * W * Hkv * D * esize
+                  + 2 * B * W * Hkv * sc_bytes + B * 4 + B * pmax * 4)
+        record("k13", f"{fmt} B={B} Hkv={Hkv} D={D} page={PAGE} W={W} "
+               f"pos={SPEC_POS}", fmt, err, ok, ms, pms, lms, nbytes, 0)
+        # planted faults, each against the plain version's pool
+        fresh = spec_pool(torch, kq, randn, n_pages, Hkv, PAGE, D, fmt)
+        want = [None if t is None else t.clone() for t in fresh]
+        K.paged_write_window_plain(kn, vn, *wargs(want, pos))
+        # the crossing block left unwritten: slot 1's successor page
+        # swapped for the trash page
+        f1 = [None if t is None else t.clone() for t in fresh]
+        bt_f = bt.clone()
+        bt_f[1, SPEC_POS[1] // PAGE + 1] = 0
+        K.paged_write_window_kernel(kn, vn, *wargs(f1, pos, bt_f))
+        planted("k13", f"{fmt}: the crossing block left unwritten",
+                pool_diff(f1, want), p1[0][1:].numel())
+        # the window one row late
+        f2 = [None if t is None else t.clone() for t in fresh]
+        K.paged_write_window_kernel(kn, vn, *wargs(f2, pos + 1))
+        planted("k13", f"{fmt}: the window one row late",
+                pool_diff(f2, want), p1[0][1:].numel())
+        if int4:
+            # the partner nibble dropped: the targets' byte rows zeroed
+            # before the write, so only the written nibble survives
+            f3 = [None if t is None else t.clone() for t in fresh]
+            pid, r = window_targets(bt, pos, PAGE, W)
+            for pages in (f3[0], f3[2]):
+                pages[pid, :, r % (PAGE // 2)] = 0
+            K.paged_write_window_kernel(kn, vn, *wargs(f3, pos))
+            planted("k13", "int4: the partner nibble dropped",
+                    pool_diff(f3, want), p1[0][1:].numel())
+        del p1, p_ref, fresh, want
+
+        # K11's W-query window over the pool the windows were written into
+        row_bytes = D * esize + sc_bytes
+        pools = [spec_pool(torch, kq, randn, n_pages, Hkv, PAGE, D, fmt)
+                 for _ in range(n_copies(int(2 * n_pages * Hkv * PAGE
+                                             * row_bytes)))]
+        p0 = pools[0]
+
+        def aargs(p, ln=lengths):
+            return (p[0], p[1], p[2], p[3], bt, ln, p[4], p[5])
+
+        out = K.paged_window_attn(q, *aargs(p0))
+        ref = K.paged_window_attn_plain(q, *aargs(p0))
+        torch.cuda.synchronize()
+        ok = torch.equal(out, ref)
+        err = float((out.float() - ref.float()).abs().max())
+        rows_ok = True
+        for w in range(W):
+            one = K.paged_attn(q[:, :, w].contiguous(),
+                               *aargs(p0, (lengths - W + w + 1).contiguous()))
+            rows_ok &= torch.equal(out[:, :, w], one)
+        if not rows_ok:
+            bad.append(f"k11w {fmt}: a window row differs from "
+                       "single-query K11 at its length")
+        ms = timed_ms(torch, [lambda p=p: K.paged_window_attn(q, *aargs(p))
+                              for p in pools], 200)
+        pms = timed_ms(torch, [lambda: K.paged_window_attn_plain(
+            q, *aargs(p0))], 3)
+
+        def gathered(p, which):
+            pages, sc, off = ((p[0], p[1], p[4]) if which == "k"
+                              else (p[2], p[3], p[5]))
+            if fmt == "bf16":
+                rows_ = pages
+            else:
+                cache = (pages, sc, off) if int4 else (pages, sc)
+                rows_ = kv_dequant_rows(torch, kq, cache, fmt)
+            g = rows_[bt.long()].transpose(1, 2).reshape(B, Hkv, T, D)
+            return g[:, :, :Lmax].contiguous()
+
+        gk = [(gathered(p, "k"), gathered(p, "v")) for p in pools]
+        lms = timed_ms(torch, [lambda a=a, b=b: sdpa(q, a, b,
+                                                      attn_mask=mask)
+                               for a, b in gk], 200)
+        del gk
+        record("k11w", f"{fmt} B={B} H={H} D={D} page={PAGE} pmax={pmax} "
+               f"W={W} lengths={tuple(lengths.tolist())} rows bit-equal to "
+               f"single-query K11: {rows_ok}", fmt, err, ok, ms, pms, lms,
+               int(2 * Hkv * n_vis * row_bytes + 2 * B * H * W * D * 2
+                   + B * pmax * 4 + B * 4), 4 * H * n_pairs * D)
+        # every row attending the whole window: no causal limit
+        whole = torch.stack([K.paged_attn(q[:, :, w].contiguous(),
+                                          *aargs(p0)) for w in range(W)],
+                            dim=2)
+        d = (whole.float() - ref.float()).abs()
+        planted("k11w", f"{fmt}: no causal limit in the window",
+                int((d > kv_tol(ref)).sum()), d.numel())
+        del pools, p0
+    if bad:
+        fail(f"speculative kernels disagree with their plain versions: {bad}")
+    if missed:
+        fail(f"the speculative kernels' checks missed planted faults: "
+             f"{missed}")
+    return rows
+
+
+def phase_spec_envelope(torch) -> None:
+    """The attention kernels over long contexts, none of which may raise,
+    each bit for bit equal to its plain version: K5 and K6 (int8, fp8) at
+    rep 1 over T 65,536; K7 (bf16, int8) at rep 4 over T 16,384; K11
+    single-query and its W-query window (W 9 at rep 4: 36 query rows, five
+    groups) over 128 pages of 128 rows in each pool format, each window
+    row equal to single-query K11 at its length."""
+    from neural_compressor_tpu_torch import kernels as K
+    from neural_compressor_tpu_torch.ops import kv_quant as kq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(43)
+    bad, n = [], 0
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def check(label, a, b):
+        nonlocal n
+        torch.cuda.synchronize()
+        n += 1
+        if not torch.equal(a, b):
+            bad.append(label)
+
+    D = HEAD_DIM
+    T = 65536
+    H = Hkv = 8
+    k, v = randn(1, Hkv, T, D), randn(1, Hkv, T, D)
+    for pos in (T - 1, 40000):
+        q = randn(1, H, D)
+        check(f"k5 rep 1 T={T} pos={pos}", K.decode_attn(q, k, v, pos),
+              K.decode_attn_plain(q, k, v, pos))
+    for fmt in ("int8", "fp8_e4m3"):
+        kc, ks = kq.kv_quant(k, fmt)
+        vc, vs = kq.kv_quant(v, fmt)
+        for pos in (T - 1, T + 2):
+            q, kn, vn = randn(1, H, D), randn(1, Hkv, D), randn(1, Hkv, D)
+            check(f"k6 {fmt} rep 1 T={T} pos={pos}",
+                  K.decode_attn_quant(q, kn, vn, kc, ks, vc, vs, pos),
+                  K.decode_attn_quant_plain(q, kn, vn, kc, ks, vc, vs, pos))
+    del k, v, kc, ks, vc, vs
+    T, H, Hkv = 16384, 16, 4
+    p = torch.tensor([T - 1, 9000], dtype=torch.int32, device=dev)
+    k, v = randn(2, Hkv, T, D), randn(2, Hkv, T, D)
+    q = randn(2, H, D)
+    check(f"k7 bf16 rep 4 T={T}", K.batched_decode_attn(q, k, v, p),
+          K.batched_decode_attn_plain(q, k, v, p))
+    for fmt in ("int8", "fp8_e4m3"):
+        kc, ks = kq.kv_quant(k, fmt)
+        vc, vs = kq.kv_quant(v, fmt)
+        check(f"k7 {fmt} rep 4 T={T}",
+              K.batched_decode_attn(q, kc, vc, p, ks, vs),
+              K.batched_decode_attn_plain(q, kc, vc, p, ks, vs))
+    del k, v, kc, ks, vc, vs
+    pmax, W = 128, SPEC_W
+    n_pages = 2 * pmax + 1
+    bt = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                         .manual_seed(44)) + 1).reshape(2, pmax)
+    bt = bt.to(torch.int32).to(dev)
+    lengths = torch.tensor([pmax * PAGE, 10000], dtype=torch.int32,
+                           device=dev)
+    for fmt in POOL_FORMATS:
+        pool = spec_pool(torch, kq, randn, n_pages, Hkv, PAGE, D, fmt)
+        a = (pool[0], pool[1], pool[2], pool[3], bt)
+        ofs = (pool[4], pool[5])
+        q = randn(2, H, D)
+        check(f"k11 {fmt} rep 4 {pmax} pages of {PAGE}",
+              K.paged_attn(q, *a, lengths, *ofs),
+              K.paged_attn_plain(q, *a, lengths, *ofs))
+        qw = randn(2, H, W, D)
+        out = K.paged_window_attn(qw, *a, lengths, *ofs)
+        check(f"k11 window {fmt} rep 4 W={W} {pmax} pages of {PAGE}", out,
+              K.paged_window_attn_plain(qw, *a, lengths, *ofs))
+        for w in range(W):
+            check(f"k11 window {fmt} row {w} vs single-query",
+                  out[:, :, w], K.paged_attn(
+                      qw[:, :, w].contiguous(), *a,
+                      (lengths - W + w + 1).contiguous(), *ofs))
+        del pool
+    print(f"spec envelope (long contexts): {n} checks, card vs plain: "
+          f"{'all equal, none raised' if not bad else bad}", flush=True)
+    if bad:
+        fail(f"attention kernels over long contexts: {bad}")
+
+
+def repeating_prompt(torch, V: int, n: int, seed: int):
+    """A random [1, n] prompt that repeats a 6-gram every 15 tokens, so
+    that prompt lookup has matches to propose."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, V, (1, n), generator=gen)
+    unit = torch.randint(0, V, (6,), generator=gen)
+    for at in range(0, n - 6, 15):
+        ids[0, at:at + 6] = unit
+    return ids
+
+
+def loop_prompt(torch, nct, model, seed: int):
+    """The last 40 tokens of the model's 160-token greedy run from a random
+    8-token prompt, made on the card: a random model's greedy run falls
+    into cycles, so prompt lookup proposes tokens it repeats and verify
+    rounds accept several (as ``bench.py``'s prompt does)."""
+    p = repeating_prompt(torch, model.cfg.vocab_size, 8, seed)
+    return nct.greedy_search(model, p, max_new_tokens=160)[:, -40:].cpu()
+
+
+def spec_launches(layers: int, rounds: int, chunks: int, paged: bool) -> dict:
+    """The exact launches of speculative serving on a W4A8 model: K1 for
+    every projection (4 a layer and the lm_head) of every verify window and
+    prefill chunk; over a page pool K13 writes and K11's window attends
+    each window, once a layer (a contiguous cache's window attends in plain
+    PyTorch, as JAX's prefill branch does)."""
+    want = dict(w4a8_gemm=(4 * layers + 1) * (rounds + chunks))
+    if paged:
+        want.update(paged_write_window=layers * rounds,
+                    paged_window_attn=layers * rounds)
+    return want
+
+
+def card_cpu_tie(torch, m_cpu, m_gpu, fmt, prefix, tok_cpu: int,
+                 tok_card: int) -> tuple:
+    """Where the card and the CPU chose ``tok_card`` and ``tok_cpu`` after
+    the common ``prefix``: the CPU's top-2 gap between them, and the
+    measured card-CPU logit difference there (one prefill of the prefix
+    over a cache of ``fmt`` on each side). Returns (gap, diff)."""
+    from neural_compressor_tpu_torch.models.llama import init_kv_cache
+
+    ids = torch.tensor([list(prefix)])
+    rows = []
+    for m in (m_cpu, m_gpu):
+        caches = init_kv_cache(m.cfg, 1, ids.shape[1], quantized=fmt or False,
+                               device=m.device)
+        with torch.no_grad():
+            lg, _ = m(ids.to(m.device), None, caches, 0)
+        rows.append(lg[0, -1].float().cpu())
+    cpu, card = rows
+    return float(cpu[tok_cpu] - cpu[tok_card]), float((cpu - card).abs().max())
+
+
+def phase_spec_model_check(torch, nct) -> None:
+    """Greedy speculation on full-width 2-layer models, the card (kernels)
+    against the CPU (plain versions), the same weights and prompts:
+    ``ngram_speculative_greedy_search`` on W4A8 (fused decode) and W4A16
+    targets, ``speculative_greedy_search`` with a W4A8 target and another
+    2-layer W4A8 model of its own seed as the draft, and the engine with
+    ``speculative="ngram"`` in every pool mode (contiguous bf16, int8,
+    fp8, int4; paged bf16, int8, fp8, int4; 128-row pages, so that K13 and
+    K11's window run). Tokens and statistics must be equal, and the
+    card's launches exact (B=1) or present (the engine's path); an engine
+    request may part only where the CPU's top-2 gap is at most the
+    measured card-CPU logit difference there (``card_cpu_tie``; as
+    ``two_layer_check`` allows it over int4 caches)."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.models.llama import (LLAMA_PRESETS,
+                                                          LlamaConfig)
+
+    torch.set_num_threads(8)
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(**dict(LLAMA_PRESETS["llama2-7b"], num_hidden_layers=2))
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+
+    def w4a8(seed):
+        m = nct.build_quantized(
+            cfg, nct.RTNConfig(dtype="int4", group_size=G,
+                               quant_lm_head=True), seed=seed, device="cpu")
+        nct.fuse_for_serving(m)
+        nct.to_w4a8_serving(m)
+        nct.enable_fused_decode(m)
+        return m
+
+    def both(fn, m_cpu, m_gpu, label, want_fn, woq=False):
+        t1 = time.perf_counter()
+        kernels.reset_launch_counts()
+        got, gst = fn(m_gpu)
+        launched = launch_counts()
+        if woq:
+            set_woq_impl(m_cpu, "pallas")   # the card's K8 at M = 9 and 32
+        with unpack_once():
+            want, wst = fn(m_cpu)
+        want_l = expect(**want_fn(gst))
+        ok = (torch.equal(got.cpu(), want) and gst == wst
+              and launched == want_l)
+        print(f"spec model check {label} (2 layers, full width): card "
+              f"{got[0, -16:].tolist()} cpu {want[0, -16:].tolist()} stats "
+              f"card {gst} cpu {wst} launches "
+              f"{ {k: v for k, v in launched.items() if v} } "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+        if not ok:
+            fail(f"spec model check {label}: card and CPU differ or launches "
+                 f"{launched} != {want_l}")
+
+    new = 8
+    m_cpu = w4a8(4)
+    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    ids = loop_prompt(torch, nct, m_gpu, 51)
+
+    def ngram(m):
+        return nct.ngram_speculative_greedy_search(
+            m, ids, max_new_tokens=new, k=SPEC_K, n=SPEC_N, max_len=128,
+            return_stats=True)
+
+    both(ngram, m_cpu, m_gpu, "ngram W4A8",
+         lambda st: spec_launches(L, st["rounds"], 1, False))
+    d_cpu = w4a8(5)
+    d_gpu = copy.deepcopy(d_cpu).to("cuda")
+
+    def draft(m):
+        return nct.speculative_greedy_search(
+            m, d_gpu if m is m_gpu else d_cpu, ids, max_new_tokens=new,
+            k=4, max_len=128, return_stats=True)
+
+    # the draft's k+1 single-token steps a round carry position tensors:
+    # K7 at B=1 (bf16 cache) after its fused projections (K4)
+    both(draft, m_cpu, m_gpu, "draft-verify W4A8",
+         lambda st: dict(w4a8_gemm=(4 * L + 1) * (st["rounds"] + 2),
+                         fused_gemv=(4 * L + 1) * 5 * st["rounds"],
+                         batched_decode_attn=L * 5 * st["rounds"]))
+    del d_cpu, d_gpu
+
+    # the engine in every pool mode: a looping prompt and a random one
+    prompts = [ids[0].numpy(), repeating_prompt(torch, V, 20, 61)[0].numpy()]
+    news = (5, 4)
+    kw = dict(n_slots=4, max_len=256, prefill_chunk=32, page_size=PAGE,
+              speculative="ngram", spec_k=SPEC_K, spec_n=SPEC_N)
+    for mode in ENGINE_MODES:
+        t1 = time.perf_counter()
+        kernels.reset_launch_counts()
+        eng, got, _s = serve_engine(torch, nct, m_gpu, mode, prompts, news,
+                                    chunk=2, **kw)
+        launched = launch_counts()
+        mg = eng.metrics()
+        with unpack_once():
+            eng, want, _s = serve_engine(torch, nct, m_cpu, mode, prompts,
+                                         news, chunk=2, **kw)
+        mc = eng.metrics()
+        toks = [r.generated for r in got]
+        paged = mode.startswith("paged")
+        path = (("paged_write_window", "paged_window_attn") if paged
+                else ("w4a8_gemm",))
+        keys = ("spec_rounds", "spec_accepted", "decode_dispatches")
+        parted = []
+        for i, (a, b) in enumerate(zip(toks, [r.generated for r in want])):
+            n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if n is not None:
+                with unpack_once():
+                    gap, diff = card_cpu_tie(torch, m_cpu, m_gpu,
+                                             ENGINE_MODES[mode][1],
+                                             list(prompts[i]) + b[:n], b[n],
+                                             a[n])
+                parted.append(dict(request=i, step=n, card=a[n], cpu=b[n],
+                                   gap=gap, diff=diff))
+        ok = (all(p_["gap"] <= p_["diff"] for p_ in parted)
+              and (parted or all(mg[k] == mc[k] for k in keys))
+              and all(launched[k] > 0 for k in path)
+              and (paged or launched["paged_window_attn"] == 0))
+        print(f"spec engine check {mode} (2 layers, full width): card "
+              f"tokens {toks} cpu {[r.generated for r in want]} "
+              f"{ {k: mg[k] for k in keys} } near-ties {parted} launches "
+              f"{ {k: v for k, v in launched.items() if v} } "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+        if not ok:
+            fail(f"spec engine {mode}: card and CPU differ or the path's "
+                 "kernels did not run")
+    del m_cpu, m_gpu
+
+    # a W4A16 target: windows and the prefill on K8 (the CPU forced onto
+    # the plain K8, as two_layer_check forces it)
+    m_gpu = woq_model(nct, cfg, seed=7, device="cuda")
+    m_cpu = copy.deepcopy(m_gpu).to("cpu")
+    ids = loop_prompt(torch, nct, m_gpu, 52)
+    both(ngram, m_cpu, m_gpu, "ngram W4A16",
+         lambda st: dict(dequant_gemm=(4 * L + 1) * (st["rounds"] + 1)),
+         woq=True)
+    del m_cpu, m_gpu
+    print(f"spec model check done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def parting_gap(torch, model, prefix, tok_a: int, tok_b: int) -> tuple:
+    """At a step where two paths chose ``tok_a`` (greedy) and ``tok_b``
+    (speculative) after the common ``prefix`` (a list of token ids), the
+    decode path's top-2 gap between them and the measured logit difference
+    between the decode path and the verify window's path at that step:
+    (a) the prefix less its last token prefilled, the last token decoded
+    (the fused B=1 step); (b) the prefix less its last SPEC_W tokens
+    prefilled, those tokens one verify window (K1 at M = SPEC_W). Returns
+    (gap, diff)."""
+    from neural_compressor_tpu_torch.models.llama import init_kv_cache
+
+    ids = torch.tensor([prefix], device="cuda")
+    P = ids.shape[1]
+    with torch.no_grad():
+        caches = init_kv_cache(model.cfg, 1, P + 1)
+        model(ids[:, :-1], None, caches, 0)
+        a, _ = model(ids[:, -1:], torch.full((1, 1), P - 1, device="cuda"),
+                     caches, P - 1)
+        caches = init_kv_cache(model.cfg, 1, P + 1)
+        model(ids[:, :P - SPEC_W], None, caches, 0)
+        b, _ = model(ids[:, P - SPEC_W:],
+                     torch.arange(P - SPEC_W, P, device="cuda")[None],
+                     caches, P - SPEC_W)
+    a, b = a[0, -1].float(), b[0, -1].float()
+    return float(a[tok_a] - a[tok_b]), float((a - b).abs().max())
+
+
+def token_rule(torch, model, label, prompt, want, got) -> dict:
+    """Speculative tokens ``got`` against greedy's ``want`` after
+    ``prompt``: equal, or parted first where the greedy path's top-2 gap is
+    at most the measured logit difference between the decode and the
+    window paths (``parting_gap``). Returns the parting (or {})."""
+    n = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if n is None:
+        return {}
+    gap, diff = parting_gap(torch, model, list(prompt) + list(want[:n]),
+                            want[n], got[n])
+    part = dict(step=n, greedy=want[n], spec=got[n], gap=gap, diff=diff)
+    print(f"{label}: parts from greedy at new token {n}: {part}",
+          flush=True)
+    if gap > diff:
+        fail(f"{label}: speculative tokens part from greedy's where the "
+             f"greedy top-2 gap {gap} exceeds the paths' difference {diff}")
+    return part
+
+
+def phase_spec_serve(torch, nct, model) -> dict:
+    """Greedy speculation on the full-depth llama2-7b W4A8 model:
+      * B=1, ``bench.py``'s path: the prompt is the last 128 tokens of a
+        192-token ``greedy_search`` from ``arange(16) % 256``;
+        ``ngram_speculative_greedy_search`` with k 8, n 2, max_len 512 and
+        128 new tokens against ``greedy_search`` on the same prompt
+        (tok/s of both, tokens a round, the acceptance histogram);
+      * the 8-slot engine with ``speculative="ngram"`` (k 8, n 2) over
+        contiguous bf16 caches and the paged int8 pool: 16 requests, half
+        of phase 7's prompts, half the model's own greedy continuations;
+        tok/s against the plain engine on the same requests in this run,
+        ``spec_rounds`` and ``spec_accepted``; one spec dispatch profiled.
+    Exact launch counts (K1, and K13 and K11's window over the pool); the
+    tokens obey ``token_rule`` against the plain paths. Returns
+    {path: launches}."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.models.llama import init_kv_cache
+
+    V = model.cfg.vocab_size
+    out = {}
+    seed_ids = (torch.arange(16)[None] % 256).cuda()
+    warm = nct.greedy_search(model, seed_ids, max_new_tokens=192,
+                             max_len=512)
+    prompt = warm[:, -128:]
+    P, new = prompt.shape[1], 128
+
+    def timed(fn):
+        fn()                                   # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    greedy, g_s = timed(lambda: nct.greedy_search(
+        model, prompt, max_new_tokens=new, max_len=512))
+    kernels.reset_launch_counts()
+    (spec, st), s_s = timed(lambda: nct.ngram_speculative_greedy_search(
+        model, prompt, max_new_tokens=new, k=SPEC_K, n=SPEC_N, max_len=512,
+        return_stats=True))
+    launches = launch_counts()
+    # two runs counted from the reset (the warm run and the timed one)
+    want = expect(**{k: 2 * v for k, v in spec_launches(
+        LAYERS, st["rounds"], 1, False).items()})
+    print(f"spec B=1 (bench.py's path, prompt {P}, {new} new, k {SPEC_K}, "
+          f"n {SPEC_N}): greedy {new / g_s:.2f} tok/s, speculative "
+          f"{new / s_s:.2f} tok/s, {json.dumps(st)}", flush=True)
+    print(f"spec B=1 kernels {json.dumps(launches)} expected "
+          f"{json.dumps(want)}", flush=True)
+    if launches != want:
+        fail(f"spec B=1: launch counts {launches} != {want}")
+    g, s_ = greedy[0, P:].tolist(), spec[0, P:].tolist()
+    if len(s_) != new or min(s_) < 0 or max(s_) >= V:
+        fail(f"spec B=1: bad output {s_}")
+    token_rule(torch, model, "spec B=1", prompt[0].tolist(), g, s_)
+    out["spec_greedy_b1"] = {k: v // 2 for k, v in launches.items()}
+    # where the time goes at B=1: one verify round (a 9-token window
+    # forward over the prompt's cache, proposals from the greedy tokens)
+    with torch.no_grad():
+        caches = init_kv_cache(model.cfg, 1, 512)
+        model(prompt, None, caches, 0)
+        win = greedy[:, P - 1:P - 1 + SPEC_W]
+        at = torch.arange(P - 1, P - 1 + SPEC_W, device="cuda")[None]
+        model(win, at, caches, P - 1)                  # warm
+        profile_window(torch, f"spec B=1 one verify round ({SPEC_W}-token "
+                       "window)", lambda: model(win, at, caches, P - 1))
+        del caches
+
+    # the engine: half phase 7's prompts, half greedy continuations
+    gen = torch.Generator().manual_seed(6)
+    p7 = [torch.randint(0, V, (PROMPTS[i % len(PROMPTS)],),
+                        generator=gen).numpy()
+          for i in range(ENGINE_REQUESTS)]
+    starts = (torch.arange(16)[None] + 16 * torch.arange(SLOTS)[:, None]) \
+        % 256
+    cont = nct.greedy_search(model, starts.cuda(), max_new_tokens=192,
+                             max_len=512)[:, -128:].cpu().numpy()
+    prompts = [p7[i] for i in range(ENGINE_REQUESTS // 2)] + list(cont)
+    news = [48 + (7 * i) % 17 for i in range(ENGINE_REQUESTS)]
+    spec_kw = dict(speculative="ngram", spec_k=SPEC_K, spec_n=SPEC_N)
+    for mode in ("contiguous", "paged_int8"):
+        paged = mode != "contiguous"
+        _e, plain, plain_s = serve_engine(torch, nct, model, mode, prompts,
+                                          news, n_slots=SLOTS,
+                                          max_len=MAX_LEN, page_size=PAGE)
+        plain_tok_s = _e.metrics()["generated_tok_s"]
+        del _e
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        eng, reqs, seconds = serve_engine(torch, nct, model, mode, prompts,
+                                          news, n_slots=SLOTS,
+                                          max_len=MAX_LEN, page_size=PAGE,
+                                          **spec_kw)
+        launches = launch_counts()
+        m = eng.metrics()
+        rounds = CHUNK * m["decode_dispatches"]
+        want = expect(**spec_launches(LAYERS, rounds,
+                                      m["prefill_chunk_dispatches"], paged))
+        counters = {k: m[k] for k in (
+            "generated_tokens", "prefill_chunk_dispatches",
+            "decode_dispatches", "combined_dispatches", "spec_rounds",
+            "spec_accepted", "spec_suppressed_dispatches")}
+        print(f"spec engine {mode}: {len(reqs)} requests in {seconds:.3f} s, "
+              f"generated {m['generated_tok_s']:.2f} tok/s against the plain "
+              f"engine's {plain_tok_s:.2f} on the same requests, tokens a "
+              f"round {m['spec_accepted'] / max(m['spec_rounds'], 1):.3f}, "
+              f"{json.dumps(counters)}", flush=True)
+        print(f"spec engine {mode} kernels {json.dumps(launches)} expected "
+              f"{json.dumps(want)}", flush=True)
+        if launches != want:
+            fail(f"spec engine {mode}: launch counts {launches} != {want}")
+        parted = []
+        for i, (r, q, p) in enumerate(zip(reqs, plain, prompts)):
+            if len(r.generated) != news[i] or min(r.generated) < 0 \
+                    or max(r.generated) >= V:
+                fail(f"spec engine {mode}: bad output {r.generated}")
+            part = token_rule(torch, model, f"spec engine {mode} request {i}",
+                              list(p), q.generated, r.generated)
+            if part:
+                parted.append(i)
+        print(f"spec engine {mode}: {ENGINE_REQUESTS - len(parted)} of "
+              f"{ENGINE_REQUESTS} requests equal to the plain engine's "
+              f"tokens, parted at near-ties: {parted}", flush=True)
+        out[f"spec_engine_{mode}"] = launches
+
+        # where the time goes: one spec dispatch with every slot live
+        eng = engine_for(nct, model, mode, n_slots=SLOTS, max_len=MAX_LEN,
+                         page_size=PAGE, **spec_kw)
+        for p in prompts[SLOTS:]:
+            eng.submit(p, max_new_tokens=64)
+        while eng.queue or "prefill" in eng.slot_state:
+            eng.run(max_steps=1, chunk=1)
+        profile_window(torch, f"spec engine {mode} dispatch, 8 slots x "
+                       f"{CHUNK} verify rounds of {SPEC_W} tokens",
+                       lambda: eng._spec_step(CHUNK))
+        del eng        # not run dry: the profile was all it was for
+    return out
+
+
 def phase_kv_serve(torch, nct, model) -> dict:
-    """The slice's path at full width and depth: llama2-7b asym-int4 g128
-    W4A16 (built with ``RTNConfig + KVCacheQuantConfig``) with int8 and with
+    """The slice's path at full width, ``WOQ_LAYERS`` deep: llama2-7b
+    asym-int4 g128 W4A16 (built with ``RTNConfig + KVCacheQuantConfig``)
+    with int8 and with
     fp8 caches, three greedy requests at B=1 each (prompts of 16, 100 and
     371 tokens, 48 new, max_len 1024): prefill on the codes, K6 decode
     attention, K9 decode projections, K8 (M <= 256) and dequantize-then-
@@ -2092,12 +2836,13 @@ def phase_kv_serve(torch, nct, model) -> dict:
     from neural_compressor_tpu_torch import kernels
     from neural_compressor_tpu_torch.kernels import dequant_dot
     from neural_compressor_tpu_torch.models.llama import init_kv_cache
+    nl = model.cfg.num_hidden_layers
 
     gen = torch.Generator().manual_seed(2)
     prompts = [torch.randint(0, model.cfg.vocab_size, (1, P), generator=gen)
                for P in PROMPTS]
     steps = NEW_TOKENS - 1
-    n_proj = 4 * LAYERS + 1
+    n_proj = 4 * nl + 1
     short = sum(P <= 256 for P in PROMPTS)
     out = {}
     for fmt in ("int8", "fp8_e4m3"):
@@ -2133,12 +2878,13 @@ def phase_kv_serve(torch, nct, model) -> dict:
         dots = dequant_dot.calls
         # K6 attends, K12 writes the row (paged_write for int8 codes)
         write = "paged_write" if fmt == "int8" else "paged_write_fp8"
-        want = expect(decode_attn_quant=len(PROMPTS) * steps * LAYERS,
-                      **{write: len(PROMPTS) * steps * LAYERS},
+        want = expect(decode_attn_quant=len(PROMPTS) * steps * nl,
+                      **{write: len(PROMPTS) * steps * nl},
                       dequant_gemm=short * n_proj,
                       vpu_gemv=len(PROMPTS) * steps * n_proj)
         want_dots = (len(PROMPTS) - short) * n_proj
-        cache_gib = (2 * LAYERS * HEADS * MAX_LEN * (HEAD_DIM + 4)) / 2**30
+        cache_gib = (2 * nl * HEADS * MAX_LEN
+                     * (HEAD_DIM + 4)) / 2**30
         print(f"kv {fmt} B=1 kernels {json.dumps(launches)} expected "
               f"{json.dumps(want)}; dequantize-then-matmul calls {dots} "
               f"(expected {want_dots}); peak device memory "
@@ -2194,12 +2940,13 @@ def phase_kv_engine(torch, nct, model) -> dict:
     from neural_compressor_tpu_torch.kernels import dequant_dot
 
     V = model.cfg.vocab_size
+    nl = model.cfg.num_hidden_layers
     gen = torch.Generator().manual_seed(6)
     prompts = [torch.randint(0, V, (PROMPTS[i % len(PROMPTS)],),
                              generator=gen).numpy()
                for i in range(ENGINE_REQUESTS)]
     new = [48 + (7 * i) % 17 for i in range(ENGINE_REQUESTS)]   # 48-64
-    n_proj = 4 * LAYERS + 1
+    n_proj = 4 * nl + 1
     out = {}
     for mode in KV_MODES:
         _kw, fmt = ENGINE_MODES[mode]
@@ -2244,7 +2991,7 @@ def phase_kv_engine(torch, nct, model) -> dict:
                 "paged_int4": dict(paged_attn_int4=1,
                                    paged_write_int4=1)}[mode]
         want = expect(dequant_gemm=n_proj * (steps + k8_chunks),
-                      **{k: LAYERS * steps for k in attn})
+                      **{k: nl * steps for k in attn})
         want_dots = n_proj * (len(chunk_rows) - k8_chunks)
         counters = {k: m[k] for k in (
             "requests", "prompt_tokens", "generated_tokens",
@@ -2334,7 +3081,11 @@ def main() -> None:
               "kv_envelope": lambda: phase_kv_envelope(torch),
               "model_check": lambda: phase_model_check(torch, nct),
               "engine_check": lambda: phase_engine_check(torch, nct),
-              "woq_model_check": lambda: phase_woq_model_check(torch, nct)}
+              "woq_model_check": lambda: phase_woq_model_check(torch, nct),
+              "spec_kernels": lambda: phase_spec_kernels(torch, nct, peaks),
+              "spec_envelope": lambda: phase_spec_envelope(torch),
+              "spec_model_check": lambda: phase_spec_model_check(torch,
+                                                                 nct)}
     if len(sys.argv) > 1:
         # a development run: only the named checks, no serving, no result
         unknown = [a for a in sys.argv[1:] if a not in checks]
@@ -2347,6 +3098,7 @@ def main() -> None:
     results = {k: timed_phase(k, fn) for k, fn in checks.items()}
     rows, erows = results["kernels"], results["engine_kernels"]
     wrows, kvrows = results["woq_kernels"], results["kv_kernels"]
+    srows = results["spec_kernels"]
     launches, model, prompts = timed_phase(
         "serve", lambda: phase_serve(torch, nct))
     timed_phase("profile", lambda: phase_profile(torch, model, prompts[1]))
@@ -2355,6 +3107,8 @@ def main() -> None:
             "engine_serve",
             lambda: phase_engine_serve(torch, nct, model)).items():
         by_path[f"engine_{mode}"] = counts
+    by_path.update(timed_phase("spec_serve",
+                               lambda: phase_spec_serve(torch, nct, model)))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -2405,6 +3159,12 @@ def main() -> None:
     def kv_unit(kind, pick=lambda r: True):
         u = unit([r for r in kvrows[kind] if pick(r)], layers, bytes_)
         u["max_abs_err"] = max(r["err"] for r in kvrows[kind])
+        return u
+
+    def spec_unit(kind):
+        u = unit([r for r in srows[kind] if r["fmt"] == "int8"], layers,
+                 bytes_)
+        u["max_abs_err"] = max(r["err"] for r in srows[kind])
         return u
 
     int8_at_unit = lambda r: (r["fmt"] == "int8"  # noqa: E731
@@ -2463,6 +3223,15 @@ def main() -> None:
          "neural_compressor_tpu/kernels/paged_attention.py:615 "
          "(_paged_write_impl, _write_kernel_int4, K12, int4)",
          kv_unit("k12_int4")),
+        ("paged_write_window",
+         "neural_compressor_tpu_torch/csrc/paged_write.cu",
+         "neural_compressor_tpu/kernels/paged_attention.py:855, :882, :904 "
+         "(_paged_write_window_impl, K13)", spec_unit("k13")),
+        ("paged_window_attn",
+         "neural_compressor_tpu_torch/csrc/paged_attention.cu",
+         "neural_compressor_tpu/kernels/paged_attention.py:489 "
+         "(_paged_attn_impl_v2, K11, the W-query window wq > 1)",
+         spec_unit("k11w")),
     ]
     print(smi, flush=True)
     print("unit of the kernels line: w4a8_gemm = one 128-token prefill "
@@ -2486,7 +3255,12 @@ def main() -> None:
           "engine paged int8; W4A16: B=1 greedy, the engine contiguous; "
           "W4A16 with quantized KV caches: B=1 greedy over int8 and fp8, "
           "the engine over contiguous int8, fp8 and int4 caches and paged "
-          "fp8 and int4 pools), each counted from 0", flush=True)
+          "fp8 and int4 pools; W4A8 speculation: B=1 prompt lookup, the "
+          "engine contiguous and paged int8), each counted from 0; "
+          "paged_write_window and paged_window_attn = one verify round of "
+          f"the 8-slot engine ({SPEC_W}-token windows at {SPEC_POS}) over "
+          "the int8 pool (32 layers; index assignment into a bf16 pool and "
+          "SDPA over the gathered rows in the log)", flush=True)
     kernels_line = {"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[n] for c in by_path.values()),

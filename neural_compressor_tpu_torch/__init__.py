@@ -1,7 +1,8 @@
 """neural_compressor_tpu_torch — the PyTorch/CUDA port of
 ``neural_compressor_tpu``.
 
-It serves RTN-quantized Llama models with greedy decoding through
+It serves RTN-quantized Llama models with greedy decoding (plain, or
+speculative: draft-verify or prompt lookup) through
 hand-written Hopper kernels (``kernels/``, sources in ``csrc/``): build or
 load a model, quantize it (weight-only ``WOQLinear``: sym or asym int4,
 int2, int8, nf4, fp4; add ``KVCacheQuantConfig`` for int8, fp8-e4m3 or
@@ -12,6 +13,7 @@ over contiguous or paged KV caches.
     from neural_compressor_tpu_torch import (
         RTNConfig, KVCacheQuantConfig, build_quantized, fuse_for_serving,
         to_w4a8_serving, enable_fused_decode, generate,
+        ngram_speculative_greedy_search, speculative_greedy_search,
         ContinuousBatchingEngine)
 
 It imports PyTorch, never JAX. Entry points run on the CUDA card unless
@@ -25,5 +27,7 @@ from .quantization import (KVCacheQuantConfig, RTNConfig,
                            to_w4a8_serving)
 from .models import (LLAMA_PRESETS, LlamaConfig, LlamaForCausalLM,
                      build_quantized, from_jax_params)
-from .generation import generate, greedy_search
+from .generation import (generate, greedy_search,
+                         ngram_speculative_greedy_search,
+                         speculative_greedy_search)
 from .serving import ContinuousBatchingEngine

@@ -30,8 +30,11 @@
 //   or e4m3) and are rounded once, so their order almost never shows: the
 //   kernel and its plain version (kernels/decode_attention.py) agree bit
 //   for bit. The TPU kernel chunks T with an online softmax; one pass over
-//   the visited rows gives its result where one chunk covers them. A
-//   simple first kernel: no split of T across blocks, no TMA.
+//   the visited rows gives its result where one chunk covers them. The
+//   score rows live in a float32 workspace in device memory ([B, H, T],
+//   allocated by the wrapper; they pass through L2), so shared memory does
+//   not grow with T and any context length fits. A simple first kernel:
+//   no split of T across blocks, no TMA.
 #include "nctt_common.cuh"
 
 namespace {
@@ -48,8 +51,9 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                                 const float* __restrict__ ks,
                                 const float* __restrict__ vs,
                                 const int* __restrict__ pos,
-                                __nv_bfloat16* __restrict__ out, int H,
-                                int Hkv, int T, float scale) {
+                                __nv_bfloat16* __restrict__ out,
+                                float* __restrict__ ws, int H, int Hkv, int T,
+                                float scale) {
   constexpr int D = DPL * 32;
   constexpr bool QUANT = !std::is_same<C, __nv_bfloat16>::value;
   extern __shared__ __align__(16) double smem[];
@@ -60,7 +64,7 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   double* sred = smem;                                // [WARPS][rep][D]
   double* sl = sred + WARPS * rep * D;                // [rep]
   float* sq = reinterpret_cast<float*>(sl + rep);     // [rep][D]
-  float* sp = sq + rep * D;                           // [rep][T]
+  float* sp = ws + ((size_t)b * H + (size_t)hk * rep) * T;  // [rep][T]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t bh = (size_t)b * Hkv + hk;
@@ -150,11 +154,11 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int DPL, typename C>
 int launch(const void* q, const void* k, const void* v, const void* ks,
-           const void* vs, const void* pos, void* out, int B, int H, int Hkv,
-           int T, float scale, cudaStream_t stream) {
+           const void* vs, const void* pos, void* out, void* ws, int B, int H,
+           int Hkv, int T, float scale, cudaStream_t stream) {
   const int D = DPL * 32, rep = H / Hkv;
   const size_t smem = sizeof(double) * ((size_t)WARPS * rep * D + rep) +
-      sizeof(float) * ((size_t)rep * D + (size_t)rep * T);
+      sizeof(float) * (size_t)rep * D;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         batched_decode_attention_kernel<DPL, C>,
@@ -164,24 +168,24 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
   batched_decode_attention_kernel<DPL, C><<<dim3(Hkv, B), THREADS, smem,
                                             stream>>>(
       (const __nv_bfloat16*)q, (const C*)k, (const C*)v, (const float*)ks,
-      (const float*)vs, (const int*)pos, (__nv_bfloat16*)out, H, Hkv, T,
-      scale);
+      (const float*)vs, (const int*)pos, (__nv_bfloat16*)out, (float*)ws, H,
+      Hkv, T, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename C>
 int dispatch(const void* q, const void* k, const void* v, const void* ks,
-             const void* vs, const void* pos, void* out, int B, int H,
-             int Hkv, int T, int D, float scale, cudaStream_t s) {
+             const void* vs, const void* pos, void* out, void* ws, int B,
+             int H, int Hkv, int T, int D, float scale, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<1, C>(q, k, v, ks, vs, pos, out, B, H, Hkv, T,
+    case 32: return launch<1, C>(q, k, v, ks, vs, pos, out, ws, B, H, Hkv, T,
                                  scale, s);
-    case 64: return launch<2, C>(q, k, v, ks, vs, pos, out, B, H, Hkv, T,
+    case 64: return launch<2, C>(q, k, v, ks, vs, pos, out, ws, B, H, Hkv, T,
                                  scale, s);
-    case 128: return launch<4, C>(q, k, v, ks, vs, pos, out, B, H, Hkv, T,
-                                  scale, s);
-    case 256: return launch<8, C>(q, k, v, ks, vs, pos, out, B, H, Hkv, T,
-                                  scale, s);
+    case 128: return launch<4, C>(q, k, v, ks, vs, pos, out, ws, B, H, Hkv,
+                                  T, scale, s);
+    case 256: return launch<8, C>(q, k, v, ks, vs, pos, out, ws, B, H, Hkv,
+                                  T, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -190,22 +194,22 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
 
 // q bf16 [B, H, D]; caches [B, Hkv, T, D] holding each slot's row pos[b]:
 // bf16 (code 0; ks/vs null), int8 (code 1) or e4m3 (code 2) with scales
-// f32 [B, Hkv, T]; pos int32 [B]; out bf16 [B, H, D]. D in
-// {32, 64, 128, 256}; 1 <= H/Hkv <= 8.
+// f32 [B, Hkv, T]; pos int32 [B]; out bf16 [B, H, D]; ws f32 [B, H, T]
+// scratch for the score rows. D in {32, 64, 128, 256}; 1 <= H/Hkv <= 8.
 NCTT_API int nctt_batched_decode_attention(const void* q, const void* k,
                                            const void* v, const void* ks,
                                            const void* vs, const void* pos,
-                                           void* out, int B, int H, int Hkv,
-                                           int T, int D, int code,
+                                           void* out, void* ws, int B, int H,
+                                           int Hkv, int T, int D, int code,
                                            float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (code) {
-    case 0: return dispatch<__nv_bfloat16>(q, k, v, ks, vs, pos, out, B, H,
-                                           Hkv, T, D, scale, s);
-    case 1: return dispatch<int8_t>(q, k, v, ks, vs, pos, out, B, H, Hkv, T,
-                                    D, scale, s);
-    case 2: return dispatch<nctt::fp8e4m3>(q, k, v, ks, vs, pos, out, B, H,
-                                           Hkv, T, D, scale, s);
+    case 0: return dispatch<__nv_bfloat16>(q, k, v, ks, vs, pos, out, ws, B,
+                                           H, Hkv, T, D, scale, s);
+    case 1: return dispatch<int8_t>(q, k, v, ks, vs, pos, out, ws, B, H, Hkv,
+                                    T, D, scale, s);
+    case 2: return dispatch<nctt::fp8e4m3>(q, k, v, ks, vs, pos, out, ws, B,
+                                           H, Hkv, T, D, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -34,8 +34,11 @@
 //   activation quantization downstream sees the same values on the card
 //   and on the CPU. In order: scores into shared memory; per query row
 //   l = sum exp(f64(s) - m); p = bf16(f32(e / l) [* v_scale]);
-//   o = bf16(f32(sum p*v)) with a cross-warp sum in shared memory. A simple
-//   first kernel: only Hkv*B blocks, no split of T across blocks.
+//   o = bf16(f32(sum p*v)) with a cross-warp sum in shared memory. The
+//   score rows live in a float32 workspace in device memory ([B, H, T],
+//   allocated by the wrapper; they pass through L2), so shared memory does
+//   not grow with T and any context length fits. A simple first kernel:
+//   only Hkv*B blocks, no split of T across blocks.
 #include "nctt_common.cuh"
 
 namespace {
@@ -49,17 +52,18 @@ __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ kc,
                         const __nv_bfloat16* __restrict__ vc,
-                        __nv_bfloat16* __restrict__ out, int H, int Hkv,
-                        int T, int pos, float scale) {
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ ws, int H, int Hkv, int T,
+                        int pos, float scale) {
   constexpr int D = DPL * 32;
   extern __shared__ __align__(16) double smem[];
   const int rep = H / Hkv;
   const int L = pos + 1;                              // visited rows
   double* sred = smem;                                // [WARPS][rep][D]
   float* sq = reinterpret_cast<float*>(sred + WARPS * rep * D);  // [rep][D]
-  float* sp = sq + rep * D;                           // [rep][L]
 
   const int hk = blockIdx.x, b = blockIdx.y;
+  float* sp = ws + ((size_t)b * H + (size_t)hk * rep) * T;  // [rep][T]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t head = ((size_t)b * Hkv + hk) * (size_t)T * D;
   const __nv_bfloat16* kh = kc + head;
@@ -81,14 +85,14 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < DPL; ++e)
         d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
       d = nctt::warp_sum(d);
-      if (lane == 0) sp[r * L + t] = (float)d * scale;
+      if (lane == 0) sp[r * T + t] = (float)d * scale;
     }
   }
   __syncthreads();
 
   // softmax per query row; p is rounded to bf16 as K5 casts it for PV
   for (int r = warp; r < rep; r += WARPS) {
-    float* row = sp + r * L;
+    float* row = sp + r * T;
     float m = -INFINITY;
     for (int t = lane; t < L; t += 32) m = fmaxf(m, row[t]);
     m = nctt::warp_max(m);
@@ -114,7 +118,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= rep) break;
-      const double p = sp[r * L + t];
+      const double p = sp[r * T + t];
 #pragma unroll
       for (int e = 0; e < DPL; ++e) o[r][e] += p * (double)vv[e];
     }
@@ -137,11 +141,12 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int DPL>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int H, int Hkv, int T, int pos, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out, void* ws,
+           int B, int H, int Hkv, int T, int pos, float scale,
+           cudaStream_t stream) {
   const int D = DPL * 32, rep = H / Hkv;
   const size_t smem = sizeof(double) * (size_t)WARPS * rep * D +
-      sizeof(float) * ((size_t)rep * D + (size_t)rep * (pos + 1));
+      sizeof(float) * (size_t)rep * D;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         decode_attention_kernel<DPL>,
@@ -150,7 +155,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   }
   decode_attention_kernel<DPL><<<dim3(Hkv, B), THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, H, Hkv, T, pos, scale);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (float*)ws, H, Hkv, T,
+      pos, scale);
   return (int)cudaGetLastError();
 }
 
@@ -164,9 +170,9 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
                               const float* __restrict__ ks,
                               const C* __restrict__ vc,
                               const float* __restrict__ vs,
-                              __nv_bfloat16* __restrict__ out, int H, int Hkv,
-                              int T, const int* __restrict__ pos_b,
-                              float scale) {
+                              __nv_bfloat16* __restrict__ out,
+                              float* __restrict__ ws, int H, int Hkv, int T,
+                              const int* __restrict__ pos_b, float scale) {
   constexpr int D = DPL * 32;
   extern __shared__ __align__(16) double smem[];
   const int rep = H / Hkv;
@@ -176,7 +182,7 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   const int L = min(max(pos, 0), T - 1) + 1;          // visited rows
   double* sred = smem;                                // [WARPS][rep][D]
   float* sq = reinterpret_cast<float*>(sred + WARPS * rep * D);  // [rep][D]
-  float* sp = sq + rep * D;                           // [rep][L]
+  float* sp = ws + ((size_t)b * H + (size_t)hk * rep) * T;  // [rep][T]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t bh = (size_t)b * Hkv + hk;
@@ -207,14 +213,14 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < DPL; ++e)
         d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
       d = nctt::warp_sum(d);
-      if (lane == 0) sp[r * L + t] = (float)d * ksc;
+      if (lane == 0) sp[r * T + t] = (float)d * ksc;
     }
   }
   __syncthreads();
 
   // softmax per query row; p = bf16(f32(e / l) * v_scale)
   for (int r = warp; r < rep; r += WARPS) {
-    float* row = sp + r * L;
+    float* row = sp + r * T;
     float m = -INFINITY;
     for (int t = lane; t < L; t += 32) m = fmaxf(m, row[t]);
     m = nctt::warp_max(m);
@@ -244,7 +250,7 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= rep) break;
-      const double p = sp[r * L + t];
+      const double p = sp[r * T + t];
 #pragma unroll
       for (int e = 0; e < DPL; ++e) o[r][e] += p * (double)vv[e];
     }
@@ -269,11 +275,11 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
 template <int DPL, typename C>
 int launch_quant(const void* q, const void* kn, const void* vn,
                  const void* kc, const void* ks, const void* vc,
-                 const void* vs, void* out, int B, int H, int Hkv, int T,
-                 const int* pos, float scale, cudaStream_t stream) {
+                 const void* vs, void* out, void* ws, int B, int H, int Hkv,
+                 int T, const int* pos, float scale, cudaStream_t stream) {
   const int D = DPL * 32, rep = H / Hkv;
   const size_t smem = sizeof(double) * (size_t)WARPS * rep * D +
-      sizeof(float) * ((size_t)rep * D + (size_t)rep * T);
+      sizeof(float) * (size_t)rep * D;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         decode_attention_quant_kernel<DPL, C>,
@@ -284,24 +290,26 @@ int launch_quant(const void* q, const void* kn, const void* vn,
                                           stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
       (const __nv_bfloat16*)vn, (const C*)kc, (const float*)ks, (const C*)vc,
-      (const float*)vs, (__nv_bfloat16*)out, H, Hkv, T, pos, scale);
+      (const float*)vs, (__nv_bfloat16*)out, (float*)ws, H, Hkv, T, pos,
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <typename C>
 int dispatch_quant(const void* q, const void* kn, const void* vn,
                    const void* kc, const void* ks, const void* vc,
-                   const void* vs, void* out, int B, int H, int Hkv, int T,
-                   int D, const int* pos, float scale, cudaStream_t s) {
+                   const void* vs, void* out, void* ws, int B, int H,
+                   int Hkv, int T, int D, const int* pos, float scale,
+                   cudaStream_t s) {
   switch (D) {
-    case 32: return launch_quant<1, C>(q, kn, vn, kc, ks, vc, vs, out, B, H,
-                                       Hkv, T, pos, scale, s);
-    case 64: return launch_quant<2, C>(q, kn, vn, kc, ks, vc, vs, out, B, H,
-                                       Hkv, T, pos, scale, s);
-    case 128: return launch_quant<4, C>(q, kn, vn, kc, ks, vc, vs, out, B, H,
-                                        Hkv, T, pos, scale, s);
-    case 256: return launch_quant<8, C>(q, kn, vn, kc, ks, vc, vs, out, B, H,
-                                        Hkv, T, pos, scale, s);
+    case 32: return launch_quant<1, C>(q, kn, vn, kc, ks, vc, vs, out, ws, B,
+                                       H, Hkv, T, pos, scale, s);
+    case 64: return launch_quant<2, C>(q, kn, vn, kc, ks, vc, vs, out, ws, B,
+                                       H, Hkv, T, pos, scale, s);
+    case 128: return launch_quant<4, C>(q, kn, vn, kc, ks, vc, vs, out, ws,
+                                        B, H, Hkv, T, pos, scale, s);
+    case 256: return launch_quant<8, C>(q, kn, vn, kc, ks, vc, vs, out, ws,
+                                        B, H, Hkv, T, pos, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -309,17 +317,20 @@ int dispatch_quant(const void* q, const void* kn, const void* vn,
 }  // namespace
 
 // q bf16 [B, H, D]; caches bf16 [B, Hkv, T, D] holding row `pos`;
-// out bf16 [B, H, D]. D in {32, 64, 128, 256}; 1 <= H/Hkv <= 8.
+// out bf16 [B, H, D]; ws f32 [B, H, T] scratch for the score rows.
+// D in {32, 64, 128, 256}; 1 <= H/Hkv <= 8.
 NCTT_API int nctt_decode_attention(const void* q, const void* k,
-                                   const void* v, void* out, int B, int H,
-                                   int Hkv, int T, int D, int pos,
+                                   const void* v, void* out, void* ws, int B,
+                                   int H, int Hkv, int T, int D, int pos,
                                    float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
-    case 32: return launch<1>(q, k, v, out, B, H, Hkv, T, pos, scale, s);
-    case 64: return launch<2>(q, k, v, out, B, H, Hkv, T, pos, scale, s);
-    case 128: return launch<4>(q, k, v, out, B, H, Hkv, T, pos, scale, s);
-    case 256: return launch<8>(q, k, v, out, B, H, Hkv, T, pos, scale, s);
+    case 32: return launch<1>(q, k, v, out, ws, B, H, Hkv, T, pos, scale, s);
+    case 64: return launch<2>(q, k, v, out, ws, B, H, Hkv, T, pos, scale, s);
+    case 128: return launch<4>(q, k, v, out, ws, B, H, Hkv, T, pos, scale,
+                               s);
+    case 256: return launch<8>(q, k, v, out, ws, B, H, Hkv, T, pos, scale,
+                               s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -327,19 +338,20 @@ NCTT_API int nctt_decode_attention(const void* q, const void* k,
 // q bf16 [B, H, D]; k_new/v_new bf16 [B, Hkv, D] (the raw new rows, folded
 // in at pos[b]); codes int8 (fp8 = 0) or e4m3 (fp8 = 1) [B, Hkv, T, D];
 // scales f32 [B, Hkv, T]; pos int32 [B] on the device (pos >= T: all T
-// code rows, no raw row); out bf16 [B, H, D]. D in {32, 64, 128, 256};
-// 1 <= H/Hkv <= 8.
+// code rows, no raw row); out bf16 [B, H, D]; ws f32 [B, H, T] scratch
+// for the score rows. D in {32, 64, 128, 256}; 1 <= H/Hkv <= 8.
 NCTT_API int nctt_decode_attention_quant(const void* q, const void* kn,
                                          const void* vn, const void* kc,
                                          const void* ks, const void* vc,
-                                         const void* vs, void* out, int B,
-                                         int H, int Hkv, int T, int D,
+                                         const void* vs, void* out, void* ws,
+                                         int B, int H, int Hkv, int T, int D,
                                          const void* pos_b, int fp8,
                                          float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int* pos = (const int*)pos_b;
   return fp8 ? dispatch_quant<nctt::fp8e4m3>(q, kn, vn, kc, ks, vc, vs, out,
-                                             B, H, Hkv, T, D, pos, scale, s)
-             : dispatch_quant<int8_t>(q, kn, vn, kc, ks, vc, vs, out, B, H,
-                                      Hkv, T, D, pos, scale, s);
+                                             ws, B, H, Hkv, T, D, pos, scale,
+                                             s)
+             : dispatch_quant<int8_t>(q, kn, vn, kc, ks, vc, vs, out, ws, B,
+                                      H, Hkv, T, D, pos, scale, s);
 }

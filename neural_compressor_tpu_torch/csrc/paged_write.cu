@@ -5,7 +5,10 @@
 //
 // Replaces: neural_compressor_tpu/kernels/paged_attention.py
 //   _paged_write_impl with _write_kernel_bf16, _write_kernel_quant (int8
-//   and fp8) and _write_kernel_int4 (K12).
+//   and fp8) and _write_kernel_int4 (K12); and _paged_write_window_impl
+//   with _write_kernel_bf16_w, _write_kernel_quant_w and
+//   _write_kernel_int4_w (K13: a speculative verify window of W rows a
+//   slot, which may cross one page boundary; second entry, below).
 //
 // Semantics (as K12): k_new/v_new bf16 [B, Hkv, D] go to row r = pos[b] %
 //   page of pool page block_tables[b, pos[b] / page], for every KV head.
@@ -39,7 +42,10 @@
 //   launch, at the same row: that race is harmless only because page 0 is
 //   never attended (the engine masks it by per-slot length and never maps
 //   it to a live token). Two live slots never share a page, so no two
-//   blocks merge nibbles into one byte.
+//   blocks merge nibbles into one byte. K13 is the same block looping over
+//   its slot's W window rows in order (each row quantized as K12 quantizes
+//   it); the TPU kernel stages and rewrites two whole page blocks a slot.
+//   Bound: bytes, W times K12's per slot.
 #include "nctt_common.cuh"
 
 namespace {
@@ -153,6 +159,53 @@ int launch(const void* kn, const void* vn, void* kp, void* ks, void* ko,
   return (int)cudaGetLastError();
 }
 
+// K13: W consecutive rows per slot from pos[b], as JAX's windowed write
+// maps them: the window's first page p0 = clip(floor(pos / page), 0,
+// PMAX - 1) and its successor p1 = min(p0 + 1, PMAX - 1); window row w lands
+// at row off + w of page block_tables[b, p0] (off = pos mod page) while
+// off + w < page, else at row off + w - page of block_tables[b, p1] if the
+// window crosses into a page of the table, else of the trash page 0. The
+// rows go in window order, so two rows of one window that share an int4
+// byte row merge their nibbles in turn.
+template <int FMT>
+__global__ void __launch_bounds__(THREADS)
+paged_write_window_kernel(const __nv_bfloat16* __restrict__ kn,
+                          const __nv_bfloat16* __restrict__ vn, void* kp,
+                          float* ks, float* ko, void* vp, float* vs,
+                          float* vo, const int* __restrict__ bt,
+                          const int* __restrict__ pos, int Hkv, int page,
+                          int PMAX, int D, int W) {
+  __shared__ float sred[WARPS];
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int p = pos[b];
+  const int pf = p >= 0 ? p / page : -((page - 1 - p) / page);  // floor
+  const int off = p - pf * page;
+  const int p0 = pf < 0 ? 0 : (pf > PMAX - 1 ? PMAX - 1 : pf);
+  const int p1 = p0 + 1 < PMAX - 1 ? p0 + 1 : PMAX - 1;
+  const bool crosses = off + W > page && p0 + 1 <= PMAX - 1;
+  const int* btb = bt + (size_t)b * PMAX;
+  const int pid0 = btb[p0], pid1 = crosses ? btb[p1] : 0;
+  for (int w = 0; w < W; ++w) {
+    const int t = off + w;
+    const int pid = t < page ? pid0 : pid1, r = t < page ? t : t - page;
+    const size_t src = (((size_t)b * Hkv + hk) * W + w) * D;
+    write_row<FMT>(kn + src, kp, ks, ko, pid, hk, Hkv, page, r, D, sred);
+    write_row<FMT>(vn + src, vp, vs, vo, pid, hk, Hkv, page, r, D, sred);
+  }
+}
+
+template <int FMT>
+int launch_window(const void* kn, const void* vn, void* kp, void* ks,
+                  void* ko, void* vp, void* vs, void* vo, const void* bt,
+                  const void* pos, int B, int Hkv, int page, int PMAX, int D,
+                  int W, cudaStream_t s) {
+  paged_write_window_kernel<FMT><<<dim3(Hkv, B), THREADS, 0, s>>>(
+      (const __nv_bfloat16*)kn, (const __nv_bfloat16*)vn, kp, (float*)ks,
+      (float*)ko, vp, (float*)vs, (float*)vo, (const int*)bt,
+      (const int*)pos, Hkv, page, PMAX, D, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // k_new/v_new bf16 [B, Hkv, D]; pages [P, Hkv, page, D] bf16 (fmt 0), int8
@@ -175,6 +228,31 @@ NCTT_API int nctt_paged_write_rows(const void* kn, const void* vn, void* kp,
                                  Hkv, page, PMAX, D, s);
     case INT4: return launch<INT4>(kn, vn, kp, ks, ko, vp, vs, vo, bt, pos, B,
                                    Hkv, page, PMAX, D, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K13. k_new/v_new bf16 [B, Hkv, W, D], W <= page; pools, scales, offsets
+// and block tables as for nctt_paged_write_rows; pos int32 [B], the
+// window's first position per slot.
+NCTT_API int nctt_paged_write_window(const void* kn, const void* vn,
+                                     void* kp, void* ks, void* ko, void* vp,
+                                     void* vs, void* vo, const void* bt,
+                                     const void* pos, int B, int Hkv, int P,
+                                     int page, int PMAX, int D, int W,
+                                     int fmt, void* stream) {
+  (void)P;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (W < 1 || W > page) return (int)cudaErrorInvalidValue;
+  switch (fmt) {
+    case BF16: return launch_window<BF16>(kn, vn, kp, ks, ko, vp, vs, vo, bt,
+                                          pos, B, Hkv, page, PMAX, D, W, s);
+    case INT8: return launch_window<INT8>(kn, vn, kp, ks, ko, vp, vs, vo, bt,
+                                          pos, B, Hkv, page, PMAX, D, W, s);
+    case FP8: return launch_window<FP8>(kn, vn, kp, ks, ko, vp, vs, vo, bt,
+                                        pos, B, Hkv, page, PMAX, D, W, s);
+    case INT4: return launch_window<INT4>(kn, vn, kp, ks, ko, vp, vs, vo, bt,
+                                          pos, B, Hkv, page, PMAX, D, W, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -38,25 +38,31 @@ SIGNATURES = {
     # x, rms_w, w, scales, bias, residual, y, K, N, G, n_out, silu, eps, stream
     "nctt_fused_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _P],
-    # q, k_cache, v_cache, out, B, H, Hkv, T, D, pos, scale, stream
-    "nctt_decode_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k_new, v_new, k_codes, k_scale, v_codes, v_scale, out, B, H, Hkv,
-    # T, D, pos (int32 [B] on the device), fp8, scale, stream
-    "nctt_decode_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                    _I, _I, _I, _P, _I, _F, _P],
-    # q, k_cache, v_cache, k_scale, v_scale, pos, out, B, H, Hkv, T, D,
+    # q, k_cache, v_cache, out, ws (f32 score rows), B, H, Hkv, T, D, pos,
+    # scale, stream
+    "nctt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                              _P],
+    # q, k_new, v_new, k_codes, k_scale, v_codes, v_scale, out, ws, B, H,
+    # Hkv, T, D, pos (int32 [B] on the device), fp8, scale, stream
+    "nctt_decode_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _P, _I, _F, _P],
+    # q, k_cache, v_cache, k_scale, v_scale, pos, out, ws, B, H, Hkv, T, D,
     # code (0 bf16, 1 int8, 2 fp8), scale, stream
-    "nctt_batched_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                      _I, _I, _I, _F, _P],
+    "nctt_batched_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _I, _F, _P],
     # q, k_pages, k_scales, k_offs, v_pages, v_scales, v_offs,
-    # block_tables, lengths, out, B, H, Hkv, P, page, PMAX, D,
+    # block_tables, lengths, out, ws, B, H, Hkv, W, P, page, PMAX, D,
     # fmt (0 bf16, 1 int8, 2 fp8, 3 int4), scale, stream
     "nctt_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                                    _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _F, _P],
     # k_new, v_new, k_pages, k_scales, k_offs, v_pages, v_scales, v_offs,
     # block_tables, pos, B, Hkv, P, page, PMAX, D, fmt, stream
     "nctt_paged_write_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                               _I, _I, _I, _I, _I, _P],
+    # the same, k_new/v_new [B, Hkv, W, D]: ..., PMAX, D, W, fmt, stream
+    "nctt_paged_write_window": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, scales, zeros, codebook, out, part, M, N, K, G, bits,
     # layout_int8, out_bf16, splits, chunks_per_split, stream
     "nctt_dequant_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

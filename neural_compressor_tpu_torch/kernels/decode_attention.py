@@ -37,6 +37,11 @@ Ports ``neural_compressor_tpu/kernels/decode_attention.py``:
     normalises after PV (K5 normalises before the bf16 cast); scales
     multiply the scores before ``D^-1/2`` and the probabilities before
     the bf16 cast.
+
+The CUDA kernels keep each query row's float32 scores over the visited rows
+in a workspace in device memory (``score_workspace``), not in a block's
+shared memory, so they take contexts of any length, as the TPU kernels do
+(their chunked online softmax has no such limit either).
 """
 
 from __future__ import annotations
@@ -44,6 +49,13 @@ from __future__ import annotations
 import torch
 
 from . import _build
+
+
+def score_workspace(B: int, rows: int, T: int, device) -> torch.Tensor:
+    """The float32 score rows [B, rows, T] the attention kernels keep in
+    device memory instead of shared memory, so that no context length is
+    too long for a block."""
+    return torch.empty((B, rows, T), dtype=torch.float32, device=device)
 
 
 def decode_attn_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -85,17 +97,14 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError(f"decode_attn needs D in (32, 64, 128, 256), "
                          f"1 <= H/Hkv <= 8 and 0 <= pos < T "
                          f"(H={H}, Hkv={Hkv}, D={D}, pos={pos}, T={T})")
-    smem = 8 * 8 * rep * D + 4 * (rep * D + rep * (pos + 1))
-    if smem > 227 * 1024:
-        raise ValueError(f"decode_attn: pos={pos} needs {smem} bytes of "
-                         "shared memory, more than a block has")
     _build.require(q, "q", torch.bfloat16, dev, (B, H, D))
     _build.require(k_cache, "k_cache", torch.bfloat16, dev, (B, Hkv, T, D))
     _build.require(v_cache, "v_cache", torch.bfloat16, dev, (B, Hkv, T, D))
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
+    ws = score_workspace(B, H, T, dev)
     err = _build.library().nctt_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        B, H, Hkv, T, D, int(pos), 1.0 / (D ** 0.5),
+        ws.data_ptr(), B, H, Hkv, T, D, int(pos), 1.0 / (D ** 0.5),
         _build.stream_handle(dev))
     _build.check(err, "nctt_decode_attention")
     decode_attn.launches += 1
@@ -192,12 +201,6 @@ def decode_attn_quant_plain(q, k_new, v_new, k_codes, k_scale, v_codes,
     return o.to(f32).reshape(B, H, D).to(q.dtype)
 
 
-def _k6_smem(rep: int, D: int, T: int) -> int:
-    # csrc/decode_attention.cu: cross-warp float64 partials, q rows, score
-    # rows over up to T rows
-    return 8 * 8 * rep * D + 4 * (rep * D + rep * T)
-
-
 def decode_attn_quant(q, k_new, v_new, k_codes, k_scale, v_codes, v_scale,
                       pos) -> torch.Tensor:
     """K6 on the card (``csrc/decode_attention.cu``,
@@ -219,10 +222,6 @@ def decode_attn_quant(q, k_new, v_new, k_codes, k_scale, v_codes, v_scale,
     if k_codes.dtype not in _CODE_DTYPES:
         raise ValueError(f"decode_attn_quant takes int8 or fp8 codes, not "
                          f"{k_codes.dtype}")
-    if _k6_smem(rep, D, T) > 227 * 1024:
-        raise ValueError(f"decode_attn_quant: T={T} needs "
-                         f"{_k6_smem(rep, D, T)} bytes of shared memory, "
-                         "more than a block has")
     cdt = k_codes.dtype
     pos = pos_vector(pos, B, dev)
     _build.require(q, "q", torch.bfloat16, dev, (B, H, D))
@@ -233,10 +232,11 @@ def decode_attn_quant(q, k_new, v_new, k_codes, k_scale, v_codes, v_scale,
     _build.require(k_scale, "k_scale", torch.float32, dev, (B, Hkv, T))
     _build.require(v_scale, "v_scale", torch.float32, dev, (B, Hkv, T))
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
+    ws = score_workspace(B, H, T, dev)
     err = _build.library().nctt_decode_attention_quant(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_codes.data_ptr(),
         k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
-        out.data_ptr(), B, H, Hkv, T, D, pos.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), B, H, Hkv, T, D, pos.data_ptr(),
         int(cdt == torch.float8_e4m3fn), 1.0 / (D ** 0.5),
         _build.stream_handle(dev))
     _build.check(err, "nctt_decode_attention_quant")
@@ -321,12 +321,6 @@ def batched_decode_attn_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, H, D).to(q.dtype)
 
 
-def _batched_smem(rep: int, D: int, T: int) -> int:
-    # csrc/batched_decode_attention.cu: cross-warp float64 partials, q rows,
-    # score rows over all T, per-row sums
-    return 8 * 8 * rep * D + 4 * (rep * D + rep * T) + 8 * rep
-
-
 # cache dtype -> (format name, csrc/batched_decode_attention.cu's code)
 _K7_FORMATS = {torch.bfloat16: ("bf16", 0), torch.int8: ("int8", 1),
                torch.float8_e4m3fn: ("fp8_e4m3", 2)}
@@ -353,9 +347,6 @@ def batched_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
             and T >= 1):
         raise ValueError(f"{name} needs D in (32, 64, 128, 256) and "
                          f"1 <= H/Hkv <= 8 (H={H}, Hkv={Hkv}, D={D}, T={T})")
-    if _batched_smem(rep, D, T) > 227 * 1024:
-        raise ValueError(f"{name}: T={T} needs {_batched_smem(rep, D, T)} "
-                         "bytes of shared memory, more than a block has")
     cdt = k_cache.dtype
     fmt, code = _K7_FORMATS.get(cdt, (None, None))
     if fmt is None or (code == 0) != (k_scale is None):
@@ -370,11 +361,13 @@ def batched_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
         _build.require(v_scale, "v_scale", torch.float32, dev, (B, Hkv, T))
     _build.require(pos, "pos", torch.int32, dev, (B,))
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
+    ws = score_workspace(B, H, T, dev)
     err = _build.library().nctt_batched_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if code else None,
         v_scale.data_ptr() if code else None, pos.data_ptr(),
-        out.data_ptr(), B, H, Hkv, T, D, code, 1.0 / (D ** 0.5),
+        out.data_ptr(), ws.data_ptr(), B, H, Hkv, T, D, code,
+        1.0 / (D ** 0.5),
         _build.stream_handle(dev))
     _build.check(err, "nctt_batched_decode_attention")
     batched_decode_attn.launches[fmt] += 1

@@ -10,15 +10,19 @@ j*page+page-1) to a pool page. Page 0 is the trash page: the engine points
 every free block-table entry at it, and idle slots write and read it.
 
 Ports ``neural_compressor_tpu/kernels/paged_attention.py``:
-  * K11, ``paged_decode_attention`` (``_paged_attn_impl_v2`` /
-    ``_paged_kernel_v2``): single-token attention over a slot's pages up to
-    ``lengths[b]`` (the new row included), online softmax in the TPU
-    kernel, scales folded into the scores (``s * k_scale``, int4 ``+ off *
+  * K11, ``paged_decode_attention`` and ``paged_window_attention``
+    (``_paged_attn_impl_v2`` / ``_paged_kernel_v2``, ``wq == 1`` and the
+    W-query window ``wq > 1``): attention over a slot's pages, one query
+    at ``lengths - 1`` or a causal window of W queries whose row w sits at
+    ``lengths - W + w`` (a speculative verify window; rows packed (w, rep)
+    as the TPU kernel packs them); online softmax in the TPU kernel,
+    scales folded into the scores (``s * k_scale``, int4 ``+ off *
     sum(q)``, then ``* D^-1/2``) and the probabilities (``exp(s - m) *
     v_scale``, then bf16 for PV; int4 adds ``sum_t exp(s - m) * v_off``
     to the output), ``acc / max(l, 1e-30)`` at the end, and zeros for a
-    zero-length slot. Wrapper ``paged_attn``, its launches counted per pool
-    format; CUDA kernel ``csrc/paged_attention.cu``.
+    zero-length slot. Wrappers ``paged_attn`` and ``paged_window_attn``,
+    their launches counted apart per pool format; one CUDA kernel,
+    ``csrc/paged_attention.cu``.
   * K12, ``paged_write_rows`` (``_paged_write_impl`` with
     ``_write_kernel_bf16``, ``_write_kernel_quant`` and
     ``_write_kernel_int4``): each slot's new K/V row into page
@@ -31,16 +35,22 @@ Ports ``neural_compressor_tpu/kernels/paged_attention.py``:
     ``paged_write``, its launches counted per pool format; CUDA kernel
     ``csrc/paged_write.cu``. The contiguous int8/fp8 caches of
     ``models.llama`` take it too, as pools of one T-row page a slot.
+  * K13, ``paged_write_window`` (``_paged_write_window_impl`` with
+    ``_write_kernel_bf16_w``, ``_write_kernel_quant_w`` and
+    ``_write_kernel_int4_w``): W consecutive rows a slot, which may cross
+    one page boundary (``window_targets``), each quantized as K12
+    quantizes it. Wrapper ``paged_write_window_kernel``, its launches
+    counted per pool format; a second entry of ``csrc/paged_write.cu``.
 
 fp8 scales: JAX's TPU write kernel computes ``(amax / 127) * (127 / 448)``,
 an ulp off ``amax * f32(1/448)`` in most rows; off the TPU JAX writes fp8
 rows with ``_kv_quant``'s scale, which the engine's prefill staging also
 uses. The port follows ``_kv_quant``, so prefill and decode write the same
-codes.
+codes, in K12 and in K13 (off the TPU JAX writes fp8 windows row by row).
 
 A position whose page index ``pos // page`` is past the block table (an
 idle or finished slot running on inside a multi-step dispatch) writes
-nothing, as JAX's scatter drops it, and attention visits at most
+nothing in K12, as JAX's scatter drops it, and attention visits at most
 ``PMAX * page`` rows. ``window`` and ``softcap`` raise.
 """
 
@@ -49,7 +59,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decode_attention import pos_vector
+from .decode_attention import pos_vector, score_workspace
 from ..ops.kv_quant import kv_quant, kv_quant4_asym_codes
 
 _F64 = torch.float64
@@ -92,35 +102,47 @@ def _gather_rows(pages: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     return _gather_pages(pages, bt).to(_F64)
 
 
-def paged_attn_plain(q, k_pages, k_scales, v_pages, v_scales, block_tables,
-                     lengths, k_offs=None, v_offs=None) -> torch.Tensor:
-    """Plain PyTorch version of K11: q [B, H, D] bf16; pools as in the
-    module docstring (``k_offs``/``v_offs`` for int4 pools);
-    ``block_tables`` [B, PMAX] int32; ``lengths`` [B] int32 -> [B, H, D]
-    bf16.
+def paged_window_attn_plain(q, k_pages, k_scales, v_pages, v_scales,
+                            block_tables, lengths, k_offs=None,
+                            v_offs=None) -> torch.Tensor:
+    """Plain PyTorch version of K11 over a window of W queries a slot: q
+    [B, H, W, D] bf16; pools as in the module docstring (``k_offs``/
+    ``v_offs`` for int4 pools); ``block_tables`` [B, PMAX] int32;
+    ``lengths`` [B] int32, the slot's rows with the whole window -> [B, H,
+    W, D] bf16. Window row w sits at position ``lengths - W + w`` and
+    attends keys up to it (W = 1: the single query, ``paged_attn_plain``);
+    a slot of length 0, and a row with no key, give zeros.
 
     Sums run in float64 over exact products (bf16 times bf16, int8, fp8 or
-    an int4 nibble) and round once, as the CUDA kernel does. The TPU
+    an int4 nibble) and round once, as the CUDA kernel does, so row w
+    equals the single query at length ``lengths - W + w + 1``. The TPU
     kernel's online softmax over groups of 4 pages equals this one pass
     whenever one group covers the visited pages (PMAX <= 4) or the running
     max does not move."""
     fmt = pool_format(k_pages, k_scales, k_offs)
-    B, H, D = q.shape
+    B, H, Wq, D = q.shape
     Hkv = k_pages.shape[1]
     rep = H // Hkv
+    rows = Wq * rep
     bt = block_tables.to(torch.int64)
-    k = _gather_rows(k_pages, bt)                   # [B, Hkv, W, D]
+    k = _gather_rows(k_pages, bt)                   # [B, Hkv, T, D]
     v = _gather_rows(v_pages, bt)
-    W = k.shape[2]
+    T = k.shape[2]
     dev = q.device
-    n = lengths.to(torch.int64).clamp(0, W)
-    valid = (torch.arange(W, device=dev)[None, :] < n[:, None])[:, None, None]
-    qr = q.reshape(B, Hkv, rep, D).to(_F64)
+    # query rows pack (w, rep), as K11 packs them
+    qr = (q.reshape(B, Hkv, rep, Wq, D).transpose(2, 3)
+          .reshape(B, Hkv, rows, D).to(_F64))
+    w_of = torch.div(torch.arange(rows, device=dev), rep,
+                     rounding_mode="floor")
+    n = lengths.to(torch.int64).reshape(B, 1)
+    L = (n - Wq + w_of[None, :] + 1).clamp(0, T)    # [B, rows]
+    valid = (torch.arange(T, device=dev)[None, None, :]
+             < L[:, :, None])[:, None]              # [B, 1, rows, T]
     s = torch.einsum("bgrd,bgtd->bgrt", qr, k).to(_F32)
     if fmt != "bf16":
         s = s * _gather_pages(k_scales, bt)[:, :, None, :]
     if fmt == "int4":
-        qsum = qr.sum(dim=-1).to(_F32)[..., None]   # [B, Hkv, rep, 1]
+        qsum = qr.sum(dim=-1).to(_F32)[..., None]   # [B, Hkv, rows, 1]
         s = s + qsum * _gather_pages(k_offs, bt)[:, :, None, :]
     s = s * (1.0 / (D ** 0.5))
     s = torch.where(valid, s, torch.tensor(-1e30, device=dev))
@@ -137,9 +159,21 @@ def paged_attn_plain(q, k_pages, k_scales, v_pages, v_scales, block_tables,
         corr = (e.to(_F32).to(_F64) * voff).sum(dim=-1, keepdim=True)
         acc = acc + corr.to(_F32)
     out = acc / l.clamp_min(1e-30)
-    out = torch.where((lengths > 0)[:, None, None, None], out,
+    out = torch.where((lengths > 0).reshape(B, 1, 1, 1), out,
                       torch.zeros((), device=dev))
-    return out.reshape(B, H, D).to(torch.bfloat16)
+    return (out.reshape(B, Hkv, Wq, rep, D).transpose(2, 3)
+            .reshape(B, H, Wq, D).to(torch.bfloat16))
+
+
+def paged_attn_plain(q, k_pages, k_scales, v_pages, v_scales, block_tables,
+                     lengths, k_offs=None, v_offs=None) -> torch.Tensor:
+    """Plain PyTorch version of single-query K11: q [B, H, D] bf16; pools,
+    ``block_tables`` and ``lengths`` (the new row included) as in
+    ``paged_window_attn_plain``, of which it is the W = 1 case -> [B, H, D]
+    bf16."""
+    return paged_window_attn_plain(q[:, :, None], k_pages, k_scales, v_pages,
+                                   v_scales, block_tables, lengths, k_offs,
+                                   v_offs)[:, :, 0]
 
 
 def _ptr(t):
@@ -162,10 +196,40 @@ def _require_pools(name: str, fmt: str, dev, k_pages, k_scales, v_pages,
         raise ValueError(f"{name}: K and V pools of different formats")
 
 
-def _paged_attn_smem(rep: int, D: int, W: int) -> int:
-    # csrc/paged_attention.cu: cross-warp float64 partials, per-row sums and
-    # offset corrections, q rows and their sums, score rows over PMAX*page
-    return 8 * 8 * rep * D + 16 * rep + 4 * (rep * D + rep + rep * W)
+def _launch_paged_attn(name, q, k_pages, k_scales, v_pages, v_scales,
+                       block_tables, lengths, k_offs, v_offs):
+    """Check the operands of K11 (q [B, H, W, D] on the card) and launch
+    ``csrc/paged_attention.cu``; returns (out [B, H, W, D], pool format)."""
+    fmt = pool_format(k_pages, k_scales, k_offs)
+    dev = q.device
+    B, H, Wq, D = q.shape
+    P, Hkv, rows, _d = k_pages.shape
+    page = 2 * rows if fmt == "int4" else rows
+    PMAX = block_tables.shape[1]
+    rep = H // Hkv if Hkv else 0
+    if not (D in (32, 64, 128, 256) and Hkv * rep == H and rep >= 1
+            and Wq >= 1 and page >= 1 and PMAX >= 1):
+        raise ValueError(f"{name} needs D in (32, 64, 128, 256) and H a "
+                         f"multiple of Hkv (H={H}, Hkv={Hkv}, D={D})")
+    _build.require(q, "q", torch.bfloat16, dev, (B, H, Wq, D))
+    _require_pools(name, fmt, dev, k_pages, k_scales, v_pages, v_scales,
+                   k_offs, v_offs)
+    _build.require(block_tables, "block_tables", torch.int32, dev, (B, PMAX))
+    _build.require(lengths, "lengths", torch.int32, dev, (B,))
+    out = torch.empty((B, H, Wq, D), dtype=torch.bfloat16, device=dev)
+    # the score rows of every query row, in the kernel's groups of at most
+    # 8 rows, as even as they go
+    rows = Wq * rep
+    ng = -(-rows // 8)
+    ws = score_workspace(B * Hkv, ng * -(-rows // ng), PMAX * page, dev)
+    err = _build.library().nctt_paged_decode_attention(
+        q.data_ptr(), k_pages.data_ptr(), _ptr(k_scales), _ptr(k_offs),
+        v_pages.data_ptr(), _ptr(v_scales), _ptr(v_offs),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), B, H, Hkv, Wq, P, page, PMAX, D, _FMT_CODE[fmt],
+        1.0 / (D ** 0.5), _build.stream_handle(dev))
+    _build.check(err, "nctt_paged_decode_attention")
+    return out, fmt
 
 
 def paged_attn(q, k_pages, k_scales, v_pages, v_scales, block_tables,
@@ -177,39 +241,47 @@ def paged_attn(q, k_pages, k_scales, v_pages, v_scales, block_tables,
     if q.device.type == "cpu":
         return paged_attn_plain(q, k_pages, k_scales, v_pages, v_scales,
                                 block_tables, lengths, k_offs, v_offs)
-    name = "paged_attn"
-    fmt = pool_format(k_pages, k_scales, k_offs)
-    dev = q.device
-    B, H, D = q.shape
-    P, Hkv, rows, _d = k_pages.shape
-    page = 2 * rows if fmt == "int4" else rows
-    PMAX = block_tables.shape[1]
-    rep = H // Hkv if Hkv else 0
-    if not (D in (32, 64, 128, 256) and Hkv * rep == H and 1 <= rep <= 8
-            and page >= 1 and PMAX >= 1):
-        raise ValueError(f"{name} needs D in (32, 64, 128, 256) and "
-                         f"1 <= H/Hkv <= 8 (H={H}, Hkv={Hkv}, D={D})")
-    if _paged_attn_smem(rep, D, PMAX * page) > 227 * 1024:
-        raise ValueError(f"{name}: {PMAX} pages of {page} rows need more "
-                         "shared memory than a block has")
-    _build.require(q, "q", torch.bfloat16, dev, (B, H, D))
-    _require_pools(name, fmt, dev, k_pages, k_scales, v_pages, v_scales,
-                   k_offs, v_offs)
-    _build.require(block_tables, "block_tables", torch.int32, dev, (B, PMAX))
-    _build.require(lengths, "lengths", torch.int32, dev, (B,))
-    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
-    err = _build.library().nctt_paged_decode_attention(
-        q.data_ptr(), k_pages.data_ptr(), _ptr(k_scales), _ptr(k_offs),
-        v_pages.data_ptr(), _ptr(v_scales), _ptr(v_offs),
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
-        Hkv, P, page, PMAX, D, _FMT_CODE[fmt], 1.0 / (D ** 0.5),
-        _build.stream_handle(dev))
-    _build.check(err, "nctt_paged_decode_attention")
+    out, fmt = _launch_paged_attn("paged_attn", q[:, :, None], k_pages,
+                                  k_scales, v_pages, v_scales, block_tables,
+                                  lengths, k_offs, v_offs)
     paged_attn.launches[fmt] += 1
-    return out
+    return out[:, :, 0]
 
 
 paged_attn.launches = dict.fromkeys(_FMT_CODE, 0)
+
+
+def _write_targets(k_rows, v_rows, pid, r, fmt, page, k_pages, k_scales,
+                   v_pages, v_scales, k_offs, v_offs) -> None:
+    """Write rows ``k_rows``/``v_rows`` [n, Hkv, D] at pool page ``pid``
+    [n], row ``r`` [n], quantized in the pool's format, in place. One
+    writer a target row: an index assignment with duplicate targets may mix
+    their elements across threads, so the last of them stands."""
+    key = pid * page + r
+    uniq, inv = torch.unique(key, return_inverse=True)
+    last = torch.full_like(uniq, -1).scatter_reduce(
+        0, inv, torch.arange(key.numel(), device=key.device), reduce="amax")
+    k_rows, v_rows, pid, r = k_rows[last], v_rows[last], pid[last], r[last]
+    if fmt == "int4":
+        half = page // 2
+        brow, hi = r % half, (r >= half)[:, None, None]
+        for new, pages, scales, offs in ((k_rows, k_pages, k_scales, k_offs),
+                                         (v_rows, v_pages, v_scales, v_offs)):
+            c, sc, off = kv_quant4_asym_codes(new)
+            old = pages[pid, :, brow]                  # [n, Hkv, D]
+            pages[pid, :, brow] = torch.where(hi, (old & 0x0F) | (c << 4),
+                                              (old & 0xF0) | c)
+            scales[pid, :, r] = sc
+            offs[pid, :, r] = off
+    elif fmt in ("int8", "fp8_e4m3"):
+        for new, pages, scales in ((k_rows, k_pages, k_scales),
+                                   (v_rows, v_pages, v_scales)):
+            c, sc = kv_quant(new, fmt)
+            pages[pid, :, r] = c
+            scales[pid, :, r] = sc
+    else:
+        k_pages[pid, :, r] = k_rows.to(k_pages.dtype)
+        v_pages[pid, :, r] = v_rows.to(v_pages.dtype)
 
 
 def paged_write_plain(k_new, v_new, k_pages, k_scales, v_pages, v_scales,
@@ -227,34 +299,8 @@ def paged_write_plain(k_new, v_new, k_pages, k_scales, v_pages, v_scales,
     j = torch.div(p, page, rounding_mode="floor")
     rows = torch.nonzero((p >= 0) & (j < PMAX)).reshape(-1)
     pid = block_tables.to(torch.int64)[rows, j[rows]]
-    r = p[rows] % page
-    # one writer a target row: an index assignment with duplicate targets
-    # may mix their elements across threads; the last slot's row stands
-    key = pid * page + r
-    uniq, inv = torch.unique(key, return_inverse=True)
-    last = torch.full_like(uniq, -1).scatter_reduce(
-        0, inv, torch.arange(key.numel(), device=key.device), reduce="amax")
-    rows, pid, r = rows[last], pid[last], r[last]
-    if fmt == "int4":
-        half = page // 2
-        brow, hi = r % half, (r >= half)[:, None, None]
-        for new, pages, scales, offs in ((k_new, k_pages, k_scales, k_offs),
-                                         (v_new, v_pages, v_scales, v_offs)):
-            c, sc, off = kv_quant4_asym_codes(new[rows])
-            old = pages[pid, :, brow]                  # [n, Hkv, D]
-            pages[pid, :, brow] = torch.where(hi, (old & 0x0F) | (c << 4),
-                                              (old & 0xF0) | c)
-            scales[pid, :, r] = sc
-            offs[pid, :, r] = off
-    elif fmt in ("int8", "fp8_e4m3"):
-        for new, pages, scales in ((k_new, k_pages, k_scales),
-                                   (v_new, v_pages, v_scales)):
-            c, sc = kv_quant(new[rows], fmt)
-            pages[pid, :, r] = c
-            scales[pid, :, r] = sc
-    else:
-        k_pages[pid, :, r] = k_new[rows].to(k_pages.dtype)
-        v_pages[pid, :, r] = v_new[rows].to(v_pages.dtype)
+    _write_targets(k_new[rows], v_new[rows], pid, p[rows] % page, fmt, page,
+                   k_pages, k_scales, v_pages, v_scales, k_offs, v_offs)
 
 
 def paged_write(k_new, v_new, k_pages, k_scales, v_pages, v_scales,
@@ -293,6 +339,110 @@ def paged_write(k_new, v_new, k_pages, k_scales, v_pages, v_scales,
 paged_write.launches = dict.fromkeys(_FMT_CODE, 0)
 
 
+def window_targets(block_tables, pos, page: int, W: int):
+    """Where K13 puts each slot's W window rows, as JAX's
+    ``paged_write_window`` maps them: (pool page [B, W], row [B, W]), int64.
+    The window's first page is ``clip(pos // page, 0, PMAX - 1)``; rows
+    past the end of that page go to its successor when the window crosses
+    into a page of the table, else to the trash page 0."""
+    PMAX = block_tables.shape[1]
+    p = pos.to(torch.int64).reshape(-1)
+    bt = block_tables.to(torch.int64)
+    p0 = torch.div(p, page, rounding_mode="floor").clamp(0, PMAX - 1)
+    off = p % page
+    ar = torch.arange(bt.shape[0], device=bt.device)
+    pid0 = bt[ar, p0]
+    crosses = (off + W > page) & (p0 + 1 <= PMAX - 1)
+    pid1 = torch.where(crosses, bt[ar, (p0 + 1).clamp(max=PMAX - 1)],
+                       torch.zeros_like(p0))
+    t = off[:, None] + torch.arange(W, device=bt.device)[None, :]
+    first = t < page
+    return (torch.where(first, pid0[:, None], pid1[:, None]),
+            torch.where(first, t, t - page))
+
+
+def paged_write_window_plain(k_new, v_new, k_pages, k_scales, v_pages,
+                             v_scales, block_tables, pos, k_offs=None,
+                             v_offs=None) -> None:
+    """Plain PyTorch version of K13, in place: ``k_new``/``v_new``
+    [B, Hkv, W, D] bf16 (W <= page), the window rows of each slot from
+    ``pos`` [B] int32 on, into the pages ``window_targets`` gives, each row
+    quantized as K12 quantizes it. Rows go in window order, each one
+    written for all slots at once (one writer a target row, the last slot
+    on the shared trash page)."""
+    fmt = pool_format(k_pages, k_scales, k_offs)
+    page = 2 * k_pages.shape[2] if fmt == "int4" else k_pages.shape[2]
+    W = k_new.shape[2]
+    pid, r = window_targets(block_tables, pos, page, W)
+    for w in range(W):
+        _write_targets(k_new[:, :, w], v_new[:, :, w], pid[:, w], r[:, w],
+                       fmt, page, k_pages, k_scales, v_pages, v_scales,
+                       k_offs, v_offs)
+
+
+def paged_write_window_kernel(k_new, v_new, k_pages, k_scales, v_pages,
+                              v_scales, block_tables, pos, k_offs=None,
+                              v_offs=None) -> None:
+    """K13 on the card (``csrc/paged_write.cu``,
+    ``nctt_paged_write_window``) for bf16, int8, fp8-e4m3 and int4 pools;
+    the plain version for CPU tensors. Arguments as in
+    ``paged_write_window_plain``; ``pos`` stays on the device. Launches
+    are counted per pool format in ``paged_write_window_kernel.launches``.
+    """
+    if k_new.device.type == "cpu":
+        return paged_write_window_plain(k_new, v_new, k_pages, k_scales,
+                                        v_pages, v_scales, block_tables, pos,
+                                        k_offs, v_offs)
+    name = "paged_write_window_kernel"
+    fmt = pool_format(k_pages, k_scales, k_offs)
+    dev = k_new.device
+    B, Hkv, W, D = k_new.shape
+    P, _h, rows, _d = k_pages.shape
+    page = 2 * rows if fmt == "int4" else rows
+    if fmt == "int4" and page % 16:
+        raise ValueError(f"{name}: int4 pages need page % 16 == 0")
+    if not 1 <= W <= page:
+        raise ValueError(f"{name}: a window of {W} rows and pages of {page}")
+    PMAX = block_tables.shape[1]
+    _build.require(k_new, "k_new", torch.bfloat16, dev, (B, Hkv, W, D))
+    _build.require(v_new, "v_new", torch.bfloat16, dev, (B, Hkv, W, D))
+    _require_pools(name, fmt, dev, k_pages, k_scales, v_pages, v_scales,
+                   k_offs, v_offs)
+    _build.require(block_tables, "block_tables", torch.int32, dev, (B, PMAX))
+    _build.require(pos, "pos", torch.int32, dev, (B,))
+    err = _build.library().nctt_paged_write_window(
+        k_new.data_ptr(), v_new.data_ptr(), k_pages.data_ptr(),
+        _ptr(k_scales), _ptr(k_offs), v_pages.data_ptr(), _ptr(v_scales),
+        _ptr(v_offs), block_tables.data_ptr(), pos.data_ptr(), B, Hkv, P,
+        page, PMAX, D, W, _FMT_CODE[fmt], _build.stream_handle(dev))
+    _build.check(err, "nctt_paged_write_window")
+    paged_write_window_kernel.launches[fmt] += 1
+
+
+paged_write_window_kernel.launches = dict.fromkeys(_FMT_CODE, 0)
+
+
+def paged_window_attn(q, k_pages, k_scales, v_pages, v_scales, block_tables,
+                      lengths, k_offs=None, v_offs=None) -> torch.Tensor:
+    """K11's W-query window on the card (``csrc/paged_attention.cu``) over
+    bf16, int8, fp8-e4m3 and int4 pools; the plain version for CPU tensors.
+    Arguments as in ``paged_window_attn_plain``. Launches are counted per
+    pool format in ``paged_window_attn.launches``, apart from the
+    single-query ``paged_attn``'s."""
+    if q.device.type == "cpu":
+        return paged_window_attn_plain(q, k_pages, k_scales, v_pages,
+                                       v_scales, block_tables, lengths,
+                                       k_offs, v_offs)
+    out, fmt = _launch_paged_attn("paged_window_attn", q, k_pages, k_scales,
+                                  v_pages, v_scales, block_tables, lengths,
+                                  k_offs, v_offs)
+    paged_window_attn.launches[fmt] += 1
+    return out
+
+
+paged_window_attn.launches = dict.fromkeys(_FMT_CODE, 0)
+
+
 def _pool_args(cache) -> tuple:
     return (cache.k_pages, cache.k_scales, cache.v_pages, cache.v_scales,
             cache.block_tables)
@@ -325,3 +475,34 @@ def paged_decode_attention(q, cache, lengths, window=None, softcap=None):
                      pos_vector(lengths, B, q.device), cache.k_offs,
                      cache.v_offs)
     return out[:, :, None]
+
+
+def paged_write_window(cache, k_new, v_new, pos):
+    """Write W consecutive rows a slot ([B, Hkv, W, D] from per-slot start
+    ``pos``, an int or [B]) into the pages IN PLACE through K13, which may
+    cross one page boundary; returns ``cache``. Returns None off the JAX
+    kernel's envelope (``W > page``, ``D % 128``, ``page % 128``,
+    ``Hkv % 8``), where the caller writes row by row (K12), as JAX does, so
+    that both packages take the same write path on the same shapes."""
+    B, Hkv, W, D = k_new.shape
+    page = cache.page_size
+    if W > page or D % 128 or page % 128 or Hkv % 8:
+        return None
+    paged_write_window_kernel(k_new.contiguous(), v_new.contiguous(),
+                              *_pool_args(cache),
+                              pos_vector(pos, B, k_new.device), cache.k_offs,
+                              cache.v_offs)
+    return cache
+
+
+def paged_window_attention(q, cache, lengths):
+    """W-query causal attention over a ``PagedKVCache`` (a speculative
+    verify window): q [B, H, W, D]; ``lengths`` [B] = the slot's tokens
+    INCLUDING the whole window (window row w sits at position
+    ``lengths - W + w`` and attends keys up to it; its rows written
+    before the call). Slots with length 0 return zeros. Returns
+    [B, H, W, D] bf16."""
+    B = q.shape[0]
+    return paged_window_attn(q.contiguous(), *_pool_args(cache),
+                             pos_vector(lengths, B, q.device), cache.k_offs,
+                             cache.v_offs)

@@ -563,20 +563,30 @@ class LlamaAttention(nn.Module):
         H, D = cfg.num_attention_heads, cfg.head_dim
         new_cache = None
         if isinstance(cache, PagedKVCache):
-            from ..kernels.paged_attention import paged_decode_attention
+            from ..kernels.paged_attention import (paged_decode_attention,
+                                                   paged_window_attention,
+                                                   paged_write_window)
 
-            if S != 1:
-                raise NotImplementedError(
-                    "multi-token windows over paged caches (speculative "
-                    "serving) wait for the port of neural_compressor_tpu."
-                    "kernels.paged_attention.paged_write_window (K13) and "
-                    "paged_window_attention")
             pos_b = (cache_pos if isinstance(cache_pos, torch.Tensor)
                      else torch.tensor(cache_pos, device=q.device))
             pos_b = pos_b.reshape(-1).to(device=q.device,
                                          dtype=torch.int32).expand(B)
-            new_cache = _paged_write_row(cache, k, v, pos_b)
-            out = paged_decode_attention(q, new_cache, pos_b + 1)
+            if S == 1:
+                new_cache = _paged_write_row(cache, k, v, pos_b)
+                out = paged_decode_attention(q, new_cache, pos_b + 1)
+            else:
+                # a W-token verify window (speculative serving over pages):
+                # write the window rows (K13; they may cross one page
+                # boundary), then the causal window attention (K11's
+                # W-query branch)
+                new_cache = paged_write_window(cache, k, v, pos_b)
+                if new_cache is None:  # off K13's envelope: row by row
+                    new_cache = cache
+                    for w in range(S):
+                        new_cache = _paged_write_row(
+                            new_cache, k[:, :, w:w + 1], v[:, :, w:w + 1],
+                            pos_b + w)
+                out = paged_window_attention(q, new_cache, pos_b + S)
             out = out.to(x_dtype).transpose(1, 2)
             return out.reshape(B, S, H * D), new_cache
         if isinstance(cache, QuantKVCache):

@@ -39,10 +39,25 @@ both engines count the same dispatches for the same submissions.
 
 The JAX engine's ``_s4_prepare`` re-lays int4 weights for the TPU inside
 each program; the port's weights are in their serving layout already, so it
-has no counterpart. Sampling, speculative decoding, the prefix cache,
-top-N logprobs and latent (MLA) pools raise ``NotImplementedError`` naming
-what they wait for. The contiguous cache keeps ``max_len`` rows: the JAX
-engine's speculative margin comes with speculation.
+has no counterpart. Sampling (and with it the rejection-sampled verify of
+speculative rounds), the prefix cache, top-N logprobs and latent (MLA)
+pools raise ``NotImplementedError`` naming what they wait for.
+
+Greedy speculative serving (``speculative="ngram"``, as in the JAX
+engine): each decode dispatch runs ``chunk`` verify rounds over all slots;
+a round proposes ``spec_k`` tokens a slot from the most recent
+``spec_n``-gram match in its prompt + generated tokens (the
+continuous-batching twin of ``generation.ngram_speculative_greedy_search``)
+and verifies them in one (spec_k+1)-token window forward at per-slot
+positions: over contiguous caches the window's rows are written in place
+and attended under the position mask, over page pools K13 writes them and
+K11's W-query window attends them. Finished and idle slots park their
+window above ``max_len`` (the caches keep ``max_len + spec_k + 2`` rows; a
+paged slot's window past its table goes to the trash page).
+``spec_adaptive`` falls back to plain decode for 8 dispatches whenever the
+EWMA of tokens a round drops below ``spec_min_rate``. A contiguous engine
+runs a prefill chunk and the rounds in one dispatch, a paged one in two,
+as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -56,6 +71,8 @@ import numpy as np
 import torch
 
 from ..common import logger
+from ..generation.speculative import (accepted_count, ngram_propose,
+                                      write_window)
 from ..models.llama import (_kv_pack_page_int4, _kv_quant,
                             _kv_quant4_asym_codes, init_kv_cache,
                             init_paged_pool, model_kv_format)
@@ -97,6 +114,42 @@ def _greedy_token(logits: torch.Tensor):
     return nxt, _chosen_logprob(logits, nxt)
 
 
+@torch.no_grad()
+def _spec_rounds(model, caches, buf, pos, lim, active, rounds: int, kk: int,
+                 nn: int, eos: int | None, park: int):
+    """``rounds`` greedy prompt-lookup verify rounds over all slots (the
+    greedy branch of the JAX engine's ``_spec_rounds``): ``buf`` [B, L]
+    int32 each slot's tokens, ``pos`` [B] its decided count, ``lim`` [B]
+    its limit, ``active`` [B] bool; slots that are inactive or at their
+    limit park their window at ``park``. ``buf`` is updated in place.
+    Returns (outs [B, rounds, kk+1] int32: each round's argmax window,
+    ms [B, rounds]: the tokens each round emits) on the device."""
+    W = kk + 1
+    B, L = buf.shape
+    dev = buf.device
+    ar = torch.arange(W, device=dev)
+    pos = pos.to(torch.int64)
+    lim = lim.to(torch.int64)
+    outs = torch.zeros((B, rounds, W), dtype=torch.int32, device=dev)
+    ms = torch.zeros((B, rounds), dtype=torch.int64, device=dev)
+    for i in range(rounds):
+        fin = ~active | (pos >= lim)
+        posx = torch.where(fin, torch.full_like(pos, park), pos)
+        b = posx - 1
+        cur = torch.gather(buf, 1, b[:, None])
+        prop = ngram_propose(buf, posx, cur, kk, nn)
+        window = torch.cat([cur, prop], dim=1)
+        lg, caches = model(window, b[:, None] + ar[None, :], caches, b)
+        t = torch.argmax(lg, dim=-1).to(torch.int32)
+        m, _has_eos = accepted_count(prop, t, eos)
+        m = torch.where(fin, torch.zeros_like(m), torch.minimum(m, lim - pos))
+        write_window(buf, t, posx, ~fin)
+        outs[:, i] = t
+        ms[:, i] = m
+        pos = pos + m
+    return outs, ms
+
+
 def _readback(*tensors: torch.Tensor) -> list[np.ndarray]:
     """One device-to-host copy for several int32/float32 tensors: their
     32-bit words go back in one buffer and are split on the host."""
@@ -125,11 +178,21 @@ class ContinuousBatchingEngine:
                  prefill_chunk: int = 256, paged: bool = False,
                  n_pages: int | None = None, page_size: int = 128,
                  prefill_streams: int = 2, speculative: str | None = None,
+                 spec_k: int = 8, spec_n: int = 2,
+                 spec_adaptive: bool = False, spec_min_rate: float = 1.3,
                  prefix_cache: bool = False, logprobs_topk: int = 0):
-        if speculative is not None:
-            raise NotImplementedError(
-                "speculative serving waits for the port of "
-                "neural_compressor_tpu.serving.engine._spec_rounds")
+        if speculative not in (None, "ngram"):
+            raise ValueError(f"speculative={speculative!r}: only 'ngram'")
+        self.speculative = speculative
+        self.spec_k = int(spec_k)
+        self.spec_n = int(spec_n)
+        # adaptive speculation: below spec_min_rate tokens a round (EWMA
+        # over spec dispatches), serve 8 dispatches by plain decode, then
+        # probe again
+        self.spec_adaptive = bool(spec_adaptive)
+        self.spec_min_rate = float(spec_min_rate)
+        self._spec_ewma: float | None = None
+        self._spec_cool = 0
         if prefix_cache:
             raise NotImplementedError(
                 "prefix caching waits for the port of "
@@ -161,7 +224,11 @@ class ContinuousBatchingEngine:
         quantized = model_kv_format(model)
         self.kv_cache_format = quantized or "bf16"
         self.paged = paged
-        self._cache_rows = max_len
+        # speculative mode writes verify windows up to spec_k rows past the
+        # last decided position, and parks idle slots on a window above
+        # max_len: the caches keep the margin
+        self._cache_rows = max_len + self.spec_k + 2 if speculative \
+            else max_len
         if paged:
             assert max_len % page_size == 0
             self.page_size = page_size
@@ -184,7 +251,7 @@ class ContinuousBatchingEngine:
             self._free_staging = list(range(self.prefill_streams - 1, -1, -1))
             self._staging_of: dict[int, int] = {}  # slot -> staging row
         else:
-            self.caches = init_kv_cache(self.cfg, n_slots, max_len,
+            self.caches = init_kv_cache(self.cfg, n_slots, self._cache_rows,
                                         quantized=quantized,
                                         device=self.device)
             self.prefill_streams = n_slots
@@ -196,7 +263,7 @@ class ContinuousBatchingEngine:
         self.slot_tok = np.zeros((n_slots,), np.int32)   # last token
         self.queue: list[Request] = []
         # observability counters (metrics()), the JAX engine's keys; the
-        # speculative and prefix ones stay 0 here
+        # prefix one stays 0 here
         self.stats = {"wall_s": 0.0, "requests": 0, "prompt_tokens": 0,
                       "generated_tokens": 0, "prefill_chunk_dispatches": 0,
                       "decode_dispatches": 0, "combined_dispatches": 0,
@@ -215,6 +282,11 @@ class ContinuousBatchingEngine:
         ``stream(req, tok)`` fires per decided token. The JAX engine's
         sampling knobs (``temperature``, ``top_k``, ``top_p``, ``seed``)
         come with sampling."""
+        if do_sample and self.speculative:
+            raise NotImplementedError(
+                "sampled requests under speculation wait for the port of "
+                "the rejection-sampled verify of neural_compressor_tpu."
+                "serving.engine._spec_rounds and of _sample_step")
         if do_sample:
             raise NotImplementedError(
                 "sampled requests wait for the port of "
@@ -260,6 +332,44 @@ class ContinuousBatchingEngine:
                                       self.max_len - 1))
             decoding = [s for s in range(self.n_slots)
                         if self.slot_state[s] == "decode"]
+            if decoding and self.speculative and self._spec_cool > 0:
+                # adaptive cooldown: recent acceptance too low, so this
+                # iteration serves through the plain decode path
+                self._spec_cool -= 1
+                self.stats["spec_suppressed_dispatches"] += 1
+                self._advance_prefill()
+                self.step_many(chunk)
+                finished.extend(self._collect())
+                continue
+            if decoding and self.speculative:
+                # a prefill chunk and the verify rounds in ONE dispatch
+                # when both kinds of work exist (contiguous; a paged engine
+                # runs them as two, as the JAX engine does)
+                rounds = max(int(chunk), 1)
+                work = self._gather_prefill()
+                if work is None:
+                    self._spec_step(rounds)
+                elif self.paged:
+                    self._advance_prefill(work)
+                    self._spec_step(rounds)
+                else:
+                    active, args, ends = work
+                    self.stats["combined_dispatches"] += 1
+                    self.stats["prefill_chunk_dispatches"] += 1
+                    self.stats["decode_dispatches"] += 1
+                    dec, spec_args = self._spec_args()
+                    nxt, _lp = self._prefill_forward(self.caches, *args)
+                    outs, ms = _spec_rounds(
+                        self.model, self.caches, *spec_args, rounds,
+                        self.spec_k, self.spec_n, self.eos_token_id,
+                        self.max_len)
+                    outs, ms, nxt = _readback(outs, ms, nxt)
+                    self._apply_spec(dec, outs, ms, rounds)
+                    # the combined program emits the prefill's argmax
+                    # without its logprob, as the JAX engine's
+                    self._apply_prefill(active, ends, nxt)
+                finished.extend(self._collect())
+                continue
             if decoding:
                 # prefill chunk + k decode steps in ONE dispatch. Paged
                 # mode too: prefill writes the staging rows while decode
@@ -646,6 +756,97 @@ class ContinuousBatchingEngine:
         if (len(req.generated) >= req.max_new_tokens
                 or self.slot_pos[slot] >= self.max_len - 1):
             req.done = True
+
+    # ------------------------------------------------------- speculation
+    def _spec_args(self):
+        """The decoding slots and the device operands of a speculative
+        dispatch: (buf [n_slots, cache rows] each slot's tokens, pos its
+        decided count, lim its limit, active)."""
+        dec = [s for s in range(self.n_slots)
+               if self.slot_state[s] == "decode"]
+        buf = np.zeros((self.n_slots, self._cache_rows), np.int32)
+        pos = np.ones((self.n_slots,), np.int32)  # parked slots: b = 0
+        lim = np.zeros((self.n_slots,), np.int32)
+        act = np.zeros((self.n_slots,), bool)
+        for s_ in dec:
+            req = self.slot_req[s_]
+            toks = self._prompt_of(req)
+            buf[s_, :len(toks)] = toks
+            pos[s_] = len(toks)
+            lim[s_] = min(len(req.prompt) + req.max_new_tokens,
+                          self.max_len)
+            act[s_] = True
+        return dec, tuple(self._tensor(a) for a in (buf, pos, lim, act))
+
+    def _apply_spec(self, dec, outs, ms, rounds: int) -> None:
+        """Host bookkeeping for one speculative dispatch: each round's
+        emitted tokens with the full stop treatment; ``spec_rounds`` and
+        ``spec_accepted`` count only the rounds and tokens applied (a stop
+        may cut the device's count); then the adaptive EWMA."""
+        r0, a0 = self.stats["spec_rounds"], self.stats["spec_accepted"]
+        for s_ in dec:
+            req = self.slot_req[s_]
+            if req is None:
+                continue
+            for r_ in range(rounds):
+                if req.done:
+                    break
+                applied = 0
+                for j in range(int(ms[s_, r_])):
+                    if req.done:
+                        break
+                    self.slot_pos[s_] += 1
+                    tok = int(outs[s_, r_, j])
+                    self.slot_tok[s_] = tok
+                    # verify rounds emit argmax tokens without logprobs
+                    self._append_token(req, s_, tok, None)
+                    applied += 1
+                if applied > 0:
+                    self.stats["spec_rounds"] += 1
+                    self.stats["spec_accepted"] += applied
+        if self.spec_adaptive:
+            dr = self.stats["spec_rounds"] - r0
+            da = self.stats["spec_accepted"] - a0
+            if dr > 0:
+                rate = da / dr
+                self._spec_ewma = (rate if self._spec_ewma is None else
+                                   0.6 * self._spec_ewma + 0.4 * rate)
+                if self._spec_ewma < self.spec_min_rate:
+                    self._spec_cool = 8  # plain-decode dispatches before
+                    #                      the next speculation probe
+
+    def _spec_ensure_pages(self, rounds: int) -> None:
+        """Worst-case page allocation for a spec dispatch: every round
+        can advance a slot by spec_k+1 tokens and the verify window writes
+        spec_k rows past the last decided one."""
+        W = self.spec_k + 1
+        for slot in range(self.n_slots):
+            if self.slot_state[slot] == "decode":
+                decided = len(self._prompt_of(self.slot_req[slot]))
+                self._ensure_pages(slot, min(decided + rounds * W
+                                             + self.spec_k,
+                                             self.max_len - 1))
+
+    @torch.no_grad()
+    def _spec_step(self, rounds: int) -> None:
+        """One speculative decode dispatch: ``rounds`` verify rounds for
+        every decoding slot (1..spec_k+1 tokens each a round), one
+        readback."""
+        if self.paged:
+            self._spec_ensure_pages(rounds)
+        self.stats["decode_dispatches"] += 1
+        dec, spec_args = self._spec_args()
+        if not dec:
+            return
+        if self.paged:
+            bt = self._bt_device()
+            caches = [p._replace(block_tables=bt) for p in self.pools]
+        else:
+            caches = self.caches
+        outs, ms = _readback(*_spec_rounds(
+            self.model, caches, *spec_args, rounds, self.spec_k, self.spec_n,
+            self.eos_token_id, self.max_len))
+        self._apply_spec(dec, outs, ms, rounds)
 
     def _apply_decode(self, out, dec_slots, k: int, lps=None):
         """Host bookkeeping for one [n_slots, k] decode result, applied

@@ -230,13 +230,18 @@ def test_engine_off_path_raises():
     m = tl.LlamaForCausalLM(tl.LlamaConfig(**tl.LLAMA_PRESETS["llama-test"]),
                             device="cpu")
     E = nct.ContinuousBatchingEngine
-    for kw, name in ((dict(speculative="ngram"), "_spec_rounds"),
-                     (dict(prefix_cache=True, paged=True), "PagePrefixCache"),
+    for kw, name in ((dict(prefix_cache=True, paged=True), "PagePrefixCache"),
                      (dict(logprobs_topk=2), "_top_n_logprobs")):
         with pytest.raises(NotImplementedError, match=name):
             E(m, n_slots=2, max_len=32, **kw)
     eng = E(m, n_slots=2, max_len=32)
     with pytest.raises(NotImplementedError, match="_sample_step"):
+        eng.submit(np.arange(3), do_sample=True)
+    # greedy speculation is served (tests/test_torch_spec_engine.py); a
+    # sampled request under it waits for the rejection-sampled verify
+    eng = E(m, n_slots=2, max_len=32, speculative="ngram")
+    with pytest.raises(NotImplementedError,
+                       match="_spec_rounds.*_sample_step"):
         eng.submit(np.arange(3), do_sample=True)
     # quantized caches and pools are served (tests/test_torch_kv_engine.py);
     # a format JAX does not know is refused in either mode

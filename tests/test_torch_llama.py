@@ -215,10 +215,17 @@ def test_off_path_raises():
         nct.generate(tm, ids, do_sample=True)
     with pytest.raises(NotImplementedError, match="beam_search"):
         nct.generate(tm, ids, num_beams=2)
-    with pytest.raises(NotImplementedError, match="paged_write_window"):
-        pool = tl.init_paged_pool(tm.cfg, 3, 1, 32, page_size=16,
-                                  device="cpu")
-        tm(ids, torch.arange(4)[None], pool, torch.tensor([0]))
+    # multi-token windows over paged caches are ported
+    # (tests/test_torch_spec_kernels.py); gemma's sliding window and
+    # softcap branches of K11 are not
+    from neural_compressor_tpu_torch.kernels.paged_attention import \
+        paged_decode_attention
+    pool = tl.init_paged_pool(tm.cfg, 3, 1, 32, page_size=16, device="cpu")
+    with pytest.raises(NotImplementedError, match="_paged_kernel_v2"):
+        paged_decode_attention(torch.zeros((1, tm.cfg.num_attention_heads,
+                                            1, tm.cfg.head_dim),
+                                           dtype=torch.bfloat16),
+                               pool[0], torch.tensor([1]), window=4)
     # quantized caches are ported (tests/test_torch_kv_attention.py); a
     # format JAX does not know is refused
     with pytest.raises(ValueError, match="int3"):

@@ -78,10 +78,13 @@ def test_each_kernel_wrapper_counts_its_launches():
     names = [fn.__name__ for fn in kernels.KERNEL_WRAPPERS]
     assert names == ["w4a8_gemm", "fused_gemv", "decode_attn",
                      "decode_attn_quant", "batched_decode_attn",
-                     "paged_attn", "paged_write", "dequant_gemm", "vpu_gemv"]
+                     "paged_attn", "paged_write", "dequant_gemm", "vpu_gemv",
+                     "paged_write_window_kernel", "paged_window_attn"]
+    pools = ["bf16", "int8", "fp8_e4m3", "int4"]
     by_format = {"batched_decode_attn": ["bf16", "int8", "fp8_e4m3"],
-                 "paged_attn": ["bf16", "int8", "fp8_e4m3", "int4"],
-                 "paged_write": ["bf16", "int8", "fp8_e4m3", "int4"]}
+                 "paged_attn": pools, "paged_write": pools,
+                 "paged_write_window_kernel": pools,
+                 "paged_window_attn": pools}
     for fn in kernels.KERNEL_WRAPPERS:
         if fn.__name__ in by_format:
             assert list(fn.launches) == by_format[fn.__name__]
