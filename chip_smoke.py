@@ -33,7 +33,8 @@ non-zero:
      and the W4A8 model served by the engine on the card and on the CPU
      in each pool mode (contiguous bf16/int8/fp8/int4, paged
      bf16/int8/fp8/int4);
-  5. llama2-7b at full width and depth, RTN int4 g128 W4A8, answering
+  5. llama2-7b at full width, cut to ``W4A8_LAYERS`` = 16 of its 32
+     layers for the run's time limit, RTN int4 g128 W4A8, answering
      three greedy requests at B=1 (prompts of 16, 100 and 371 tokens, 48
      new tokens each, max_len 1024), with exact kernel launch counts;
   6. where the time goes at B=1: one prefill and 8 decode steps under
@@ -61,13 +62,27 @@ non-zero:
      score rows in device memory allow (phase 3's ``spec_envelope``);
      prompt lookup, draft-verify and the speculative engine in every pool
      mode on full-width 2-layer models, card against CPU (phase 4's
-     ``spec_model_check``); and on the full-depth W4A8 model of phase 5,
+     ``spec_model_check``); and on the W4A8 model of phase 5,
      ``bench.py``'s B=1 prompt-lookup path and the 8-slot speculative
      engine over contiguous bf16 caches and the paged int8 pool, against
      greedy and the plain engine, exact launch counts, one spec dispatch
-     profiled.
+     profiled;
+ 11. Gemma: K11's sliding-band and softcap branches against their plain
+     version at gemma2-9b's shapes (8 slots over 8192-row contexts, Hkv 8,
+     rep 2, D 256) in every pool format, with planted faults (phase 2's
+     ``gemma_kernels``); the repaired envelope, K5/K6/K7 at rep 16, K8
+     with float32 activations, K4 at K 65,536, and the plain paths where
+     JAX declines its kernel, their calls counted (phase 3's
+     ``gemma_envelope``); full-width 2-layer gemma2-9b and gemma3-4b-text
+     W4A16 (window cut to 64), card against CPU, greedy in every KV format
+     and the engine in every pool mode (phase 4's ``gemma_model_check``);
+     and gemma2-9b W4A16 at full width and depth: three B=1 requests
+     (prompts of 16, 371 and 4,500 tokens) and the 8-slot engine over
+     8192-row paged bf16 and int8 pools (16 requests, 4 past the window),
+     its tokens against greedy's, exact launch counts, one decode
+     dispatch profiled.
 Development runs name checks of phases 2-4 as arguments (``python3
-chip_smoke.py spec_kernels spec_envelope``): the build, those checks, no
+chip_smoke.py gemma_kernels gemma_envelope``): the build, those checks, no
 serving and no result line.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path and its times.
@@ -89,6 +104,7 @@ G = 128
 SHAPES = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
           "down": (11008, 4096), "lm_head": (4096, 32000)}
 LAYERS, HEADS, HEAD_DIM, MAX_LEN = 32, 32, 128, 1024
+W4A8_LAYERS = 16              # depth of the served W4A8 model (5-7, 10)
 PROMPTS, NEW_TOKENS = (16, 100, 371), 48
 GEMM_MS = (17, 128, 512)
 UNIT_M = 128                  # the GEMM row of the kernels line: a 128-token prefill
@@ -173,7 +189,17 @@ FORMAT_ENTRIES = {
     # entry (the full-depth main path runs the int8 pool; the 2-layer check
     # runs each format)
     "paged_write_window_kernel": {"paged_write_window": POOL_FORMATS},
-    "paged_window_attn": {"paged_window_attn": POOL_FORMATS}}
+    "paged_window_attn": {"paged_window_attn": POOL_FORMATS},
+    # K11's gemma branches, every pool format: the band (sliding layers,
+    # with or without the softcap) and the softcap alone (gemma-2's global
+    # layers); one kernels-line entry, paged_attn_gemma (LINE_SUMS)
+    "paged_attn_gemma": {
+        "paged_attn_gemma_band": tuple(f"band_{f}" for f in POOL_FORMATS),
+        "paged_attn_gemma_softcap": tuple(f"softcap_{f}"
+                                          for f in POOL_FORMATS)}}
+# kernels-line entries that sum several launch_counts() entries
+LINE_SUMS = {"paged_attn_gemma": ("paged_attn_gemma_band",
+                                  "paged_attn_gemma_softcap")}
 
 
 def launch_counts() -> dict:
@@ -716,8 +742,9 @@ def unpack_once():
     """Within the block each packed weight is unpacked once: the plain
     kernel versions unpack their weight on every call, which sets the pace
     of a full-width reference model on the CPU. The codes (int8, as the
-    unpackers return them) are held until the block ends; callers only
-    read them."""
+    unpackers return them), the plain K8's float32 weights and the plain
+    K9's float32 fields are held until the block ends; callers only read
+    them."""
     from neural_compressor_tpu_torch.kernels import dequant_matmul
     from neural_compressor_tpu_torch.ops import packing
 
@@ -733,7 +760,9 @@ def unpack_once():
         return unpack
 
     saved = [(packing, "unpack_codes_hopper"), (packing, "unpack_codes"),
-             (dequant_matmul, "unpack_codes")]
+             (dequant_matmul, "unpack_codes"),
+             (dequant_matmul, "plain_weight_f32"),
+             (dequant_matmul, "codes_f32")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
     for mod, name, fn in saved:
         setattr(mod, name, once(fn))
@@ -866,7 +895,8 @@ def unit(rows, pick, bound_by) -> dict:
 
 
 def two_layer_check(torch, label, m_cpu, m_gpu, ids, woq: bool,
-                    formats=(None,) + KV_FORMATS) -> None:
+                    formats=(None,) + KV_FORMATS, max_len: int = 64,
+                    tie_any: bool = False, want_fn=None) -> None:
     """A full-width 2-layer model on the card (kernels) against the same
     weights on the CPU (plain versions; W4A16 forced onto the plain K8 for
     the prefill and the plain K9 for decode), in each KV format of
@@ -877,8 +907,10 @@ def two_layer_check(torch, label, m_cpu, m_gpu, ids, woq: bool,
     alone may part at a near-tie: a step where the CPU's top-2 gap is at
     most the logit difference measured there (W4A16's K8/K9 round apart
     from their plain versions by float32 ulps, which move int4 codes by a
-    whole step; printed with the gap and the difference). Exact launch
-    counts of the card's run."""
+    whole step; printed with the gap and the difference); ``tie_any``
+    allows that in every format (a gemma's final softcap squeezes its
+    logits, ``card_cpu_tie``). Exact launch counts of the card's run
+    (``want_fn(fmt)``, else a Llama's). ``max_len`` rows of cache."""
     from neural_compressor_tpu_torch import kernels
     from neural_compressor_tpu_torch.models.llama import init_kv_cache
 
@@ -889,7 +921,7 @@ def two_layer_check(torch, label, m_cpu, m_gpu, ids, woq: bool,
     @torch.no_grad()
     def run(model, fmt, forced=None):
         dev = model.device
-        caches = init_kv_cache(cfg, 1, 64, quantized=fmt or False,
+        caches = init_kv_cache(cfg, 1, max_len, quantized=fmt or False,
                                device=dev)
         cpu = woq and dev.type == "cpu"
         if cpu:
@@ -924,7 +956,7 @@ def two_layer_check(torch, label, m_cpu, m_gpu, ids, woq: bool,
         for i, (a, b) in enumerate(zip(card_tok, cpu_tok)):
             if a != b:
                 gap = float(lg_cpu[i, b] - lg_cpu[i, a])
-                tie = fmt == "int4" and gap <= float(diff[i])
+                tie = (fmt == "int4" or tie_any) and gap <= float(diff[i])
                 (ties if tie else parted).append(
                     dict(step=i, card=a, cpu=b, gap=gap,
                          diff=float(diff[i])))
@@ -933,10 +965,10 @@ def two_layer_check(torch, label, m_cpu, m_gpu, ids, woq: bool,
                 "int8": {"decode_attn_quant": 8 * L, "paged_write": 8 * L},
                 "fp8_e4m3": {"decode_attn_quant": 8 * L,
                              "paged_write_fp8": 8 * L}}[fmt]
-        want = expect(**({"w4a8_gemm": n_proj, "fused_gemv": 8 * n_proj}
-                         if not woq else
-                         {"dequant_gemm": n_proj, "vpu_gemv": 8 * n_proj}),
-                      **attn)
+        want = want_fn(fmt) if want_fn else expect(
+            **({"w4a8_gemm": n_proj, "fused_gemv": 8 * n_proj} if not woq
+               else {"dequant_gemm": n_proj, "vpu_gemv": 8 * n_proj}),
+            **attn)
         ok = (not parted and math.isfinite(err) and err <= 5e-2 * ref
               and launched == want)
         print(f"{label} {fmt or 'bf16'} (2 layers, full width): tokens "
@@ -982,20 +1014,28 @@ def phase_serve(torch, nct) -> dict:
     from neural_compressor_tpu_torch.kernels import dequant_dot
     from neural_compressor_tpu_torch.models.llama import init_kv_cache
 
+    from neural_compressor_tpu_torch.models.llama import (LLAMA_PRESETS,
+                                                          LlamaConfig)
+
     t0 = time.perf_counter()
+    # cut to W4A8_LAYERS of llama2-7b's 32 layers, full width: the chip
+    # check's time limit (PERF.md §4)
+    cfg = LlamaConfig(**dict(LLAMA_PRESETS["llama2-7b"],
+                             num_hidden_layers=W4A8_LAYERS))
     model = nct.build_quantized(
-        "llama2-7b", nct.RTNConfig(dtype="int4", group_size=G,
-                                   quant_lm_head=True), seed=0)
+        cfg, nct.RTNConfig(dtype="int4", group_size=G, quant_lm_head=True),
+        seed=0)
     nct.fuse_for_serving(model)
     nct.to_w4a8_serving(model)
     n_fused = nct.enable_fused_decode(model)
+    nl = model.cfg.num_hidden_layers
     torch.cuda.synchronize()
-    print(f"llama2-7b built and converted in {time.perf_counter() - t0:.1f} s "
-          f"({n_fused} fused-decode layers, "
+    print(f"llama2-7b ({nl} of {LAYERS} layers) built and converted in "
+          f"{time.perf_counter() - t0:.1f} s ({n_fused} fused-decode layers, "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card)",
           flush=True)
-    if n_fused != LAYERS:
-        fail(f"fused decode on {n_fused} of {LAYERS} layers")
+    if n_fused != nl:
+        fail(f"fused decode on {n_fused} of {nl} layers")
     gen = torch.Generator().manual_seed(2)
     prompts = [torch.randint(0, model.cfg.vocab_size, (1, P), generator=gen)
                for P in PROMPTS]
@@ -1028,9 +1068,9 @@ def phase_serve(torch, nct) -> dict:
     launches = launch_counts()
     fallbacks = dequant_dot.calls
     steps = NEW_TOKENS - 1
-    want = expect(w4a8_gemm=len(PROMPTS) * (4 * LAYERS + 1),
-                  fused_gemv=len(PROMPTS) * steps * (4 * LAYERS + 1),
-                  decode_attn=len(PROMPTS) * steps * LAYERS)
+    want = expect(w4a8_gemm=len(PROMPTS) * (4 * nl + 1),
+                  fused_gemv=len(PROMPTS) * steps * (4 * nl + 1),
+                  decode_attn=len(PROMPTS) * steps * nl)
     print(f"kernels {json.dumps(launches)} expected {json.dumps(want)} "
           f"dequant-and-dot fallbacks {fallbacks}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
@@ -1111,6 +1151,7 @@ def phase_engine_serve(torch, nct, model) -> dict:
     from neural_compressor_tpu_torch.kernels import dequant_dot
 
     V = model.cfg.vocab_size
+    nl = model.cfg.num_hidden_layers
     gen = torch.Generator().manual_seed(6)
     prompts = [torch.randint(0, V, (PROMPTS[i % len(PROMPTS)],),
                              generator=gen).numpy()
@@ -1131,10 +1172,10 @@ def phase_engine_serve(torch, nct, model) -> dict:
         steps = CHUNK * m["decode_dispatches"]
         chunks = m["prefill_chunk_dispatches"]
         paged = mode != "contiguous"
-        want = expect(w4a8_gemm=(4 * LAYERS + 1) * (steps + chunks),
-                      batched_decode_attn=0 if paged else LAYERS * steps,
-                      paged_attn=LAYERS * steps if paged else 0,
-                      paged_write=LAYERS * steps if paged else 0)
+        want = expect(w4a8_gemm=(4 * nl + 1) * (steps + chunks),
+                      batched_decode_attn=0 if paged else nl * steps,
+                      paged_attn=nl * steps if paged else 0,
+                      paged_write=nl * steps if paged else 0)
         counters = {k: m[k] for k in (
             "requests", "prompt_tokens", "generated_tokens",
             "prefill_chunk_dispatches", "decode_dispatches",
@@ -1413,15 +1454,12 @@ def phase_woq_envelope(torch, nct) -> None:
     pw = woq_weight(torch, gen, 4096, 32000, G=128)
     check("k8 M=2 N=32000", x_of(2, 4096), pw, k9=False)
     check("k8 M=255 N=32000", x_of(255, 4096), pw, k9=False)
-    # f32 activations: K9 computes in f32; K8's tensor cores take bf16
+    # f32 activations: K9 computes in f32; K8 over f32 weights in f32 FMAs
     pw = woq_weight(torch, gen, 512, 384, G=64)
     check("k9 f32 x, f32 out", x_of(1, 512, dtype=torch.float32), pw,
           k9=True, out_dtype=torch.float32)
-    try:
-        dm.dequant_matmul(x_of(8, 512, dtype=torch.float32), pw)
-        bad.append("k8 took f32 activations on the card")
-    except ValueError:
-        n += 1
+    check("k8 f32 x, f32 out", x_of(8, 512, dtype=torch.float32), pw,
+          k9=False, out_dtype=torch.float32)
     del pw
 
     # WOQLinear: card (auto: K9 at M == 1, K8 above) vs the CPU forced on
@@ -2686,7 +2724,7 @@ def token_rule(torch, model, label, prompt, want, got) -> dict:
 
 
 def phase_spec_serve(torch, nct, model) -> dict:
-    """Greedy speculation on the full-depth llama2-7b W4A8 model:
+    """Greedy speculation on phase 5's llama2-7b W4A8 model:
       * B=1, ``bench.py``'s path: the prompt is the last 128 tokens of a
         192-token ``greedy_search`` from ``arange(16) % 256``;
         ``ngram_speculative_greedy_search`` with k 8, n 2, max_len 512 and
@@ -2728,7 +2766,7 @@ def phase_spec_serve(torch, nct, model) -> dict:
     launches = launch_counts()
     # two runs counted from the reset (the warm run and the timed one)
     want = expect(**{k: 2 * v for k, v in spec_launches(
-        LAYERS, st["rounds"], 1, False).items()})
+        model.cfg.num_hidden_layers, st["rounds"], 1, False).items()})
     print(f"spec B=1 (bench.py's path, prompt {P}, {new} new, k {SPEC_K}, "
           f"n {SPEC_N}): greedy {new / g_s:.2f} tok/s, speculative "
           f"{new / s_s:.2f} tok/s, {json.dumps(st)}", flush=True)
@@ -2781,7 +2819,7 @@ def phase_spec_serve(torch, nct, model) -> dict:
         launches = launch_counts()
         m = eng.metrics()
         rounds = CHUNK * m["decode_dispatches"]
-        want = expect(**spec_launches(LAYERS, rounds,
+        want = expect(**spec_launches(model.cfg.num_hidden_layers, rounds,
                                       m["prefill_chunk_dispatches"], paged))
         counters = {k: m[k] for k in (
             "generated_tokens", "prefill_chunk_dispatches",
@@ -3035,6 +3073,708 @@ def phase_kv_engine(torch, nct, model) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ Gemma
+# gemma2-9b's attention at the engine's shapes: 8 slots over 8192-row
+# contexts of 128-row pages, 16 query heads on 8 KV heads of 256; the band
+# binds on the slots past 4096
+GEMMA_PRESET = "gemma2-9b"
+GEMMA_POS = (0, 1023, 4095, 4096, 4097, 5000, 6500, 8191)
+GEMMA_MAX_LEN = 8192
+GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0
+GEMMA_PROMPTS, GEMMA_NEW = (16, 371, 4500), 48
+# the engine: 16 requests, 4 of them past the window
+GEMMA_ENGINE_PROMPTS = (16, 100, 371, 4200)
+GEMMA_ENGINE_NEW = 8
+# the 2-layer checks cut the window to 64 so a 100-token prompt binds it
+# (reduced: gemma2-9b's is 4096, gemma3-4b-text's 1024)
+GEMMA_CHECK_WINDOW, GEMMA_CHECK_PROMPT = 64, 100
+# the 2-layer checks' models and seeds
+GEMMA_CHECK_PRESETS = ((GEMMA_PRESET, 11), ("gemma3-4b-text", 12))
+
+
+def gemma_cfg(nct, preset, **cut):
+    """A ``GemmaConfig`` of ``preset`` with the cuts ``cut`` (depth, window,
+    layer types)."""
+    from neural_compressor_tpu_torch.models.gemma import (GEMMA_PRESETS,
+                                                          GemmaConfig)
+
+    return GemmaConfig(**dict(GEMMA_PRESETS[preset], **cut))
+
+
+def gemma_model(nct, cfg, seed, device=None, kv=None):
+    """A gemma quantized weight-only, asym int4 g128 (the tied embedding
+    stays bf16), built layer by layer on ``device`` with ``RTNConfig`` (+
+    ``KVCacheQuantConfig(dtype=kv)``)."""
+    from neural_compressor_tpu_torch.models import gemma
+
+    qc = nct.RTNConfig(dtype="int4", group_size=G, use_sym=False)
+    if kv is not None:
+        qc = qc + nct.KVCacheQuantConfig(dtype=kv)
+    return gemma.build_quantized(cfg, qc, seed=seed, device=device)
+
+
+def gemma_after_mask(torch, q, kp, vp, bt, lengths, window, cap):
+    """The planted fault "softcap after the mask" over a bf16 pool: masked
+    scores are the softcap of the -1e30 sentinel, -cap, and take part in
+    the softmax (the dense form of the fault)."""
+    from neural_compressor_tpu_torch.kernels.paged_attention import \
+        _gather_rows
+    from neural_compressor_tpu_torch.ops import softcap
+
+    B, H, D = q.shape
+    Hkv = kp.shape[1]
+    k = _gather_rows(kp, bt.long())
+    v = _gather_rows(vp, bt.long())
+    T = k.shape[2]
+    qr = q.reshape(B, Hkv, H // Hkv, D).double()
+    s = torch.einsum("bgrd,bgtd->bgrt", qr, k).float() * (1.0 / D ** 0.5)
+    t = torch.arange(T, device=q.device)[None, :]
+    qpos = (lengths.long() - 1)[:, None]
+    valid = ((t <= qpos) & (qpos - t < window))[:, None, None]
+    s = softcap(torch.where(valid, s, torch.tensor(-1e30, device=q.device)),
+                cap)
+    p = torch.softmax(s.double(), dim=-1)
+    out = torch.einsum("bgrt,bgtd->bgrd", p.float().bfloat16().double(), v)
+    return out.float().reshape(B, H, D).bfloat16()
+
+
+def phase_gemma_kernels(torch, nct, peaks: dict) -> dict:
+    """K11 with gemma's band and softcap at gemma2-9b's shapes: 8 slots at
+    ``GEMMA_POS`` over 8192-row contexts (pools of 128-row pages, Hkv 8,
+    rep 2, D 256), each pool format with the band on (a sliding layer:
+    window 4096 and softcap 50) and off (a global layer: softcap 50), each
+    against its plain version within ``kv_tol``, timed with L2 cold, and
+    the yardstick SDPA over the gathered rows with the band mask (SDPA has
+    no softcap). q is the pre-folded gemma2-9b query (scaling * sqrt(D) =
+    1) at 6x unit scale, so scores reach the softcap's curve. Planted
+    faults, each of which the check must flag: the band off by one (keys
+    with q - k <= window), the softcap applied after the mask, the softcap
+    dropped, the band applied to a global layer."""
+    from neural_compressor_tpu_torch.kernels import (paged_attn_gemma,
+                                                     paged_attn_plain)
+    from neural_compressor_tpu_torch.ops import kv_quant as kq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    B, Hkv, rep, D = SLOTS, 8, 2, 256
+    H, T, W, cap = Hkv * rep, GEMMA_MAX_LEN, GEMMA_WINDOW, GEMMA_SOFTCAP
+    pmax = T // PAGE
+    n_pages = B * pmax + 1                      # page 0 is the trash page
+    bt = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                         .manual_seed(32)) + 1).reshape(B, pmax)
+    bt = bt.to(torch.int32).to(dev)
+    lengths = torch.tensor(GEMMA_POS, dtype=torch.int32, device=dev) + 1
+    L = lengths.long()
+    Lmax = int(L.max())
+    q = (randn(B, H, D, dtype=torch.float32) * 6).to(torch.bfloat16)
+    q4 = q[:, :, None]
+    rows = []
+    for fmt in POOL_FORMATS:
+        row_b = {"bf16": 2 * D, "int8": D + 4, "fp8_e4m3": D + 4,
+                 "int4": D // 2 + 8}[fmt]
+        pools = [spec_pool(torch, kq, randn, n_pages, Hkv, PAGE, D, fmt)
+                 for _ in range(n_copies(2 * n_pages * Hkv * PAGE * row_b))]
+
+        def args(p):
+            return (p[0], p[1], p[2], p[3], bt, lengths, p[4], p[5])
+
+        def rows_of(p, i):
+            """The bf16 rows [B, Hkv, Lmax, D] pool ``p``'s K (i = 0) or V
+            (i = 2) holds, gathered: the yardstick's operands."""
+            if fmt == "bf16":
+                r = p[i]
+            elif fmt == "int4":
+                r = kv_dequant_rows(torch, kq, (p[i], p[i + 1], p[4 + i // 2]),
+                                    fmt)
+            else:
+                r = kv_dequant_rows(torch, kq, (p[i], p[i + 1]), fmt)
+            g = r[bt.long()].transpose(1, 2).reshape(B, Hkv, T, D)
+            return g[:, :, :Lmax].contiguous()
+
+        gk = [(rows_of(p, 0), rows_of(p, 2)) for p in pools[:2]]
+        t_idx = torch.arange(Lmax, device=dev)[None, :]
+        for window in (W, None):
+            kw = dict(window=window, softcap=cap)
+            out = paged_attn_gemma(q, *args(pools[0]), **kw)
+            ref = paged_attn_plain(q, *args(pools[0]), **kw)
+            torch.cuda.synchronize()
+            d = (out.float() - ref.float()).abs()
+            tol = kv_tol(ref)
+            err, ok = float(d.max()), bool((d <= tol).all())
+            ms = timed_ms(torch, [lambda p=p: paged_attn_gemma(
+                q, *args(p), **kw) for p in pools], 50)
+            pms = timed_ms(torch, [lambda: paged_attn_plain(
+                q, *args(pools[0]), **kw)], 3)
+            valid = t_idx < L[:, None]
+            if window is not None:
+                valid = valid & (t_idx >= L[:, None] - window)
+            mask = valid[:, None, None]
+            lms = timed_ms(torch, [lambda a=a, b=b: sdpa(
+                q4, a, b, attn_mask=mask, enable_gqa=True)
+                for a, b in gk], 50)
+            n_vis = int(valid.sum())
+            nbytes = (2 * Hkv * n_vis * row_b + 2 * B * H * D * 2
+                      + B * pmax * 4 + B * 4)
+            bms, by = bound(nbytes, 4 * H * n_vis * D, peaks["bf16_s"],
+                            peaks)
+            branch = "band" if window else "softcap"
+            rows.append(dict(fmt=fmt, branch=branch, err=err, ok=ok, ms=ms,
+                             plain_ms=pms, library_ms=lms, bound_ms=bms,
+                             bound_by=by))
+            print(f"gemma k11 {branch} {fmt} B={B} H={H} Hkv={Hkv} D={D} "
+                  f"page={PAGE} window={window} softcap={cap} lengths="
+                  f"{tuple(lengths.tolist())} max_abs_err={err:.3e} "
+                  f"max d/tol={float((d / tol).max()):.3g} ok={ok} "
+                  f"ms={ms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f} "
+                  f"(SDPA with the band mask and no softcap: SDPA has none) "
+                  f"bound_ms={bms:.4f} ({by})", flush=True)
+        del gk
+        if fmt == "bf16":
+            gemma_faults(torch, paged_attn_gemma, paged_attn_plain, q,
+                         pools[0], bt, lengths, W, cap, randn)
+        del pools
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"K11's gemma branches disagree with their plain version: {bad}")
+    return rows
+
+
+def gemma_faults(torch, kernel, plain, q, pool, bt, lengths, W, cap,
+                 randn) -> None:
+    """The planted faults of K11's gemma branches, each a faulty reference
+    the check must flag against the kernel (elements outside ``kv_tol``).
+    The band's first excluded key of each slot past the window is planted
+    with q's direction, so the off-by-one and the dropped softcap move the
+    output; "softcap after the mask" runs on a pool whose keys all score
+    near -2 cap, where the masked keys' -cap counts."""
+    kp, _s, vp = pool[0].clone(), None, pool[2]
+    B, H, D = q.shape
+    Hkv = kp.shape[1]
+    page = kp.shape[2]
+    for b, n in enumerate(lengths.tolist()):
+        t = n - 1 - W                       # the first key outside the band
+        if t < 0:
+            continue
+        qd = q[b].float().reshape(Hkv, H // Hkv, D).sum(dim=1)
+        qd = qd / qd.norm(dim=-1, keepdim=True) * 40.0
+        kp[int(bt[b, t // page]), :, t % page] = qd.to(kp.dtype)
+    base = (kp, None, vp, None, bt, lengths)
+    band = kernel(q, *base, window=W, softcap=cap)
+    glob = kernel(q, *base, window=None, softcap=cap)
+    # all keys u (+ noise), q = -6.25 u: scores ~ -100, softcapped ~ -48.2,
+    # beside the masked keys' -50
+    u = randn(D, dtype=torch.float32)
+    ku = (u + 0.01 * randn(*kp.shape, dtype=torch.float32)).to(kp.dtype)
+    qu = (-6.25 * u).expand(B, H, D).to(torch.bfloat16).contiguous()
+    under = kernel(qu, ku, None, vp, None, bt, lengths, window=W,
+                   softcap=cap)
+    faults = {
+        "band off by one (q - k <= window)": (
+            band, plain(q, *base, window=W + 1, softcap=cap)),
+        "softcap applied after the mask": (
+            under, gemma_after_mask(torch, qu, ku, vp, bt, lengths, W, cap)),
+        "softcap dropped": (band, plain(q, *base, window=W, softcap=None)),
+        "band applied to a global layer": (
+            glob, plain(q, *base, window=W, softcap=cap)),
+    }
+    missed = []
+    for name, (got, faulty) in faults.items():
+        torch.cuda.synchronize()
+        caught = int(((got.float() - faulty.float()).abs()
+                      > kv_tol(faulty)).sum())
+        print(f"gemma k11 planted fault '{name}': {caught}/{got.numel()} "
+              "outputs outside the tolerance", flush=True)
+        if not caught:
+            missed.append(name)
+    if missed:
+        fail(f"K11's gemma check missed planted faults: {missed}")
+
+
+def phase_gemma_envelope(torch, nct) -> None:
+    """The repair's shapes on the card: K5, K6 (int8, fp8) and K7 (bf16,
+    int8) at rep 16 (32 query heads on 2 KV heads), K8 with float32
+    activations at gemma2-9b's widths, K4 at K = 65,536 (past the old
+    48 Ki), each against its plain version; and where JAX declines its
+    kernel and the port's cannot take the shape, the plain path on the
+    card, its calls counted: K7 at D 96 (``batched_decode_attention``
+    returns None), a 2-layer D-96 llama's B=2 greedy (card tokens equal to
+    the CPU's, 2 plain calls a step), and ``dequant_matmul`` at N 200
+    (``dequant_dot``)."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.kernels import dequant_matmul as dm
+    from neural_compressor_tpu_torch.kernels import (
+        batched_decode_attn, batched_decode_attn_plain, decode_attn,
+        decode_attn_plain, decode_attn_quant, decode_attn_quant_plain,
+        fused_gemv, fused_gemv_plain)
+    from neural_compressor_tpu_torch.models.llama import LlamaConfig
+    from neural_compressor_tpu_torch.ops import kv_quant as kq
+    from neural_compressor_tpu_torch.ops import (pack_qtensor,
+                                                 quantize_tensor, to_hopper)
+
+    da = sys.modules["neural_compressor_tpu_torch.kernels.decode_attention"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(33)
+    bad, n = [], 0
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check(label, got, want, tol):
+        nonlocal n
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        if not (bool(torch.isfinite(got.float()).all())
+                and bool((d <= tol).all())):
+            bad.append(f"{label} err={float(d.max()):.3e}")
+        n += 1
+
+    # rep 16: 32 query heads on 2 KV heads of 128, T 1024
+    B, H, Hkv, D, T = 4, 32, 2, 128, 1024
+    q = randn(1, H, D)
+    k, v = randn(1, Hkv, T, D), randn(1, Hkv, T, D)
+    for pos in (0, 700, T - 1):
+        check(f"k5 rep 16 pos={pos}", decode_attn(q, k, v, pos),
+              decode_attn_plain(q, k, v, pos), TOL["attn"])
+    kn, vn = randn(1, Hkv, D), randn(1, Hkv, D)
+    for fmt in ("int8", "fp8_e4m3"):
+        kc, ksc = kv_rows(kq, k, fmt)
+        vc, vsc = kv_rows(kq, v, fmt)
+        p = torch.tensor([700], dtype=torch.int32, device=dev)
+        ref = decode_attn_quant_plain(q, kn, vn, kc, ksc, vc, vsc, p)
+        check(f"k6 rep 16 {fmt}", decode_attn_quant(q, kn, vn, kc, ksc, vc,
+                                                    vsc, p), ref, kv_tol(ref))
+    qb = randn(B, H, D)
+    kb, vb = randn(B, Hkv, T, D), randn(B, Hkv, T, D)
+    pos = torch.tensor([0, 300, 700, T - 1], dtype=torch.int32, device=dev)
+    check("k7 rep 16 bf16", batched_decode_attn(qb, kb, vb, pos),
+          batched_decode_attn_plain(qb, kb, vb, pos), TOL["batched"])
+    kc, ksc = kv_rows(kq, kb, "int8")
+    vc, vsc = kv_rows(kq, vb, "int8")
+    ref = batched_decode_attn_plain(qb, kc, vc, pos, ksc, vsc)
+    check("k7 rep 16 int8", batched_decode_attn(qb, kc, vc, pos, ksc, vsc),
+          ref, kv_tol(ref))
+    # K8 with float32 activations at gemma2-9b's widths (q and down)
+    for K, N in ((3584, 4096), (14336, 3584)):
+        pw = woq_weight(torch, gen, K, N)
+        for M in (8, 100, 256):
+            x = torch.randn((M, K), generator=gen, device=dev)
+            kw = dict(bits=4, group_size=G, layout="tpu_strided",
+                      out_dtype=torch.float32)
+            before = kernels.dequant_gemm.launches
+            yk = dm.dequant_gemm(x, *woq_operands(pw), None, **kw)
+            yp = dm.dequant_gemm_plain(x, *woq_operands(pw), None, **kw)
+            if kernels.dequant_gemm.launches != before + 1:
+                bad.append("k8 f32 did not launch")
+            check(f"k8 f32 x M={M} K={K} N={N}", yk, yp,
+                  woq_tol(torch, x, pw, yp, k9=False))
+    # K4 past the old 48 Ki: K = 65,536, its codes in dynamic shared memory
+    K, N = 64 * 1024, 512
+    w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+    pw = to_hopper(pack_qtensor(quantize_tensor(w, bits=4, group_size=G)))
+    x = randn(K)
+    args = (x, None, pw.packed, pw.scales, None, None)
+    kw = dict(eps=1e-6, silu=False, out_dtype=torch.bfloat16)
+    ref = fused_gemv_plain(*args, **kw)
+    check("k4 K=65536", fused_gemv(*args, **kw), ref,
+          TOL["gemv"] * float(ref.float().abs().max()))
+    # the plain paths where JAX's dispatch declines: K7 at D 96
+    q96 = randn(4, 8, 1, 96)
+    kv96 = randn(4, 4, 128, 96)
+    before = da.batched_decode_attention.plain_calls
+    if da.batched_decode_attention(q96, kv96, kv96, pos) is not None or \
+            da.batched_decode_attention.plain_calls != before + 1:
+        bad.append("K7 at D 96 did not decline to the plain path")
+    n += 1
+    # a 2-layer llama with D 96: B=2 greedy on the card (plain attention,
+    # counted) against the CPU
+    cfg = LlamaConfig(vocab_size=512, hidden_size=384, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=4, max_position_embeddings=128)
+    m_cpu = nct.LlamaForCausalLM(cfg, device="cpu", seed=3)
+    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    ids = torch.randint(0, 512, (2, 12), generator=torch.Generator()
+                        .manual_seed(4))
+    kernels.reset_launch_counts()
+    before = da.batched_decode_attention.plain_calls
+    got = nct.greedy_search(m_gpu, ids, max_new_tokens=6).cpu()
+    calls = da.batched_decode_attention.plain_calls - before
+    want = nct.greedy_search(m_cpu, ids, max_new_tokens=6)
+    launched = launch_counts()
+    if not (torch.equal(got, want) and calls == 2 * 5
+            and launched == expect()):
+        bad.append(f"D-96 llama B=2: card {got.tolist()} cpu "
+                   f"{want.tolist()}, {calls} plain calls, {launched}")
+    n += 1
+    # dequant_matmul where the weight does not tile (N % 128): dequant_dot
+    pw = woq_weight(torch, gen, 512, 200, G=64)
+    x = randn(8, 512)
+    before = dm.dequant_dot.calls
+    y = dm.dequant_matmul(x, pw)
+    if dm.dequant_dot.calls != before + 1:
+        bad.append("dequant_matmul at N 200 did not take dequant_dot")
+    check("dequant_dot N=200", y, dm.dequant_matmul(
+        x.cpu(), pw._replace(packed=pw.packed.cpu(), scales=pw.scales.cpu(),
+                             zeros=pw.zeros.cpu())).to(dev),
+          woq_tol(torch, x, pw, y, k9=False))
+    print(f"gemma envelope: {n} cases (K5/K6/K7 at rep 16, K8 with f32 x, "
+          f"K4 at K 65536, plain paths where JAX declines), card vs plain: "
+          f"{'all within tolerance' if not bad else bad}", flush=True)
+    if bad:
+        fail(f"the repaired envelope: {bad}")
+
+
+def gemma_launches(fmt, L: int, n_sliding: int, softcap: bool,
+                   steps: int) -> dict:
+    """The kernels of ``steps`` paged decode steps of an L-layer gemma with
+    ``n_sliding`` sliding layers, by kernels-line entry: K12 writes every
+    layer's row, K11 attends (the band on sliding layers, the softcap alone
+    on global ones, plain K11 on a global layer without a softcap)."""
+    write = {"bf16": "paged_write", "int8": "paged_write",
+             "fp8_e4m3": "paged_write_fp8", "int4": "paged_write_int4"}[fmt]
+    attn = {"bf16": "paged_attn", "int8": "paged_attn",
+            "fp8_e4m3": "paged_attn_fp8", "int4": "paged_attn_int4"}[fmt]
+    out = {write: L * steps, "paged_attn_gemma_band": n_sliding * steps}
+    if softcap:
+        out["paged_attn_gemma_softcap"] = (L - n_sliding) * steps
+    else:
+        out[attn] = (L - n_sliding) * steps
+    return out
+
+
+def phase_gemma_model_check(torch, nct) -> None:
+    """Full-width 2-layer gemma2-9b and gemma3-4b-text (one sliding and one
+    global layer each, the window cut to 64 so a 100-token prompt binds
+    it), RTN asym-int4 g128 W4A16, on the card (kernels) against the same
+    weights on the CPU (plain versions): greedy at B=1 over contiguous
+    caches in each KV format (``two_layer_check``: K8 prefill, K9 decode,
+    attention in plain PyTorch as JAX runs it in XLA), and the engine in
+    each pool mode, contiguous bf16/int8/fp8/int4 and paged
+    bf16/int8/fp8/int4 (K11's gemma branches and K12 over the pools).
+    Tokens equal, but where the CPU's top-2 gap is at most the measured
+    card-CPU difference (``card_cpu_tie``)."""
+    from neural_compressor_tpu_torch import kernels
+
+    torch.set_num_threads(8)
+    for preset, seed in GEMMA_CHECK_PRESETS:
+        t0 = time.perf_counter()
+        cfg = gemma_cfg(nct, preset, num_hidden_layers=2,
+                        sliding_window=GEMMA_CHECK_WINDOW,
+                        layer_types=("sliding_attention", "full_attention"))
+        m_gpu = gemma_model(nct, cfg, seed=seed, device="cuda", kv="int8")
+        if not (m_gpu.kv_cache_quantized and m_gpu.kv_cache_format == "int8"):
+            fail("RTNConfig + KVCacheQuantConfig did not flag the gemma's "
+                 "int8 cache")
+        set_kv_format(m_gpu, None)
+        m_cpu = copy.deepcopy(m_gpu).to("cpu")
+        ids = torch.randint(0, cfg.vocab_size, (1, GEMMA_CHECK_PROMPT),
+                            generator=torch.Generator().manual_seed(seed))
+        n_proj = 7 * cfg.num_hidden_layers
+        two_layer_check(
+            torch, f"gemma check {preset}", m_cpu, m_gpu, ids, woq=True,
+            max_len=GEMMA_CHECK_PROMPT + 16, tie_any=True,
+            want_fn=lambda fmt: expect(dequant_gemm=n_proj,
+                                       vpu_gemv=8 * n_proj))
+        set_woq_impl(m_cpu, "pallas")
+        gen = torch.Generator().manual_seed(seed + 1)
+        prompts = [torch.randint(0, cfg.vocab_size, (P,), generator=gen)
+                   .numpy() for P in (70, 90, 20)]
+        new = (3, 2, 3)
+        kw = dict(n_slots=4, max_len=128, prefill_chunk=32, page_size=32)
+        softcap = cfg.attn_logit_softcapping is not None
+        for mode, (mkw, fmt) in ENGINE_MODES.items():
+            t1 = time.perf_counter()
+            kernels.reset_launch_counts()
+            eng, got, _s = serve_engine(torch, nct, m_gpu, mode, prompts,
+                                        new, chunk=2, **kw)
+            launched = launch_counts()
+            with unpack_once():
+                _e, want, _s = serve_engine(torch, nct, m_cpu, mode, prompts,
+                                            new, chunk=2, **kw)
+            toks = [r.generated for r in got]
+            ties = []
+            for p, a, b in zip(prompts, toks, [r.generated for r in want]):
+                i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                         None)
+                if i is not None:
+                    gap, diff = card_cpu_tie(torch, m_cpu, m_gpu, fmt,
+                                             list(p) + b[:i], b[i], a[i])
+                    ties.append(dict(step=i, card=a[i], cpu=b[i], gap=gap,
+                                     diff=diff))
+                    if gap > diff:
+                        fail(f"gemma engine {preset} {mode}: card {a} cpu "
+                             f"{b}, the CPU's top-2 gap {gap} exceeds the "
+                             f"card-CPU difference {diff}")
+            steps = 2 * eng.metrics()["decode_dispatches"]
+            path = (gemma_launches(fmt or "bf16", 2, 1, softcap, steps)
+                    if mkw.get("paged") else {})
+            ok = all(launched[k] == v for k, v in path.items()) and \
+                launched["dequant_gemm"] > 0
+            print(f"gemma engine check {preset} {mode} (2 layers, full "
+                  f"width): card tokens {toks} cpu tokens "
+                  f"{[r.generated for r in want]} near-ties {ties} launches "
+                  f"{ {k: v for k, v in launched.items() if v} } "
+                  f"({time.perf_counter() - t1:.1f} s)", flush=True)
+            if not ok:
+                fail(f"gemma engine {preset} {mode}: the path's kernels did "
+                     f"not run as expected ({path})")
+        print(f"gemma check {preset} done in {time.perf_counter() - t0:.1f} "
+              "s", flush=True)
+        del m_cpu, m_gpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def gemma_paged_gap(torch, model, fmt, prefix, tok_a: int,
+                    tok_b: int) -> tuple:
+    """At a step where greedy over contiguous caches chose ``tok_a`` and
+    the paged engine ``tok_b`` after ``prefix``: greedy's top-2 gap there
+    and the measured logit difference between the two paths on that step.
+    The prefix less its last token is prefilled once into a contiguous
+    bf16 cache and copied into a pool of ``fmt`` (quantized as the
+    engine's staging copy quantizes it); the last token is decoded over
+    each, every projection on K8 as in the engine's and the batched
+    greedy's decode. Returns (gap, diff)."""
+    from neural_compressor_tpu_torch.models.llama import (init_kv_cache,
+                                                          init_paged_pool)
+    from neural_compressor_tpu_torch.ops import kv_quant as kq
+
+    P, dev = len(prefix), model.device
+    ids = torch.tensor([prefix], device=dev)
+    tok = ids[:, -1:]
+    pos = torch.full((1, 1), P - 1, device=dev)
+    n = -(-P // PAGE)
+    set_woq_impl(model, "pallas")
+    try:
+        with torch.no_grad():
+            caches = init_kv_cache(model.cfg, 1, n * PAGE, device=dev)
+            model(ids[:, :-1], None, caches, 0)
+            pools = init_paged_pool(model.cfg, n + 1, 1, n * PAGE,
+                                    page_size=PAGE, quantized=fmt or False,
+                                    device=dev)
+            bt = torch.arange(1, n + 1, dtype=torch.int32,
+                              device=dev)[None]
+            pools = [p._replace(block_tables=bt) for p in pools]
+            for pool, c in zip(pools, caches):
+                for rows, pages, scales in ((c.k, pool.k_pages,
+                                             pool.k_scales),
+                                            (c.v, pool.v_pages,
+                                             pool.v_scales)):
+                    r = rows[0, :, :P - 1].reshape(
+                        model.cfg.num_key_value_heads, -1,
+                        model.cfg.head_dim)
+                    for j in range(n):
+                        blk = r[:, j * PAGE:(j + 1) * PAGE]
+                        m = blk.shape[1]
+                        if fmt:
+                            codes, sc = kq.kv_quant(blk, fmt)
+                            pages[1 + j, :, :m] = codes
+                            scales[1 + j, :, :m] = sc
+                        else:
+                            pages[1 + j, :, :m] = blk
+            a, _ = model(tok, pos, caches, P - 1)
+            b, _ = model(tok, pos, pools, pos[:, 0].to(torch.int32))
+    finally:
+        set_woq_impl(model, "auto")
+    a, b = a[0, -1].float(), b[0, -1].float()
+    return float(a[tok_a] - a[tok_b]), float((a - b).abs().max())
+
+
+def phase_gemma_serve(torch, nct) -> dict:
+    """The slice's path at full width and depth: gemma2-9b (42 layers, 21
+    sliding), RTN asym-int4 g128 W4A16, random weights from a seed made on
+    the card. Three B=1 greedy requests over contiguous bf16 caches
+    (prompts of 16, 371 and 4,500 tokens, the last through the chunked
+    prefill, 48 new each; K8 prefills the 16-token prompt, the others take
+    dequantize-then-matmul, K9 decodes); then ``ContinuousBatchingEngine(
+    n_slots=8, max_len=8192, paged=True)`` over bf16 and int8 pools, 16
+    requests (prompts of 16, 100, 371 and 4,200 tokens, 4 each, the last
+    past the window; 8 new), ``run(chunk=8)``, its tokens held against
+    ``greedy_search`` on the same model, the 4 prompts of a length at once
+    (equal, or parted where greedy's top-2 gap is at most the paths'
+    measured difference, ``gemma_paged_gap``), exact launch counts of
+    K11's band and softcap branches, K12, K8 and K9, tok/s, cache bytes,
+    peak memory, one decode dispatch over the int8 pool profiled. Returns
+    {path: launches}."""
+    import numpy as np
+
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.kernels import dequant_dot
+    from neural_compressor_tpu_torch.models.llama import init_kv_cache
+
+    t0 = time.perf_counter()
+    cfg = gemma_cfg(nct, GEMMA_PRESET)
+    model = gemma_model(nct, cfg, seed=0, kv="int8")
+    set_kv_format(model, None)
+    nl, V = cfg.num_hidden_layers, cfg.vocab_size
+    n_sl = sum(t == "sliding_attention" for t in cfg.layer_types)
+    n_proj = 7 * nl
+    torch.cuda.synchronize()
+    print(f"{GEMMA_PRESET} W4A16 (asym int4 g{G}, {nl} layers, {n_sl} "
+          f"sliding, window {cfg.sliding_window}) built in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+          flush=True)
+    out = {}
+    gen = torch.Generator().manual_seed(41)
+    prompts = [torch.randint(0, V, (1, P), generator=gen)
+               for P in GEMMA_PROMPTS]
+    nct.greedy_search(model, prompts[0], max_new_tokens=2)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    dequant_dot.calls = 0
+    outs, req_s = [], []
+    for ids in prompts:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(nct.greedy_search(model, ids, max_new_tokens=GEMMA_NEW))
+        torch.cuda.synchronize()
+        req_s.append(time.perf_counter() - t)
+    launches = launch_counts()
+    dots = dequant_dot.calls
+    steps = GEMMA_NEW - 1
+    short = sum(P <= 256 for P in GEMMA_PROMPTS)
+    want = expect(dequant_gemm=short * n_proj,
+                  vpu_gemv=len(GEMMA_PROMPTS) * steps * n_proj)
+    want_dots = (len(GEMMA_PROMPTS) - short) * n_proj
+    print(f"gemma B=1 kernels {json.dumps(launches)} expected "
+          f"{json.dumps(want)}; dequantize-then-matmul calls {dots} "
+          f"(expected {want_dots}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for ids, o, s_ in zip(prompts, outs, req_s):
+        P = ids.shape[1]
+        if (tuple(o.shape) != (1, P + GEMMA_NEW)
+                or not torch.equal(o[:, :P].cpu(), ids.to(torch.int32))
+                or int(o.min()) < 0 or int(o.max()) >= V):
+            fail(f"bad gemma greedy output for prompt {P}: {o}")
+        print(f"gemma request prompt={P} new={GEMMA_NEW}: {s_ * 1e3:.1f} ms "
+              f"({GEMMA_NEW / s_:.2f} tok/s with the prefill; first new "
+              f"tokens {o[0, P:P + 8].tolist()})", flush=True)
+    if launches != want or dots != want_dots:
+        fail(f"gemma B=1 launch counts {launches} != {want} or dequantize-"
+             f"then-matmul calls {dots} != {want_dots}")
+    out["gemma_greedy_b1"] = launches
+    tok = outs[0][:, -1:].to(model.device)
+    at = torch.full((1, 1), 16, device=model.device)
+    with torch.no_grad():
+        profile_window(torch, "gemma B=1 decode step", lambda: model(
+            tok, at, init_kv_cache(cfg, 1, 64, device=model.device), 16))
+
+    # the engine over paged pools, its tokens against greedy's
+    gen = torch.Generator().manual_seed(42)
+    e_prompts = [torch.randint(0, V, (GEMMA_ENGINE_PROMPTS[i % 4],),
+                               generator=gen).numpy()
+                 for i in range(ENGINE_REQUESTS)]
+    # the references: greedy_search over each prompt length's 4 prompts
+    # at once (B=4: K8 decodes, as in the engine)
+    refs = [None] * ENGINE_REQUESTS
+    for P in GEMMA_ENGINE_PROMPTS:
+        idx = [i for i, p in enumerate(e_prompts) if len(p) == P]
+        o = nct.greedy_search(model, torch.from_numpy(
+            np.stack([e_prompts[i] for i in idx])),
+            max_new_tokens=GEMMA_ENGINE_NEW)
+        for i, row in zip(idx, o[:, P:].tolist()):
+            refs[i] = row
+    news = [GEMMA_ENGINE_NEW] * ENGINE_REQUESTS
+    for mode in ("paged_bf16", "paged_int8"):
+        fmt = ENGINE_MODES[mode][1]
+        eng = engine_for(nct, model, mode, n_slots=SLOTS,
+                         max_len=GEMMA_MAX_LEN, page_size=PAGE)
+        chunk_rows = []
+        prefill_forward = eng._prefill_forward
+
+        def observed(target, ids, *args, _f=prefill_forward):
+            chunk_rows.append(int(ids.shape[0]))
+            return _f(target, ids, *args)
+
+        eng._prefill_forward = observed
+        reqs = [eng.submit(p, max_new_tokens=m)
+                for p, m in zip(e_prompts, news)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        dequant_dot.calls = 0
+        t = time.perf_counter()
+        done = eng.run(chunk=CHUNK)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = launch_counts()
+        dots = dequant_dot.calls
+        if sorted(r.uid for r in done) != sorted(r.uid for r in reqs):
+            fail(f"gemma engine {mode} finished {len(done)} of {len(reqs)}")
+        m = eng.metrics()
+        steps = CHUNK * m["decode_dispatches"]
+        C = eng.prefill_chunk
+        k8_chunks = sum(r * C <= 256 for r in chunk_rows)
+        want = expect(dequant_gemm=n_proj * (steps + k8_chunks),
+                      **gemma_launches(fmt or "bf16", nl, n_sl, True, steps))
+        want_dots = n_proj * (len(chunk_rows) - k8_chunks)
+        counters = {k: m[k] for k in (
+            "requests", "prompt_tokens", "generated_tokens",
+            "prefill_chunk_dispatches", "decode_dispatches",
+            "combined_dispatches", "preemptions")}
+        print(f"gemma engine {mode} ({eng.n_pages} pages of {PAGE} rows, "
+              f"{m['kv_cache_format']}, {m['kv_cache_bytes'] / 2**30:.3f} "
+              f"GiB of cache): {len(reqs)} requests in {seconds:.3f} s, "
+              f"generated {m['generated_tok_s']:.2f} tok/s (metrics wall "
+              f"{m['wall_s']:.3f} s), {json.dumps(counters)}, prefill chunk "
+              f"rows {chunk_rows} (chunk {C}), peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        print(f"gemma engine {mode} kernels {json.dumps(launches)} expected "
+              f"{json.dumps(want)}; dequantize-then-matmul calls {dots} "
+              f"(expected {want_dots})", flush=True)
+        if launches != want or dots != want_dots:
+            fail(f"gemma engine {mode}: launch counts {launches} != {want} "
+                 f"or dequantize-then-matmul calls {dots} != {want_dots}")
+        parted = []
+        for p, r, ref in zip(e_prompts, reqs, refs):
+            got = r.generated
+            if len(got) != GEMMA_ENGINE_NEW or not all(
+                    math.isfinite(x) for x in r.logprobs):
+                fail(f"gemma engine {mode}: bad output {got}")
+            i = next((i for i, (a, b) in enumerate(zip(ref, got))
+                      if a != b), None)
+            if i is None:
+                continue
+            gap, diff = gemma_paged_gap(torch, model, fmt,
+                                        list(p) + ref[:i], ref[i], got[i])
+            parted.append(dict(prompt=len(p), step=i, greedy=ref[i],
+                               engine=got[i], gap=gap, diff=diff))
+            if gap > diff:
+                fail(f"gemma engine {mode}: parts from greedy at new token "
+                     f"{i} of a {len(p)}-token prompt where greedy's top-2 "
+                     f"gap {gap} exceeds the paths' difference {diff}")
+        print(f"gemma engine {mode}: {ENGINE_REQUESTS - len(parted)} of "
+              f"{ENGINE_REQUESTS} requests equal to greedy_search; partings "
+              f"{parted}", flush=True)
+        out[f"gemma_engine_{mode}"] = launches
+        # the observed prefill holds the engine in a cycle: free its pools
+        # before the next mode's peak is read
+        del eng, observed, prefill_forward
+        gc.collect()
+        torch.cuda.empty_cache()
+    # where the time goes: one decode dispatch over the int8 pool, the 8
+    # slots at the first 8 requests' prompt lengths
+    eng = engine_for(nct, model, "paged_int8", n_slots=SLOTS,
+                     max_len=GEMMA_MAX_LEN, page_size=PAGE)
+    for p in e_prompts[:SLOTS]:
+        eng.submit(p, max_new_tokens=64)
+    while eng.queue or "prefill" in eng.slot_state:
+        eng.run(max_steps=1, chunk=1)
+    profile_window(torch, f"gemma engine paged_int8 decode dispatch, 8 "
+                   f"slots x {CHUNK} steps", lambda: eng.step_many(CHUNK))
+    del eng        # not run dry: the profile was all it was for
+    del model
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -3085,7 +3825,11 @@ def main() -> None:
               "spec_kernels": lambda: phase_spec_kernels(torch, nct, peaks),
               "spec_envelope": lambda: phase_spec_envelope(torch),
               "spec_model_check": lambda: phase_spec_model_check(torch,
-                                                                 nct)}
+                                                                 nct),
+              "gemma_kernels": lambda: phase_gemma_kernels(torch, nct, peaks),
+              "gemma_envelope": lambda: phase_gemma_envelope(torch, nct),
+              "gemma_model_check": lambda: phase_gemma_model_check(torch,
+                                                                   nct)}
     if len(sys.argv) > 1:
         # a development run: only the named checks, no serving, no result
         unknown = [a for a in sys.argv[1:] if a not in checks]
@@ -3098,7 +3842,7 @@ def main() -> None:
     results = {k: timed_phase(k, fn) for k, fn in checks.items()}
     rows, erows = results["kernels"], results["engine_kernels"]
     wrows, kvrows = results["woq_kernels"], results["kv_kernels"]
-    srows = results["spec_kernels"]
+    srows, grows = results["spec_kernels"], results["gemma_kernels"]
     launches, model, prompts = timed_phase(
         "serve", lambda: phase_serve(torch, nct))
     timed_phase("profile", lambda: phase_profile(torch, model, prompts[1]))
@@ -3123,6 +3867,10 @@ def main() -> None:
             "kv_engine", lambda: phase_kv_engine(torch, nct, model)).items():
         by_path[f"kv_engine_{mode}"] = counts
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(timed_phase("gemma_serve",
+                               lambda: phase_gemma_serve(torch, nct)))
     print(f"all phases done in {time.perf_counter() - T_START:.1f} s",
           flush=True)
     print(f"launches by main path: {json.dumps(by_path)}", flush=True)
@@ -3170,6 +3918,9 @@ def main() -> None:
     int8_at_unit = lambda r: (r["fmt"] == "int8"  # noqa: E731
                               and r["label"].endswith(f"pos={UNIT_POS}"))
     k6_u = kv_unit("k6", int8_at_unit)
+    gemma_u = unit([r for r in grows if r["fmt"] == "int8"],
+                   lambda rs: [(r, 21) for r in rs], bytes_)
+    gemma_u["max_abs_err"] = max(r["err"] for r in grows)
     k7q_u = kv_unit("k7q", lambda r: r["fmt"] == "int8")
     entries = [
         ("w4a8_gemm", "neural_compressor_tpu_torch/csrc/w4a8_gemm.cu",
@@ -3232,6 +3983,11 @@ def main() -> None:
          "neural_compressor_tpu/kernels/paged_attention.py:489 "
          "(_paged_attn_impl_v2, K11, the W-query window wq > 1)",
          spec_unit("k11w")),
+        ("paged_attn_gemma",
+         "neural_compressor_tpu_torch/csrc/paged_attention.cu",
+         "neural_compressor_tpu/kernels/paged_attention.py:489 "
+         "(_paged_attn_impl_v2, K11, the window and softcap branches of "
+         "_paged_kernel_v2, :302-305, :352-355)", gemma_u),
     ]
     print(smi, flush=True)
     print("unit of the kernels line: w4a8_gemm = one 128-token prefill "
@@ -3260,10 +4016,18 @@ def main() -> None:
           "paged_write_window and paged_window_attn = one verify round of "
           f"the 8-slot engine ({SPEC_W}-token windows at {SPEC_POS}) over "
           "the int8 pool (32 layers; index assignment into a bf16 pool and "
-          "SDPA over the gathered rows in the log)", flush=True)
+          "SDPA over the gathered rows in the log); paged_attn_gemma = one "
+          f"8-slot {GEMMA_PRESET} decode step (lengths {GEMMA_POS} + 1, "
+          "Hkv 8, rep 2, D 256) over the int8 pool, 42 layers: 21 with the "
+          "band and the softcap, 21 with the softcap alone (the library "
+          "yardstick SDPA with the band mask and no softcap; every format "
+          "in the log), its launches summed over the gemma paths (B=1 "
+          "greedy, the engine over paged bf16 and int8 pools)",
+          flush=True)
     kernels_line = {"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
-         "launches": sum(c[n] for c in by_path.values()),
+         "launches": sum(c[k] for c in by_path.values()
+                         for k in LINE_SUMS.get(n, (n,))),
          "max_abs_err": u["max_abs_err"],
          "ms": u["ms"], "plain_ms": u["plain_ms"], "bound_ms": u["bound_ms"],
          "bound_by": u["bound_by"], "library_ms": u["library_ms"]}

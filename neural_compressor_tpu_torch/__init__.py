@@ -1,8 +1,9 @@
 """neural_compressor_tpu_torch — the PyTorch/CUDA port of
 ``neural_compressor_tpu``.
 
-It serves RTN-quantized Llama models with greedy decoding (plain, or
-speculative: draft-verify or prompt lookup) through
+It serves RTN-quantized Llama and Gemma (gemma-1/2/3 text) models with
+greedy decoding (plain, or speculative for Llama: draft-verify or prompt
+lookup) through
 hand-written Hopper kernels (``kernels/``, sources in ``csrc/``): build or
 load a model, quantize it (weight-only ``WOQLinear``: sym or asym int4,
 int2, int8, nf4, fp4; add ``KVCacheQuantConfig`` for int8, fp8-e4m3 or
@@ -25,7 +26,8 @@ from .common import logger, set_log_level, options
 from .quantization import (KVCacheQuantConfig, RTNConfig,
                            enable_fused_decode, fuse_for_serving, quantize,
                            to_w4a8_serving)
-from .models import (LLAMA_PRESETS, LlamaConfig, LlamaForCausalLM,
+from .models import (GEMMA_PRESETS, LLAMA_PRESETS, GemmaConfig,
+                     GemmaForCausalLM, LlamaConfig, LlamaForCausalLM,
                      build_quantized, from_jax_params)
 from .generation import (generate, greedy_search,
                          ngram_speculative_greedy_search,

@@ -22,9 +22,12 @@
 //   2*rep*D flops: 2*Hkv*(pos[b]+1)*D*2 bytes of K and V per slot for bf16,
 //   2*Hkv*(pos[b]+1)*(D+4) for codes and scales.
 //
-// Design: one block per (slot, KV head), B*Hkv blocks (256 at B = 8 for
-//   llama2-7b, against K5's 32); its rep query rows share every K and V row
-//   it reads. The block visits only rows t <= min(pos[b], T-1). Warps take
+// Design: one block per (slot, KV head, group of query rows), B*Hkv*ng
+//   blocks (256 at B = 8 for llama2-7b, against K5's 32): the rep query
+//   rows of a KV head split into ng = ceil(rep / 8) groups of at most
+//   MAX_REP = 8 rows, as even as they go, along grid z, so the o[8][DPL]
+//   accumulators a thread holds do not grow with rep; a group's rows share
+//   every K and V row it reads. The block visits only rows t <= min(pos[b], T-1). Warps take
 //   rows round-robin and lanes split D, so each warp reads a whole row
 //   coalesced. Sums run in float64 over exact products (bf16 x bf16, int8
 //   or e4m3) and are rounded once, so their order almost never shows: the
@@ -61,10 +64,15 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int hk = blockIdx.x, b = blockIdx.y;
   const int p = pos[b];
   const int L = (p < 0 ? 0 : (p > T - 1 ? T - 1 : p)) + 1;  // visited rows
-  double* sred = smem;                                // [WARPS][rep][D]
-  double* sl = sred + WARPS * rep * D;                // [rep]
-  float* sq = reinterpret_cast<float*>(sl + rep);     // [rep][D]
-  float* sp = ws + ((size_t)b * H + (size_t)hk * rep) * T;  // [rep][T]
+  // this block's G query rows: group blockIdx.z of the rep rows
+  const int gs = (rep + gridDim.z - 1) / gridDim.z;
+  const int g0 = blockIdx.z * gs, G = min(gs, rep - g0);
+  if (G <= 0) return;
+  const size_t q0 = (size_t)b * H + (size_t)hk * rep + g0;  // first row
+  double* sred = smem;                                // [WARPS][G][D]
+  double* sl = sred + WARPS * gs * D;                 // [G]
+  float* sq = reinterpret_cast<float*>(sl + gs);      // [G][D]
+  float* sp = ws + q0 * T;                            // [G][T]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t bh = (size_t)b * Hkv + hk;
@@ -72,9 +80,9 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const C* vh = vc + bh * (size_t)T * D;
   const float* ksh = QUANT ? ks + bh * (size_t)T : nullptr;
   const float* vsh = QUANT ? vs + bh * (size_t)T : nullptr;
-  const __nv_bfloat16* qh = q + ((size_t)b * H + (size_t)hk * rep) * D;
+  const __nv_bfloat16* qh = q + q0 * D;
 
-  for (int i = tid; i < rep * D; i += THREADS) sq[i] = __bfloat162float(qh[i]);
+  for (int i = tid; i < G * D; i += THREADS) sq[i] = __bfloat162float(qh[i]);
   __syncthreads();
 
   // pass 1: scores
@@ -83,7 +91,7 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     nctt::load_row<DPL>(kh + (size_t)t * D + lane * DPL, kv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
-      if (r >= rep) break;
+      if (r >= G) break;
       double d = 0.0;
 #pragma unroll
       for (int e = 0; e < DPL; ++e)
@@ -100,7 +108,7 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
   // softmax numerators per query row: p = bf16(f32(exp(s - m)) [* v_scale]),
   // l unrounded
-  for (int r = warp; r < rep; r += WARPS) {
+  for (int r = warp; r < G; r += WARPS) {
     float* row = sp + r * T;
     float m = -INFINITY;
     for (int t = lane; t < L; t += 32) m = fmaxf(m, row[t]);
@@ -129,7 +137,7 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     nctt::load_row<DPL>(vh + (size_t)t * D + lane * DPL, vv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
-      if (r >= rep) break;
+      if (r >= G) break;
       const double pr = sp[r * T + t];
 #pragma unroll
       for (int e = 0; e < DPL; ++e) o[r][e] += pr * (double)vv[e];
@@ -137,17 +145,17 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 #pragma unroll
   for (int r = 0; r < MAX_REP; ++r) {
-    if (r >= rep) break;
+    if (r >= G) break;
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
-      sred[(warp * rep + r) * D + lane * DPL + e] = o[r][e];
+      sred[(warp * G + r) * D + lane * DPL + e] = o[r][e];
   }
   __syncthreads();
-  __nv_bfloat16* oh = out + ((size_t)b * H + (size_t)hk * rep) * D;
-  for (int i = tid; i < rep * D; i += THREADS) {
+  __nv_bfloat16* oh = out + q0 * D;
+  for (int i = tid; i < G * D; i += THREADS) {
     double acc = 0.0;
 #pragma unroll
-    for (int wi = 0; wi < WARPS; ++wi) acc += sred[wi * rep * D + i];
+    for (int wi = 0; wi < WARPS; ++wi) acc += sred[wi * G * D + i];
     oh[i] = __float2bfloat16_rn((float)acc / (float)sl[i / D]);
   }
 }
@@ -157,15 +165,17 @@ int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* pos, void* out, void* ws, int B, int H,
            int Hkv, int T, float scale, cudaStream_t stream) {
   const int D = DPL * 32, rep = H / Hkv;
-  const size_t smem = sizeof(double) * ((size_t)WARPS * rep * D + rep) +
-      sizeof(float) * (size_t)rep * D;
+  const int ng = (rep + MAX_REP - 1) / MAX_REP;       // groups of rows
+  const int gs = (rep + ng - 1) / ng;
+  const size_t smem = sizeof(double) * ((size_t)WARPS * gs * D + gs) +
+      sizeof(float) * (size_t)gs * D;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         batched_decode_attention_kernel<DPL, C>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  batched_decode_attention_kernel<DPL, C><<<dim3(Hkv, B), THREADS, smem,
+  batched_decode_attention_kernel<DPL, C><<<dim3(Hkv, B, ng), THREADS, smem,
                                             stream>>>(
       (const __nv_bfloat16*)q, (const C*)k, (const C*)v, (const float*)ks,
       (const float*)vs, (const int*)pos, (__nv_bfloat16*)out, (float*)ws, H,
@@ -195,7 +205,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
 // q bf16 [B, H, D]; caches [B, Hkv, T, D] holding each slot's row pos[b]:
 // bf16 (code 0; ks/vs null), int8 (code 1) or e4m3 (code 2) with scales
 // f32 [B, Hkv, T]; pos int32 [B]; out bf16 [B, H, D]; ws f32 [B, H, T]
-// scratch for the score rows. D in {32, 64, 128, 256}; 1 <= H/Hkv <= 8.
+// scratch for the score rows. D in {32, 64, 128, 256}; H % Hkv == 0.
 NCTT_API int nctt_batched_decode_attention(const void* q, const void* k,
                                            const void* v, const void* ks,
                                            const void* vs, const void* pos,

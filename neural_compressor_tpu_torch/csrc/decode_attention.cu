@@ -24,9 +24,13 @@
 //   2*rep*D flops: 2*Hkv*(pos+1)*D*2 bytes of K and V per layer for bf16,
 //   2*Hkv*min(pos+1, T)*(D+4) for codes and scales.
 //
-// Design: one block per (batch, KV head); its rep query rows share every K
-//   and V row it reads. The block visits only rows t <= pos (the -1e30 mask
-//   makes the others contribute exactly 0). Warps take rows round-robin and
+// Design: one block per (batch, KV head, group of query rows): the rep
+//   query rows of a KV head split into ng = ceil(rep / 8) groups of at most
+//   MAX_REP = 8 rows, as even as they go, along grid z (rep 16: 2 x 8), so
+//   the o[8][DPL] accumulators a thread holds do not grow with rep; a
+//   group's rows share every K and V row it reads (rep <= 8: one group).
+//   The block visits only rows t <= pos (the -1e30 mask makes the others
+//   contribute exactly 0). Warps take rows round-robin and
 //   lanes split D, so each warp reads a whole row coalesced. Sums run in
 //   float64 over exact products and are rounded once, so their order
 //   almost never shows: the kernel and its plain version
@@ -38,7 +42,7 @@
 //   score rows live in a float32 workspace in device memory ([B, H, T],
 //   allocated by the wrapper; they pass through L2), so shared memory does
 //   not grow with T and any context length fits. A simple first kernel:
-//   only Hkv*B blocks, no split of T across blocks.
+//   only Hkv*B*ng blocks, no split of T across blocks.
 #include "nctt_common.cuh"
 
 namespace {
@@ -59,18 +63,23 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ __align__(16) double smem[];
   const int rep = H / Hkv;
   const int L = pos + 1;                              // visited rows
-  double* sred = smem;                                // [WARPS][rep][D]
-  float* sq = reinterpret_cast<float*>(sred + WARPS * rep * D);  // [rep][D]
-
   const int hk = blockIdx.x, b = blockIdx.y;
-  float* sp = ws + ((size_t)b * H + (size_t)hk * rep) * T;  // [rep][T]
+  // this block's G query rows: group blockIdx.z of the rep rows
+  const int gs = (rep + gridDim.z - 1) / gridDim.z;
+  const int g0 = blockIdx.z * gs, G = min(gs, rep - g0);
+  if (G <= 0) return;
+  const size_t q0 = (size_t)b * H + (size_t)hk * rep + g0;  // first row
+  double* sred = smem;                                // [WARPS][G][D]
+  float* sq = reinterpret_cast<float*>(sred + WARPS * gs * D);  // [G][D]
+
+  float* sp = ws + q0 * T;                            // [G][T]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t head = ((size_t)b * Hkv + hk) * (size_t)T * D;
   const __nv_bfloat16* kh = kc + head;
   const __nv_bfloat16* vh = vc + head;
-  const __nv_bfloat16* qh = q + ((size_t)b * H + (size_t)hk * rep) * D;
+  const __nv_bfloat16* qh = q + q0 * D;
 
-  for (int i = tid; i < rep * D; i += THREADS) sq[i] = __bfloat162float(qh[i]);
+  for (int i = tid; i < G * D; i += THREADS) sq[i] = __bfloat162float(qh[i]);
   __syncthreads();
 
   // pass 1: scores
@@ -79,7 +88,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     nctt::load_row<DPL>(kh + (size_t)t * D + lane * DPL, kv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
-      if (r >= rep) break;
+      if (r >= G) break;
       double d = 0.0;
 #pragma unroll
       for (int e = 0; e < DPL; ++e)
@@ -91,7 +100,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   // softmax per query row; p is rounded to bf16 as K5 casts it for PV
-  for (int r = warp; r < rep; r += WARPS) {
+  for (int r = warp; r < G; r += WARPS) {
     float* row = sp + r * T;
     float m = -INFINITY;
     for (int t = lane; t < L; t += 32) m = fmaxf(m, row[t]);
@@ -117,7 +126,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     nctt::load_row<DPL>(vh + (size_t)t * D + lane * DPL, vv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
-      if (r >= rep) break;
+      if (r >= G) break;
       const double p = sp[r * T + t];
 #pragma unroll
       for (int e = 0; e < DPL; ++e) o[r][e] += p * (double)vv[e];
@@ -125,17 +134,17 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 #pragma unroll
   for (int r = 0; r < MAX_REP; ++r) {
-    if (r >= rep) break;
+    if (r >= G) break;
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
-      sred[(warp * rep + r) * D + lane * DPL + e] = o[r][e];
+      sred[(warp * G + r) * D + lane * DPL + e] = o[r][e];
   }
   __syncthreads();
-  __nv_bfloat16* oh = out + ((size_t)b * H + (size_t)hk * rep) * D;
-  for (int i = tid; i < rep * D; i += THREADS) {
+  __nv_bfloat16* oh = out + q0 * D;
+  for (int i = tid; i < G * D; i += THREADS) {
     double acc = 0.0;
 #pragma unroll
-    for (int wi = 0; wi < WARPS; ++wi) acc += sred[wi * rep * D + i];
+    for (int wi = 0; wi < WARPS; ++wi) acc += sred[wi * G * D + i];
     oh[i] = __float2bfloat16_rn((float)acc);
   }
 }
@@ -145,15 +154,18 @@ int launch(const void* q, const void* k, const void* v, void* out, void* ws,
            int B, int H, int Hkv, int T, int pos, float scale,
            cudaStream_t stream) {
   const int D = DPL * 32, rep = H / Hkv;
-  const size_t smem = sizeof(double) * (size_t)WARPS * rep * D +
-      sizeof(float) * (size_t)rep * D;
+  const int ng = (rep + MAX_REP - 1) / MAX_REP;       // groups of rows
+  const int gs = (rep + ng - 1) / ng;
+  const size_t smem = sizeof(double) * (size_t)WARPS * gs * D +
+      sizeof(float) * (size_t)gs * D;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         decode_attention_kernel<DPL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_attention_kernel<DPL><<<dim3(Hkv, B), THREADS, smem, stream>>>(
+  decode_attention_kernel<DPL><<<dim3(Hkv, B, ng), THREADS, smem,
+                                 stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (float*)ws, H, Hkv, T,
       pos, scale);
@@ -180,9 +192,14 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   // pos at or past T: every code row, no raw row (JAX's mask keeps all T)
   const int pos = pos_b[b];
   const int L = min(max(pos, 0), T - 1) + 1;          // visited rows
-  double* sred = smem;                                // [WARPS][rep][D]
-  float* sq = reinterpret_cast<float*>(sred + WARPS * rep * D);  // [rep][D]
-  float* sp = ws + ((size_t)b * H + (size_t)hk * rep) * T;  // [rep][T]
+  // this block's G query rows: group blockIdx.z of the rep rows
+  const int gs = (rep + gridDim.z - 1) / gridDim.z;
+  const int g0 = blockIdx.z * gs, G = min(gs, rep - g0);
+  if (G <= 0) return;
+  const size_t q0 = (size_t)b * H + (size_t)hk * rep + g0;  // first row
+  double* sred = smem;                                // [WARPS][G][D]
+  float* sq = reinterpret_cast<float*>(sred + WARPS * gs * D);  // [G][D]
+  float* sp = ws + q0 * T;                            // [G][T]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t bh = (size_t)b * Hkv + hk;
@@ -192,9 +209,9 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   const float* vsh = vs + bh * (size_t)T;
   const __nv_bfloat16* knh = kn + bh * D;
   const __nv_bfloat16* vnh = vn + bh * D;
-  const __nv_bfloat16* qh = q + ((size_t)b * H + (size_t)hk * rep) * D;
+  const __nv_bfloat16* qh = q + q0 * D;
 
-  for (int i = tid; i < rep * D; i += THREADS) sq[i] = __bfloat162float(qh[i]);
+  for (int i = tid; i < G * D; i += THREADS) sq[i] = __bfloat162float(qh[i]);
   __syncthreads();
 
   // pass 1: scores, s = f32(q . k) * f32(k_scale * scale)
@@ -207,7 +224,7 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
     const float ksc = (t == pos ? 1.0f : ksh[t]) * scale;
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
-      if (r >= rep) break;
+      if (r >= G) break;
       double d = 0.0;
 #pragma unroll
       for (int e = 0; e < DPL; ++e)
@@ -219,7 +236,7 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   // softmax per query row; p = bf16(f32(e / l) * v_scale)
-  for (int r = warp; r < rep; r += WARPS) {
+  for (int r = warp; r < G; r += WARPS) {
     float* row = sp + r * T;
     float m = -INFINITY;
     for (int t = lane; t < L; t += 32) m = fmaxf(m, row[t]);
@@ -249,7 +266,7 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
       nctt::load_row<DPL>(vh + (size_t)t * D + lane * DPL, vv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
-      if (r >= rep) break;
+      if (r >= G) break;
       const double p = sp[r * T + t];
 #pragma unroll
       for (int e = 0; e < DPL; ++e) o[r][e] += p * (double)vv[e];
@@ -257,17 +274,17 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   }
 #pragma unroll
   for (int r = 0; r < MAX_REP; ++r) {
-    if (r >= rep) break;
+    if (r >= G) break;
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
-      sred[(warp * rep + r) * D + lane * DPL + e] = o[r][e];
+      sred[(warp * G + r) * D + lane * DPL + e] = o[r][e];
   }
   __syncthreads();
-  __nv_bfloat16* oh = out + ((size_t)b * H + (size_t)hk * rep) * D;
-  for (int i = tid; i < rep * D; i += THREADS) {
+  __nv_bfloat16* oh = out + q0 * D;
+  for (int i = tid; i < G * D; i += THREADS) {
     double acc = 0.0;
 #pragma unroll
-    for (int wi = 0; wi < WARPS; ++wi) acc += sred[wi * rep * D + i];
+    for (int wi = 0; wi < WARPS; ++wi) acc += sred[wi * G * D + i];
     oh[i] = __float2bfloat16_rn((float)acc);
   }
 }
@@ -278,15 +295,17 @@ int launch_quant(const void* q, const void* kn, const void* vn,
                  const void* vs, void* out, void* ws, int B, int H, int Hkv,
                  int T, const int* pos, float scale, cudaStream_t stream) {
   const int D = DPL * 32, rep = H / Hkv;
-  const size_t smem = sizeof(double) * (size_t)WARPS * rep * D +
-      sizeof(float) * (size_t)rep * D;
+  const int ng = (rep + MAX_REP - 1) / MAX_REP;       // groups of rows
+  const int gs = (rep + ng - 1) / ng;
+  const size_t smem = sizeof(double) * (size_t)WARPS * gs * D +
+      sizeof(float) * (size_t)gs * D;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         decode_attention_quant_kernel<DPL, C>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_attention_quant_kernel<DPL, C><<<dim3(Hkv, B), THREADS, smem,
+  decode_attention_quant_kernel<DPL, C><<<dim3(Hkv, B, ng), THREADS, smem,
                                           stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
       (const __nv_bfloat16*)vn, (const C*)kc, (const float*)ks, (const C*)vc,
@@ -318,7 +337,7 @@ int dispatch_quant(const void* q, const void* kn, const void* vn,
 
 // q bf16 [B, H, D]; caches bf16 [B, Hkv, T, D] holding row `pos`;
 // out bf16 [B, H, D]; ws f32 [B, H, T] scratch for the score rows.
-// D in {32, 64, 128, 256}; 1 <= H/Hkv <= 8.
+// D in {32, 64, 128, 256}; H % Hkv == 0.
 NCTT_API int nctt_decode_attention(const void* q, const void* k,
                                    const void* v, void* out, void* ws, int B,
                                    int H, int Hkv, int T, int D, int pos,
@@ -339,7 +358,7 @@ NCTT_API int nctt_decode_attention(const void* q, const void* k,
 // in at pos[b]); codes int8 (fp8 = 0) or e4m3 (fp8 = 1) [B, Hkv, T, D];
 // scales f32 [B, Hkv, T]; pos int32 [B] on the device (pos >= T: all T
 // code rows, no raw row); out bf16 [B, H, D]; ws f32 [B, H, T] scratch
-// for the score rows. D in {32, 64, 128, 256}; 1 <= H/Hkv <= 8.
+// for the score rows. D in {32, 64, 128, 256}; H % Hkv == 0.
 NCTT_API int nctt_decode_attention_quant(const void* q, const void* kn,
                                          const void* vn, const void* kc,
                                          const void* ks, const void* vc,

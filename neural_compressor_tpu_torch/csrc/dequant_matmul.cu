@@ -10,7 +10,8 @@
 //   Each weight is dequantized in float32, (u - (2^(b-1) + z)) * s for
 //   integer fields, codebook[u] * s for nf4/fp4, (c - z) * s for int8
 //   codes, rounded to bf16 (x's dtype) and multiplied on the tensor cores
-//   (mma.sync m16n8k16 bf16 -> f32).
+//   (mma.sync m16n8k16 bf16 -> f32); for a float32 x the weights stay
+//   float32 and the product runs in float32 FMAs (dequant_gemm_f32_kernel).
 //   Bound on this card: at M <= 256 the bf16 operations (2*M*N*K at 989
 //   TFLOP/s) stay under the weight stream (K*N*bits/8 bytes plus scales
 //   at 3.35 TB/s) for M below ~60 with int4 weights; above that the
@@ -283,6 +284,135 @@ __global__ void __launch_bounds__(THREADS) dequant_gemm_kernel(GemmArgs a) {
   }
 }
 
+// K8 over float32 activations: the same stages of K, each weight kept in
+// float32 (the TPU kernel dequantizes to x's dtype), the products summed
+// with float32 FMAs on the CUDA cores (no bf16 or TF32 tensor-core input).
+// A thread owns one of the block's 128 columns for all BM rows; the stage's
+// x rows and float32 weights sit in dynamic shared memory.
+template <int MT, int BITS>
+__global__ void __launch_bounds__(THREADS)
+dequant_gemm_f32_kernel(GemmArgs a) {
+  constexpr int BM = 16 * MT;
+  constexpr bool INT8 = BITS == 8;
+  constexpr int P = INT8 ? 1 : 32 / BITS;
+  constexpr int WR = KC / P;
+  constexpr uint32_t MASK = (1u << (INT8 ? 1 : BITS)) - 1u;
+  extern __shared__ __align__(16) float sf[];
+  float* sA = sf;                    // [BM][KC]
+  float* sB = sf + BM * KC;          // [KC][BN]
+  float* sCB = sB + KC * BN;         // [16]
+
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int M = a.M, N = a.N, K = a.K, G = a.G;
+  const float* cb = nullptr;
+  if (a.codebook) {
+    if (tid < 16) sCB[tid] = a.codebook[tid];
+    cb = sCB;
+  }
+  const int WPG = G / P;
+  const int rows = K / P;
+  const int nchunks = (rows + WR - 1) / WR;
+  const int c0 = blockIdx.z * a.chunks_per_split;
+  const int c1 = min(c0 + a.chunks_per_split, nchunks);
+  const float half = INT8 ? 0.f : (float)(1 << (BITS - 1));
+  const float* xf = reinterpret_cast<const float*>(a.x);
+
+  float acc[BM];
+#pragma unroll
+  for (int r = 0; r < BM; ++r) acc[r] = 0.f;
+  __syncthreads();  // sCB
+
+  for (int c = c0; c < c1; ++c) {
+    // x's columns in the stage's k order (zero past M or K)
+    for (int i = tid; i < BM * KC; i += THREADS) {
+      const int r = i / KC, kk = i % KC;
+      const int m = m0 + r;
+      int k;
+      if constexpr (INT8) {
+        k = c * KC + kk;
+        if (k >= K) k = -1;
+      } else {
+        const int wrow = c * WR + kk / P, s = kk % P;
+        k = wrow < rows ? (wrow / WPG) * G + s * WPG + wrow % WPG : -1;
+      }
+      sA[i] = (m < M && k >= 0) ? xf[(size_t)m * K + k] : 0.f;
+    }
+    // the float32 weights of the stage into sB[kk][n]
+    if constexpr (!INT8) {
+      const uint32_t* w = reinterpret_cast<const uint32_t*>(a.w);
+      for (int i = tid; i < WR * (BN / 4); i += THREADS) {
+        const int wl = i / (BN / 4), cq = i % (BN / 4);
+        const int wrow = c * WR + wl, n = n0 + cq * 4;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float* dst = sB + (wl * P) * BN + cq * 4 + j;
+          if (wrow < rows) {
+            const uint32_t word = __ldg(w + (size_t)wrow * N + n + j);
+            const size_t sidx = (size_t)(wrow / WPG) * N + n + j;
+            const float sc = __ldg(a.scales + sidx);
+            const float z = a.zeros ? __ldg(a.zeros + sidx) : 0.f;
+            const float off = __fadd_rn(half, z);
+#pragma unroll
+            for (int s = 0; s < P; ++s) {
+              const int u = (int)((word >> (BITS * s)) & MASK);
+              dst[s * BN] = __fmul_rn(field_value(u, off, cb), sc);
+            }
+          } else {
+#pragma unroll
+            for (int s = 0; s < P; ++s) dst[s * BN] = 0.f;
+          }
+        }
+      }
+    } else {
+      const int8_t* w = reinterpret_cast<const int8_t*>(a.w);
+      for (int i = tid; i < KC * BN; i += THREADS) {
+        const int kr = i / BN, cn = i % BN;
+        const int k = c * KC + kr, n = n0 + cn;
+        float v = 0.f;
+        if (k < K) {
+          const size_t sidx = (size_t)(k / G) * N + n;
+          const int code = (int)__ldg(w + (size_t)k * N + n);
+          const float z = a.zeros ? __ldg(a.zeros + sidx) : 0.f;
+          v = __fmul_rn(field_value(code, z, cb), __ldg(a.scales + sidx));
+        }
+        sB[kr * BN + cn] = v;
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int kk = 0; kk < KC; ++kk) {
+      const float b = sB[kk * BN + tid];
+#pragma unroll
+      for (int r = 0; r < BM; ++r) acc[r] = fmaf(sA[r * KC + kk], b, acc[r]);
+    }
+    __syncthreads();
+  }
+
+  const size_t zoff = (size_t)blockIdx.z * M * N;
+#pragma unroll
+  for (int r = 0; r < BM; ++r) {
+    const int m = m0 + r;
+    if (m >= M) break;
+    const size_t i = (size_t)m * N + n0 + tid;
+    if (a.splits == 1)
+      store_out(a.out, i, acc[r], a.out_bf16);
+    else
+      a.part[zoff + i] = acc[r];
+  }
+}
+
+template <int MT, int BITS>
+int launch_gemm_f32(const GemmArgs& a, dim3 grid, cudaStream_t st) {
+  const int smem = (int)sizeof(float) * (16 * MT * KC + KC * BN + 16);
+  const cudaError_t e = cudaFuncSetAttribute(
+      dequant_gemm_f32_kernel<MT, BITS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  dequant_gemm_f32_kernel<MT, BITS><<<grid, THREADS, smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------------------------------------- K9
 constexpr int GEMV_THREADS = 128;  // 4 columns each: 512 columns a block
 
@@ -402,7 +532,9 @@ NCTT_API int nctt_vpu_gemv_plan(int N, int K, int G, int bits, int n_sm,
   return 0;
 }
 
-// K8. x bf16 [M, K]; w uint32 [K/P, N] ("tpu_strided", layout_int8 = 0)
+// K8. x bf16 (x_f32 = 0: bf16 weights on the tensor cores) or f32 (x_f32 =
+// 1: f32 weights and FMAs) [M, K]; w uint32 [K/P, N] ("tpu_strided",
+// layout_int8 = 0)
 // or int8 [K, N] (layout_int8 = 1); scales (zeros) f32 [ceil(K/G), N];
 // codebook f32 [16] or null; out [M, N] bf16 (out_bf16) or f32; part f32
 // [splits, M, N] when splits > 1, each split taking chunks_per_split
@@ -412,8 +544,9 @@ NCTT_API int nctt_dequant_gemm(const void* x, const void* w,
                                const void* scales, const void* zeros,
                                const void* codebook, void* out, void* part,
                                int M, int N, int K, int G, int bits,
-                               int layout_int8, int out_bf16, int splits,
-                               int chunks_per_split, void* stream) {
+                               int layout_int8, int x_f32, int out_bf16,
+                               int splits, int chunks_per_split,
+                               void* stream) {
   GemmArgs a{(const __nv_bfloat16*)x, w, (const float*)scales,
              (const float*)zeros, (const float*)codebook, out, (float*)part,
              M, N, K, G, out_bf16, splits, chunks_per_split};
@@ -421,14 +554,25 @@ NCTT_API int nctt_dequant_gemm(const void* x, const void* w,
   const int mt = M <= 16 ? 1 : (M <= 32 ? 2 : 4);
   const int b = layout_int8 ? 8 : bits;
   dim3 grid(N / BN, (M + 16 * mt - 1) / (16 * mt), splits);
+  int err;
+  if (x_f32) {
+#define NCTT_K8F(MT_, B_) \
+  if (mt == MT_ && b == B_) err = launch_gemm_f32<MT_, B_>(a, grid, st)
+    NCTT_K8F(1, 2); else NCTT_K8F(1, 4); else NCTT_K8F(1, 8);
+    else NCTT_K8F(2, 2); else NCTT_K8F(2, 4); else NCTT_K8F(2, 8);
+    else NCTT_K8F(4, 2); else NCTT_K8F(4, 4); else NCTT_K8F(4, 8);
+    else return (int)cudaErrorInvalidValue;
+#undef NCTT_K8F
+  } else {
 #define NCTT_K8(MT_, B_)                                               \
   if (mt == MT_ && b == B_) dequant_gemm_kernel<MT_, B_><<<grid, THREADS, 0, st>>>(a)
-  NCTT_K8(1, 2); else NCTT_K8(1, 4); else NCTT_K8(1, 8);
-  else NCTT_K8(2, 2); else NCTT_K8(2, 4); else NCTT_K8(2, 8);
-  else NCTT_K8(4, 2); else NCTT_K8(4, 4); else NCTT_K8(4, 8);
-  else return (int)cudaErrorInvalidValue;
+    NCTT_K8(1, 2); else NCTT_K8(1, 4); else NCTT_K8(1, 8);
+    else NCTT_K8(2, 2); else NCTT_K8(2, 4); else NCTT_K8(2, 8);
+    else NCTT_K8(4, 2); else NCTT_K8(4, 4); else NCTT_K8(4, 8);
+    else return (int)cudaErrorInvalidValue;
 #undef NCTT_K8
-  int err = (int)cudaGetLastError();
+    err = (int)cudaGetLastError();
+  }
   if (err || splits == 1) return err;
   return launch_reduce((const float*)part, out, splits, (long long)M * N,
                        out_bf16, st);

@@ -15,7 +15,7 @@
 //   into scratch that later steps reuse, because a TPU grid runs in order.
 //   Hopper blocks run in parallel and in no order, so every block recomputes
 //   the sum of squares, the max and the int8 codes of the whole activation
-//   (K <= 11008 bytes of codes fit shared memory; x comes from L2). Then
+//   (K bytes of codes in shared memory, up to MAX_K; x comes from L2). Then
 //   each warp owns 4 output columns: lanes read consecutive 16-byte vectors
 //   (32 codes) of a column, dot them with __dp4a against the shared codes,
 //   sum each group's 4 vectors exactly in int32 with two shuffles, and
@@ -33,6 +33,9 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int COLS_PER_WARP = 4;
 constexpr int TN = WARPS * COLS_PER_WARP;  // output columns per block
+// the activation codes a block keeps in shared memory: 227 KiB less the
+// static reductions
+constexpr int MAX_K = 227 * 1024 - 1024;
 
 // sum over one column's K codes, float64 across groups; valid in all lanes
 __device__ __forceinline__ float dot_column(const uint8_t* __restrict__ col,
@@ -158,12 +161,19 @@ fused_gemv_kernel(const __nv_bfloat16* __restrict__ x,
 
 // x bf16 [K]; rms_w f32 [K] or null; w uint8 [N, K/2]; scales f32 [K/G, N];
 // bias f32 [n_out] or null; residual bf16 [n_out] or null; y bf16 [n_out].
-// n_out = N/2 with silu, else N. Needs K % 128 == 0, G % 128 == 0, K <= 48K.
+// n_out = N/2 with silu, else N. Needs K % 128 == 0, G % 128 == 0 and K
+// codes in a block's shared memory (K <= MAX_K).
 NCTT_API int nctt_fused_gemv(const void* x, const void* rms_w, const void* w,
                              const void* scales, const void* bias,
                              const void* residual, void* y, int K, int N,
                              int G, int n_out, int silu, float eps,
                              void* stream) {
+  if (K > MAX_K) return (int)cudaErrorInvalidValue;
+  if (K > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_gemv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K);
+    if (e != cudaSuccess) return (int)e;
+  }
   const int blocks = (n_out + TN - 1) / TN;
   fused_gemv_kernel<<<blocks, THREADS, K, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const float*)rms_w, (const uint8_t*)w,

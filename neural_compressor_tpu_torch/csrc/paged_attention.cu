@@ -6,7 +6,8 @@
 // Replaces: neural_compressor_tpu/kernels/paged_attention.py
 //   _paged_attn_impl_v2 / _paged_kernel_v2 (K11), bf16, int8, fp8 and int4
 //   pools, single-query (wq == 1) and the W-query window (wq > 1,
-//   paged_window_attention), without window (sliding band) or softcap.
+//   paged_window_attention), with gemma's sliding band (`window`) and
+//   attention-logit softcap (`softcap`) branches.
 //
 // Semantics (as K11): q [B, H, W, D]; pools [P, Hkv, page, D] (int4:
 //   [P, Hkv, page/2, D] bytes, token r in the low nibble of byte row r and
@@ -19,7 +20,10 @@
 //   window row w sits at position lengths[b] - W + w and attends keys
 //   t <= that position (W = 1: t < lengths[b]), at most PMAX*page keys.
 //   Scores s = f32(q . k) [* k_scale] [+ f32(sum q) * k_off] * 1/sqrt(D)
-//   (float32 operations in K11's order, none fused); p = exp(s - m)
+//   (float32 operations in K11's order, none fused), then with a softcap
+//   s = cap * f32(tanh(s * f32(1/cap))) (tanh in float64, rounded once),
+//   BEFORE the mask; with a window (band) only keys with q_pos - t <
+//   window attend, i.e. t >= q_pos - window + 1; p = exp(s - m)
 //   [* v_scale], rounded to bf16 for the PV product; l = sum exp(s - m)
 //   unrounded; int4 adds corr = sum_t f32(exp(s - m)) * v_off[t] to the PV
 //   sum in float32; out = acc / max(l, 1e-30). A slot of length 0, and a
@@ -36,10 +40,12 @@
 //   a block that reads the slot's K/V rows again, so the registers a
 //   thread holds (o[8][DPL] doubles) do not grow with W or rep. Single
 //   queries (rep <= 8) are one group. A group walks the slot's block
-//   table up to its longest row: warps take keys round-robin, lanes split
-//   D (an int4 lane loads its DPL bytes of the token's byte row and keeps
-//   one nibble of each), and a row skips the keys past its own causal
-//   limit. The score
+//   table from its rows' lowest band start (0 without a window; a band
+//   slot starts its key loop at max(0, q_pos - window + 1), so its reads
+//   do not grow with the context) up to its longest row: warps take keys
+//   round-robin, lanes split D (an int4 lane loads its DPL bytes of the
+//   token's byte row and keeps one nibble of each), and a row skips the
+//   keys outside its own band and causal limit. The score
 //   rows live in a float32 workspace in device memory
 //   ([B, Hkv, ng * gs, PMAX*page], allocated by the wrapper; they
 //   pass through L2), so shared memory holds only the q rows and the
@@ -106,6 +112,15 @@ __device__ __forceinline__ int row_len(int n, int W, int rep, int i,
   return l < 0 ? 0 : (l > Tv ? Tv : l);
 }
 
+// the first key of query row i: with a band (window > 0) only keys t with
+// q_pos - t < window attend, t >= q_pos - window + 1; else key 0
+__device__ __forceinline__ int row_lo(int n, int W, int rep, int i,
+                                      int window) {
+  if (window <= 0) return 0;
+  const int lo = n - W + i / rep - window + 1;
+  return lo < 0 ? 0 : lo;
+}
+
 template <int DPL, int FMT>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
@@ -119,7 +134,8 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ lengths,
                        __nv_bfloat16* __restrict__ out,
                        float* __restrict__ ws, int H, int Hkv, int W,
-                       int page, int PMAX, float scale) {
+                       int page, int PMAX, float scale, int window,
+                       float cap, float inv_cap) {
   constexpr int D = DPL * 32;
   constexpr bool QUANT = FMT != BF16;
   constexpr bool AFFINE = FMT == INT4;
@@ -148,10 +164,12 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int g0 = g * gs;
   const int G = rows - g0 < gs ? rows - g0 : gs;
   if (G <= 0) return;
-  int Lmax = 0;
+  int Lmax = 0, tlo = Tv;
   for (int r = 0; r < G; ++r) {
     const int l = row_len(n, W, rep, g0 + r, Tv);
+    const int lo = row_lo(n, W, rep, g0 + r, window);
     Lmax = l > Lmax ? l : Lmax;
+    tlo = lo < tlo ? lo : tlo;
   }
   if (n <= 0 || Lmax == 0) {
     for (int i = tid; i < G * D; i += THREADS)
@@ -173,7 +191,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 
   // pass 1: scores of the rows that attend key t
-  for (int t = warp; t < Lmax; t += WARPS) {
+  for (int t = tlo + warp; t < Lmax; t += WARPS) {
     const int pid = btb[t / page], rr = t % page;
     const size_t sidx = ((size_t)pid * Hkv + hk) * page + rr;
     float kv[DPL];
@@ -181,7 +199,9 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= G) break;
-      if (t >= row_len(n, W, rep, g0 + r, Tv)) continue;  // warp-uniform
+      if (t >= row_len(n, W, rep, g0 + r, Tv) ||
+          t < row_lo(n, W, rep, g0 + r, window))
+        continue;  // warp-uniform
       double d = 0.0;
 #pragma unroll
       for (int e = 0; e < DPL; ++e)
@@ -192,7 +212,10 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
         if constexpr (QUANT) s = __fmul_rn(s, ks[sidx]);
         if constexpr (AFFINE)
           s = __fadd_rn(s, __fmul_rn(sqsum[r], ko[sidx]));
-        sp[(size_t)r * Tv + t] = __fmul_rn(s, scale);
+        s = __fmul_rn(s, scale);
+        if (cap > 0.f)  // gemma's logit softcap, before the mask
+          s = __fmul_rn(cap, (float)tanh((double)__fmul_rn(s, inv_cap)));
+        sp[(size_t)r * Tv + t] = s;
       }
     }
   }
@@ -202,12 +225,13 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   // unrounded; int4: corr = sum f32(exp(s - m)) * v_off
   for (int r = warp; r < G; r += WARPS) {
     const int L = row_len(n, W, rep, g0 + r, Tv);
+    const int lo = row_lo(n, W, rep, g0 + r, window);
     float* row = sp + (size_t)r * Tv;
     float m = -INFINITY;
-    for (int t = lane; t < L; t += 32) m = fmaxf(m, row[t]);
+    for (int t = lo + lane; t < L; t += 32) m = fmaxf(m, row[t]);
     m = nctt::warp_max(m);
     double l = 0.0, corr = 0.0;
-    for (int t = lane; t < L; t += 32) {
+    for (int t = lo + lane; t < L; t += 32) {
       const double e = exp((double)row[t] - (double)m);
       l += e;
       float pe = (float)e;
@@ -235,14 +259,16 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < MAX_REP; ++r)
 #pragma unroll
     for (int e = 0; e < DPL; ++e) o[r][e] = 0.0;
-  for (int t = warp; t < Lmax; t += WARPS) {
+  for (int t = tlo + warp; t < Lmax; t += WARPS) {
     float vv[DPL];
     load_page_row<DPL, FMT>(vp, btb[t / page], hk, Hkv, page, t % page,
                             lane, vv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= G) break;
-      if (t >= row_len(n, W, rep, g0 + r, Tv)) continue;  // warp-uniform
+      if (t >= row_len(n, W, rep, g0 + r, Tv) ||
+          t < row_lo(n, W, rep, g0 + r, window))
+        continue;  // warp-uniform
       const double pr = sp[(size_t)r * Tv + t];
 #pragma unroll
       for (int e = 0; e < DPL; ++e) o[r][e] += pr * (double)vv[e];
@@ -272,7 +298,8 @@ template <int DPL, int FMT>
 int launch(const void* q, const void* kp, const void* ks, const void* ko,
            const void* vp, const void* vs, const void* vo, const void* bt,
            const void* lengths, void* out, void* ws, int B, int H, int Hkv,
-           int W, int page, int PMAX, float scale, cudaStream_t stream) {
+           int W, int page, int PMAX, float scale, int window, float cap,
+           float inv_cap, cudaStream_t stream) {
   const int D = DPL * 32, rows = W * (H / Hkv);
   const int ng = (rows + MAX_REP - 1) / MAX_REP;      // groups of rows
   const int gs = (rows + ng - 1) / ng;
@@ -288,7 +315,8 @@ int launch(const void* q, const void* kp, const void* ks, const void* ko,
                                      stream>>>(
       (const __nv_bfloat16*)q, kp, (const float*)ks, (const float*)ko, vp,
       (const float*)vs, (const float*)vo, (const int*)bt, (const int*)lengths,
-      (__nv_bfloat16*)out, (float*)ws, H, Hkv, W, page, PMAX, scale);
+      (__nv_bfloat16*)out, (float*)ws, H, Hkv, W, page, PMAX, scale, window,
+      cap, inv_cap);
   return (int)cudaGetLastError();
 }
 
@@ -296,22 +324,19 @@ template <int FMT>
 int dispatch(const void* q, const void* kp, const void* ks, const void* ko,
              const void* vp, const void* vs, const void* vo, const void* bt,
              const void* lengths, void* out, void* ws, int B, int H, int Hkv,
-             int W, int page, int PMAX, int D, float scale, cudaStream_t s) {
+             int W, int page, int PMAX, int D, float scale, int window,
+             float cap, float inv_cap, cudaStream_t s) {
+#define NCTT_K11(DPL_)                                                    \
+  launch<DPL_, FMT>(q, kp, ks, ko, vp, vs, vo, bt, lengths, out, ws, B, H, \
+                    Hkv, W, page, PMAX, scale, window, cap, inv_cap, s)
   switch (D) {
-    case 32: return launch<1, FMT>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
-                                   out, ws, B, H, Hkv, W, page, PMAX, scale,
-                                   s);
-    case 64: return launch<2, FMT>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
-                                   out, ws, B, H, Hkv, W, page, PMAX, scale,
-                                   s);
-    case 128: return launch<4, FMT>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
-                                    out, ws, B, H, Hkv, W, page, PMAX, scale,
-                                    s);
-    case 256: return launch<8, FMT>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
-                                    out, ws, B, H, Hkv, W, page, PMAX, scale,
-                                    s);
+    case 32: return NCTT_K11(1);
+    case 64: return NCTT_K11(2);
+    case 128: return NCTT_K11(4);
+    case 256: return NCTT_K11(8);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef NCTT_K11
 }
 
 }  // namespace
@@ -323,7 +348,10 @@ int dispatch(const void* q, const void* kp, const void* ks, const void* ko,
 // for bf16); k/v offsets f32 [P, Hkv, page] (int4 only); block_tables
 // int32 [B, PMAX]; lengths int32 [B] (the whole window included); out bf16
 // [B, H, W, D]; ws f32 [B, Hkv, ng * gs, PMAX*page] scratch for the score
-// rows, ng = ceil(W*H/Hkv / 8) groups of gs = ceil(W*H/Hkv / ng) rows. `page` counts tokens. D in {32, 64, 128, 256}; H % Hkv == 0.
+// rows, ng = ceil(W*H/Hkv / 8) groups of gs = ceil(W*H/Hkv / ng) rows;
+// window > 0: the sliding band (keys with q_pos - t < window), 0: none;
+// cap > 0: the logit softcap cap * tanh(s * inv_cap), 0: none. `page`
+// counts tokens. D in {32, 64, 128, 256}; H % Hkv == 0.
 NCTT_API int nctt_paged_decode_attention(const void* q, const void* kp,
                                          const void* ks, const void* ko,
                                          const void* vp, const void* vs,
@@ -332,22 +360,19 @@ NCTT_API int nctt_paged_decode_attention(const void* q, const void* kp,
                                          void* ws, int B, int H, int Hkv,
                                          int W, int P, int page, int PMAX,
                                          int D, int fmt, float scale,
-                                         void* stream) {
+                                         int window, float cap,
+                                         float inv_cap, void* stream) {
   (void)P;
   cudaStream_t s = (cudaStream_t)stream;
+#define NCTT_FMT(F_)                                                       \
+  dispatch<F_>(q, kp, ks, ko, vp, vs, vo, bt, lengths, out, ws, B, H, Hkv, \
+               W, page, PMAX, D, scale, window, cap, inv_cap, s)
   switch (fmt) {
-    case BF16: return dispatch<BF16>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
-                                     out, ws, B, H, Hkv, W, page, PMAX, D,
-                                     scale, s);
-    case INT8: return dispatch<INT8>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
-                                     out, ws, B, H, Hkv, W, page, PMAX, D,
-                                     scale, s);
-    case FP8: return dispatch<FP8>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
-                                   out, ws, B, H, Hkv, W, page, PMAX, D,
-                                   scale, s);
-    case INT4: return dispatch<INT4>(q, kp, ks, ko, vp, vs, vo, bt, lengths,
-                                     out, ws, B, H, Hkv, W, page, PMAX, D,
-                                     scale, s);
+    case BF16: return NCTT_FMT(BF16);
+    case INT8: return NCTT_FMT(INT8);
+    case FP8: return NCTT_FMT(FP8);
+    case INT4: return NCTT_FMT(INT4);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef NCTT_FMT
 }

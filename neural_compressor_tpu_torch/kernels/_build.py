@@ -52,10 +52,11 @@ SIGNATURES = {
                                       _I, _I, _I, _I, _F, _P],
     # q, k_pages, k_scales, k_offs, v_pages, v_scales, v_offs,
     # block_tables, lengths, out, ws, B, H, Hkv, W, P, page, PMAX, D,
-    # fmt (0 bf16, 1 int8, 2 fp8, 3 int4), scale, stream
+    # fmt (0 bf16, 1 int8, 2 fp8, 3 int4), scale, window (0: none),
+    # softcap (0: none), 1/softcap, stream
     "nctt_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                    _F, _P],
+                                    _F, _I, _F, _F, _P],
     # k_new, v_new, k_pages, k_scales, k_offs, v_pages, v_scales, v_offs,
     # block_tables, pos, B, Hkv, P, page, PMAX, D, fmt, stream
     "nctt_paged_write_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -64,9 +65,9 @@ SIGNATURES = {
     "nctt_paged_write_window": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, scales, zeros, codebook, out, part, M, N, K, G, bits,
-    # layout_int8, out_bf16, splits, chunks_per_split, stream
+    # layout_int8, x_f32, out_bf16, splits, chunks_per_split, stream
     "nctt_dequant_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _P],
+                          _I, _I, _I, _I, _P],
     # M, N, K, G, bits, layout_int8, n_sm, wbytes -> splits, chunks_per_split
     "nctt_dequant_gemm_plan": [_I, _I, _I, _I, _I, _I, _I, _L, _IP, _IP],
     # x, w, scales, zeros, out, part, N, K, G, bits, x_bf16, out_bf16,

@@ -51,6 +51,11 @@ import torch
 from . import _build
 
 
+# head widths the attention kernels take: a lane holds D / 32 elements of a
+# row, a compile-time width (csrc/*attention.cu instantiate these four)
+KERNEL_D = (32, 64, 128, 256)
+
+
 def score_workspace(B: int, rows: int, T: int, device) -> torch.Tensor:
     """The float32 score rows [B, rows, T] the attention kernels keep in
     device memory instead of shared memory, so that no context length is
@@ -92,10 +97,10 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     B, H, D = q.shape
     _b, Hkv, T, _d = k_cache.shape
     rep = H // Hkv if Hkv else 0
-    if not (D in (32, 64, 128, 256) and Hkv * rep == H and 1 <= rep <= 8
+    if not (D in KERNEL_D and Hkv * rep == H and rep >= 1
             and 0 <= pos < T):
-        raise ValueError(f"decode_attn needs D in (32, 64, 128, 256), "
-                         f"1 <= H/Hkv <= 8 and 0 <= pos < T "
+        raise ValueError(f"decode_attn needs D in {KERNEL_D}, H a multiple "
+                         f"of Hkv and 0 <= pos < T "
                          f"(H={H}, Hkv={Hkv}, D={D}, pos={pos}, T={T})")
     _build.require(q, "q", torch.bfloat16, dev, (B, H, D))
     _build.require(k_cache, "k_cache", torch.bfloat16, dev, (B, Hkv, T, D))
@@ -122,7 +127,8 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
     Writes the new rows into the caches IN PLACE, then attends: B == 1 with
     an int ``pos`` on the B=1 kernel (K5), otherwise on K7
     (``batched_decode_attention``). Returns (out [B, H, 1, D], k_cache,
-    v_cache)."""
+    v_cache); out is None where ``batched_decode_attention`` declines, and
+    the caller attends the updated caches itself."""
     from ..models.llama import _update_rows
 
     B, H, S, D = q.shape
@@ -214,11 +220,9 @@ def decode_attn_quant(q, k_new, v_new, k_codes, k_scale, v_codes, v_scale,
     B, H, D = q.shape
     _b, Hkv, T, _d = k_codes.shape
     rep = H // Hkv if Hkv else 0
-    if not (D in (32, 64, 128, 256) and Hkv * rep == H and 1 <= rep <= 8
-            and T >= 1):
-        raise ValueError(f"decode_attn_quant needs D in (32, 64, 128, 256) "
-                         f"and 1 <= H/Hkv <= 8 (H={H}, Hkv={Hkv}, D={D}, "
-                         f"T={T})")
+    if not (D in KERNEL_D and Hkv * rep == H and rep >= 1 and T >= 1):
+        raise ValueError(f"decode_attn_quant needs D in {KERNEL_D} and H a "
+                         f"multiple of Hkv (H={H}, Hkv={Hkv}, D={D}, T={T})")
     if k_codes.dtype not in _CODE_DTYPES:
         raise ValueError(f"decode_attn_quant takes int8 or fp8 codes, not "
                          f"{k_codes.dtype}")
@@ -343,10 +347,9 @@ def batched_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     B, H, D = q.shape
     _b, Hkv, T, _d = k_cache.shape
     rep = H // Hkv if Hkv else 0
-    if not (D in (32, 64, 128, 256) and Hkv * rep == H and 1 <= rep <= 8
-            and T >= 1):
-        raise ValueError(f"{name} needs D in (32, 64, 128, 256) and "
-                         f"1 <= H/Hkv <= 8 (H={H}, Hkv={Hkv}, D={D}, T={T})")
+    if not (D in KERNEL_D and Hkv * rep == H and rep >= 1 and T >= 1):
+        raise ValueError(f"{name} needs D in {KERNEL_D} and H a multiple of "
+                         f"Hkv (H={H}, Hkv={Hkv}, D={D}, T={T})")
     cdt = k_cache.dtype
     fmt, code = _K7_FORMATS.get(cdt, (None, None))
     if fmt is None or (code == 0) != (k_scale is None):
@@ -384,14 +387,27 @@ def batched_decode_attention(q, k_cache, v_cache, pos, k_scale=None,
 
     q [B, H, 1, D]; caches [B, Hkv, T, D] bf16, or int8/fp8 codes with
     ``k_scale``/``v_scale`` [B, Hkv, T]; ``pos`` an int or a [B] tensor.
-    Returns out [B, H, 1, D] in q's dtype. Unlike the TPU kernel, which
-    returns None off its envelope (B == 1, B*Hkv < 16, D or T not a
-    multiple of 128) for an XLA fallback, the port's kernel covers those
-    shapes; off its own envelope it raises."""
+    Returns out [B, H, 1, D] in q's dtype, or None where the JAX
+    package's dispatcher declines its kernel (B == 1, B*Hkv < 16, D or T
+    not a multiple of 128: ``neural_compressor_tpu/kernels/
+    decode_attention.py:722``) and the port's kernel cannot take the
+    shape either (D outside ``KERNEL_D``); the caller then attends with
+    the plain grouped attention, as JAX's caller falls back to XLA, and
+    each such None adds one to ``batched_decode_attention.plain_calls``.
+    Where JAX declines and the port's kernel takes the shape (D in
+    ``KERNEL_D``, any B, T), the kernel runs."""
     B, H, S, D = q.shape
     if S != 1:
         raise ValueError("batched decode attention is single-token")
+    Hkv, T = k_cache.shape[1], k_cache.shape[2]
+    jax_declines = B == 1 or B * Hkv < 16 or D % 128 or T % 128
+    if D not in KERNEL_D and jax_declines:
+        batched_decode_attention.plain_calls += 1
+        return None
     pos = pos_vector(pos, B, q.device)
     out = batched_decode_attn(q[:, :, 0].contiguous(), k_cache, v_cache,
                               pos, k_scale, v_scale)
     return out[:, :, None]
+
+
+batched_decode_attention.plain_calls = 0

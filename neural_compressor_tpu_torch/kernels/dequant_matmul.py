@@ -110,7 +110,18 @@ def dequant_gemm_plain(x, packed, scales, zeros, codebook, *, bits: int,
     weight is computed in float32 as the kernel computes it,
     (u - (2^(b-1) + z)) * s, codebook[u] * s or (c - z) * s, rounded to
     x's dtype; the product accumulates in float32."""
-    K = x.shape[-1]
+    w = plain_weight_f32(packed, scales, zeros, codebook, bits=bits,
+                         group_size=group_size, layout=layout,
+                         K=x.shape[-1], dtype=x.dtype)
+    y = torch.matmul(x.to(torch.float32), w)
+    return y.to(out_dtype)
+
+
+def plain_weight_f32(packed, scales, zeros, codebook, *, bits: int,
+                     group_size: int, layout: str, K: int,
+                     dtype) -> torch.Tensor:
+    """The weight [K, N] the plain K8 multiplies: dequantized in float32
+    as the kernel dequantizes it, rounded to ``dtype`` (x's), as float32."""
     G = group_size
     N = scales.shape[-1]
     codes = (unpack_codes(packed, bits, G, K, signed=False)
@@ -122,16 +133,16 @@ def dequant_gemm_plain(x, packed, scales, zeros, codebook, *, bits: int,
         if zeros is not None:
             off = off + zeros[:, None, :]
         vals = codes.to(torch.float32) - off
-    w = (vals * scales[:, None, :]).reshape(K, N).to(x.dtype)
-    y = torch.matmul(x.to(torch.float32), w.to(torch.float32))
-    return y.to(out_dtype)
+    w = (vals * scales[:, None, :]).reshape(K, N).to(dtype)
+    return w.to(torch.float32)
 
 
 def dequant_gemm(x, packed, scales, zeros, codebook, *, bits: int,
                  group_size: int, layout: str, out_dtype) -> torch.Tensor:
     """K8 on the card (``csrc/dequant_matmul.cu``); the plain version for
-    CPU tensors. Arguments as in ``dequant_gemm_plain``; on the card x
-    must be bf16 (the tensor cores run bf16; never TF32)."""
+    CPU tensors. Arguments as in ``dequant_gemm_plain``. A bf16 x runs on
+    the tensor cores over bf16 weights; a float32 x over float32 weights
+    in float32 FMAs, as the TPU kernel computes an f32 x (never TF32)."""
     if x.device.type == "cpu":
         return dequant_gemm_plain(x, packed, scales, zeros, codebook,
                                   bits=bits, group_size=group_size,
@@ -140,9 +151,9 @@ def dequant_gemm(x, packed, scales, zeros, codebook, *, bits: int,
     M, K = x.shape
     ng, N = scales.shape
     G = group_size
-    if x.dtype != torch.bfloat16:
-        raise ValueError(f"dequant_gemm on the card takes bf16 activations, "
-                         f"not {x.dtype}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"dequant_gemm takes bf16 or f32 activations, not "
+                         f"{x.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"dequant_gemm stores bf16 or f32, not {out_dtype}")
     if layout == "tpu_strided":
@@ -159,7 +170,7 @@ def dequant_gemm(x, packed, scales, zeros, codebook, *, bits: int,
                          f"a tpu_strided (bits 2 or 4) or int8 weight "
                          f"(M={M}, K={K}, N={N}, G={G}, bits={bits}, "
                          f"layout={layout})")
-    _build.require(x, "x", torch.bfloat16, dev, (M, K))
+    _build.require(x, "x", x.dtype, dev, (M, K))
     _build.require(packed, "packed", wdtype, dev, wshape)
     _build.require(scales, "scales", torch.float32, dev, (ng, N))
     ptrs = []
@@ -179,8 +190,9 @@ def dequant_gemm(x, packed, scales, zeros, codebook, *, bits: int,
     err = lib.nctt_dequant_gemm(
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(), ptrs[0], ptrs[1],
         y.data_ptr(), None if part is None else part.data_ptr(), M, N, K, G,
-        bits, int(layout == "int8"), int(out_dtype == torch.bfloat16),
-        splits, per, _build.stream_handle(dev))
+        bits, int(layout == "int8"), int(x.dtype == torch.float32),
+        int(out_dtype == torch.bfloat16), splits, per,
+        _build.stream_handle(dev))
     _build.check(err, "nctt_dequant_gemm")
     dequant_gemm.launches += 1
     return y
@@ -223,6 +235,12 @@ def dequant_matmul(x: torch.Tensor, pw: PackedWeight,
     return y.reshape(*lead, N)
 
 
+def codes_f32(packed, bits: int, group_size: int, K: int) -> torch.Tensor:
+    """A "tpu_strided" weight's unsigned fields [K, N] as float32."""
+    return unpack_codes(packed, bits, group_size, K,
+                        signed=False).to(torch.float32)
+
+
 def vpu_gemv_plain(x, packed, scales, zeros, *, bits: int, group_size: int,
                    out_dtype) -> torch.Tensor:
     """Plain PyTorch version of K9: x [K] (any float dtype, taken to f32);
@@ -233,7 +251,7 @@ def vpu_gemv_plain(x, packed, scales, zeros, *, bits: int, group_size: int,
     K = xf.shape[0]
     ng, N = scales.shape
     G = group_size
-    u = unpack_codes(packed, bits, G, K, signed=False).to(torch.float32)
+    u = codes_f32(packed, bits, G, K)
     xg = xf.reshape(ng, 1, G)
     a = torch.bmm(xg, u.reshape(ng, G, N))[:, 0]          # [ng, N]
     b = xg.sum(dim=2)                                      # [ng, 1]

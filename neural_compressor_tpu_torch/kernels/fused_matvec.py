@@ -24,6 +24,10 @@ import torch
 from ..ops.packing import HOPPER_LAYOUT, PackedWeight
 from . import _build
 
+# the activation codes a block of the kernel keeps in shared memory
+# (``MAX_K`` in csrc/fused_gemv.cu): 227 KiB less its static reductions
+MAX_K = 227 * 1024 - 1024
+
 
 def fused_ok(pw: PackedWeight, n_batch_tokens: int = 1) -> bool:
     """The fused kernel serves single-row decode on symmetric int4
@@ -103,9 +107,9 @@ def fused_gemv(x, rms_w, w, scales, bias, residual, *, eps: float,
     G = K // ng if ng else 0
     n_out = N // 2 if silu else N
     if not (K % 128 == 0 and G % 128 == 0 and ng * G == K
-            and K <= 48 * 1024 and (not silu or N % 2 == 0)):
+            and K <= MAX_K and (not silu or N % 2 == 0)):
         raise ValueError(f"fused_gemv needs K % 128 == 0, G % 128 == 0 and "
-                         f"K <= 49152 (K={K}, G={G}, N={N})")
+                         f"K <= {MAX_K} (K={K}, G={G}, N={N})")
     if out_dtype != torch.bfloat16:
         raise ValueError(f"fused_gemv stores bf16, not {out_dtype}")
     x = x.reshape(K)

@@ -12,7 +12,8 @@ every free block-table entry at it, and idle slots write and read it.
 Ports ``neural_compressor_tpu/kernels/paged_attention.py``:
   * K11, ``paged_decode_attention`` and ``paged_window_attention``
     (``_paged_attn_impl_v2`` / ``_paged_kernel_v2``, ``wq == 1`` and the
-    W-query window ``wq > 1``): attention over a slot's pages, one query
+    W-query window ``wq > 1``, with gemma's sliding band ``window`` and
+    logit ``softcap``): attention over a slot's pages, one query
     at ``lengths - 1`` or a causal window of W queries whose row w sits at
     ``lengths - W + w`` (a speculative verify window; rows packed (w, rep)
     as the TPU kernel packs them); online softmax in the TPU kernel,
@@ -20,9 +21,12 @@ Ports ``neural_compressor_tpu/kernels/paged_attention.py``:
     sum(q)``, then ``* D^-1/2``) and the probabilities (``exp(s - m) *
     v_scale``, then bf16 for PV; int4 adds ``sum_t exp(s - m) * v_off``
     to the output), ``acc / max(l, 1e-30)`` at the end, and zeros for a
-    zero-length slot. Wrappers ``paged_attn`` and ``paged_window_attn``,
-    their launches counted apart per pool format; one CUDA kernel,
-    ``csrc/paged_attention.cu``.
+    zero-length slot. A softcap maps the scaled score to ``cap *
+    tanh(s / cap)`` before the mask; a band keeps only the keys with
+    ``q_pos - k_pos < window``. Wrappers ``paged_attn``,
+    ``paged_window_attn`` and ``paged_attn_gemma`` (a single query with a
+    band and/or a softcap), their launches counted apart per pool format;
+    one CUDA kernel, ``csrc/paged_attention.cu``.
   * K12, ``paged_write_rows`` (``_paged_write_impl`` with
     ``_write_kernel_bf16``, ``_write_kernel_quant`` and
     ``_write_kernel_int4``): each slot's new K/V row into page
@@ -51,7 +55,7 @@ codes, in K12 and in K13 (off the TPU JAX writes fp8 windows row by row).
 A position whose page index ``pos // page`` is past the block table (an
 idle or finished slot running on inside a multi-step dispatch) writes
 nothing in K12, as JAX's scatter drops it, and attention visits at most
-``PMAX * page`` rows. ``window`` and ``softcap`` raise.
+``PMAX * page`` rows.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .decode_attention import pos_vector, score_workspace
+from .decode_attention import KERNEL_D, pos_vector, score_workspace
+from ..ops.activations import softcap as _softcap
 from ..ops.kv_quant import kv_quant, kv_quant4_asym_codes
 
 _F64 = torch.float64
@@ -69,12 +74,14 @@ _FMT_CODE = {"bf16": 0, "int8": 1, "fp8_e4m3": 2, "int4": 3}
 
 
 def pool_format(k_pages: torch.Tensor, k_scales, k_offs=None) -> str:
-    """"bf16", "int8", "fp8_e4m3" or "int4" for a consistent pool; raise
-    for a pool whose codes, scales and offsets do not go together."""
-    fmt = {torch.bfloat16: "bf16", torch.int8: "int8",
+    """"bf16", "int8", "fp8_e4m3" or "int4" for a consistent pool, or
+    "f32" for the float32 rows of a float32 model (plain versions only:
+    the CUDA kernels take the other four); raise for a pool whose codes,
+    scales and offsets do not go together."""
+    fmt = {torch.bfloat16: "bf16", torch.float32: "f32", torch.int8: "int8",
            torch.float8_e4m3fn: "fp8_e4m3",
            torch.uint8: "int4"}.get(k_pages.dtype)
-    if fmt is None or (fmt == "bf16") != (k_scales is None) \
+    if fmt is None or (fmt in ("bf16", "f32")) != (k_scales is None) \
             or (fmt == "int4") != (k_offs is not None):
         raise ValueError(
             f"a page pool of {k_pages.dtype} codes with"
@@ -93,25 +100,33 @@ def _gather_pages(pages: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
 def _gather_rows(pages: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     """A slot's rows [B, Hkv, PMAX*page, D] as float64, exactly: bf16 rows,
     int8/fp8 codes, or the centered int4 nibbles of token-half-split
-    pages."""
+    pages; float32 rows rounded to bf16 first, as the TPU kernel casts
+    every page to bf16 for its dots (``_codes_bf16``)."""
     if pages.dtype == torch.uint8:
         pages = torch.cat([(pages & 15), (pages >> 4)], dim=2)
         pages = pages.to(torch.int8) - 8             # [P, Hkv, page, D]
-    elif pages.dtype == torch.float8_e4m3fn:
+    elif pages.dtype in (torch.float8_e4m3fn, torch.float32):
         pages = pages.to(torch.bfloat16)
     return _gather_pages(pages, bt).to(_F64)
 
 
 def paged_window_attn_plain(q, k_pages, k_scales, v_pages, v_scales,
                             block_tables, lengths, k_offs=None,
-                            v_offs=None) -> torch.Tensor:
+                            v_offs=None, window=None,
+                            softcap=None) -> torch.Tensor:
     """Plain PyTorch version of K11 over a window of W queries a slot: q
     [B, H, W, D] bf16; pools as in the module docstring (``k_offs``/
     ``v_offs`` for int4 pools); ``block_tables`` [B, PMAX] int32;
     ``lengths`` [B] int32, the slot's rows with the whole window -> [B, H,
     W, D] bf16. Window row w sits at position ``lengths - W + w`` and
     attends keys up to it (W = 1: the single query, ``paged_attn_plain``);
-    a slot of length 0, and a row with no key, give zeros.
+    a slot of length 0, and a row with no key, give zeros. ``softcap``
+    maps each scaled score s to ``cap * tanh(s * f32(1/cap))`` before the
+    mask (``ops.activations.softcap``); ``window`` keeps only the keys
+    with ``q_pos - k_pos < window`` (gemma's sliding band).
+
+    The output takes q's dtype (bf16 on the card; float32 for a float32
+    model's pool on the CPU).
 
     Sums run in float64 over exact products (bf16 times bf16, int8, fp8 or
     an int4 nibble) and round once, as the CUDA kernel does, so row w
@@ -135,22 +150,28 @@ def paged_window_attn_plain(q, k_pages, k_scales, v_pages, v_scales,
     w_of = torch.div(torch.arange(rows, device=dev), rep,
                      rounding_mode="floor")
     n = lengths.to(torch.int64).reshape(B, 1)
-    L = (n - Wq + w_of[None, :] + 1).clamp(0, T)    # [B, rows]
-    valid = (torch.arange(T, device=dev)[None, None, :]
-             < L[:, :, None])[:, None]              # [B, 1, rows, T]
+    qpos = n - Wq + w_of[None, :]                   # [B, rows]
+    L = (qpos + 1).clamp(0, T)
+    t_idx = torch.arange(T, device=dev)[None, None, :]
+    valid = t_idx < L[:, :, None]
+    if window is not None:
+        valid = valid & (qpos[:, :, None] - t_idx < window)
+    valid = valid[:, None]                          # [B, 1, rows, T]
     s = torch.einsum("bgrd,bgtd->bgrt", qr, k).to(_F32)
-    if fmt != "bf16":
+    if k_scales is not None:
         s = s * _gather_pages(k_scales, bt)[:, :, None, :]
     if fmt == "int4":
         qsum = qr.sum(dim=-1).to(_F32)[..., None]   # [B, Hkv, rows, 1]
         s = s + qsum * _gather_pages(k_offs, bt)[:, :, None, :]
     s = s * (1.0 / (D ** 0.5))
+    if softcap is not None:
+        s = _softcap(s, softcap)
     s = torch.where(valid, s, torch.tensor(-1e30, device=dev))
     e = torch.exp(s.to(_F64) - s.amax(dim=-1, keepdim=True).to(_F64))
     e = torch.where(valid, e, torch.zeros((), dtype=_F64, device=dev))
     l = e.sum(dim=-1, keepdim=True).to(_F32)
     pe = e.to(_F32)
-    if fmt != "bf16":
+    if k_scales is not None:
         pe = pe * _gather_pages(v_scales, bt)[:, :, None, :]
     acc = torch.einsum("bgrt,bgtd->bgrd", pe.to(torch.bfloat16).to(_F64),
                        v).to(_F32)
@@ -162,18 +183,19 @@ def paged_window_attn_plain(q, k_pages, k_scales, v_pages, v_scales,
     out = torch.where((lengths > 0).reshape(B, 1, 1, 1), out,
                       torch.zeros((), device=dev))
     return (out.reshape(B, Hkv, Wq, rep, D).transpose(2, 3)
-            .reshape(B, H, Wq, D).to(torch.bfloat16))
+            .reshape(B, H, Wq, D).to(q.dtype))
 
 
 def paged_attn_plain(q, k_pages, k_scales, v_pages, v_scales, block_tables,
-                     lengths, k_offs=None, v_offs=None) -> torch.Tensor:
+                     lengths, k_offs=None, v_offs=None, window=None,
+                     softcap=None) -> torch.Tensor:
     """Plain PyTorch version of single-query K11: q [B, H, D] bf16; pools,
-    ``block_tables`` and ``lengths`` (the new row included) as in
-    ``paged_window_attn_plain``, of which it is the W = 1 case -> [B, H, D]
-    bf16."""
+    ``block_tables``, ``lengths`` (the new row included), ``window`` and
+    ``softcap`` as in ``paged_window_attn_plain``, of which it is the W = 1
+    case -> [B, H, D] bf16."""
     return paged_window_attn_plain(q[:, :, None], k_pages, k_scales, v_pages,
                                    v_scales, block_tables, lengths, k_offs,
-                                   v_offs)[:, :, 0]
+                                   v_offs, window, softcap)[:, :, 0]
 
 
 def _ptr(t):
@@ -183,6 +205,9 @@ def _ptr(t):
 def _require_pools(name: str, fmt: str, dev, k_pages, k_scales, v_pages,
                    v_scales, k_offs, v_offs) -> None:
     """Check a pool's K and V codes, scales and offsets on ``dev``."""
+    if fmt not in _FMT_CODE:
+        raise ValueError(f"{name}: the CUDA kernels take {tuple(_FMT_CODE)} "
+                         f"pools, not {fmt}")
     P, Hkv, rows, D = k_pages.shape
     page = 2 * rows if fmt == "int4" else rows
     _build.require(k_pages, "k_pages", k_pages.dtype, dev, (P, Hkv, rows, D))
@@ -197,7 +222,8 @@ def _require_pools(name: str, fmt: str, dev, k_pages, k_scales, v_pages,
 
 
 def _launch_paged_attn(name, q, k_pages, k_scales, v_pages, v_scales,
-                       block_tables, lengths, k_offs, v_offs):
+                       block_tables, lengths, k_offs, v_offs, window=None,
+                       softcap=None):
     """Check the operands of K11 (q [B, H, W, D] on the card) and launch
     ``csrc/paged_attention.cu``; returns (out [B, H, W, D], pool format)."""
     fmt = pool_format(k_pages, k_scales, k_offs)
@@ -207,10 +233,14 @@ def _launch_paged_attn(name, q, k_pages, k_scales, v_pages, v_scales,
     page = 2 * rows if fmt == "int4" else rows
     PMAX = block_tables.shape[1]
     rep = H // Hkv if Hkv else 0
-    if not (D in (32, 64, 128, 256) and Hkv * rep == H and rep >= 1
+    if not (D in KERNEL_D and Hkv * rep == H and rep >= 1
             and Wq >= 1 and page >= 1 and PMAX >= 1):
-        raise ValueError(f"{name} needs D in (32, 64, 128, 256) and H a "
-                         f"multiple of Hkv (H={H}, Hkv={Hkv}, D={D})")
+        raise ValueError(f"{name} needs D in {KERNEL_D} and H a multiple of "
+                         f"Hkv (H={H}, Hkv={Hkv}, D={D})")
+    if (window is not None and window < 1) or (softcap is not None
+                                               and not softcap > 0):
+        raise ValueError(f"{name}: window {window} and softcap {softcap} "
+                         "must be positive")
     _build.require(q, "q", torch.bfloat16, dev, (B, H, Wq, D))
     _require_pools(name, fmt, dev, k_pages, k_scales, v_pages, v_scales,
                    k_offs, v_offs)
@@ -227,7 +257,8 @@ def _launch_paged_attn(name, q, k_pages, k_scales, v_pages, v_scales,
         v_pages.data_ptr(), _ptr(v_scales), _ptr(v_offs),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         ws.data_ptr(), B, H, Hkv, Wq, P, page, PMAX, D, _FMT_CODE[fmt],
-        1.0 / (D ** 0.5), _build.stream_handle(dev))
+        1.0 / (D ** 0.5), window or 0, softcap or 0.0,
+        1.0 / softcap if softcap else 0.0, _build.stream_handle(dev))
     _build.check(err, "nctt_paged_decode_attention")
     return out, fmt
 
@@ -249,6 +280,36 @@ def paged_attn(q, k_pages, k_scales, v_pages, v_scales, block_tables,
 
 
 paged_attn.launches = dict.fromkeys(_FMT_CODE, 0)
+
+
+def paged_attn_gemma(q, k_pages, k_scales, v_pages, v_scales, block_tables,
+                     lengths, k_offs=None, v_offs=None, window=None,
+                     softcap=None) -> torch.Tensor:
+    """Single-query K11 with gemma's branches on the card
+    (``csrc/paged_attention.cu``): the sliding band ``window`` and/or the
+    logit ``softcap``, over bf16, int8, fp8-e4m3 and int4 pools; the plain
+    version for CPU tensors. Arguments as in ``paged_attn_plain``; one of
+    ``window`` and ``softcap`` is set. Launches are counted in
+    ``paged_attn_gemma.launches`` by branch and pool format: ``"band_<fmt>"``
+    with a window (a sliding layer, with or without a softcap),
+    ``"softcap_<fmt>"`` with a softcap alone (a global gemma-2 layer)."""
+    if window is None and softcap is None:
+        raise ValueError("paged_attn_gemma: neither a window nor a softcap; "
+                         "that is paged_attn")
+    if q.device.type == "cpu":
+        return paged_attn_plain(q, k_pages, k_scales, v_pages, v_scales,
+                                block_tables, lengths, k_offs, v_offs,
+                                window, softcap)
+    out, fmt = _launch_paged_attn("paged_attn_gemma", q[:, :, None], k_pages,
+                                  k_scales, v_pages, v_scales, block_tables,
+                                  lengths, k_offs, v_offs, window, softcap)
+    branch = "band" if window is not None else "softcap"
+    paged_attn_gemma.launches[f"{branch}_{fmt}"] += 1
+    return out[:, :, 0]
+
+
+paged_attn_gemma.launches = {f"{b}_{f}": 0 for b in ("band", "softcap")
+                             for f in _FMT_CODE}
 
 
 def _write_targets(k_rows, v_rows, pid, r, fmt, page, k_pages, k_scales,
@@ -463,17 +524,19 @@ def paged_decode_attention(q, cache, lengths, window=None, softcap=None):
     """Single-token attention over a ``PagedKVCache``: q [B, H, 1, D];
     ``lengths`` [B] = tokens in the cache INCLUDING the current one (its
     row written before the call). Slots with length 0 return zeros.
+    ``window`` (gemma's sliding band: keys with q_pos - k_pos < window)
+    and ``softcap`` (``cap * tanh(s / cap)`` on the scaled scores, before
+    the mask) take ``paged_attn_gemma``; without them ``paged_attn``.
     Returns [B, H, 1, D] bf16."""
-    if window is not None or softcap is not None:
-        raise NotImplementedError(
-            "window and softcap wait for the port of gemma's paths through "
-            "neural_compressor_tpu.kernels.paged_attention._paged_kernel_v2")
     B, _H, S, _D = q.shape
     if S != 1:
         raise ValueError("paged decode attention is single-token")
-    out = paged_attn(q[:, :, 0].contiguous(), *_pool_args(cache),
-                     pos_vector(lengths, B, q.device), cache.k_offs,
-                     cache.v_offs)
+    args = (q[:, :, 0].contiguous(), *_pool_args(cache),
+            pos_vector(lengths, B, q.device), cache.k_offs, cache.v_offs)
+    if window is None and softcap is None:
+        out = paged_attn(*args)
+    else:
+        out = paged_attn_gemma(*args, window=window, softcap=softcap)
     return out[:, :, None]
 
 

@@ -1,3 +1,4 @@
 from .llama import (LLAMA_PRESETS, KVCache, LlamaConfig, LlamaForCausalLM,
                     PagedKVCache, build_quantized, from_jax_params,
                     init_kv_cache, init_paged_pool)
+from .gemma import GEMMA_PRESETS, GemmaConfig, GemmaForCausalLM

@@ -2,7 +2,8 @@
 contiguous and paged.
 
 The counterpart of ``neural_compressor_tpu.models.llama`` for rotary style
-"half" without scaling and dense prefill attention, decoding through the
+"half" (linear scaling or none), dense prefill attention and the chunked
+long prefill over bf16 rows (``_ChunkedCausal``), decoding through the
 port's kernels: over a bf16 head-major KV cache [B, Hkv, T, D] at B=1 (K5)
 and at B > 1 with per-slot positions (K7); over a ``QuantKVCache`` of
 int8 or fp8-e4m3 codes with per-(token, head) scales at B=1 (K6, which
@@ -17,9 +18,11 @@ parameter names follow the JAX model, so its flat state maps onto this
 model's ``state_dict`` (``from_jax_params``).
 
 Off this path the model raises ``NotImplementedError`` naming the JAX
-function it waits for: multi-token windows over pages, the chunked long
-prefill, calibrated per-channel int4 K scales, other rotary styles and
-scalings.
+function it waits for: the chunked long prefill over quantized caches,
+calibrated per-channel int4 K scales, other rotary styles and scalings.
+The pieces Gemma shares (``_rope``, ``apply_rope``, the chunked attention,
+caches and pools, ``update_cache``, ``load_jax_state``) live here, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from torch import nn
 
 from ..common.device import resolve_device
 from ..layers.linear import Embed, Linear
+from ..ops.activations import softcap as _softcap
 from ..ops.kv_quant import KV_CODE_DTYPES as _KV_CODE_DTYPES
 from ..ops.kv_quant import kv_codes_int8 as _kv_codes_int8
 from ..ops.kv_quant import kv_dequant as _kv_dequant
@@ -70,7 +74,8 @@ class LlamaConfig:
 
     def check_supported(self) -> None:
         if (self.rope_style != "half" or self.partial_rotary_factor != 1.0
-                or self.rope_scaling):
+                or _rope_scaling_type(self.rope_scaling) not in (None,
+                                                                 "linear")):
             raise NotImplementedError(
                 "rotary styles other than full 'half' and rope scalings "
                 "wait for the port of neural_compressor_tpu.models.llama."
@@ -366,8 +371,83 @@ def update_cache(cache, k, v, cache_pos, dtype):
     return k_all.to(dtype), v_all.to(dtype), KVCache(k_all, v_all)
 
 
-_DENSE_MASK_ELEMS = 16 * 1024 * 1024  # ~4096^2; S*T above this would chunk
+class _ChunkedCausal(NamedTuple):
+    """Causal-mask sentinel for a long prefill: the query positions instead
+    of a [B, 1, S, T] bool mask, so attention goes through
+    ``_grouped_attention_chunked`` and never holds S x T scores. Made by
+    the model's forward when S*T exceeds ``_DENSE_MASK_ELEMS``."""
+
+    q_pos: torch.Tensor         # [B or 1, S] position of each query row
+    window: int | None = None   # sliding band (gemma's local layers)
+
+
+_DENSE_MASK_ELEMS = 16 * 1024 * 1024  # ~4096^2; S*T above this chunks
 _F64 = torch.float64
+
+
+def set_dense_mask_limit(n: int) -> None:
+    """S*T above which a prefill takes the chunked attention."""
+    global _DENSE_MASK_ELEMS
+    _DENSE_MASK_ELEMS = int(n)
+
+
+def _grouped_attention_chunked(q, k, v, q_pos, D, k_scale=None,
+                               v_scale=None, q_chunk=512, softcap=None,
+                               window=None):
+    """``_grouped_attention`` without the [S, T] scores
+    (``neural_compressor_tpu.models.llama._grouped_attention_chunked``
+    over float K/V): query chunks of ``q_chunk`` rows, each against only
+    the keys its rows can see (up to its last position; with a ``window``,
+    from its first position - window + 1), so memory stays one chunk's
+    scores whatever S and T. Key t is visible to a query at position p iff
+    t <= p (and p - t < window). Scores are f32(q . k) [* k_scale] times
+    f32(1/sqrt(D)) [softcapped before the mask]; p = exp(s - m), rounded
+    to v's dtype unnormalised for the PV product [after * v_scale], l
+    unrounded, out = acc / max(l, 1e-30): JAX's online softmax over KV
+    chunks with its final max, which it equals wherever the running max
+    does not move. Sums in float64, one rounding each, as
+    ``_grouped_attention``."""
+    B, H, S, _ = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    rep = H // Hkv
+    f32 = torch.float32
+    dev = q.device
+    qpos = torch.as_tensor(q_pos, device=dev).to(torch.int64).expand(B, S)
+    qg = q.reshape(B, Hkv, rep, S, D)
+    rsqrt_d = torch.tensor(1.0 / float(D) ** 0.5, dtype=f32)
+    out = torch.empty((B, Hkv, rep, S, v.shape[-1]), dtype=q.dtype,
+                      device=dev)
+    for s0 in range(0, S, q_chunk):
+        s1 = min(S, s0 + q_chunk)
+        qp = qpos[:, s0:s1]                                   # [B, c]
+        hi = min(T, int(qp.max()) + 1)
+        lo = max(0, int(qp.min()) - window + 1) if window else 0
+        if hi <= lo:
+            out[:, :, :, s0:s1] = 0
+            continue
+        kpos = torch.arange(lo, hi, device=dev)
+        s = torch.einsum("bgrsd,bgtd->bgrst", qg[:, :, :, s0:s1].to(_F64),
+                         k[:, :, lo:hi].to(_F64)).to(f32)
+        if k_scale is not None:
+            s = s * k_scale[:, :, None, None, lo:hi]
+        s = s * rsqrt_d
+        if softcap is not None:
+            s = _softcap(s, softcap)
+        valid = kpos[None, None, :] <= qp[:, :, None]         # [B, c, t]
+        if window is not None:
+            valid = valid & (qp[:, :, None] - kpos[None, None, :] < window)
+        valid = valid[:, None, None]
+        s = torch.where(valid, s, torch.tensor(-1e30, device=dev))
+        e = torch.exp(s.to(_F64) - s.amax(dim=-1, keepdim=True).to(_F64))
+        e = torch.where(valid, e, torch.zeros((), dtype=_F64, device=dev))
+        l = e.sum(dim=-1, keepdim=True).to(f32)
+        pe = e.to(f32)
+        if v_scale is not None:
+            pe = pe * v_scale[:, :, None, None, lo:hi]
+        acc = torch.einsum("bgrst,bgtd->bgrsd", pe.to(v.dtype).to(_F64),
+                           v[:, :, lo:hi].to(_F64)).to(f32)
+        out[:, :, :, s0:s1] = (acc / l.clamp_min(1e-30)).to(q.dtype)
+    return out.reshape(B, H, S, v.shape[-1])
 
 
 def _softmax_f32(s: torch.Tensor) -> torch.Tensor:
@@ -392,7 +472,12 @@ def _grouped_attention(q, k, v, mask, D, k_scale=None, v_scale=None):
     The sums run in float64 over exact bf16 products and round once (JAX
     sums in float32), so the summation order almost never shows: the card
     and the CPU compute the same bits, which the int8 activation
-    quantization of the next projection would otherwise amplify."""
+    quantization of the next projection would otherwise amplify. A
+    ``_ChunkedCausal`` mask (a long prefill) takes
+    ``_grouped_attention_chunked``."""
+    if isinstance(mask, _ChunkedCausal):
+        return _grouped_attention_chunked(q, k, v, mask.q_pos, D, k_scale,
+                                          v_scale, window=mask.window)
     B, H, S, _ = q.shape
     Hkv = k.shape[1]
     rep = H // Hkv
@@ -481,21 +566,29 @@ class RMSNorm(nn.Module):
         return (xf * inv * self.weight).to(self.dtype)
 
 
+def _rope_scaling_type(scaling: dict | None) -> str | None:
+    return scaling.get("type") if scaling else None
+
+
 def _rope(positions: torch.Tensor, head_dim: int, theta: float,
           partial_factor: float = 1.0, scaling: dict | None = None):
     """Rotary tables: cos/sin [B, S, D/2] float32 (full "half" rotary).
     ``inv_freq``, cos and sin are computed in float64 and rounded once, so
     the card and the CPU give the same bits (their float32 sin/cos differ
-    in the last place)."""
-    if partial_factor != 1.0 or scaling:
+    in the last place). ``scaling={"type": "linear", "factor": f}``
+    divides ``inv_freq`` by f in float32 (gemma-3's global layers)."""
+    if partial_factor != 1.0 or _rope_scaling_type(scaling) not in (
+            None, "linear"):
         raise NotImplementedError(
-            "partial rotary and rope scalings wait for the port of "
-            "neural_compressor_tpu.models.llama._rope")
+            "partial rotary and rope scalings other than linear wait for "
+            "the port of neural_compressor_tpu.models.llama._rope")
     rd = head_dim
     f64 = torch.float64
     exps = torch.arange(0, rd, 2, dtype=f64, device=positions.device) / rd
     inv_freq = (1.0 / torch.pow(torch.tensor(theta, dtype=f64), exps)).to(
         torch.float32)
+    if scaling:
+        inv_freq = inv_freq / float(scaling["factor"])
     angles = (positions[..., None].to(torch.float32) * inv_freq).to(f64)
     return torch.cos(angles).to(torch.float32), torch.sin(angles).to(
         torch.float32)
@@ -595,11 +688,18 @@ class LlamaAttention(nn.Module):
         if cache is not None:
             if S == 1:
                 # B == 1 with an int position on the B=1 kernel (K5), B > 1
-                # and per-slot positions on the batched one (K7)
+                # and per-slot positions on the batched one (K7); None where
+                # JAX's K7 dispatch declines and K7 cannot take D either:
+                # the rows are written, attend them below
                 out, k_all, v_all = decode_attention(
                     q, k, v, cache.k, cache.v, cache_pos)
-                out = out.to(x_dtype).transpose(1, 2)
-                return out.reshape(B, S, H * D), KVCache(k_all, v_all)
+                if out is not None:
+                    out = out.to(x_dtype).transpose(1, 2)
+                    return out.reshape(B, S, H * D), KVCache(k_all, v_all)
+                new_cache = KVCache(k_all, v_all)
+                out = _grouped_attention(q, k_all.to(x_dtype),
+                                         v_all.to(x_dtype), mask, D)
+                return out.transpose(1, 2).reshape(B, S, H * D), new_cache
             k_all = _update_rows(cache.k, k, cache_pos)
             v_all = _update_rows(cache.v, v, cache_pos)
             new_cache = KVCache(k_all, v_all)
@@ -634,8 +734,15 @@ class LlamaAttention(nn.Module):
                 c = _write_quant_row(cache, k, v, pos)
                 out = batched_decode_attention(q, c.k_codes, c.v_codes, pos,
                                                c.k_scale, c.v_scale)
-            out = out.to(x_dtype).transpose(1, 2)
-            return out.reshape(B, S, H * D), c
+            if out is not None:
+                out = out.to(x_dtype).transpose(1, 2)
+                return out.reshape(B, S, H * D), c
+            # JAX's K7 dispatch declines and K7 cannot take D: attend the
+            # written codes with the scales folded, as JAX's XLA path does
+            out = _grouped_attention(q, c.k_codes.to(x_dtype),
+                                     c.v_codes.to(x_dtype), mask, D,
+                                     c.k_scale, c.v_scale)
+            return out.transpose(1, 2).reshape(B, S, H * D), c
         c = _write_quant(cache, k, v, cache_pos)
         if fmt == "int4":
             out = _grouped_attention_int4(q, c.k_codes, c.v_codes, mask, D,
@@ -768,19 +875,22 @@ class LlamaModel(nn.Module):
         x = self.embed_tokens(input_ids)
         cos, sin = _rope(positions, cfg.head_dim, cfg.rope_theta,
                          cfg.partial_rotary_factor, cfg.rope_scaling)
-        if caches is None:
-            T = S
+        T = S if caches is None else caches[0][0].shape[2]
+        if S * T > _DENSE_MASK_ELEMS and S > 1:
+            # long prefill: chunked attention over bf16 rows; quantized
+            # caches attend their codes, whose chunked form waits
+            if caches is not None and not isinstance(caches[0], KVCache):
+                raise NotImplementedError(
+                    "the chunked long prefill over quantized caches waits "
+                    "for the port of neural_compressor_tpu.models.llama."
+                    "_grouped_attention_chunked with scales and int4 codes")
+            mask = _ChunkedCausal(positions)
+        elif caches is None:
             mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
                                          device=dev))[None, None]
         else:
-            T = caches[0][0].shape[2]
             key_pos = torch.arange(T, device=dev)[None, None, None, :]
             mask = key_pos <= positions[:, None, :, None]
-        if S * T > _DENSE_MASK_ELEMS and S > 1:
-            raise NotImplementedError(
-                "the chunked long prefill (S*T > _DENSE_MASK_ELEMS) waits for "
-                "the port of neural_compressor_tpu.models.llama."
-                "_grouped_attention_chunked")
         new_caches = [] if caches is not None else None
         for i, layer in enumerate(self.layers):
             cache = caches[i] if caches is not None else None
@@ -913,18 +1023,31 @@ def from_jax_params(flat: dict, cfg: LlamaConfig, device=None,
     ``kv_cache_format`` static attribute where its ``kv_cache_quantized``
     is set ("int8", "fp8_e4m3", "int4"), flags the port's model the same
     way. Serve the result like a model from ``build_quantized``."""
+    device = resolve_device(device)
+    model = LlamaForCausalLM(cfg, device=device)
+    return load_jax_state(model, flat, cfg.hidden_size, device, meta,
+                          kv_cache_format)
+
+
+def load_jax_state(model, flat: dict, hidden_size: int, device,
+                   meta: dict | None = None,
+                   kv_cache_format: str | None = None):
+    """Load a JAX model's flat state into the port's ``model`` of the same
+    family, in place (``from_jax_params`` of each family): quantized
+    projections become ``WOQLinear``s holding the same bytes (fused
+    "qkv_proj"/"gate_up_proj" entries, whose K is ``hidden_size``, replace
+    their parts), every other array is copied by name, and
+    ``kv_cache_format`` flags the KV format. Returns ``model``."""
     from ..layers.module_utils import get_module, replace_module
     from ..layers.woq_linear import WOQLinear
     from ..ops.packing import PackedWeight
 
-    device = resolve_device(device)
-    model = LlamaForCausalLM(cfg, device=device)
     tensors = {k: _tensor_from_numpy(v) for k, v in flat.items()}
     quantized = sorted({k[:-len(".packed")] for k in tensors
                         if k.endswith(".packed")})
     for path in quantized:
         parent_path, _, name = path.rpartition(".")
-        K = (cfg.hidden_size if name in ("qkv_proj", "gate_up_proj")
+        K = (hidden_size if name in ("qkv_proj", "gate_up_proj")
              else get_module(model, path).in_features)
         m = (meta or {}).get(path)
         if m is None:

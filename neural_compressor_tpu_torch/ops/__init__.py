@@ -1,3 +1,4 @@
+from .activations import gelu_tanh, softcap
 from .qtensor import (CODEBOOKS, QTensor, dequantize, qdq_tensor,
                       quantize_act_per_token, quantize_codebook,
                       quantize_int_asym, quantize_int_sym, quantize_tensor,

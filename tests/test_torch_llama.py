@@ -216,16 +216,18 @@ def test_off_path_raises():
     with pytest.raises(NotImplementedError, match="beam_search"):
         nct.generate(tm, ids, num_beams=2)
     # multi-token windows over paged caches are ported
-    # (tests/test_torch_spec_kernels.py); gemma's sliding window and
-    # softcap branches of K11 are not
-    from neural_compressor_tpu_torch.kernels.paged_attention import \
-        paged_decode_attention
-    pool = tl.init_paged_pool(tm.cfg, 3, 1, 32, page_size=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="_paged_kernel_v2"):
-        paged_decode_attention(torch.zeros((1, tm.cfg.num_attention_heads,
-                                            1, tm.cfg.head_dim),
-                                           dtype=torch.bfloat16),
-                               pool[0], torch.tensor([1]), window=4)
+    # (tests/test_torch_spec_kernels.py), and so are gemma's sliding window
+    # and softcap branches of K11 (tests/test_torch_gemma_engine.py); the
+    # chunked long prefill over quantized caches is not
+    caches = tl.init_kv_cache(tm.cfg, 1, 16, quantized="int8", device="cpu")
+    old = tl._DENSE_MASK_ELEMS
+    try:
+        tl.set_dense_mask_limit(8)
+        with pytest.raises(NotImplementedError,
+                           match="_grouped_attention_chunked"):
+            tm(ids[:1], caches=caches, cache_pos=0)
+    finally:
+        tl.set_dense_mask_limit(old)
     # quantized caches are ported (tests/test_torch_kv_attention.py); a
     # format JAX does not know is refused
     with pytest.raises(ValueError, match="int3"):

@@ -79,16 +79,21 @@ def test_each_kernel_wrapper_counts_its_launches():
     assert names == ["w4a8_gemm", "fused_gemv", "decode_attn",
                      "decode_attn_quant", "batched_decode_attn",
                      "paged_attn", "paged_write", "dequant_gemm", "vpu_gemv",
-                     "paged_write_window_kernel", "paged_window_attn"]
+                     "paged_write_window_kernel", "paged_window_attn",
+                     "paged_attn_gemma"]
     pools = ["bf16", "int8", "fp8_e4m3", "int4"]
     by_format = {"batched_decode_attn": ["bf16", "int8", "fp8_e4m3"],
                  "paged_attn": pools, "paged_write": pools,
                  "paged_write_window_kernel": pools,
-                 "paged_window_attn": pools}
+                 "paged_window_attn": pools,
+                 # K11's gemma branches: the band (with or without the
+                 # softcap) and the softcap alone, per pool format
+                 "paged_attn_gemma": [f"{b}_{f}" for b in ("band", "softcap")
+                                      for f in pools]}
     for fn in kernels.KERNEL_WRAPPERS:
         if fn.__name__ in by_format:
             assert list(fn.launches) == by_format[fn.__name__]
-            fn.launches["int8"] += 3
+            fn.launches[by_format[fn.__name__][1]] += 3
         else:
             assert isinstance(fn.launches, int)
             fn.launches += 3
@@ -177,9 +182,10 @@ def test_wrappers_check_their_operands():
                              torch.empty(2, 96, device=meta), None, None,
                              bits=4, group_size=128, layout="tpu_strided",
                              out_dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="bf16 activations"):
-        kernels.dequant_gemm(xb.float(), None, torch.empty(2, 128,
-                                                           device=meta),
+    # float32 activations are taken (float32 weights and FMAs); fp16 not
+    with pytest.raises(ValueError, match="bf16 or f32 activations"):
+        kernels.dequant_gemm(xb.half(), None, torch.empty(2, 128,
+                                                          device=meta),
                              None, None, bits=4, group_size=128,
                              layout="tpu_strided", out_dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="int2/int4"):
