@@ -23,7 +23,10 @@ non-zero:
      positions at 0, at page boundaries and past the end, all-zero K/V
      rows, int4 writes to both nibbles of a byte row, zero-length and idle
      slots, a shared trash page) against their plain versions, and a small
-     GQA model's greedy tokens on the card against the CPU;
+     GQA model's greedy tokens on the card against the CPU; the repaired
+     envelope (phase 12's ``deepseek_envelope``): any head width in the
+     attention kernels (D 16, 80, 96, K7's 384), K1 at group sizes 8, 16
+     and 24, K4 at K 262,144, a D-80 llama's greedy against the CPU;
   4. full-width 2-layer models built with ``RTNConfig +
      KVCacheQuantConfig`` on the card (kernels) against the same weights
      on the CPU (plain versions), W4A8 with fused B=1 decode and W4A16, in
@@ -33,7 +36,7 @@ non-zero:
      and the W4A8 model served by the engine on the card and on the CPU
      in each pool mode (contiguous bf16/int8/fp8/int4, paged
      bf16/int8/fp8/int4);
-  5. llama2-7b at full width, cut to ``W4A8_LAYERS`` = 16 of its 32
+  5. llama2-7b at full width, cut to ``W4A8_LAYERS`` = 8 of its 32
      layers for the run's time limit, RTN int4 g128 W4A8, answering
      three greedy requests at B=1 (prompts of 16, 100 and 371 tokens, 48
      new tokens each, max_len 1024), with exact kernel launch counts;
@@ -45,7 +48,7 @@ non-zero:
      paged int8 pool, ``run(chunk=8)``, with exact launch counts derived
      from the engine's counters, and one B=8 decode dispatch profiled;
   8. after the W4A8 model is freed, llama2-7b asym-int4 g128 W4A16 at full
-     width, cut to ``WOQ_LAYERS`` = 16 of its 32 layers for the run's time
+     width, cut to ``WOQ_LAYERS`` = 8 of its 32 layers for the run's time
      limit (built with ``RTNConfig + KVCacheQuantConfig``):
      three greedy requests at B=1 and 16 through the 8-slot engine over
      bf16 caches, exact launch counts of K8, K9, K5 and K7 and the
@@ -76,14 +79,34 @@ non-zero:
      ``gemma_envelope``); full-width 2-layer gemma2-9b and gemma3-4b-text
      W4A16 (window cut to 64), card against CPU, greedy in every KV format
      and the engine in every pool mode (phase 4's ``gemma_model_check``);
-     and gemma2-9b W4A16 at full width and depth: three B=1 requests
+     and gemma2-9b W4A16 at full width, ``GEMMA_LAYERS`` = 21 of its 42
+     layers: three B=1 requests
      (prompts of 16, 371 and 4,500 tokens) and the 8-slot engine over
-     8192-row paged bf16 and int8 pools (16 requests, 4 past the window),
+     8192-row paged bf16 and int8 pools (8 requests, 2 past the window),
      its tokens against greedy's, exact launch counts, one decode
      dispatch profiled.
-Development runs name checks of phases 2-4 as arguments (``python3
-chip_smoke.py gemma_kernels gemma_envelope``): the build, those checks, no
-serving and no result line.
+ 12. DeepSeek: K14's write and attention against their plain versions at
+     deepseek-v3's shapes (8 slots at lengths 1-4096 over a 4096-row
+     table of 128-row pages, H 128, C 576, r 512), with planted faults
+     (phase 2's ``deepseek_kernels``); K14 at ragged H, small pages, a
+     PMAX not a multiple of 4, idle and zero-length slots and 16k-32k
+     rows, and the repaired envelope of phase 3 (any head width in K5,
+     K6, K7, K11 and K13: D 16, 80, 96 and K7's 384; K1 at group sizes
+     8, 16 and 24; K4 at K 262,144, its codes in global memory; a D-80
+     llama's greedy on the card against the CPU) (``deepseek_envelope``);
+     deepseek-v3's widths cut to 2 layers and 32 routed experts, W4A16,
+     card against CPU, greedy over the expanded and every latent cache
+     and the engine contiguous and paged (phase 4's
+     ``deepseek_model_check``); and deepseek-v3 W4A16 at 4 of its 61
+     layers (its 3 dense layers and one MoE layer of 257 experts): three
+     B=1 greedy requests over the contiguous latent cache and the 8-slot
+     engine over the paged latent pool (K14 each decode step of each
+     layer), its tokens against greedy's, exact launch counts, the pool's
+     bytes against expanded K/V, one decode dispatch profiled
+     (``deepseek_serve``).
+Development runs name checks of phases 2-4, or ``deepseek_serve``, as
+arguments (``python3 chip_smoke.py gemma_kernels gemma_envelope``): the
+build, those checks, no result line.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path and its times.
 """
@@ -104,7 +127,7 @@ G = 128
 SHAPES = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
           "down": (11008, 4096), "lm_head": (4096, 32000)}
 LAYERS, HEADS, HEAD_DIM, MAX_LEN = 32, 32, 128, 1024
-W4A8_LAYERS = 16              # depth of the served W4A8 model (5-7, 10)
+W4A8_LAYERS = 8               # depth of the served W4A8 model (5-7, 10)
 PROMPTS, NEW_TOKENS = (16, 100, 371), 48
 GEMM_MS = (17, 128, 512)
 UNIT_M = 128                  # the GEMM row of the kernels line: a 128-token prefill
@@ -1221,7 +1244,7 @@ def phase_engine_serve(torch, nct, model) -> dict:
 
 # ------------------------------------------------------------------ W4A16
 WOQ_MS = (8, 100, 256)          # K8 rows timed at the llama2-7b shapes
-WOQ_LAYERS = 16                 # depth of the served W4A16 model (phases 8-9)
+WOQ_LAYERS = 8                  # depth of the served W4A16 model (phases 8-9)
 WOQ_UNIT_M = 8                  # K8's row of the kernels line: one 8-slot step
 
 
@@ -3078,11 +3101,16 @@ def phase_kv_engine(torch, nct, model) -> dict:
 # contexts of 128-row pages, 16 query heads on 8 KV heads of 256; the band
 # binds on the slots past 4096
 GEMMA_PRESET = "gemma2-9b"
+# depth of the served gemma2-9b, cut from 42 to keep the whole check
+# inside its time limit: 11 sliding and 10 global layers
+GEMMA_LAYERS = 21
 GEMMA_POS = (0, 1023, 4095, 4096, 4097, 5000, 6500, 8191)
 GEMMA_MAX_LEN = 8192
 GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0
 GEMMA_PROMPTS, GEMMA_NEW = (16, 371, 4500), 48
-# the engine: 16 requests, 4 of them past the window
+# the engine: 8 requests, 2 of them past the window (cut from 16 to keep
+# the whole check inside its time limit)
+GEMMA_ENGINE_REQUESTS = 8
 GEMMA_ENGINE_PROMPTS = (16, 100, 371, 4200)
 GEMMA_ENGINE_NEW = 8
 # the 2-layer checks cut the window to 64 so a 100-token prompt binds it
@@ -3302,10 +3330,10 @@ def phase_gemma_envelope(torch, nct) -> None:
     activations at gemma2-9b's widths, K4 at K = 65,536 (past the old
     48 Ki), each against its plain version; and where JAX declines its
     kernel and the port's cannot take the shape, the plain path on the
-    card, its calls counted: K7 at D 96 (``batched_decode_attention``
-    returns None), a 2-layer D-96 llama's B=2 greedy (card tokens equal to
-    the CPU's, 2 plain calls a step), and ``dequant_matmul`` at N 200
-    (``dequant_dot``)."""
+    card, its calls counted: K7 at D 320 (``batched_decode_attention``
+    returns None; since the head-width repair K7 takes D 96), a 2-layer
+    D-320 llama's B=2 greedy (card tokens equal to the CPU's, 2 plain calls
+    a step), and ``dequant_matmul`` at N 200 (``dequant_dot``)."""
     from neural_compressor_tpu_torch import kernels
     from neural_compressor_tpu_torch.kernels import dequant_matmul as dm
     from neural_compressor_tpu_torch.kernels import (
@@ -3384,17 +3412,18 @@ def phase_gemma_envelope(torch, nct) -> None:
     ref = fused_gemv_plain(*args, **kw)
     check("k4 K=65536", fused_gemv(*args, **kw), ref,
           TOL["gemv"] * float(ref.float().abs().max()))
-    # the plain paths where JAX's dispatch declines: K7 at D 96
-    q96 = randn(4, 8, 1, 96)
-    kv96 = randn(4, 4, 128, 96)
+    # the plain paths where JAX's dispatch declines and K7 takes no such
+    # head width (D % 128 and outside BATCHED_KERNEL_D): K7 at D 320
+    q320 = randn(4, 8, 1, 320)
+    kv320 = randn(4, 4, 128, 320)
     before = da.batched_decode_attention.plain_calls
-    if da.batched_decode_attention(q96, kv96, kv96, pos) is not None or \
+    if da.batched_decode_attention(q320, kv320, kv320, pos) is not None or \
             da.batched_decode_attention.plain_calls != before + 1:
-        bad.append("K7 at D 96 did not decline to the plain path")
+        bad.append("K7 at D 320 did not decline to the plain path")
     n += 1
-    # a 2-layer llama with D 96: B=2 greedy on the card (plain attention,
+    # a 2-layer llama with D 320: B=2 greedy on the card (plain attention,
     # counted) against the CPU
-    cfg = LlamaConfig(vocab_size=512, hidden_size=384, intermediate_size=512,
+    cfg = LlamaConfig(vocab_size=512, hidden_size=1280, intermediate_size=512,
                       num_hidden_layers=2, num_attention_heads=4,
                       num_key_value_heads=4, max_position_embeddings=128)
     m_cpu = nct.LlamaForCausalLM(cfg, device="cpu", seed=3)
@@ -3409,7 +3438,7 @@ def phase_gemma_envelope(torch, nct) -> None:
     launched = launch_counts()
     if not (torch.equal(got, want) and calls == 2 * 5
             and launched == expect()):
-        bad.append(f"D-96 llama B=2: card {got.tolist()} cpu "
+        bad.append(f"D-320 llama B=2: card {got.tolist()} cpu "
                    f"{want.tolist()}, {calls} plain calls, {launched}")
     n += 1
     # dequant_matmul where the weight does not tile (N % 128): dequant_dot
@@ -3587,16 +3616,17 @@ def gemma_paged_gap(torch, model, fmt, prefix, tok_a: int,
 
 
 def phase_gemma_serve(torch, nct) -> dict:
-    """The slice's path at full width and depth: gemma2-9b (42 layers, 21
-    sliding), RTN asym-int4 g128 W4A16, random weights from a seed made on
+    """The slice's path at full width: gemma2-9b cut to ``GEMMA_LAYERS`` =
+    21 of its 42 layers (11 sliding), RTN asym-int4 g128 W4A16, random
+    weights from a seed made on
     the card. Three B=1 greedy requests over contiguous bf16 caches
     (prompts of 16, 371 and 4,500 tokens, the last through the chunked
     prefill, 48 new each; K8 prefills the 16-token prompt, the others take
     dequantize-then-matmul, K9 decodes); then ``ContinuousBatchingEngine(
-    n_slots=8, max_len=8192, paged=True)`` over bf16 and int8 pools, 16
-    requests (prompts of 16, 100, 371 and 4,200 tokens, 4 each, the last
+    n_slots=8, max_len=8192, paged=True)`` over bf16 and int8 pools, 8
+    requests (prompts of 16, 100, 371 and 4,200 tokens, 2 each, the last
     past the window; 8 new), ``run(chunk=8)``, its tokens held against
-    ``greedy_search`` on the same model, the 4 prompts of a length at once
+    ``greedy_search`` on the same model, the 2 prompts of a length at once
     (equal, or parted where greedy's top-2 gap is at most the paths'
     measured difference, ``gemma_paged_gap``), exact launch counts of
     K11's band and softcap branches, K12, K8 and K9, tok/s, cache bytes,
@@ -3609,7 +3639,9 @@ def phase_gemma_serve(torch, nct) -> dict:
     from neural_compressor_tpu_torch.models.llama import init_kv_cache
 
     t0 = time.perf_counter()
-    cfg = gemma_cfg(nct, GEMMA_PRESET)
+    full = gemma_cfg(nct, GEMMA_PRESET)
+    cfg = gemma_cfg(nct, GEMMA_PRESET, num_hidden_layers=GEMMA_LAYERS,
+                    layer_types=full.layer_types[:GEMMA_LAYERS])
     model = gemma_model(nct, cfg, seed=0, kv="int8")
     set_kv_format(model, None)
     nl, V = cfg.num_hidden_layers, cfg.vocab_size
@@ -3670,10 +3702,10 @@ def phase_gemma_serve(torch, nct) -> dict:
     gen = torch.Generator().manual_seed(42)
     e_prompts = [torch.randint(0, V, (GEMMA_ENGINE_PROMPTS[i % 4],),
                                generator=gen).numpy()
-                 for i in range(ENGINE_REQUESTS)]
-    # the references: greedy_search over each prompt length's 4 prompts
-    # at once (B=4: K8 decodes, as in the engine)
-    refs = [None] * ENGINE_REQUESTS
+                 for i in range(GEMMA_ENGINE_REQUESTS)]
+    # the references: greedy_search over each prompt length's 2 prompts
+    # at once (B=2: K8 decodes, as in the engine)
+    refs = [None] * GEMMA_ENGINE_REQUESTS
     for P in GEMMA_ENGINE_PROMPTS:
         idx = [i for i, p in enumerate(e_prompts) if len(p) == P]
         o = nct.greedy_search(model, torch.from_numpy(
@@ -3681,7 +3713,7 @@ def phase_gemma_serve(torch, nct) -> dict:
             max_new_tokens=GEMMA_ENGINE_NEW)
         for i, row in zip(idx, o[:, P:].tolist()):
             refs[i] = row
-    news = [GEMMA_ENGINE_NEW] * ENGINE_REQUESTS
+    news = [GEMMA_ENGINE_NEW] * GEMMA_ENGINE_REQUESTS
     for mode in ("paged_bf16", "paged_int8"):
         fmt = ENGINE_MODES[mode][1]
         eng = engine_for(nct, model, mode, n_slots=SLOTS,
@@ -3751,8 +3783,9 @@ def phase_gemma_serve(torch, nct) -> dict:
                 fail(f"gemma engine {mode}: parts from greedy at new token "
                      f"{i} of a {len(p)}-token prompt where greedy's top-2 "
                      f"gap {gap} exceeds the paths' difference {diff}")
-        print(f"gemma engine {mode}: {ENGINE_REQUESTS - len(parted)} of "
-              f"{ENGINE_REQUESTS} requests equal to greedy_search; partings "
+        print(f"gemma engine {mode}: {GEMMA_ENGINE_REQUESTS - len(parted)} "
+              f"of {GEMMA_ENGINE_REQUESTS} requests equal to greedy_search; "
+              f"partings "
               f"{parted}", flush=True)
         out[f"gemma_engine_{mode}"] = launches
         # the observed prefill holds the engine in a cycle: free its pools
@@ -3772,6 +3805,842 @@ def phase_gemma_serve(torch, nct) -> dict:
                    f"slots x {CHUNK} steps", lambda: eng.step_many(CHUNK))
     del eng        # not run dry: the profile was all it was for
     del model
+    return out
+
+
+DS_PRESET = "deepseek-v3"
+# the 8 slots of the K14 check: lengths (the new row included) over a
+# 4096-row table of 128-row pages
+DS_LENGTHS = (1, 127, 128, 129, 1000, 2048, 3000, 4096)
+DS_MAX_LEN = 4096
+
+
+def lat_tol(ref):
+    """Elementwise tolerance of K14's attention against its plain version:
+    1e-5 of each slot's largest |output|. Both sum in float64 over exact
+    products and round once, so they differ only where a float64 sum's
+    order tips a float32 rounding."""
+    return 1e-5 * ref.float().abs().amax(dim=(1, 2), keepdim=True) + 1e-30
+
+
+def ds_table(torch, B, pmax, seed, dev):
+    """[B, pmax] int32 block tables over B * pmax + 1 pages, scattered
+    (page 0 is the trash page)."""
+    bt = torch.randperm(B * pmax, generator=torch.Generator()
+                        .manual_seed(seed)) + 1
+    return bt.reshape(B, pmax).to(torch.int32).to(dev)
+
+
+def latent_sdpa(torch, q, pages, bt, lengths, r, scale):
+    """The yardstick: ``scaled_dot_product_attention`` with q [B, H, 1, C]
+    against the gathered rows [B, 1, Lmax, C] expanded over H as keys, their
+    first r columns as values, a length mask and ``scale``; returns a
+    closure over the gathered operands (gathered once, outside the timing).
+    """
+    B, H, C = q.shape
+    Lmax = int(lengths.max())
+    page = pages.shape[2]
+    g = pages[bt.long()].transpose(1, 2).reshape(B, 1, -1, C)[:, :, :Lmax]
+    k = g.expand(B, H, Lmax, C)
+    v = g[..., :r].expand(B, H, Lmax, r)
+    mask = (torch.arange(Lmax, device=q.device)[None, :]
+            < lengths.long()[:, None])[:, None, None]
+    q4 = q[:, :, None]
+    del page
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k, v, attn_mask=mask, scale=scale)
+
+
+def phase_deepseek_kernels(torch, nct, peaks: dict) -> dict:
+    """K14 at deepseek-v3's shapes: 8 slots at ``DS_LENGTHS`` over a
+    4096-row table of 128-row pages, H 128, C = r + dr = 576, r 512,
+    ``attn_scale`` = 192^-1/2. The write (one row a slot, bit for bit
+    against its plain version over the whole pool) and the attention
+    (within ``lat_tol``), each timed with L2 cold beside its plain version,
+    a yardstick (an index assignment; SDPA over the gathered rows) and its
+    bound. Planted faults, each of which the check must flag: the value
+    product over the wrong r columns (the rope part in the value), the
+    scale taken from C, lengths that leave out the current row, a write one
+    row late, a write into another slot's page."""
+    from neural_compressor_tpu_torch.kernels import paged_attention as pa
+    from neural_compressor_tpu_torch.models.deepseek import DEEPSEEK_PRESETS
+    from neural_compressor_tpu_torch.models.deepseek import DeepseekConfig
+
+    cfg = DeepseekConfig(**DEEPSEEK_PRESETS[DS_PRESET])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(51)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    B, H = SLOTS, cfg.num_attention_heads
+    r = cfg.kv_lora_rank
+    C = r + cfg.qk_rope_head_dim
+    scale = cfg.attn_scale
+    pmax = DS_MAX_LEN // PAGE
+    n_pages = B * pmax + 1
+    bt = ds_table(torch, B, pmax, 52, dev)
+    lengths = torch.tensor(DS_LENGTHS, dtype=torch.int32, device=dev)
+    pos = lengths - 1
+    nbytes_pool = n_pages * PAGE * C * 2
+    pools = [randn(n_pages, 1, PAGE, C) for _ in range(n_copies(nbytes_pool))]
+    q = randn(B, H, C)
+    rows = {}
+
+    # the write: each slot's row at pos = lengths - 1
+    row = randn(B, C)
+    got, want = pools[0].clone(), pools[0].clone()
+    pa.paged_latent_write(row, got, bt, pos)
+    pa.paged_latent_write_plain(row, want, bt, pos)
+    torch.cuda.synchronize()
+    ok_w = torch.equal(got, want)
+    copies = [p.clone() for p in pools]
+    ms = timed_ms(torch, [lambda p=p: pa.paged_latent_write(row, p, bt, pos)
+                          for p in copies], 200)
+    pms = timed_ms(torch, [lambda: pa.paged_latent_write_plain(
+        row, copies[0], bt, pos)], 20)
+    pid = bt.long()[torch.arange(B, device=dev), pos.long() // PAGE]
+    off = pos.long() % PAGE
+    lms = timed_ms(torch, [lambda p=p: p.index_put_(
+        (pid, torch.zeros_like(pid), off), row) for p in copies], 200)
+    del copies
+    bms, by = bound(2 * B * C * 2 + B * 8, 0, peaks["bf16_s"], peaks)
+    rows["write"] = dict(err=0.0 if ok_w else float("inf"), ok=ok_w, ms=ms,
+                         plain_ms=pms, library_ms=lms, bound_ms=bms,
+                         bound_by=by)
+    print(f"deepseek k14 write B={B} C={C} page={PAGE} pos="
+          f"{tuple(pos.tolist())}: bit-equal={ok_w} ms={ms:.4f} "
+          f"plain_ms={pms:.4f} library_ms={lms:.4f} (index_put_) "
+          f"bound_ms={bms:.5f} ({by})", flush=True)
+
+    # the attention
+    out = pa.paged_latent_attn(q, pools[0], bt, lengths, r, scale)
+    ref = pa.paged_latent_attn_plain(q, pools[0], bt, lengths, r, scale)
+    torch.cuda.synchronize()
+    d = (out - ref).abs()
+    tol = lat_tol(ref)
+    err, ok_a = float(d.max()), bool((d <= tol).all()) and bool(
+        torch.isfinite(out).all())
+    ms = timed_ms(torch, [lambda p=p: pa.paged_latent_attn(
+        q, p, bt, lengths, r, scale) for p in pools], 20)
+    pms = timed_ms(torch, [lambda: pa.paged_latent_attn_plain(
+        q, pools[0], bt, lengths, r, scale)], 2)
+    sd = [latent_sdpa(torch, q, p, bt, lengths, r, scale) for p in pools[:2]]
+    lms = timed_ms(torch, sd, 20)
+    del sd
+    n_rows = int(lengths.sum())
+    nbytes = n_rows * C * 2 + B * H * C * 2 + B * H * r * 4 + B * pmax * 4
+    bms, by = bound(nbytes, 2 * H * n_rows * (C + r), peaks["bf16_s"], peaks)
+    rows["attn"] = dict(err=err, ok=ok_a, ms=ms, plain_ms=pms,
+                        library_ms=lms, bound_ms=bms, bound_by=by)
+    print(f"deepseek k14 attention B={B} H={H} C={C} r={r} page={PAGE} "
+          f"lengths={DS_LENGTHS} max_abs_err={err:.3e} "
+          f"max d/tol={float((d / tol).max()):.3g} ok={ok_a} ms={ms:.4f} "
+          f"plain_ms={pms:.4f} library_ms={lms:.4f} (SDPA over the gathered "
+          f"rows, Ev = r) bound_ms={bms:.5f} ({by})", flush=True)
+
+    # planted faults: each faulty reference must leave outputs outside the
+    # tolerance (or pools unequal)
+    def rope_in_value():
+        shifted = torch.cat([pools[0][..., C - r:], pools[0][..., :C - r]],
+                            dim=-1).contiguous()
+        qs = torch.cat([q[..., C - r:], q[..., :C - r]], dim=-1).contiguous()
+        return pa.paged_latent_attn_plain(qs, shifted, bt, lengths, r, scale)
+
+    faults = {
+        "the value over the wrong r columns (the rope part in it)":
+            rope_in_value(),
+        "the scale from C": pa.paged_latent_attn_plain(
+            q, pools[0], bt, lengths, r, C ** -0.5),
+        "lengths without the current row": pa.paged_latent_attn_plain(
+            q, pools[0], bt, lengths - 1, r, scale),
+    }
+    missed = []
+    for name, faulty in faults.items():
+        torch.cuda.synchronize()
+        caught = int(((out - faulty).abs() > lat_tol(faulty)).sum())
+        print(f"deepseek k14 planted fault '{name}': {caught}/{out.numel()} "
+              "outputs outside the tolerance", flush=True)
+        if not caught:
+            missed.append(name)
+    late, other = pools[0].clone(), pools[0].clone()
+    pa.paged_latent_write_plain(row, late, bt, pos + 1)
+    pa.paged_latent_write_plain(row, other, bt.roll(1, dims=0), pos)
+    for name, faulty in (("a write one row late", late),
+                         ("a write into another slot's page", other)):
+        caught = not torch.equal(got, faulty)
+        print(f"deepseek k14 planted fault '{name}': flagged={caught}",
+              flush=True)
+        if not caught:
+            missed.append(name)
+    if missed:
+        fail(f"the K14 check missed planted faults: {missed}")
+    if not (ok_w and ok_a):
+        fail(f"K14 disagrees with its plain version: write {ok_w}, "
+             f"attention {ok_a} (err {err})")
+    return rows
+
+
+def phase_deepseek_envelope(torch, nct) -> None:
+    """K14 at shapes deepseek-v3's main path does not give it, and the
+    repair of the other kernels' envelope, each against its plain version.
+    K14: H not a multiple of 16 (deepseek-test's H 4, C 24, r 16 and
+    tiny_mla's H 4, C 144, r 128), pages of 8, 16 and 64, a PMAX that is
+    not a multiple of 4, zero-length slots and idle slots on the trash page
+    (their duplicate writes, the last slot's row standing), lengths at page
+    boundaries, and contexts of 16,384 and 32,768 rows at deepseek-v3's
+    widths. The repair: K5, K6 (int8, fp8), K7 (bf16, int8), K11 (bf16,
+    int8, int4) and K13 (bf16, int8, int4) at D 16, 80 and 96; K7 at D 384;
+    K1 at group sizes 8, 16 and 24; K4 at K 262,144 (codes in global
+    memory); and a 2-layer D-80 llama's B=1 greedy on the card against the
+    CPU, its tokens equal, with no plain attention calls."""
+    from neural_compressor_tpu_torch import kernels as K
+    from neural_compressor_tpu_torch.kernels import paged_attention as pa
+    from neural_compressor_tpu_torch.models.llama import LlamaConfig
+    from neural_compressor_tpu_torch.ops import kv_quant as kq
+    from neural_compressor_tpu_torch.ops import (pack_qtensor,
+                                                 quantize_act_per_token,
+                                                 quantize_tensor, to_hopper)
+
+    da = sys.modules["neural_compressor_tpu_torch.kernels.decode_attention"]
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(53)
+    bad, n = [], 0
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check(label, got, want, tol=None):
+        nonlocal n
+        torch.cuda.synchronize()
+        n += 1
+        if tol is None:
+            ok = torch.equal(got, want)
+        else:
+            d = (got.float() - want.float()).abs()
+            ok = bool(torch.isfinite(got.float()).all()) and bool(
+                (d <= tol).all())
+        if not ok:
+            bad.append(label)
+
+    # K14 at ragged H, small pages, PMAX % 4, idle and zero-length slots
+    for H, C, r in ((4, 24, 16), (4, 144, 128), (20, 576, 512)):
+        for page, pmax in ((8, 5), (16, 3), (64, 6)):
+            B = 6
+            n_pages = B * pmax + 1
+            bt = ds_table(torch, B, pmax, page + H, dev)
+            bt[4:] = 0                      # slots 4 and 5 idle (trash page)
+            T = pmax * page
+            lengths = torch.tensor([1, page, page + 1, T, T, 0],
+                                   dtype=torch.int32, device=dev)
+            pos = (lengths - 1).clamp(min=0)
+            pos[4:] = T - 1                 # idle slots park on the trash page
+            pages = randn(n_pages, 1, page, C)
+            row = randn(B, C)
+            got, want = pages.clone(), pages.clone()
+            pa.paged_latent_write(row, got, bt, pos)
+            pa.paged_latent_write_plain(row, want, bt, pos)
+            check(f"k14 write H={H} C={C} page={page} pmax={pmax}", got,
+                  want)
+            # a page index past the table: the trash page's row pos % page
+            past = torch.full((B,), T + 3, dtype=torch.int32, device=dev)
+            got2, want2 = pages.clone(), pages.clone()
+            pa.paged_latent_write(row, got2, bt, past)
+            pa.paged_latent_write_plain(row, want2, bt, past)
+            check(f"k14 write past the table page={page}", got2, want2)
+            q = randn(B, H, C)
+            scale = (C - r + 8) ** -0.5
+            ref = pa.paged_latent_attn_plain(q, got, bt, lengths, r, scale)
+            check(f"k14 attention H={H} C={C} r={r} page={page} pmax={pmax}",
+                  pa.paged_latent_attn(q, got, bt, lengths, r, scale), ref,
+                  lat_tol(ref))
+    # long contexts at deepseek-v3's widths
+    H, C, r = 128, 576, 512
+    for T in (16384, 32768):
+        B, pmax = 2, T // PAGE
+        bt = ds_table(torch, B, pmax, T, dev)
+        pages = randn(B * pmax + 1, 1, PAGE, C)
+        lengths = torch.tensor([T, T // 2 + 1], dtype=torch.int32, device=dev)
+        q = randn(B, H, C)
+        ref = pa.paged_latent_attn_plain(q, pages, bt, lengths, r, 192 ** -0.5)
+        check(f"k14 attention T={T}", pa.paged_latent_attn(
+            q, pages, bt, lengths, r, 192 ** -0.5), ref, lat_tol(ref))
+        del pages, ref
+
+    # the repair: any head width (K5, K6, K7, K11, K13)
+    for D in (16, 80, 96):
+        Hkv, rep, T = 2, 4, 300
+        H = Hkv * rep
+        q = randn(1, H, D)
+        k, v = randn(1, Hkv, T, D), randn(1, Hkv, T, D)
+        for p_ in (0, 150, T - 1):
+            check(f"k5 D={D} pos={p_}", K.decode_attn(q, k, v, p_),
+                  K.decode_attn_plain(q, k, v, p_))
+        kn, vn = randn(1, Hkv, D), randn(1, Hkv, D)
+        for fmt in ("int8", "fp8_e4m3"):
+            kc, ks = kq.kv_quant(k, fmt)
+            vc, vs = kq.kv_quant(v, fmt)
+            p_ = torch.tensor([150], dtype=torch.int32, device=dev)
+            check(f"k6 {fmt} D={D}",
+                  K.decode_attn_quant(q, kn, vn, kc, ks, vc, vs, p_),
+                  K.decode_attn_quant_plain(q, kn, vn, kc, ks, vc, vs, p_))
+        qb = randn(4, H, D)
+        kb, vb = randn(4, Hkv, T, D), randn(4, Hkv, T, D)
+        pb = torch.tensor([0, 100, 257, T - 1], dtype=torch.int32,
+                          device=dev)
+        check(f"k7 bf16 D={D}", K.batched_decode_attn(qb, kb, vb, pb),
+              K.batched_decode_attn_plain(qb, kb, vb, pb))
+        kc, ks = kq.kv_quant(kb, "int8")
+        vc, vs = kq.kv_quant(vb, "int8")
+        check(f"k7 int8 D={D}", K.batched_decode_attn(qb, kc, vc, pb, ks, vs),
+              K.batched_decode_attn_plain(qb, kc, vc, pb, ks, vs))
+        pmax, page = 4, 32
+        bt = ds_table(torch, 4, pmax, D, dev)
+        lengths = torch.tensor([1, 32, 33, 128], dtype=torch.int32,
+                               device=dev)
+        for fmt in ("bf16", "int8", "int4"):
+            pool = spec_pool(torch, kq, randn, 4 * pmax + 1, Hkv, page, D,
+                             fmt)
+            a = (pool[0], pool[1], pool[2], pool[3], bt)
+            ofs = (pool[4], pool[5])
+            check(f"k11 {fmt} D={D}", K.paged_attn(qb, *a, lengths, *ofs),
+                  K.paged_attn_plain(qb, *a, lengths, *ofs))
+            kw_, vw_ = randn(4, Hkv, 3, D), randn(4, Hkv, 3, D)
+            got = [t.clone() if t is not None else None for t in pool]
+            want = [t.clone() if t is not None else None for t in pool]
+            wpos = (lengths - 2).clamp(min=0)
+            K.paged_write_window_kernel(kw_, vw_, got[0], got[1], got[2],
+                                        got[3], bt, wpos, got[4], got[5])
+            K.paged_write_window_plain(kw_, vw_, want[0], want[1], want[2],
+                                       want[3], bt, wpos, want[4], want[5])
+            torch.cuda.synchronize()
+            n += 1
+            if not pool_bytes_equal(torch, got, want):
+                bad.append(f"k13 {fmt} D={D}")
+    # K7 at D 384 (JAX's dispatch runs D % 128 == 0)
+    qb, kb, vb = randn(4, 8, 384), randn(4, 2, 256, 384), randn(4, 2, 256, 384)
+    pb = torch.tensor([0, 100, 200, 255], dtype=torch.int32, device=dev)
+    check("k7 bf16 D=384", K.batched_decode_attn(qb, kb, vb, pb),
+          K.batched_decode_attn_plain(qb, kb, vb, pb))
+    # K1 at group sizes 8, 16 and 24 (JAX's tpu_strided K1 runs them)
+    for Gs in (8, 16, 24):
+        Kd, N = 48 * Gs, 256
+        w = torch.randn((Kd, N), generator=gen, device=dev) * Kd ** -0.5
+        pw = to_hopper(pack_qtensor(quantize_tensor(w, bits=4,
+                                                    group_size=Gs)))
+        for M in (1, 17, 130):
+            xq, xs = quantize_act_per_token(randn(M, Kd), bits=8)
+            before = K.w4a8_gemm.launches
+            y = K.w4a8_gemm(xq, pw.packed, pw.scales, xs.reshape(-1))
+            if K.w4a8_gemm.launches != before + 1:
+                bad.append(f"k1 G={Gs} did not launch")
+            ref = K.w4a8_gemm_plain(xq, pw.packed, pw.scales, xs.reshape(-1))
+            check(f"k1 G={Gs} M={M}", y, ref,
+                  TOL["gemm"] * ref.abs().amax() + 1e-30)
+    # K4 at K 262,144: past MAX_K, the codes in global memory
+    Kd, N = 256 * 1024, 256
+    w = torch.randn((Kd, N), generator=gen, device=dev) * Kd ** -0.5
+    pw = to_hopper(pack_qtensor(quantize_tensor(w, bits=4, group_size=G)))
+    x = randn(Kd)
+    rms_w = torch.rand(Kd, generator=gen, device=dev) + 0.5
+    for rw in (None, rms_w):
+        args = (x, rw, pw.packed, pw.scales, None, None)
+        kw = dict(eps=1e-6, silu=False, out_dtype=torch.bfloat16)
+        ref = K.fused_gemv_plain(*args, **kw)
+        check(f"k4 K={Kd} rms={rw is not None}", K.fused_gemv(*args, **kw),
+              ref, TOL["gemv"] * float(ref.float().abs().max()))
+    del w, pw
+    # a 2-layer llama with D 80: B=1 greedy on the card (K5 at D 80)
+    cfg = LlamaConfig(vocab_size=512, hidden_size=320, intermediate_size=512,
+                      num_hidden_layers=2, num_attention_heads=4,
+                      num_key_value_heads=2, max_position_embeddings=128)
+    m_cpu = nct.LlamaForCausalLM(cfg, device="cpu", seed=5)
+    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    ids = torch.randint(0, 512, (1, 12), generator=torch.Generator()
+                        .manual_seed(6))
+    K.reset_launch_counts()
+    before = da.batched_decode_attention.plain_calls
+    got = nct.greedy_search(m_gpu, ids, max_new_tokens=8).cpu()
+    calls = da.batched_decode_attention.plain_calls - before
+    launched = launch_counts()
+    want = nct.greedy_search(m_cpu, ids, max_new_tokens=8)
+    n += 1
+    if not (torch.equal(got, want) and calls == 0
+            and launched == expect(decode_attn=2 * 7)):
+        bad.append(f"D-80 llama B=1: card {got.tolist()} cpu "
+                   f"{want.tolist()}, {calls} plain calls, {launched}")
+    print(f"deepseek envelope: {n} cases (K14 at ragged H, pages 8/16/64, "
+          f"PMAX % 4, idle and zero-length slots, 16k-32k rows; K5/K6/K7/"
+          f"K11/K13 at D 16/80/96, K7 at D 384, K1 at G 8/16/24, K4 at K "
+          f"262144, a D-80 llama), card vs plain: "
+          f"{'all within tolerance' if not bad else bad}", flush=True)
+    if bad:
+        fail(f"the deepseek envelope: {bad}")
+
+
+# the 2-layer check: deepseek-v3's widths, layer 0 dense and layer 1 MoE,
+# 32 routed experts (4 a group: top-4 of 8 groups leaves 16 to choose 8
+# from); reduced from 61 layers and 256 experts
+DS_CHECK = dict(num_hidden_layers=2, first_k_dense_replace=1,
+                n_routed_experts=32)
+# (latent, KV format) of the 2-layer check's greedy runs
+DS_CACHE_MODES = ((False, None), (True, None), (True, "int8"),
+                  (True, "fp8_e4m3"), (True, "int4"))
+# the served model: 4 of deepseek-v3's 61 layers, its 3 dense layers and
+# one MoE layer with all 256 routed experts and the shared one
+DS_LAYERS = 4
+DS_PROMPTS, DS_NEW = (16, 371, 2000), 48
+DS_ENGINE_PROMPTS, DS_ENGINE_NEW = (16, 371, 1000, 3000), 16
+
+
+def ds_model(nct, seed, device, **cut):
+    """deepseek-v3 (cut by ``cut``) RTN asym int4 g128 W4A16 (router
+    float32, embedding and lm_head bf16), built module by module on
+    ``device``, switched to the latent cache (``use_latent_cache`` toggles
+    the caches ``init_caches`` makes; the absorbed factors stay)."""
+    from neural_compressor_tpu_torch.models import deepseek
+
+    model = deepseek.build_quantized(
+        DS_PRESET, nct.RTNConfig(dtype="int4", group_size=G, use_sym=False),
+        seed=seed, device=device, **cut)
+    nct.enable_mla_latent_cache(model)
+    return model
+
+
+def ds_kernel_projections(cfg, latent: bool) -> int:
+    """W4A16 projections that run on K8/K9 in one forward: q_a, q_b, o
+    (and kv_b, expanded only) a layer, 3 a dense MLP, 3 an expert (routed
+    and shared); kv_a_proj (N = 576, not a multiple of 128) takes
+    dequantize-then-matmul, as JAX takes XLA."""
+    L, dense = cfg.num_hidden_layers, cfg.first_k_dense_replace
+    moe = L - dense
+    return (L * (3 if latent else 4) + 3 * dense
+            + 3 * moe * (cfg.n_routed_experts + cfg.n_shared_experts))
+
+
+def ds_card_cpu_tie(torch, m_cpu, m_gpu, fmt, prefix, tok_cpu: int,
+                    tok_card: int) -> tuple:
+    """``card_cpu_tie`` over the model's own caches (``init_caches`` in
+    its mode and ``fmt``): the CPU's top-2 gap and the measured card-CPU
+    logit difference after ``prefix``."""
+    ids = torch.tensor([list(prefix)])
+    rows = []
+    for m in (m_cpu, m_gpu):
+        with torch.no_grad():
+            lg, _ = m(ids.to(m.device), None,
+                      m.init_caches(1, ids.shape[1], quantized=fmt or False),
+                      0)
+        rows.append(lg[0, -1].float().cpu())
+    cpu, card = rows
+    return float(cpu[tok_cpu] - cpu[tok_card]), float((cpu - card).abs().max())
+
+
+def phase_deepseek_model_check(torch, nct) -> None:
+    """deepseek-v3 at full width, cut to ``DS_CHECK`` (2 layers, 32 routed
+    experts), RTN asym int4 g128 W4A16, built on the card and copied to the
+    CPU: greedy at B=1 (a 32-token prefill, 8 steps) over the expanded bf16
+    caches and the latent caches in bf16, int8, fp8 and int4, card
+    (K8 prefill, K9 decode, attention in plain PyTorch as JAX runs it in
+    XLA) against CPU (plain K8 and K9), the CPU fed the card's tokens:
+    logits within 5e-2 of max|logit|, tokens equal but where the CPU's
+    top-2 gap is at most the measured difference; exact launch counts.
+    Then the engine on both, contiguous over latent bf16 caches and paged
+    over the latent pool (K14's write and attention, their launches
+    exact), tokens under the same near-tie rule."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.kernels import dequant_dot
+
+    torch.set_num_threads(8)
+    t0 = time.perf_counter()
+    m_gpu = ds_model(nct, seed=21, device="cuda", **DS_CHECK)
+    m_cpu = copy.deepcopy(m_gpu).to("cpu")
+    cfg = m_gpu.cfg
+    L = cfg.num_hidden_layers
+    print(f"deepseek check model (2 layers, 32 experts, full width) built "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    ids = torch.randint(0, cfg.vocab_size, (1, 32),
+                        generator=torch.Generator().manual_seed(22))
+    P = ids.shape[1]
+
+    @torch.no_grad()
+    def run(model, fmt, forced=None):
+        dev = model.device
+        caches = model.init_caches(1, P + 16, quantized=fmt or False)
+        cpu = dev.type == "cpu"
+        if cpu:
+            set_woq_impl(model, "pallas")
+        logits, caches = model(ids.to(dev), torch.arange(P, device=dev)[None],
+                               caches, 0)
+        if cpu:
+            set_woq_impl(model, "vpu")
+        rows, toks = [logits[0, -1].float().cpu()], []
+        for i in range(8):
+            tok = int(torch.argmax(rows[-1])) if forced is None else forced[i]
+            toks.append(tok)
+            logits, caches = model(torch.tensor([[tok]], device=dev),
+                                   torch.full((1, 1), P + i, device=dev),
+                                   caches, P + i)
+            rows.append(logits[0, -1].float().cpu())
+        if cpu:
+            set_woq_impl(model, "auto")
+        return torch.stack(rows), toks, caches
+
+    def flipped_codes(c_gpu, c_cpu) -> int:
+        """Code elements of quantized latent caches that differ between the
+        card and the CPU (0 for float caches)."""
+        n = 0
+        for a, b in zip(c_gpu, c_cpu):
+            for x, y in zip(a, b):
+                if x.dtype in (torch.int8, torch.uint8, torch.float8_e4m3fn):
+                    n += int((x.cpu().view(torch.uint8)
+                              != y.view(torch.uint8)).sum())
+        return n
+
+    with unpack_once():
+        for latent, fmt in DS_CACHE_MODES:
+            t1 = time.perf_counter()
+            m_gpu.use_latent_cache = m_cpu.use_latent_cache = latent
+            kernels.reset_launch_counts()
+            dequant_dot.calls = 0
+            lg_gpu, tok_gpu, c_gpu = run(m_gpu, fmt)
+            launched, dots = launch_counts(), dequant_dot.calls
+            lg_cpu, _, c_cpu = run(m_cpu, fmt, forced=tok_gpu)
+            flips = flipped_codes(c_gpu, c_cpu)
+            del c_gpu, c_cpu
+            diff = (lg_gpu - lg_cpu).abs().amax(dim=1)
+            err, ref = float(diff.max()), float(lg_cpu.abs().max())
+            cpu_tok = lg_cpu.argmax(dim=1).tolist()
+            card_tok = tok_gpu + [int(lg_gpu[-1].argmax())]
+            ties, parted = [], []
+            for i, (a, b) in enumerate(zip(card_tok, cpu_tok)):
+                if a != b:
+                    gap = float(lg_cpu[i, b] - lg_cpu[i, a])
+                    (ties if gap <= float(diff[i]) else parted).append(
+                        dict(step=i, card=a, cpu=b, gap=gap,
+                             diff=float(diff[i])))
+            n_k = ds_kernel_projections(cfg, latent)
+            want = expect(dequant_gemm=n_k, vpu_gemv=8 * n_k)
+            label = f"{'latent' if latent else 'expanded'} {fmt or 'bf16'}"
+            # the logits within 5e-2 of max|logit| where the card's and the
+            # CPU's cache codes agree; a code that one ulp of its row moves
+            # (an fp8 step is 2^-3 of the value, an int4 step 1/15 of the
+            # part's range, and the latent row is every head's K and V)
+            # moves logits by more, and leaves the token rule
+            close = err <= 5e-2 * ref or flips > 0
+            ok = (not parted and math.isfinite(err) and close
+                  and launched == want and dots == 9 * L)
+            print(f"deepseek check {label} (2 layers, full width): tokens "
+                  f"equal={not ties and not parted} near-ties {ties} "
+                  f"cache codes that differ card-CPU {flips} "
+                  f"max|logit diff|={err:.4e} tol={5e-2 * ref:.4e} card "
+                  f"launches { {k: v for k, v in launched.items() if v} } "
+                  f"dequantize-then-matmul {dots} "
+                  f"({time.perf_counter() - t1:.1f} s)", flush=True)
+            if not ok:
+                fail(f"deepseek check {label}: card tokens {card_tok} vs CPU "
+                     f"{cpu_tok} (parted {parted}), err {err}, launches "
+                     f"{launched} != {want} or dots {dots} != {9 * L}")
+        m_gpu.use_latent_cache = m_cpu.use_latent_cache = True
+        set_woq_impl(m_cpu, "pallas")
+        gen = torch.Generator().manual_seed(23)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+                   .numpy() for n in (40, 70, 20)]
+        new = (3, 2, 3)
+        kw = dict(n_slots=4, max_len=128, prefill_chunk=32, page_size=32)
+        for mode in ("contiguous", "paged_bf16"):
+            t1 = time.perf_counter()
+            kernels.reset_launch_counts()
+            eng, got, _s = serve_engine(torch, nct, m_gpu, mode, prompts,
+                                        new, chunk=2, **kw)
+            launched = launch_counts()
+            _e, want, _s = serve_engine(torch, nct, m_cpu, mode, prompts,
+                                        new, chunk=2, **kw)
+            toks = [r.generated for r in got]
+            ties = []
+            for p, a, b in zip(prompts, toks, [r.generated for r in want]):
+                i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                         None)
+                if i is not None:
+                    gap, diff = ds_card_cpu_tie(torch, m_cpu, m_gpu, None,
+                                                list(p) + b[:i], b[i], a[i])
+                    ties.append(dict(step=i, card=a[i], cpu=b[i], gap=gap,
+                                     diff=diff))
+                    if gap > diff:
+                        fail(f"deepseek engine {mode}: card {a} cpu {b}, the "
+                             f"CPU's top-2 gap {gap} exceeds the card-CPU "
+                             f"difference {diff}")
+            steps = 2 * eng.metrics()["decode_dispatches"]
+            k14 = L * steps if mode == "paged_bf16" else 0
+            ok = (launched["paged_latent_write"] == k14
+                  and launched["paged_latent_attn"] == k14
+                  and launched["dequant_gemm"] > 0)
+            print(f"deepseek engine check {mode} (2 layers, full width): card "
+                  f"tokens {toks} cpu tokens {[r.generated for r in want]} "
+                  f"near-ties {ties} launches "
+                  f"{ {k: v for k, v in launched.items() if v} } "
+                  f"({time.perf_counter() - t1:.1f} s)", flush=True)
+            if not ok:
+                fail(f"deepseek engine {mode}: K14 launches "
+                     f"{launched['paged_latent_write']}/"
+                     f"{launched['paged_latent_attn']} != {k14}")
+    print(f"deepseek check done in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del m_cpu, m_gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_deepseek_serve(torch, nct) -> dict:
+    """The slice's path at full width: deepseek-v3 cut to ``DS_LAYERS`` = 4
+    of its 61 layers (its 3 dense layers and one MoE layer with all 256
+    routed experts and the shared one), RTN asym-int4 g128 W4A16 (router
+    float32, embedding and lm_head bf16), random weights made on the card
+    from a seed, in latent mode. Three B=1 greedy requests over the
+    contiguous latent cache (prompts of 16, 371 and 2,000 tokens, 48 new,
+    max_len 4096: K8 prefills the 16-token prompt, the others take
+    dequantize-then-matmul, K9 decodes, attention in plain PyTorch as JAX
+    runs it in XLA); then ``ContinuousBatchingEngine(n_slots=8,
+    max_len=4096, paged=True)`` over the latent pool (pages of 128 rows,
+    the default n_pages), 16 requests (prompts of 16, 371, 1,000 and 3,000
+    tokens, 4 each, 16 new), ``run(chunk=8)``: each decode step of each
+    layer writes with K14's write and attends with K14's attention, the
+    projections on K8 (M = 8). Its tokens held against ``greedy_search``
+    (over the contiguous latent cache), equal or parted
+    where greedy's top-2 gap is at most the two paths' logit difference at
+    that step, both recorded in this run (a forward hook keeps each
+    call's logits); exact launch counts of K14's write and attention,
+    K8, K9 and the dequantize-then-matmul calls; tok/s, the pool's bytes
+    against an expanded bf16 cache of the same rows, peak memory, the
+    run's first decode dispatch with two slots decoding profiled.
+    Returns {path: launches}."""
+    import numpy as np
+
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.kernels import dequant_dot
+
+    t0 = time.perf_counter()
+    model = ds_model(nct, seed=0, device="cuda", num_hidden_layers=DS_LAYERS)
+    cfg = model.cfg
+    L, V, H = cfg.num_hidden_layers, cfg.vocab_size, cfg.num_attention_heads
+    n_k = ds_kernel_projections(cfg, True)
+    torch.cuda.synchronize()
+    print(f"{DS_PRESET} W4A16 (asym int4 g{G}, {L} of 61 layers: "
+          f"{cfg.first_k_dense_replace} dense, {L - cfg.first_k_dense_replace}"
+          f" MoE of {cfg.n_routed_experts} routed experts top-"
+          f"{cfg.num_experts_per_tok} + {cfg.n_shared_experts} shared; "
+          f"{n_k} K8/K9 projections a forward) built in "
+          f"{time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card",
+          flush=True)
+    out = {}
+    gen = torch.Generator().manual_seed(61)
+    prompts = [torch.randint(0, V, (1, P), generator=gen) for P in DS_PROMPTS]
+    nct.greedy_search(model, prompts[0], max_new_tokens=2)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    dequant_dot.calls = 0
+    outs, req_s = [], []
+    for ids in prompts:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs.append(nct.greedy_search(model, ids, max_new_tokens=DS_NEW,
+                                      max_len=DS_MAX_LEN))
+        torch.cuda.synchronize()
+        req_s.append(time.perf_counter() - t)
+    launches, dots = launch_counts(), dequant_dot.calls
+    short = sum(P <= 256 for P in DS_PROMPTS)
+    want = expect(dequant_gemm=short * n_k,
+                  vpu_gemv=len(DS_PROMPTS) * (DS_NEW - 1) * n_k)
+    want_dots = (len(DS_PROMPTS) * DS_NEW * L
+                 + (len(DS_PROMPTS) - short) * n_k)
+    print(f"deepseek B=1 kernels {json.dumps(launches)} expected "
+          f"{json.dumps(want)}; dequantize-then-matmul calls {dots} "
+          f"(expected {want_dots}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    for ids, o, s_ in zip(prompts, outs, req_s):
+        P = ids.shape[1]
+        if (tuple(o.shape) != (1, P + DS_NEW)
+                or not torch.equal(o[:, :P].cpu(), ids.to(torch.int32))
+                or int(o.min()) < 0 or int(o.max()) >= V):
+            fail(f"bad deepseek greedy output for prompt {P}: {o}")
+        print(f"deepseek request prompt={P} new={DS_NEW}: {s_ * 1e3:.1f} ms "
+              f"({DS_NEW / s_:.2f} tok/s with the prefill; first new tokens "
+              f"{o[0, P:P + 8].tolist()})", flush=True)
+    if launches != want or dots != want_dots:
+        fail(f"deepseek B=1 launch counts {launches} != {want} or dequantize-"
+             f"then-matmul calls {dots} != {want_dots}")
+    out["deepseek_greedy_b1"] = launches
+
+    # the engine over the paged latent pool, its tokens against greedy's
+    gen = torch.Generator().manual_seed(62)
+    e_prompts = [torch.randint(0, V, (DS_ENGINE_PROMPTS[i % 4],),
+                               generator=gen).numpy()
+                 for i in range(ENGINE_REQUESTS)]
+    sink = []  # each model call's logits while a hook records
+
+    def recording():
+        return model.register_forward_hook(lambda _m, _a, out: sink.append(
+            out[0] if isinstance(out, tuple) else out))
+
+    # the references: greedy_search over each prompt length's 4 prompts at
+    # once (one at a time for the 3,000-token ones, whose float64 prefill
+    # attention would not fit four at once), and the logits that chose each
+    # of their tokens
+    refs, ref_rows = [None] * len(e_prompts), [None] * len(e_prompts)
+    for P in DS_ENGINE_PROMPTS:
+        idx = [i for i, p in enumerate(e_prompts) if len(p) == P]
+        for batch in ([idx] if P <= 1000 else [[i] for i in idx]):
+            hook = recording()
+            try:
+                o = nct.greedy_search(model, torch.from_numpy(np.stack(
+                    [e_prompts[i] for i in batch])),
+                    max_new_tokens=DS_ENGINE_NEW)
+            finally:
+                hook.remove()
+            for b_, i in enumerate(batch):
+                refs[i] = o[b_, P:].tolist()
+                ref_rows[i] = torch.stack([lg[b_, -1] for lg in sink])
+            sink.clear()
+    eng = nct.ContinuousBatchingEngine(model, n_slots=SLOTS,
+                                       max_len=DS_MAX_LEN, paged=True,
+                                       page_size=PAGE)
+    chunk_rows = []
+    eng_rows = {}  # (request uid, new-token index) -> the logits that chose it
+    prefill_forward, decode_forward = eng._prefill_forward, eng._decode_forward
+
+    def observed(target, ids, rows, starts, last_idx, _f=prefill_forward):
+        """A prefill chunk: the logits of the rows that complete a prompt."""
+        chunk_rows.append(int(ids.shape[0]))
+        slot_of = {r: s_ for s_, r in eng._staging_of.items()}
+        rows_h, last_h = rows.tolist(), last_idx.tolist()
+        done_rows = []
+        for i, r in enumerate(rows_h):
+            if i and r == rows_h[0]:
+                break                      # the padding repeats row 0
+            req = eng.slot_req[slot_of[r]]
+            if req.prefill_pos + eng.prefill_chunk >= len(eng._prompt_of(req)):
+                done_rows.append((i, req.uid, len(req.generated)))
+        sink.clear()
+        out = _f(target, ids, rows, starts, last_idx)
+        for i, uid, k in done_rows:
+            eng_rows[(uid, k)] = sink[-1][i, last_h[i]].clone()
+        sink.clear()
+        return out
+
+    profiled = []
+
+    def observed_decode(k, _f=decode_forward):
+        """A decode dispatch: step j's logits chose each decoding slot's
+        token j of the dispatch. The first dispatch with two slots
+        decoding (the most this prefill-bound run reaches) runs under the
+        profiler (where the time goes; it adds the profiler's cost to the
+        run's wall). Every slot runs the step: idle ones park at the last
+        row, so K14 attends 4096 rows of the trash page for them."""
+        base = {s_: (eng.slot_req[s_].uid, len(eng.slot_req[s_].generated))
+                for s_ in range(eng.n_slots)
+                if eng.slot_state[s_] == "decode"}
+        sink.clear()
+        if not profiled and len(base) >= 2:
+            profiled.append(k)
+            holder = []
+            profile_window(torch, f"deepseek engine paged latent decode "
+                           f"dispatch, {eng.n_slots} slots ({len(base)} "
+                           f"decoding, the idle ones at 4096 trash rows) x "
+                           f"{k} steps",
+                           lambda: holder.append(_f(k)))
+            out = holder[0]
+        else:
+            out = _f(k)
+        for j, lg in enumerate(sink):
+            for s_, (uid, n0) in base.items():
+                eng_rows[(uid, n0 + j)] = lg[s_, 0].clone()
+        sink.clear()
+        return out
+
+    eng._prefill_forward = observed
+    eng._decode_forward = observed_decode
+    hook = recording()
+    reqs = [eng.submit(p, max_new_tokens=DS_ENGINE_NEW) for p in e_prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    dequant_dot.calls = 0
+    t = time.perf_counter()
+    try:
+        done = eng.run(chunk=CHUNK)
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches, dots = launch_counts(), dequant_dot.calls
+    if sorted(r.uid for r in done) != sorted(r.uid for r in reqs):
+        fail(f"deepseek engine finished {len(done)} of {len(reqs)}")
+    m = eng.metrics()
+    steps = CHUNK * m["decode_dispatches"]
+    C = eng.prefill_chunk
+    k8_chunks = sum(r * C <= 256 for r in chunk_rows)
+    want = expect(dequant_gemm=n_k * (steps + k8_chunks),
+                  paged_latent_write=L * steps, paged_latent_attn=L * steps)
+    want_dots = L * (steps + len(chunk_rows)) + n_k * (len(chunk_rows)
+                                                       - k8_chunks)
+    C_lat = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    expanded = (eng.n_pages * PAGE * L * H
+                * (cfg.qk_head_dim + cfg.v_head_dim) * 2)
+    counters = {k: m[k] for k in (
+        "requests", "prompt_tokens", "generated_tokens",
+        "prefill_chunk_dispatches", "decode_dispatches",
+        "combined_dispatches", "preemptions")}
+    print(f"deepseek engine paged latent ({eng.n_pages} pages of {PAGE} rows "
+          f"of {C_lat} bf16, {m['kv_cache_format']}): {len(reqs)} requests "
+          f"in {seconds:.3f} s, generated {m['generated_tok_s']:.2f} tok/s "
+          f"(metrics wall {m['wall_s']:.3f} s), {json.dumps(counters)}, "
+          f"prefill chunk rows {chunk_rows} (chunk {C}), pool "
+          f"{m['kv_cache_bytes'] / 2**20:.1f} MiB against "
+          f"{expanded / 2**20:.1f} MiB for the same rows as expanded bf16 "
+          f"K/V ({expanded / m['kv_cache_bytes']:.1f}x: "
+          f"{H * (cfg.qk_head_dim + cfg.v_head_dim)} against {C_lat} values "
+          f"a token), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"deepseek engine kernels {json.dumps(launches)} expected "
+          f"{json.dumps(want)}; dequantize-then-matmul calls {dots} "
+          f"(expected {want_dots})", flush=True)
+    if launches != want or dots != want_dots:
+        fail(f"deepseek engine: launch counts {launches} != {want} or "
+             f"dequantize-then-matmul calls {dots} != {want_dots}")
+    parted = []
+    for p, r, ref, rows in zip(e_prompts, reqs, refs, ref_rows):
+        got = r.generated
+        if len(got) != DS_ENGINE_NEW or not all(
+                math.isfinite(x) for x in r.logprobs):
+            fail(f"deepseek engine: bad output {got}")
+        i = next((i for i, (a, b) in enumerate(zip(ref, got)) if a != b),
+                 None)
+        if i is None:
+            continue
+        # greedy's top-2 gap and the two paths' logit difference, each row
+        # the logits that chose new token i
+        a, b = rows[i].float(), eng_rows[(r.uid, i)].float()
+        gap = float(a[ref[i]] - a[got[i]])
+        diff = float((a - b).abs().max())
+        parted.append(dict(prompt=len(p), step=i, greedy=ref[i],
+                           engine=got[i], gap=gap, diff=diff))
+        if gap > diff:
+            fail(f"deepseek engine: parts from greedy at new token {i} of a "
+                 f"{len(p)}-token prompt where greedy's top-2 gap {gap} "
+                 f"exceeds the paths' difference {diff}")
+    print(f"deepseek engine: {ENGINE_REQUESTS - len(parted)} of "
+          f"{ENGINE_REQUESTS} requests equal to greedy_search; partings "
+          f"{parted}", flush=True)
+    out["deepseek_engine_paged_latent"] = launches
+    if not profiled:
+        fail("deepseek engine: no decode dispatch with two slots decoding "
+             "to profile")
+    del eng, observed, observed_decode, prefill_forward, decode_forward
+    del eng_rows, ref_rows, model
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3829,20 +4698,30 @@ def main() -> None:
               "gemma_kernels": lambda: phase_gemma_kernels(torch, nct, peaks),
               "gemma_envelope": lambda: phase_gemma_envelope(torch, nct),
               "gemma_model_check": lambda: phase_gemma_model_check(torch,
-                                                                   nct)}
+                                                                   nct),
+              "deepseek_kernels": lambda: phase_deepseek_kernels(torch, nct,
+                                                                 peaks),
+              "deepseek_envelope": lambda: phase_deepseek_envelope(torch,
+                                                                   nct),
+              "deepseek_model_check": lambda: phase_deepseek_model_check(
+                  torch, nct)}
+    # the serving phases a development run may name as well
+    serves = {"deepseek_serve": lambda: phase_deepseek_serve(torch, nct)}
     if len(sys.argv) > 1:
         # a development run: only the named checks, no serving, no result
-        unknown = [a for a in sys.argv[1:] if a not in checks]
+        unknown = [a for a in sys.argv[1:] if a not in {**checks, **serves}]
         if unknown:
-            fail(f"unknown checks {unknown}; choose from {sorted(checks)}")
+            fail(f"unknown checks {unknown}; choose from "
+                 f"{sorted({**checks, **serves})}")
         for a in sys.argv[1:]:
-            checks[a]()
+            timed_phase(a, {**checks, **serves}[a])
         print(f"checks {sys.argv[1:]} passed", flush=True)
         return
     results = {k: timed_phase(k, fn) for k, fn in checks.items()}
     rows, erows = results["kernels"], results["engine_kernels"]
     wrows, kvrows = results["woq_kernels"], results["kv_kernels"]
     srows, grows = results["spec_kernels"], results["gemma_kernels"]
+    drows = results["deepseek_kernels"]
     launches, model, prompts = timed_phase(
         "serve", lambda: phase_serve(torch, nct))
     timed_phase("profile", lambda: phase_profile(torch, model, prompts[1]))
@@ -3871,6 +4750,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     by_path.update(timed_phase("gemma_serve",
                                lambda: phase_gemma_serve(torch, nct)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(timed_phase("deepseek_serve", serves["deepseek_serve"]))
     print(f"all phases done in {time.perf_counter() - T_START:.1f} s",
           flush=True)
     print(f"launches by main path: {json.dumps(by_path)}", flush=True)
@@ -3922,6 +4804,10 @@ def main() -> None:
                    lambda rs: [(r, 21) for r in rs], bytes_)
     gemma_u["max_abs_err"] = max(r["err"] for r in grows)
     k7q_u = kv_unit("k7q", lambda r: r["fmt"] == "int8")
+    ds_layers = lambda rs: [(r, 61) for r in rs]  # noqa: E731
+    k14w_u = unit([drows["write"]], ds_layers, bytes_)
+    k14a_u = unit([drows["attn"]], ds_layers,
+                  lambda rs: rs[0]["bound_by"])
     entries = [
         ("w4a8_gemm", "neural_compressor_tpu_torch/csrc/w4a8_gemm.cu",
          "neural_compressor_tpu/kernels/w4a8_matmul.py:88 (_w4a8_impl, K1); "
@@ -3988,6 +4874,14 @@ def main() -> None:
          "neural_compressor_tpu/kernels/paged_attention.py:489 "
          "(_paged_attn_impl_v2, K11, the window and softcap branches of "
          "_paged_kernel_v2, :302-305, :352-355)", gemma_u),
+        ("paged_latent_write",
+         "neural_compressor_tpu_torch/csrc/paged_latent.cu",
+         "neural_compressor_tpu/kernels/paged_attention.py:1051 "
+         "(_paged_latent_write_impl, K14's write)", k14w_u),
+        ("paged_latent_attn",
+         "neural_compressor_tpu_torch/csrc/paged_latent.cu",
+         "neural_compressor_tpu/kernels/paged_attention.py:1187 "
+         "(_paged_latent_attn_impl, K14's attention)", k14a_u),
     ]
     print(smi, flush=True)
     print("unit of the kernels line: w4a8_gemm = one 128-token prefill "
@@ -4022,7 +4916,12 @@ def main() -> None:
           "band and the softcap, 21 with the softcap alone (the library "
           "yardstick SDPA with the band mask and no softcap; every format "
           "in the log), its launches summed over the gemma paths (B=1 "
-          "greedy, the engine over paged bf16 and int8 pools)",
+          "greedy, the engine over paged bf16 and int8 pools); "
+          "paged_latent_write and paged_latent_attn = one 8-slot "
+          f"{DS_PRESET} decode step (lengths {DS_LENGTHS}, H 128, C 576, "
+          "r 512, pages of 128 rows) over the latent pool, 61 layers (the "
+          "write's yardstick an index_put_, the attention's SDPA over the "
+          "gathered rows), their launches from the deepseek engine path",
           flush=True)
     kernels_line = {"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,

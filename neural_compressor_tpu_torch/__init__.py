@@ -1,7 +1,8 @@
 """neural_compressor_tpu_torch — the PyTorch/CUDA port of
 ``neural_compressor_tpu``.
 
-It serves RTN-quantized Llama and Gemma (gemma-1/2/3 text) models with
+It serves RTN-quantized Llama, Gemma (gemma-1/2/3 text) and DeepSeek-V3
+(MLA with a latent cache, routed MoE) models with
 greedy decoding (plain, or speculative for Llama: draft-verify or prompt
 lookup) through
 hand-written Hopper kernels (``kernels/``, sources in ``csrc/``): build or
@@ -26,9 +27,11 @@ from .common import logger, set_log_level, options
 from .quantization import (KVCacheQuantConfig, RTNConfig,
                            enable_fused_decode, fuse_for_serving, quantize,
                            to_w4a8_serving)
-from .models import (GEMMA_PRESETS, LLAMA_PRESETS, GemmaConfig,
+from .models import (DEEPSEEK_PRESETS, GEMMA_PRESETS, LLAMA_PRESETS,
+                     DeepseekConfig, DeepseekForCausalLM, GemmaConfig,
                      GemmaForCausalLM, LlamaConfig, LlamaForCausalLM,
-                     build_quantized, from_jax_params)
+                     build_quantized, enable_mla_latent_cache,
+                     from_jax_params)
 from .generation import (generate, greedy_search,
                          ngram_speculative_greedy_search,
                          speculative_greedy_search)

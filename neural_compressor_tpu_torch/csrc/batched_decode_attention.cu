@@ -27,10 +27,16 @@
 //   rows of a KV head split into ng = ceil(rep / 8) groups of at most
 //   MAX_REP = 8 rows, as even as they go, along grid z, so the o[8][DPL]
 //   accumulators a thread holds do not grow with rep; a group's rows share
-//   every K and V row it reads. The block visits only rows t <= min(pos[b], T-1). Warps take
-//   rows round-robin and lanes split D, so each warp reads a whole row
-//   coalesced. Sums run in float64 over exact products (bf16 x bf16, int8
-//   or e4m3) and are rounded once, so their order almost never shows: the
+//   every K and V row it reads. The block visits only rows
+//   t <= min(pos[b], T-1). Warps take rows round-robin and lanes split D,
+//   so each warp reads a whole row coalesced: a lane holds DPL =
+//   ceil(D / 32) elements (DPL 1-8, 12 and 16: any D up to 256, and 384 and
+//   512 as JAX's K7 runs them), the tail past D masked and loaded by
+//   scalars (the widths 32 * DPL of DPL 1, 2, 4, 8, 12 and 16 have a
+//   copy with D a compile-time constant, nctt::full_width); at D 512 a
+//   group holds at most 6 rows, so that its cross-warp partials fit a
+//   block's shared memory. Sums run in float64 over exact products (bf16 x
+//   bf16, int8 or e4m3) and are rounded once, so their order almost never shows: the
 //   kernel and its plain version (kernels/decode_attention.py) agree bit
 //   for bit. The TPU kernel chunks T with an online softmax; one pass over
 //   the visited rows gives its result where one chunk covers them. The
@@ -46,7 +52,7 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_REP = 8;
 
-template <int DPL, typename C>
+template <int DPL, bool FULL, typename C>
 __global__ void __launch_bounds__(THREADS)
 batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                                 const C* __restrict__ kc,
@@ -56,8 +62,8 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                                 const int* __restrict__ pos,
                                 __nv_bfloat16* __restrict__ out,
                                 float* __restrict__ ws, int H, int Hkv, int T,
-                                float scale) {
-  constexpr int D = DPL * 32;
+                                int D_, float scale) {
+  const int D = FULL ? DPL * 32 : D_;
   constexpr bool QUANT = !std::is_same<C, __nv_bfloat16>::value;
   extern __shared__ __align__(16) double smem[];
   const int rep = H / Hkv;
@@ -88,14 +94,15 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   // pass 1: scores
   for (int t = warp; t < L; t += WARPS) {
     float kv[DPL];
-    nctt::load_row<DPL>(kh + (size_t)t * D + lane * DPL, kv);
+    nctt::load_lane<DPL>(kh + (size_t)t * D, lane, D, kv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= G) break;
       double d = 0.0;
 #pragma unroll
       for (int e = 0; e < DPL; ++e)
-        d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
+        if (FULL || lane * DPL + e < D)
+          d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
       d = nctt::warp_sum(d);
       if (lane == 0) {
         float s = (float)d;
@@ -134,7 +141,7 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < DPL; ++e) o[r][e] = 0.0;
   for (int t = warp; t < L; t += WARPS) {
     float vv[DPL];
-    nctt::load_row<DPL>(vh + (size_t)t * D + lane * DPL, vv);
+    nctt::load_lane<DPL>(vh + (size_t)t * D, lane, D, vv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= G) break;
@@ -148,7 +155,8 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     if (r >= G) break;
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
-      sred[(warp * G + r) * D + lane * DPL + e] = o[r][e];
+      if (FULL || lane * DPL + e < D)
+        sred[(warp * G + r) * D + lane * DPL + e] = o[r][e];
   }
   __syncthreads();
   __nv_bfloat16* oh = out + q0 * D;
@@ -160,26 +168,31 @@ batched_decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DPL, typename C>
+template <int DPL, bool FULL, typename C>
 int launch(const void* q, const void* k, const void* v, const void* ks,
            const void* vs, const void* pos, void* out, void* ws, int B, int H,
-           int Hkv, int T, float scale, cudaStream_t stream) {
-  const int D = DPL * 32, rep = H / Hkv;
-  const int ng = (rep + MAX_REP - 1) / MAX_REP;       // groups of rows
+           int Hkv, int T, int D, float scale, cudaStream_t stream) {
+  const int rep = H / Hkv;
+  // rows of a group: at most MAX_REP, fewer where a group's shared memory
+  // would pass a block's 227 KiB (D 512: 6 rows)
+  const size_t per_row = sizeof(double) * ((size_t)WARPS * D + 1) +
+      sizeof(float) * (size_t)D;
+  const int fit = (int)((227 * 1024) / per_row);
+  const int gmax = fit < MAX_REP ? fit : MAX_REP;
+  const int ng = (rep + gmax - 1) / gmax;             // groups of rows
   const int gs = (rep + ng - 1) / ng;
-  const size_t smem = sizeof(double) * ((size_t)WARPS * gs * D + gs) +
-      sizeof(float) * (size_t)gs * D;
+  const size_t smem = per_row * gs;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        batched_decode_attention_kernel<DPL, C>,
+        batched_decode_attention_kernel<DPL, FULL, C>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  batched_decode_attention_kernel<DPL, C><<<dim3(Hkv, B, ng), THREADS, smem,
+  batched_decode_attention_kernel<DPL, FULL, C><<<dim3(Hkv, B, ng), THREADS, smem,
                                             stream>>>(
       (const __nv_bfloat16*)q, (const C*)k, (const C*)v, (const float*)ks,
       (const float*)vs, (const int*)pos, (__nv_bfloat16*)out, (float*)ws, H,
-      Hkv, T, scale);
+      Hkv, T, D, scale);
   return (int)cudaGetLastError();
 }
 
@@ -187,15 +200,21 @@ template <typename C>
 int dispatch(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* pos, void* out, void* ws, int B,
              int H, int Hkv, int T, int D, float scale, cudaStream_t s) {
-  switch (D) {
-    case 32: return launch<1, C>(q, k, v, ks, vs, pos, out, ws, B, H, Hkv, T,
-                                 scale, s);
-    case 64: return launch<2, C>(q, k, v, ks, vs, pos, out, ws, B, H, Hkv, T,
-                                 scale, s);
-    case 128: return launch<4, C>(q, k, v, ks, vs, pos, out, ws, B, H, Hkv,
-                                  T, scale, s);
-    case 256: return launch<8, C>(q, k, v, ks, vs, pos, out, ws, B, H, Hkv,
-                                  T, scale, s);
+#define NCTT_K7(DPL_)                                                      \
+  case DPL_:                                                               \
+    return D == 32 * DPL_ && nctt::full_width(DPL_)                        \
+               ? launch<DPL_, nctt::full_width(DPL_), C>(                   \
+                     q, k, v, ks, vs, pos, out, ws, B, H, Hkv, T, D, scale, \
+                     s)                                                    \
+               : launch<DPL_, false, C>(q, k, v, ks, vs, pos, out, ws, B,   \
+                                        H, Hkv, T, D, scale, s);
+  // DPL = ceil(D / 32): any D up to 256, and 384 and 512 (JAX's K7
+  // dispatch runs D % 128 == 0)
+  switch (D >= 1 ? (D + 31) / 32 : 0) {
+    NCTT_K7(1) NCTT_K7(2) NCTT_K7(3) NCTT_K7(4)
+    NCTT_K7(5) NCTT_K7(6) NCTT_K7(7) NCTT_K7(8)
+    NCTT_K7(12) NCTT_K7(16)
+#undef NCTT_K7
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -205,7 +224,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
 // q bf16 [B, H, D]; caches [B, Hkv, T, D] holding each slot's row pos[b]:
 // bf16 (code 0; ks/vs null), int8 (code 1) or e4m3 (code 2) with scales
 // f32 [B, Hkv, T]; pos int32 [B]; out bf16 [B, H, D]; ws f32 [B, H, T]
-// scratch for the score rows. D in {32, 64, 128, 256}; H % Hkv == 0.
+// scratch for the score rows. 1 <= D <= 256, or D = 352..384 or
+// 480..512 (DPL 12 and 16); H % Hkv == 0.
 NCTT_API int nctt_batched_decode_attention(const void* q, const void* k,
                                            const void* v, const void* ks,
                                            const void* vs, const void* pos,

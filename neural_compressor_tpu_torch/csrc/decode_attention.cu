@@ -31,7 +31,10 @@
 //   group's rows share every K and V row it reads (rep <= 8: one group).
 //   The block visits only rows t <= pos (the -1e30 mask makes the others
 //   contribute exactly 0). Warps take rows round-robin and
-//   lanes split D, so each warp reads a whole row coalesced. Sums run in
+//   lanes split D, so each warp reads a whole row coalesced: a lane holds
+//   DPL = ceil(D / 32) elements (DPL 1-8, any D up to 256), the tail past
+//   D masked and loaded by scalars (the widths 32, 64, 128 and 256 have a
+//   copy with D a compile-time constant, nctt::full_width). Sums run in
 //   float64 over exact products and are rounded once, so their order
 //   almost never shows: the kernel and its plain version
 //   (kernels/decode_attention.py) agree bit for bit, and an int8
@@ -51,15 +54,15 @@ constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_REP = 8;
 
-template <int DPL>
+template <int DPL, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ kc,
                         const __nv_bfloat16* __restrict__ vc,
                         __nv_bfloat16* __restrict__ out,
                         float* __restrict__ ws, int H, int Hkv, int T,
-                        int pos, float scale) {
-  constexpr int D = DPL * 32;
+                        int D_, int pos, float scale) {
+  const int D = FULL ? DPL * 32 : D_;
   extern __shared__ __align__(16) double smem[];
   const int rep = H / Hkv;
   const int L = pos + 1;                              // visited rows
@@ -85,14 +88,15 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   // pass 1: scores
   for (int t = warp; t < L; t += WARPS) {
     float kv[DPL];
-    nctt::load_row<DPL>(kh + (size_t)t * D + lane * DPL, kv);
+    nctt::load_lane<DPL>(kh + (size_t)t * D, lane, D, kv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= G) break;
       double d = 0.0;
 #pragma unroll
       for (int e = 0; e < DPL; ++e)
-        d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
+        if (FULL || lane * DPL + e < D)
+          d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
       d = nctt::warp_sum(d);
       if (lane == 0) sp[r * T + t] = (float)d * scale;
     }
@@ -123,7 +127,7 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < DPL; ++e) o[r][e] = 0.0;
   for (int t = warp; t < L; t += WARPS) {
     float vv[DPL];
-    nctt::load_row<DPL>(vh + (size_t)t * D + lane * DPL, vv);
+    nctt::load_lane<DPL>(vh + (size_t)t * D, lane, D, vv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= G) break;
@@ -137,7 +141,8 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
     if (r >= G) break;
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
-      sred[(warp * G + r) * D + lane * DPL + e] = o[r][e];
+      if (FULL || lane * DPL + e < D)
+        sred[(warp * G + r) * D + lane * DPL + e] = o[r][e];
   }
   __syncthreads();
   __nv_bfloat16* oh = out + q0 * D;
@@ -149,31 +154,31 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DPL>
+template <int DPL, bool FULL>
 int launch(const void* q, const void* k, const void* v, void* out, void* ws,
-           int B, int H, int Hkv, int T, int pos, float scale,
+           int B, int H, int Hkv, int T, int D, int pos, float scale,
            cudaStream_t stream) {
-  const int D = DPL * 32, rep = H / Hkv;
+  const int rep = H / Hkv;
   const int ng = (rep + MAX_REP - 1) / MAX_REP;       // groups of rows
   const int gs = (rep + ng - 1) / ng;
   const size_t smem = sizeof(double) * (size_t)WARPS * gs * D +
       sizeof(float) * (size_t)gs * D;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_kernel<DPL>,
+        decode_attention_kernel<DPL, FULL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_attention_kernel<DPL><<<dim3(Hkv, B, ng), THREADS, smem,
+  decode_attention_kernel<DPL, FULL><<<dim3(Hkv, B, ng), THREADS, smem,
                                  stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (float*)ws, H, Hkv, T,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (float*)ws, H, Hkv, T, D,
       pos, scale);
   return (int)cudaGetLastError();
 }
 
 // K6: the same walk over int8 / e4m3 codes (C), the raw new row at pos
-template <int DPL, typename C>
+template <int DPL, bool FULL, typename C>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ kn,
@@ -184,8 +189,9 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
                               const float* __restrict__ vs,
                               __nv_bfloat16* __restrict__ out,
                               float* __restrict__ ws, int H, int Hkv, int T,
-                              const int* __restrict__ pos_b, float scale) {
-  constexpr int D = DPL * 32;
+                              int D_, const int* __restrict__ pos_b,
+                              float scale) {
+  const int D = FULL ? DPL * 32 : D_;
   extern __shared__ __align__(16) double smem[];
   const int rep = H / Hkv;
   const int hk = blockIdx.x, b = blockIdx.y;
@@ -218,9 +224,9 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = warp; t < L; t += WARPS) {
     float kv[DPL];
     if (t == pos)
-      nctt::load_row<DPL>(knh + lane * DPL, kv);
+      nctt::load_lane<DPL>(knh, lane, D, kv);
     else
-      nctt::load_row<DPL>(kh + (size_t)t * D + lane * DPL, kv);
+      nctt::load_lane<DPL>(kh + (size_t)t * D, lane, D, kv);
     const float ksc = (t == pos ? 1.0f : ksh[t]) * scale;
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
@@ -228,7 +234,8 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
       double d = 0.0;
 #pragma unroll
       for (int e = 0; e < DPL; ++e)
-        d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
+        if (FULL || lane * DPL + e < D)
+          d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
       d = nctt::warp_sum(d);
       if (lane == 0) sp[r * T + t] = (float)d * ksc;
     }
@@ -261,9 +268,9 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = warp; t < L; t += WARPS) {
     float vv[DPL];
     if (t == pos)
-      nctt::load_row<DPL>(vnh + lane * DPL, vv);
+      nctt::load_lane<DPL>(vnh, lane, D, vv);
     else
-      nctt::load_row<DPL>(vh + (size_t)t * D + lane * DPL, vv);
+      nctt::load_lane<DPL>(vh + (size_t)t * D, lane, D, vv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= G) break;
@@ -277,7 +284,8 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
     if (r >= G) break;
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
-      sred[(warp * G + r) * D + lane * DPL + e] = o[r][e];
+      if (FULL || lane * DPL + e < D)
+        sred[(warp * G + r) * D + lane * DPL + e] = o[r][e];
   }
   __syncthreads();
   __nv_bfloat16* oh = out + q0 * D;
@@ -289,27 +297,28 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DPL, typename C>
+template <int DPL, bool FULL, typename C>
 int launch_quant(const void* q, const void* kn, const void* vn,
                  const void* kc, const void* ks, const void* vc,
                  const void* vs, void* out, void* ws, int B, int H, int Hkv,
-                 int T, const int* pos, float scale, cudaStream_t stream) {
-  const int D = DPL * 32, rep = H / Hkv;
+                 int T, int D, const int* pos, float scale,
+                 cudaStream_t stream) {
+  const int rep = H / Hkv;
   const int ng = (rep + MAX_REP - 1) / MAX_REP;       // groups of rows
   const int gs = (rep + ng - 1) / ng;
   const size_t smem = sizeof(double) * (size_t)WARPS * gs * D +
       sizeof(float) * (size_t)gs * D;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_quant_kernel<DPL, C>,
+        decode_attention_quant_kernel<DPL, FULL, C>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_attention_quant_kernel<DPL, C><<<dim3(Hkv, B, ng), THREADS, smem,
+  decode_attention_quant_kernel<DPL, FULL, C><<<dim3(Hkv, B, ng), THREADS, smem,
                                           stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
       (const __nv_bfloat16*)vn, (const C*)kc, (const float*)ks, (const C*)vc,
-      (const float*)vs, (__nv_bfloat16*)out, (float*)ws, H, Hkv, T, pos,
+      (const float*)vs, (__nv_bfloat16*)out, (float*)ws, H, Hkv, T, D, pos,
       scale);
   return (int)cudaGetLastError();
 }
@@ -320,15 +329,19 @@ int dispatch_quant(const void* q, const void* kn, const void* vn,
                    const void* vs, void* out, void* ws, int B, int H,
                    int Hkv, int T, int D, const int* pos, float scale,
                    cudaStream_t s) {
-  switch (D) {
-    case 32: return launch_quant<1, C>(q, kn, vn, kc, ks, vc, vs, out, ws, B,
-                                       H, Hkv, T, pos, scale, s);
-    case 64: return launch_quant<2, C>(q, kn, vn, kc, ks, vc, vs, out, ws, B,
-                                       H, Hkv, T, pos, scale, s);
-    case 128: return launch_quant<4, C>(q, kn, vn, kc, ks, vc, vs, out, ws,
-                                        B, H, Hkv, T, pos, scale, s);
-    case 256: return launch_quant<8, C>(q, kn, vn, kc, ks, vc, vs, out, ws,
-                                        B, H, Hkv, T, pos, scale, s);
+#define NCTT_K6(DPL_)                                                    \
+  case DPL_:                                                             \
+    return D == 32 * DPL_ && nctt::full_width(DPL_)                      \
+               ? launch_quant<DPL_, nctt::full_width(DPL_), C>(           \
+                     q, kn, vn, kc, ks, vc, vs, out, ws, B, H, Hkv, T, D, \
+                     pos, scale, s)                                      \
+               : launch_quant<DPL_, false, C>(q, kn, vn, kc, ks, vc, vs,  \
+                                              out, ws, B, H, Hkv, T, D,   \
+                                              pos, scale, s);
+  switch (D >= 1 ? (D + 31) / 32 : 0) {
+    NCTT_K6(1) NCTT_K6(2) NCTT_K6(3) NCTT_K6(4)
+    NCTT_K6(5) NCTT_K6(6) NCTT_K6(7) NCTT_K6(8)
+#undef NCTT_K6
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -337,19 +350,24 @@ int dispatch_quant(const void* q, const void* kn, const void* vn,
 
 // q bf16 [B, H, D]; caches bf16 [B, Hkv, T, D] holding row `pos`;
 // out bf16 [B, H, D]; ws f32 [B, H, T] scratch for the score rows.
-// D in {32, 64, 128, 256}; H % Hkv == 0.
+// 1 <= D <= 256; H % Hkv == 0.
 NCTT_API int nctt_decode_attention(const void* q, const void* k,
                                    const void* v, void* out, void* ws, int B,
                                    int H, int Hkv, int T, int D, int pos,
                                    float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 32: return launch<1>(q, k, v, out, ws, B, H, Hkv, T, pos, scale, s);
-    case 64: return launch<2>(q, k, v, out, ws, B, H, Hkv, T, pos, scale, s);
-    case 128: return launch<4>(q, k, v, out, ws, B, H, Hkv, T, pos, scale,
-                               s);
-    case 256: return launch<8>(q, k, v, out, ws, B, H, Hkv, T, pos, scale,
-                               s);
+#define NCTT_K5(DPL_)                                                   \
+  case DPL_:                                                            \
+    return D == 32 * DPL_ && nctt::full_width(DPL_)                     \
+               ? launch<DPL_, nctt::full_width(DPL_)>(q, k, v, out, ws, B, \
+                                                      H, Hkv, T, D, pos,   \
+                                                      scale, s)            \
+               : launch<DPL_, false>(q, k, v, out, ws, B, H, Hkv, T, D,  \
+                                     pos, scale, s);
+  switch (D >= 1 ? (D + 31) / 32 : 0) {
+    NCTT_K5(1) NCTT_K5(2) NCTT_K5(3) NCTT_K5(4)
+    NCTT_K5(5) NCTT_K5(6) NCTT_K5(7) NCTT_K5(8)
+#undef NCTT_K5
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -358,7 +376,7 @@ NCTT_API int nctt_decode_attention(const void* q, const void* k,
 // in at pos[b]); codes int8 (fp8 = 0) or e4m3 (fp8 = 1) [B, Hkv, T, D];
 // scales f32 [B, Hkv, T]; pos int32 [B] on the device (pos >= T: all T
 // code rows, no raw row); out bf16 [B, H, D]; ws f32 [B, H, T] scratch
-// for the score rows. D in {32, 64, 128, 256}; H % Hkv == 0.
+// for the score rows. 1 <= D <= 256; H % Hkv == 0.
 NCTT_API int nctt_decode_attention_quant(const void* q, const void* kn,
                                          const void* vn, const void* kc,
                                          const void* ks, const void* vc,

@@ -119,4 +119,33 @@ __device__ __forceinline__ void load_row(const C* p, float (&out)[DPL]) {
   }
 }
 
+// Widths DPL whose lanes tile a D = 32*DPL row by whole vectors: the
+// attention kernels keep a copy for them with D a compile-time constant
+// (the indexing folds and the tail guards vanish), and a ragged copy with D
+// at run time for every other width.
+constexpr bool full_width(int dpl) {
+  return dpl == 1 || dpl == 2 || dpl == 4 || dpl == 8 || dpl == 12 ||
+         dpl == 16;
+}
+
+// A lane's DPL elements lane*DPL .. lane*DPL + DPL - 1 of a D-wide row
+// (D <= 32*DPL) as float, zero past D. Where the lanes tile the row exactly
+// and DPL is 1 or even, by load_row's vectors; otherwise (a masked tail,
+// or an odd DPL, whose lane offsets are not 4-byte aligned for bf16x2) by
+// scalar loads.
+template <int DPL, typename C>
+__device__ __forceinline__ void load_lane(const C* row, int lane, int D,
+                                          float (&out)[DPL]) {
+  const int i0 = lane * DPL;
+  if constexpr (DPL == 1 || DPL % 2 == 0) {
+    if (D == 32 * DPL) {
+      load_row<DPL>(row + i0, out);
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < DPL; ++e)
+    out[e] = i0 + e < D ? to_float(row[i0 + e]) : 0.0f;
+}
+
 }  // namespace nctt

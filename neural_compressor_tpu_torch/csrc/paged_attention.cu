@@ -43,8 +43,11 @@
 //   table from its rows' lowest band start (0 without a window; a band
 //   slot starts its key loop at max(0, q_pos - window + 1), so its reads
 //   do not grow with the context) up to its longest row: warps take keys
-//   round-robin, lanes split D (an int4 lane loads its DPL bytes of the
-//   token's byte row and keeps one nibble of each), and a row skips the
+//   round-robin, lanes split D (DPL = ceil(D / 32) elements a lane, 1-8:
+//   any D up to 256, the tail past D masked and loaded by scalars, with a
+//   compile-time-D copy for 32, 64, 128 and 256, nctt::full_width; an int4
+//   lane loads its DPL bytes of the token's byte row and keeps one nibble
+//   of each), and a row skips the
 //   keys outside its own band and causal limit. The score
 //   rows live in a float32 workspace in device memory
 //   ([B, Hkv, ng * gs, PMAX*page], allocated by the wrapper; they
@@ -79,27 +82,34 @@ template <> struct Code<FP8> { using T = nctt::fp8e4m3; };
 template <> struct Code<INT4> { using T = uint8_t; };
 
 // lane's DPL elements of row r of pool page `pid` (head hk) as float
+// (elements lane*DPL + e; zero past D)
 template <int DPL, int FMT>
 __device__ __forceinline__ void load_page_row(const void* pages, int pid,
                                               int hk, int Hkv, int page,
-                                              int r, int lane,
+                                              int r, int lane, int D,
                                               float (&out)[DPL]) {
-  constexpr int D = DPL * 32;
   using C = typename Code<FMT>::T;
   if constexpr (FMT == INT4) {
     const int half = page >> 1;
     const size_t brow = ((size_t)pid * Hkv + hk) * half + r % half;
+    const uint8_t* p = reinterpret_cast<const uint8_t*>(pages) + brow * D +
+        lane * DPL;
     uint8_t b[DPL];
-    nctt::load_bytes<DPL>(reinterpret_cast<const uint8_t*>(pages) +
-                              brow * D + lane * DPL, b);
+    if (D == 32 * DPL) {
+      nctt::load_bytes<DPL>(p, b);
+    } else {  // a masked tail: scalar loads
+#pragma unroll
+      for (int e = 0; e < DPL; ++e)
+        b[e] = lane * DPL + e < D ? p[e] : (uint8_t)0x88;  // code 0
+    }
     const bool hi = r >= half;
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
       out[e] = (float)((int)(hi ? b[e] >> 4 : b[e] & 15) - 8);
   } else {
     const size_t row = ((size_t)pid * Hkv + hk) * page + r;
-    nctt::load_row<DPL>(reinterpret_cast<const C*>(pages) + row * D +
-                            lane * DPL, out);
+    nctt::load_lane<DPL>(reinterpret_cast<const C*>(pages) + row * D, lane,
+                         D, out);
   }
 }
 
@@ -121,7 +131,7 @@ __device__ __forceinline__ int row_lo(int n, int W, int rep, int i,
   return lo < 0 ? 0 : lo;
 }
 
-template <int DPL, int FMT>
+template <int DPL, bool FULL, int FMT>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const void* __restrict__ kp,
@@ -134,9 +144,9 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ lengths,
                        __nv_bfloat16* __restrict__ out,
                        float* __restrict__ ws, int H, int Hkv, int W,
-                       int page, int PMAX, float scale, int window,
+                       int page, int PMAX, int D_, float scale, int window,
                        float cap, float inv_cap) {
-  constexpr int D = DPL * 32;
+  const int D = FULL ? DPL * 32 : D_;
   constexpr bool QUANT = FMT != BF16;
   constexpr bool AFFINE = FMT == INT4;
   extern __shared__ __align__(16) double smem[];
@@ -195,7 +205,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     const int pid = btb[t / page], rr = t % page;
     const size_t sidx = ((size_t)pid * Hkv + hk) * page + rr;
     float kv[DPL];
-    load_page_row<DPL, FMT>(kp, pid, hk, Hkv, page, rr, lane, kv);
+    load_page_row<DPL, FMT>(kp, pid, hk, Hkv, page, rr, lane, D, kv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= G) break;
@@ -205,7 +215,8 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
       double d = 0.0;
 #pragma unroll
       for (int e = 0; e < DPL; ++e)
-        d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
+        if (FULL || lane * DPL + e < D)
+          d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
       d = nctt::warp_sum(d);
       if (lane == 0) {
         float s = (float)d;
@@ -262,7 +273,7 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = tlo + warp; t < Lmax; t += WARPS) {
     float vv[DPL];
     load_page_row<DPL, FMT>(vp, btb[t / page], hk, Hkv, page, t % page,
-                            lane, vv);
+                            lane, D, vv);
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= G) break;
@@ -279,7 +290,8 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
     if (r >= G) break;
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
-      sred[(warp * gs + r) * D + lane * DPL + e] = o[r][e];
+      if (FULL || lane * DPL + e < D)
+        sred[(warp * gs + r) * D + lane * DPL + e] = o[r][e];
   }
   __syncthreads();
   for (int i = tid; i < G * D; i += THREADS) {
@@ -294,29 +306,29 @@ paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DPL, int FMT>
+template <int DPL, bool FULL, int FMT>
 int launch(const void* q, const void* kp, const void* ks, const void* ko,
            const void* vp, const void* vs, const void* vo, const void* bt,
            const void* lengths, void* out, void* ws, int B, int H, int Hkv,
-           int W, int page, int PMAX, float scale, int window, float cap,
-           float inv_cap, cudaStream_t stream) {
-  const int D = DPL * 32, rows = W * (H / Hkv);
+           int W, int page, int PMAX, int D, float scale, int window,
+           float cap, float inv_cap, cudaStream_t stream) {
+  const int rows = W * (H / Hkv);
   const int ng = (rows + MAX_REP - 1) / MAX_REP;      // groups of rows
   const int gs = (rows + ng - 1) / ng;
   const size_t smem = sizeof(double) * ((size_t)WARPS * gs * D + 2 * gs) +
       sizeof(float) * ((size_t)gs * D + gs);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<DPL, FMT>,
+        paged_attention_kernel<DPL, FULL, FMT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  paged_attention_kernel<DPL, FMT><<<dim3(Hkv, B, ng), THREADS, smem,
+  paged_attention_kernel<DPL, FULL, FMT><<<dim3(Hkv, B, ng), THREADS, smem,
                                      stream>>>(
       (const __nv_bfloat16*)q, kp, (const float*)ks, (const float*)ko, vp,
       (const float*)vs, (const float*)vo, (const int*)bt, (const int*)lengths,
-      (__nv_bfloat16*)out, (float*)ws, H, Hkv, W, page, PMAX, scale, window,
-      cap, inv_cap);
+      (__nv_bfloat16*)out, (float*)ws, H, Hkv, W, page, PMAX, D, scale,
+      window, cap, inv_cap);
   return (int)cudaGetLastError();
 }
 
@@ -326,14 +338,19 @@ int dispatch(const void* q, const void* kp, const void* ks, const void* ko,
              const void* lengths, void* out, void* ws, int B, int H, int Hkv,
              int W, int page, int PMAX, int D, float scale, int window,
              float cap, float inv_cap, cudaStream_t s) {
-#define NCTT_K11(DPL_)                                                    \
-  launch<DPL_, FMT>(q, kp, ks, ko, vp, vs, vo, bt, lengths, out, ws, B, H, \
-                    Hkv, W, page, PMAX, scale, window, cap, inv_cap, s)
-  switch (D) {
-    case 32: return NCTT_K11(1);
-    case 64: return NCTT_K11(2);
-    case 128: return NCTT_K11(4);
-    case 256: return NCTT_K11(8);
+#define NCTT_K11(DPL_)                                                      \
+  case DPL_:                                                                \
+    return D == 32 * DPL_ && nctt::full_width(DPL_)                         \
+               ? launch<DPL_, nctt::full_width(DPL_), FMT>(                  \
+                     q, kp, ks, ko, vp, vs, vo, bt, lengths, out, ws, B, H,  \
+                     Hkv, W, page, PMAX, D, scale, window, cap, inv_cap, s)  \
+               : launch<DPL_, false, FMT>(q, kp, ks, ko, vp, vs, vo, bt,     \
+                                          lengths, out, ws, B, H, Hkv, W,    \
+                                          page, PMAX, D, scale, window, cap, \
+                                          inv_cap, s);
+  switch (D >= 1 ? (D + 31) / 32 : 0) {
+    NCTT_K11(1) NCTT_K11(2) NCTT_K11(3) NCTT_K11(4)
+    NCTT_K11(5) NCTT_K11(6) NCTT_K11(7) NCTT_K11(8)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef NCTT_K11
@@ -351,7 +368,7 @@ int dispatch(const void* q, const void* kp, const void* ks, const void* ko,
 // rows, ng = ceil(W*H/Hkv / 8) groups of gs = ceil(W*H/Hkv / ng) rows;
 // window > 0: the sliding band (keys with q_pos - t < window), 0: none;
 // cap > 0: the logit softcap cap * tanh(s * inv_cap), 0: none. `page`
-// counts tokens. D in {32, 64, 128, 256}; H % Hkv == 0.
+// counts tokens. 1 <= D <= 256; H % Hkv == 0.
 NCTT_API int nctt_paged_decode_attention(const void* q, const void* kp,
                                          const void* ks, const void* ko,
                                          const void* vp, const void* vs,

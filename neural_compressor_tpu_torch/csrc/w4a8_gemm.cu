@@ -17,7 +17,9 @@
 //   accumulators hold one group's exact partial sums and are folded into
 //   float32 with the group scale when the group ends (mul and add kept
 //   apart, in group order, as the TPU kernel sums). A simple first kernel:
-//   no cp.async pipeline, no TMA; making it fast is later work.
+//   no cp.async pipeline, no TMA; making it fast is later work. Group sizes
+//   that are not a multiple of 32 (and K % 32, N % 64) take a general path,
+//   one thread an output, __dp4a on the CUDA cores (below).
 #include "nctt_common.cuh"
 
 namespace {
@@ -156,13 +158,66 @@ w4a8_gemm_kernel(const int8_t* __restrict__ xq, const uint8_t* __restrict__ w,
   }
 }
 
+// The general path, for the shapes the tiles above do not take: a group
+// size that is not a multiple of 32 (JAX's "tpu_strided" K1 runs G = 8,
+// 16, 24, ...), K % 32 != 0 or N % 64 != 0. One thread per output (m, n):
+// each group's partial sum is exact in int32 (four codes at a time by
+// __dp4a where the group allows), folded into float32 with the group scale
+// in group order, mul and add kept apart, as the tiled kernel folds it.
+// Slow (the weight rows are read one column a thread); a path that is right
+// for shapes off the main path.
+__global__ void __launch_bounds__(128)
+w4a8_gemm_any_group_kernel(const int8_t* __restrict__ xq,
+                           const uint8_t* __restrict__ w,
+                           const float* __restrict__ scales,
+                           const float* __restrict__ xscale,
+                           float* __restrict__ y, int M, int N, int K,
+                           int G) {
+  const int n = blockIdx.x * blockDim.x + threadIdx.x, m = blockIdx.y;
+  if (n >= N || m >= M) return;
+  const uint8_t* wr = w + (size_t)n * (K / 2);
+  const int8_t* xr = xq + (size_t)m * K;
+  float acc = 0.f;
+  for (int g = 0; g < K / G; ++g) {
+    int part = 0;
+    int k = g * G;
+    const int end = k + G;
+    if ((G & 3) == 0 && (K & 3) == 0) {
+      for (; k < end; k += 4) {  // 4 codes: 2 bytes of w, 4 bytes of x
+        const uint32_t b = (uint32_t)wr[k / 2] | ((uint32_t)wr[k / 2 + 1] << 8);
+        uint32_t lo4, hi4;
+        nctt::unpack8(b, lo4, hi4);  // k .. k+3 in lo4
+        int xv;
+        memcpy(&xv, xr + k, 4);
+        part = __dp4a((int)lo4, xv, part);
+      }
+    }
+    for (; k < end; ++k) {
+      const uint8_t b = wr[k / 2];
+      const int c = ((int)((k & 1) ? b >> 4 : b & 15) ^ 8) - 8;
+      part += c * (int)xr[k];
+    }
+    acc = __fadd_rn(acc, __fmul_rn((float)part, scales[(size_t)g * N + n]));
+  }
+  y[(size_t)m * N + n] = acc * xscale[m];
+}
+
 }  // namespace
 
 // xq int8 [M, K]; w uint8 [N, K/2]; scales f32 [K/G, N]; xscale f32 [M];
-// y f32 [M, N]. Needs K % 32 == 0, G % 32 == 0, K % G == 0, N % 64 == 0.
+// y f32 [M, N]. K % G == 0 and K even; the tiled kernel where K % 32 == 0,
+// G % 32 == 0 and N % 64 == 0, else the general path.
 NCTT_API int nctt_w4a8_gemm(const void* xq, const void* w, const void* scales,
                             const void* xscale, void* y, int M, int N, int K,
                             int G, void* stream) {
+  if (G < 1 || K % G || K % 2) return (int)cudaErrorInvalidValue;
+  if (K % 32 || G % 32 || N % BN) {
+    dim3 grid((N + 127) / 128, M);
+    w4a8_gemm_any_group_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
+        (const int8_t*)xq, (const uint8_t*)w, (const float*)scales,
+        (const float*)xscale, (float*)y, M, N, K, G);
+    return (int)cudaGetLastError();
+  }
   dim3 grid(N / BN, (M + BM - 1) / BM);
   w4a8_gemm_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const int8_t*)xq, (const uint8_t*)w, (const float*)scales,

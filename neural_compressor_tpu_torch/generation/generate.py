@@ -3,7 +3,8 @@
 The counterpart of ``neural_compressor_tpu.generation.generate``'s greedy
 path: a prefill fills a contiguous KV cache (in the model's KV format:
 bf16, or int8, fp8-e4m3 or int4 codes when ``KVCacheQuantConfig`` flagged
-the model), then a decode loop feeds back the argmax token. PyTorch runs eagerly, so there is no cached program;
+the model; allocated by the model's ``init_caches`` where it has one, as
+DeepSeek's MLA does), then a decode loop feeds back the argmax token. PyTorch runs eagerly, so there is no cached program;
 the loop is plain Python over the model's forward. A batch of B > 1
 prompts decodes through the batched attention kernel (K7); serving many
 requests over contiguous or paged caches is
@@ -20,6 +21,19 @@ from typing import Callable
 import torch
 
 from ..models.llama import init_kv_cache, model_kv_format
+
+
+def alloc_caches(model, B: int, total: int):
+    """Contiguous caches for a decode run in the model's KV format (JAX's
+    ``_alloc_caches``): the model's own ``init_caches`` where it has one
+    (DeepSeek's MLA: asymmetric K/V widths, or latent rows), else the
+    Llama-shaped ``init_kv_cache`` from its cfg."""
+    fmt = model_kv_format(model)
+    init = getattr(model, "init_caches", None)
+    if init is not None:
+        return init(B, total, quantized=fmt or False)
+    return init_kv_cache(model.cfg, B, total, quantized=fmt,
+                         device=model.device)
 
 
 def _pick_greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -65,9 +79,7 @@ def greedy_search(model, input_ids, max_new_tokens: int = 32,
     if total < P + max_new_tokens - 1:
         raise ValueError(f"max_len={total} cannot hold {P} prompt tokens "
                          f"and {max_new_tokens} new ones")
-    caches = init_kv_cache(model.cfg, B, total,
-                           quantized=model_kv_format(model),
-                           device=model.device)
+    caches = alloc_caches(model, B, total)
     return _prefill_and_loop(model, ids, caches, max_new_tokens,
                              eos_token_id, _pick_greedy)
 

@@ -27,6 +27,11 @@ from ..models.llama import init_kv_cache, model_kv_format
 
 
 def _caches(model, B: int, total: int):
+    if hasattr(model, "init_caches"):
+        raise NotImplementedError(
+            "speculation over a model with its own caches (DeepSeek's MLA) "
+            "waits for the port of neural_compressor_tpu.generation."
+            "speculative with generate._alloc_caches")
     return init_kv_cache(model.cfg, B, total,
                          quantized=model_kv_format(model),
                          device=model.device)

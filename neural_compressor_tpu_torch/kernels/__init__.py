@@ -12,9 +12,12 @@ from .decode_attention import (batched_decode_attention, batched_decode_attn,
                                decode_attn_quant_plain, decode_attention,
                                decode_attention_quant)
 from .paged_attention import (paged_attn, paged_attn_gemma, paged_attn_plain,
-                              paged_decode_attention, paged_window_attention,
-                              paged_window_attn, paged_window_attn_plain,
-                              paged_write, paged_write_plain,
+                              paged_decode_attention, paged_latent_attention,
+                              paged_latent_attn, paged_latent_attn_plain,
+                              paged_latent_write, paged_latent_write_plain,
+                              paged_window_attention, paged_window_attn,
+                              paged_window_attn_plain, paged_write,
+                              paged_write_latent, paged_write_plain,
                               paged_write_rows, paged_write_window,
                               paged_write_window_kernel,
                               paged_write_window_plain)
@@ -25,7 +28,7 @@ from .dequant_matmul import (dequant_dot, dequant_gemm, dequant_gemm_plain,
 KERNEL_WRAPPERS = (w4a8_gemm, fused_gemv, decode_attn, decode_attn_quant,
                    batched_decode_attn, paged_attn, paged_write, dequant_gemm,
                    vpu_gemv, paged_write_window_kernel, paged_window_attn,
-                   paged_attn_gemma)
+                   paged_attn_gemma, paged_latent_write, paged_latent_attn)
 
 
 def reset_launch_counts() -> None:

@@ -35,9 +35,10 @@ _L, _IP = ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     # xq, w, scales, x_scale, y, M, N, K, G, stream
     "nctt_w4a8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, rms_w, w, scales, bias, residual, y, K, N, G, n_out, silu, eps, stream
+    # x, rms_w, w, scales, bias, residual, y, K, N, G, n_out, silu, eps,
+    # codes, scl (global scratch past MAX_K, else null), stream
     "nctt_fused_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                        _P],
+                        _P, _P, _P],
     # q, k_cache, v_cache, out, ws (f32 score rows), B, H, Hkv, T, D, pos,
     # scale, stream
     "nctt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
@@ -64,6 +65,12 @@ SIGNATURES = {
     # the same, k_new/v_new [B, Hkv, W, D]: ..., PMAX, D, W, fmt, stream
     "nctt_paged_write_window": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _P],
+    # row, pages, block_tables, pos, B, P, page, PMAX, C, stream
+    "nctt_paged_latent_write": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, pages, block_tables, lengths, out, ws, B, H, P, page, PMAX, C, r,
+    # scale, stream
+    "nctt_paged_latent_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _I, _F, _P],
     # x, w, scales, zeros, codebook, out, part, M, N, K, G, bits,
     # layout_int8, x_f32, out_bf16, splits, chunks_per_split, stream
     "nctt_dequant_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

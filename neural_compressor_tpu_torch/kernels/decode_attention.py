@@ -51,9 +51,13 @@ import torch
 from . import _build
 
 
-# head widths the attention kernels take: a lane holds D / 32 elements of a
-# row, a compile-time width (csrc/*attention.cu instantiate these four)
-KERNEL_D = (32, 64, 128, 256)
+# head widths the attention kernels take: a lane holds DPL = ceil(D / 32)
+# elements of a row, the tail past D masked (K5, K6 and K11 in
+# csrc/*attention.cu instantiate DPL 1-8: any D up to 256)
+KERNEL_D = range(1, 257)
+# K7 also instantiates DPL 12 and 16, for the D % 128 == 0 widths 384 and
+# 512 that JAX's K7 dispatch runs
+BATCHED_KERNEL_D = (*KERNEL_D, *range(353, 385), *range(481, 513))
 
 
 def score_workspace(B: int, rows: int, T: int, device) -> torch.Tensor:
@@ -99,7 +103,7 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     rep = H // Hkv if Hkv else 0
     if not (D in KERNEL_D and Hkv * rep == H and rep >= 1
             and 0 <= pos < T):
-        raise ValueError(f"decode_attn needs D in {KERNEL_D}, H a multiple "
+        raise ValueError(f"decode_attn needs 1 <= D <= 256, H a multiple "
                          f"of Hkv and 0 <= pos < T "
                          f"(H={H}, Hkv={Hkv}, D={D}, pos={pos}, T={T})")
     _build.require(q, "q", torch.bfloat16, dev, (B, H, D))
@@ -221,7 +225,7 @@ def decode_attn_quant(q, k_new, v_new, k_codes, k_scale, v_codes, v_scale,
     _b, Hkv, T, _d = k_codes.shape
     rep = H // Hkv if Hkv else 0
     if not (D in KERNEL_D and Hkv * rep == H and rep >= 1 and T >= 1):
-        raise ValueError(f"decode_attn_quant needs D in {KERNEL_D} and H a "
+        raise ValueError(f"decode_attn_quant needs 1 <= D <= 256 and H a "
                          f"multiple of Hkv (H={H}, Hkv={Hkv}, D={D}, T={T})")
     if k_codes.dtype not in _CODE_DTYPES:
         raise ValueError(f"decode_attn_quant takes int8 or fp8 codes, not "
@@ -347,9 +351,11 @@ def batched_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     B, H, D = q.shape
     _b, Hkv, T, _d = k_cache.shape
     rep = H // Hkv if Hkv else 0
-    if not (D in KERNEL_D and Hkv * rep == H and rep >= 1 and T >= 1):
-        raise ValueError(f"{name} needs D in {KERNEL_D} and H a multiple of "
-                         f"Hkv (H={H}, Hkv={Hkv}, D={D}, T={T})")
+    if not (D in BATCHED_KERNEL_D and Hkv * rep == H and rep >= 1
+            and T >= 1):
+        raise ValueError(f"{name} needs D <= 256, 353-384 or 481-512 and H "
+                         f"a multiple of Hkv (H={H}, Hkv={Hkv}, D={D}, "
+                         f"T={T})")
     cdt = k_cache.dtype
     fmt, code = _K7_FORMATS.get(cdt, (None, None))
     if fmt is None or (code == 0) != (k_scale is None):
@@ -391,17 +397,18 @@ def batched_decode_attention(q, k_cache, v_cache, pos, k_scale=None,
     package's dispatcher declines its kernel (B == 1, B*Hkv < 16, D or T
     not a multiple of 128: ``neural_compressor_tpu/kernels/
     decode_attention.py:722``) and the port's kernel cannot take the
-    shape either (D outside ``KERNEL_D``); the caller then attends with
-    the plain grouped attention, as JAX's caller falls back to XLA, and
-    each such None adds one to ``batched_decode_attention.plain_calls``.
-    Where JAX declines and the port's kernel takes the shape (D in
-    ``KERNEL_D``, any B, T), the kernel runs."""
+    shape either (D outside ``BATCHED_KERNEL_D``); the caller then attends
+    with the plain grouped attention, as JAX's caller falls back to XLA,
+    and each such None adds one to
+    ``batched_decode_attention.plain_calls``. Where JAX declines and the
+    port's kernel takes the shape (D in ``BATCHED_KERNEL_D``, any B, T),
+    the kernel runs."""
     B, H, S, D = q.shape
     if S != 1:
         raise ValueError("batched decode attention is single-token")
     Hkv, T = k_cache.shape[1], k_cache.shape[2]
     jax_declines = B == 1 or B * Hkv < 16 or D % 128 or T % 128
-    if D not in KERNEL_D and jax_declines:
+    if D not in BATCHED_KERNEL_D and jax_declines:
         batched_decode_attention.plain_calls += 1
         return None
     pos = pos_vector(pos, B, q.device)

@@ -25,7 +25,9 @@ from ..ops.packing import HOPPER_LAYOUT, PackedWeight
 from . import _build
 
 # the activation codes a block of the kernel keeps in shared memory
-# (``MAX_K`` in csrc/fused_gemv.cu): 227 KiB less its static reductions
+# (``MAX_K`` in csrc/fused_gemv.cu): 227 KiB less its static reductions.
+# Past it one first launch quantizes the activation into global memory,
+# where every block reads the codes (from L2): K has no cap.
 MAX_K = 227 * 1024 - 1024
 
 
@@ -107,9 +109,9 @@ def fused_gemv(x, rms_w, w, scales, bias, residual, *, eps: float,
     G = K // ng if ng else 0
     n_out = N // 2 if silu else N
     if not (K % 128 == 0 and G % 128 == 0 and ng * G == K
-            and K <= MAX_K and (not silu or N % 2 == 0)):
-        raise ValueError(f"fused_gemv needs K % 128 == 0, G % 128 == 0 and "
-                         f"K <= {MAX_K} (K={K}, G={G}, N={N})")
+            and (not silu or N % 2 == 0)):
+        raise ValueError(f"fused_gemv needs K % 128 == 0 and G % 128 == 0 "
+                         f"(K={K}, G={G}, N={N})")
     if out_dtype != torch.bfloat16:
         raise ValueError(f"fused_gemv stores bf16, not {out_dtype}")
     x = x.reshape(K)
@@ -128,10 +130,15 @@ def fused_gemv(x, rms_w, w, scales, bias, residual, *, eps: float,
             _build.require(t, name, dtype, dev, shape)
             ptrs.append(t.data_ptr())
     y = torch.empty(n_out, dtype=torch.bfloat16, device=dev)
+    codes = scl = None
+    if K > MAX_K:  # the codes in global memory: [K] int8 and two scales
+        codes = torch.empty(K, dtype=torch.int8, device=dev)
+        scl = torch.empty(2, dtype=torch.float32, device=dev)
     err = _build.library().nctt_fused_gemv(
         x.data_ptr(), ptrs[0], w.data_ptr(), scales.data_ptr(), ptrs[1],
         ptrs[2], y.data_ptr(), K, N, G, n_out, int(silu), float(eps),
-        _build.stream_handle(dev))
+        None if codes is None else codes.data_ptr(),
+        None if scl is None else scl.data_ptr(), _build.stream_handle(dev))
     _build.check(err, "nctt_fused_gemv")
     fused_gemv.launches += 1
     return y

@@ -235,7 +235,7 @@ def _launch_paged_attn(name, q, k_pages, k_scales, v_pages, v_scales,
     rep = H // Hkv if Hkv else 0
     if not (D in KERNEL_D and Hkv * rep == H and rep >= 1
             and Wq >= 1 and page >= 1 and PMAX >= 1):
-        raise ValueError(f"{name} needs D in {KERNEL_D} and H a multiple of "
+        raise ValueError(f"{name} needs 1 <= D <= 256 and H a multiple of "
                          f"Hkv (H={H}, Hkv={Hkv}, D={D})")
     if (window is not None and window < 1) or (softcap is not None
                                                and not softcap > 0):
@@ -569,3 +569,174 @@ def paged_window_attention(q, cache, lengths):
     return paged_window_attn(q.contiguous(), *_pool_args(cache),
                              pos_vector(lengths, B, q.device), cache.k_offs,
                              cache.v_offs)
+
+
+# ---------------------------------------------------------------------------
+# K14: MLA latent paging (DeepSeek). A latent pool holds one C = r + dr row
+# a token, [P, 1, page, C]: the post-norm latent and the rotated shared rope
+# key, both key and value of every head (``models.deepseek``).
+# ---------------------------------------------------------------------------
+
+
+def _latent_targets(block_tables, pos, page: int):
+    """(slot indices, pool pages, rows) of the latent rows K14's write puts
+    down: a negative position writes nothing; a page index past the block
+    table writes the trash page 0 at ``pos % page``, as JAX's
+    ``paged_write_latent`` does (its ``take_along_axis`` fills and its
+    page index clamps to 0); one writer a target row, the last slot."""
+    PMAX = block_tables.shape[1]
+    p = pos.to(torch.int64).reshape(-1)
+    rows = torch.nonzero(p >= 0).reshape(-1)
+    p = p[rows]
+    j = torch.div(p, page, rounding_mode="floor")
+    pid = torch.where(j < PMAX,
+                      block_tables.to(torch.int64)[rows, j.clamp(max=PMAX - 1)],
+                      torch.zeros_like(j))
+    off = p % page
+    key = pid * page + off
+    uniq, inv = torch.unique(key, return_inverse=True)
+    last = torch.full_like(uniq, -1).scatter_reduce(
+        0, inv, torch.arange(key.numel(), device=key.device), reduce="amax")
+    return rows[last], pid[last], off[last]
+
+
+def paged_latent_write_plain(row, lat_pages, block_tables, pos) -> None:
+    """Plain PyTorch version of K14's write, in place: ``row`` [B, C] (the
+    slots' new latent rows), ``lat_pages`` [P, 1, page, C] (bf16, or
+    float32 for a float32 model on the CPU), ``block_tables`` [B, PMAX]
+    int32, ``pos`` [B] int32; targets as ``_latent_targets`` gives them
+    (several slots on one row: the last slot's row stands, as in the
+    kernel)."""
+    rows, pid, off = _latent_targets(block_tables, pos, lat_pages.shape[2])
+    lat_pages[pid, 0, off] = row[rows].to(lat_pages.dtype)
+
+
+def paged_latent_write(row, lat_pages, block_tables, pos) -> None:
+    """K14's write on the card (``csrc/paged_latent.cu``,
+    ``nctt_paged_latent_write``) into a bf16 latent pool, in place; the
+    plain version for CPU tensors. Arguments as in
+    ``paged_latent_write_plain``; ``pos`` stays on the device. Launches are
+    counted in ``paged_latent_write.launches``."""
+    if row.device.type == "cpu":
+        return paged_latent_write_plain(row, lat_pages, block_tables, pos)
+    dev = row.device
+    B, C = row.shape
+    P, one, page, _c = lat_pages.shape
+    PMAX = block_tables.shape[1]
+    if one != 1:
+        raise ValueError(f"paged_latent_write: pages [P, 1, page, C], got "
+                         f"{tuple(lat_pages.shape)}")
+    _build.require(row, "row", torch.bfloat16, dev, (B, C))
+    _build.require(lat_pages, "lat_pages", torch.bfloat16, dev,
+                   (P, 1, page, C))
+    _build.require(block_tables, "block_tables", torch.int32, dev, (B, PMAX))
+    _build.require(pos, "pos", torch.int32, dev, (B,))
+    err = _build.library().nctt_paged_latent_write(
+        row.data_ptr(), lat_pages.data_ptr(), block_tables.data_ptr(),
+        pos.data_ptr(), B, P, page, PMAX, C, _build.stream_handle(dev))
+    _build.check(err, "nctt_paged_latent_write")
+    paged_latent_write.launches += 1
+
+
+paged_latent_write.launches = 0
+
+
+def paged_latent_attn_plain(q, lat_pages, block_tables, lengths, r: int,
+                            scale: float) -> torch.Tensor:
+    """Plain PyTorch version of K14's attention: q [B, H, C] (the absorbed
+    query | the rotated rope query), ``lat_pages`` [P, 1, page, C] (bf16;
+    float32 pages with a float32 q for a float32 model on the CPU),
+    ``block_tables`` [B, PMAX] int32, ``lengths`` [B] int32 (the slot's
+    rows, the new one included) -> float32 [B, H, r].
+
+    s = f32(q . lat) * f32(scale) over the rows t < lengths (at most PMAX *
+    page); e = exp(s - m), l = sum e; the probabilities rounded to the
+    pages' dtype for PV against the rows' first r columns; acc / max(l,
+    1e-30); zeros for a zero-length slot. Sums in float64 over exact
+    products, one rounding each, as the CUDA kernel sums. The TPU kernel's
+    online softmax over groups of min(4, PMAX) pages equals this one pass
+    wherever one group covers the slot's pages or the running max does not
+    move."""
+    B, H, C = q.shape
+    dev = q.device
+    lat = _gather_pages(lat_pages, block_tables.to(torch.int64))[:, 0]
+    T = lat.shape[1]                                  # [B, T, C]
+    lat64 = lat.to(_F64)
+    s = torch.einsum("bhc,btc->bht", q.to(_F64), lat64).to(_F32)
+    s = s * torch.tensor(scale, dtype=_F32)
+    n = lengths.to(torch.int64).reshape(B, 1, 1)
+    valid = torch.arange(T, device=dev)[None, None, :] < n
+    s = torch.where(valid, s, torch.tensor(-1e30, device=dev))
+    e = torch.exp(s.to(_F64) - s.amax(dim=-1, keepdim=True).to(_F64))
+    e = torch.where(valid, e, torch.zeros((), dtype=_F64, device=dev))
+    l = e.sum(dim=-1, keepdim=True).to(_F32)
+    p = e.to(_F32).to(lat_pages.dtype).to(_F64)
+    acc = torch.einsum("bht,btc->bhc", p, lat64[..., :r]).to(_F32)
+    out = acc / l.clamp_min(1e-30)
+    return torch.where((lengths > 0).reshape(B, 1, 1), out,
+                       torch.zeros((), device=dev))
+
+
+def paged_latent_attn(q, lat_pages, block_tables, lengths, r: int,
+                      scale: float) -> torch.Tensor:
+    """K14's attention on the card (``csrc/paged_latent.cu``,
+    ``nctt_paged_latent_attention``) over a bf16 latent pool; the plain
+    version for CPU tensors. Arguments as in ``paged_latent_attn_plain``;
+    ``lengths`` stays on the device. Launches are counted in
+    ``paged_latent_attn.launches``."""
+    if q.device.type == "cpu":
+        return paged_latent_attn_plain(q, lat_pages, block_tables, lengths,
+                                       r, scale)
+    dev = q.device
+    B, H, C = q.shape
+    P, one, page, _c = lat_pages.shape
+    PMAX = block_tables.shape[1]
+    if not (one == 1 and 1 <= r <= C <= 1024):
+        raise ValueError(f"paged_latent_attn needs pages [P, 1, page, C] "
+                         f"and 1 <= r <= C <= 1024 (C={C}, r={r})")
+    _build.require(q, "q", torch.bfloat16, dev, (B, H, C))
+    _build.require(lat_pages, "lat_pages", torch.bfloat16, dev,
+                   (P, 1, page, C))
+    _build.require(block_tables, "block_tables", torch.int32, dev, (B, PMAX))
+    _build.require(lengths, "lengths", torch.int32, dev, (B,))
+    out = torch.empty((B, H, r), dtype=torch.float32, device=dev)
+    ws = score_workspace(B, H, PMAX * page, dev)
+    err = _build.library().nctt_paged_latent_attention(
+        q.data_ptr(), lat_pages.data_ptr(), block_tables.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, P, page,
+        PMAX, C, r, float(scale), _build.stream_handle(dev))
+    _build.check(err, "nctt_paged_latent_attention")
+    paged_latent_attn.launches += 1
+    return out
+
+
+paged_latent_attn.launches = 0
+
+
+def paged_write_latent(lat_pages, block_tables, row, pos):
+    """Write one latent row a slot (``row`` [B, C]) at per-slot ``pos`` (an
+    int or [B]) into the pool IN PLACE through K14's write (JAX's
+    ``paged_write_latent``, whose TPU kernel aliases its output); returns
+    the pages. JAX falls back to an XLA scatter for pages of a size that is
+    not a multiple of 8 (the TPU's tile rule); the port's kernel takes
+    every page size."""
+    B = row.shape[0]
+    paged_latent_write(row.to(lat_pages.dtype).contiguous(), lat_pages,
+                       block_tables, pos_vector(pos, B, row.device))
+    return lat_pages
+
+
+def paged_latent_attention(qcat, lat_pages, block_tables, lengths, r: int,
+                           scale: float) -> torch.Tensor:
+    """Decode attention over a paged MLA latent pool (JAX's
+    ``paged_latent_attention``): ``qcat`` [B, H, 1, C], ``lengths`` [B]
+    including the current row (written first). Returns o_lat [B, H, 1, r]
+    float32, the probabilities times the latent; the caller applies the
+    value absorb factor. Zero-length slots give zeros."""
+    B, H, S, C = qcat.shape
+    if S != 1:
+        raise ValueError("paged latent attention is single-token")
+    out = paged_latent_attn(qcat[:, :, 0].contiguous(), lat_pages,
+                            block_tables, pos_vector(lengths, B, qcat.device),
+                            r, scale)
+    return out[:, :, None]

@@ -90,15 +90,18 @@ def w4a8_gemm_plain(xq: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
 def w4a8_gemm(xq: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
               x_scale: torch.Tensor) -> torch.Tensor:
     """The W4A8 GEMM on the card (``csrc/w4a8_gemm.cu``); the plain version
-    for CPU tensors. Shapes as in ``w4a8_gemm_plain``."""
+    for CPU tensors. Shapes as in ``w4a8_gemm_plain``. Any group size: the
+    tiled tensor-core kernel where K and G are multiples of 32 and N of 64,
+    a general path (``__dp4a`` on the CUDA cores) elsewhere, e.g. at the
+    "tpu_strided" group sizes 8, 16 and 24 that JAX's K1 runs."""
     if xq.device.type == "cpu":
         return w4a8_gemm_plain(xq, w, scales, x_scale)
     M, K = xq.shape
     ng, N = scales.shape
     G = K // ng if ng else 0
-    if not (K % 32 == 0 and G % 32 == 0 and ng * G == K and N % 64 == 0):
-        raise ValueError(f"w4a8_gemm needs K % 32 == 0, G % 32 == 0 and "
-                         f"N % 64 == 0 (M={M}, K={K}, N={N}, G={G})")
+    if not (G >= 1 and ng * G == K and K % 2 == 0):
+        raise ValueError(f"w4a8_gemm needs K a multiple of the group size "
+                         f"and even (M={M}, K={K}, N={N}, G={G})")
     dev = xq.device
     _build.require(xq, "xq", torch.int8, dev, (M, K))
     _build.require(w, "w", torch.uint8, dev, (N, K // 2))

@@ -40,8 +40,17 @@ both engines count the same dispatches for the same submissions.
 The JAX engine's ``_s4_prepare`` re-lays int4 weights for the TPU inside
 each program; the port's weights are in their serving layout already, so it
 has no counterpart. Sampling (and with it the rejection-sampled verify of
-speculative rounds), the prefix cache, top-N logprobs and latent (MLA)
-pools raise ``NotImplementedError`` naming what they wait for.
+speculative rounds), the prefix cache and top-N logprobs raise
+``NotImplementedError`` naming what they wait for.
+
+DeepSeek (``models.deepseek``): the engine allocates through the model's
+``init_caches``, so contiguous mode serves the expanded MLA caches (K
+``qk_head_dim``, V ``v_head_dim`` wide) and, after
+``enable_mla_latent_cache``, the latent caches in every format; paged mode
+needs the latent cache and serves it from a bf16 latent pool
+(``init_paged_latent_pool``), each decode row written by K14's write and
+attended by K14's attention, the prefill staged in bf16 latent rows and
+copied into pages as they are.
 
 Greedy speculative serving (``speculative="ngram"``, as in the JAX
 engine): each decode dispatch runs ``chunk`` verify rounds over all slots;
@@ -201,10 +210,19 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "top-N logprobs wait for the port of "
                 "neural_compressor_tpu.serving.engine._top_n_logprobs")
-        if getattr(model, "use_latent_cache", False):
+        # models may own their cache shapes (DeepSeek's MLA: asymmetric K/V
+        # widths, or latent rows): the engine allocates through the model's
+        # init_caches where it has one, as JAX's engine does
+        self._model_caches = getattr(model, "init_caches", None)
+        self.latent = bool(getattr(model, "use_latent_cache", False))
+        if speculative and self._model_caches is not None:
+            if paged and self.latent:
+                raise ValueError("speculative serving has no paged MLA "
+                                 "latent support")
             raise NotImplementedError(
-                "latent (MLA) pools wait for the port of "
-                "neural_compressor_tpu.models.deepseek.init_paged_latent_pool")
+                "speculative serving of a model with its own caches "
+                "(DeepSeek's MLA) waits for the port of neural_compressor_"
+                "tpu.serving.engine._spec_rounds over init_caches")
         self.model = model
         self.cfg = model.cfg
         self.device = model.device
@@ -223,6 +241,9 @@ class ContinuousBatchingEngine:
         self.prefill_chunk = c
         quantized = model_kv_format(model)
         self.kv_cache_format = quantized or "bf16"
+        if self.latent:  # a paged latent pool holds bf16 rows
+            self.kv_cache_format = "latent_" + (
+                "bf16" if paged else self.kv_cache_format)
         self.paged = paged
         # speculative mode writes verify windows up to spec_k rows past the
         # last decided position, and parks idle slots on a window above
@@ -235,9 +256,20 @@ class ContinuousBatchingEngine:
             self.pmax = max_len // page_size
             # page 0 is the trash page (idle slots park their writes there)
             self.n_pages = n_pages or (n_slots * self.pmax // 2 + 1)
-            self.pools = init_paged_pool(
-                self.cfg, self.n_pages, n_slots, max_len,
-                page_size=page_size, quantized=quantized, device=self.device)
+            if self.latent:
+                from ..models.deepseek import init_paged_latent_pool
+
+                self.pools = init_paged_latent_pool(
+                    self.cfg, self.n_pages, n_slots, max_len,
+                    page_size=page_size, device=self.device)
+            elif self._model_caches is not None:
+                raise ValueError("paged DeepSeek serving needs the latent "
+                                 "cache (enable_mla_latent_cache)")
+            else:
+                self.pools = init_paged_pool(
+                    self.cfg, self.n_pages, n_slots, max_len,
+                    page_size=page_size, quantized=quantized,
+                    device=self.device)
             self.block_tables = np.zeros((n_slots, self.pmax), np.int32)
             # device copy of the block tables, re-uploaded only when the
             # host table changes
@@ -246,14 +278,21 @@ class ContinuousBatchingEngine:
             self.free_pages = list(range(self.n_pages - 1, 0, -1))
             self.slot_pages: list[list[int]] = [[] for _ in range(n_slots)]
             self.prefill_streams = max(1, min(prefill_streams, n_slots))
-            self.staging = init_kv_cache(self.cfg, self.prefill_streams,
-                                         max_len, device=self.device)
+            # bf16 staging rows (latent rows for a latent pool)
+            self.staging = (
+                self._model_caches(self.prefill_streams, max_len)
+                if self._model_caches is not None else
+                init_kv_cache(self.cfg, self.prefill_streams, max_len,
+                              device=self.device))
             self._free_staging = list(range(self.prefill_streams - 1, -1, -1))
             self._staging_of: dict[int, int] = {}  # slot -> staging row
         else:
-            self.caches = init_kv_cache(self.cfg, n_slots, self._cache_rows,
-                                        quantized=quantized,
-                                        device=self.device)
+            self.caches = (
+                self._model_caches(n_slots, self._cache_rows,
+                                   quantized=quantized or False)
+                if self._model_caches is not None else
+                init_kv_cache(self.cfg, n_slots, self._cache_rows,
+                              quantized=quantized, device=self.device))
             self.prefill_streams = n_slots
         self._uid = itertools.count()
         # slot bookkeeping (host side)
@@ -635,6 +674,11 @@ class ContinuousBatchingEngine:
         fp8 with ``_kv_quant``, int4 with ``_kv_quant4_asym_codes`` packed
         token-half-split."""
         page = self.page_size
+        if self.latent:  # JAX's copy_latent: the latent rows as they are
+            for pool, cache in zip(self.pools, self.staging):
+                pool.lat_pages[pid] = cache.lat[row, :, start:start + page
+                                                ].to(pool.lat_pages.dtype)
+            return
         for pool, cache in zip(self.pools, self.staging):
             kr = cache.k[row, :, start:start + page]      # [Hkv, page, D]
             vr = cache.v[row, :, start:start + page]

@@ -251,6 +251,13 @@ def test_engine_off_path_raises():
         with pytest.raises(ValueError, match="int3"):
             E(m, n_slots=2, max_len=32, paged=paged, page_size=16)
     m.kv_cache_quantized = False
-    m.use_latent_cache = True
-    with pytest.raises(NotImplementedError, match="latent"):
-        E(m, n_slots=2, max_len=32)
+    # latent (MLA) pools are served (tests/test_torch_deepseek_engine.py);
+    # a paged DeepSeek without the latent cache is refused, as in JAX
+    from neural_compressor_tpu_torch.models import deepseek as td
+
+    ds = td.DeepseekForCausalLM.from_preset("deepseek-test", device="cpu")
+    with pytest.raises(ValueError, match="latent"):
+        E(ds, n_slots=2, max_len=32, paged=True, page_size=16)
+    td.enable_mla_latent_cache(ds)
+    assert E(ds, n_slots=2, max_len=32, paged=True,
+             page_size=16).kv_cache_format == "latent_bf16"

@@ -46,14 +46,16 @@ def _bf16(a):
 
 # (B, Hkv, rep, T, D): JAX's K7 dispatch declines at B == 1, B*Hkv < 16,
 # D % 128 or T % 128 (decode_attention.py:722); the port's K7 takes every
-# D in KERNEL_D at any B and T, so it declines only off both
+# D in BATCHED_KERNEL_D (any D up to 256, and 384, 512) at any B and T, so
+# it declines only off both
 K7_SHAPES = [(1, 2, 2, 128, 128),     # JAX declines (B == 1), K7 runs
              (4, 4, 2, 256, 128),     # both run
              (4, 4, 2, 100, 128),     # JAX declines (T % 128), K7 runs
              (4, 4, 4, 128, 64),      # JAX declines (D % 128), K7 runs
              (8, 2, 16, 256, 128),    # rep 16: both run
-             (4, 4, 2, 128, 16),      # both decline: the plain path
-             (4, 4, 2, 128, 96)]      # both decline: the plain path
+             (4, 4, 2, 128, 16),      # JAX declines (D % 128), K7 runs
+             (4, 4, 2, 128, 96),      # JAX declines (D % 128), K7 runs
+             (4, 4, 2, 128, 320)]     # both decline: the plain path
 
 
 @pytest.mark.parametrize("shape", K7_SHAPES,
@@ -70,7 +72,7 @@ def test_k7_declines_exactly_where_jax_does(shape):
     before = tda.batched_decode_attention.plain_calls
     got = tda.batched_decode_attention(_bf16(q), _bf16(k), _bf16(v),
                                        torch.from_numpy(pos))
-    declines = D not in tda.KERNEL_D and want is None
+    declines = D not in tda.BATCHED_KERNEL_D and want is None
     assert (got is None) == declines
     assert tda.batched_decode_attention.plain_calls == before + declines
     if got is not None and want is not None:
@@ -137,8 +139,9 @@ def test_k8_declines_where_jax_falls_back():
 
 def test_fused_gemv_takes_wide_k():
     """K4 keeps the activation codes in dynamic shared memory, so K runs
-    past the old 48 Ki limit up to ``MAX_K`` (held on the card by
-    ``chip_smoke.py``); the plain version at K = 64 Ki."""
+    past the old 48 Ki limit up to ``MAX_K``, and past it from global
+    memory (both held on the card by ``chip_smoke.py``); the plain version
+    at K = 64 Ki."""
     assert tfm.MAX_K > 48 * 1024
     K, N, G = 64 * 1024, 128, 128
     from neural_compressor_tpu_torch.ops import (pack_qtensor,

@@ -80,7 +80,8 @@ def test_each_kernel_wrapper_counts_its_launches():
                      "decode_attn_quant", "batched_decode_attn",
                      "paged_attn", "paged_write", "dequant_gemm", "vpu_gemv",
                      "paged_write_window_kernel", "paged_window_attn",
-                     "paged_attn_gemma"]
+                     "paged_attn_gemma", "paged_latent_write",
+                     "paged_latent_attn"]
     pools = ["bf16", "int8", "fp8_e4m3", "int4"]
     by_format = {"batched_decode_attn": ["bf16", "int8", "fp8_e4m3"],
                  "paged_attn": pools, "paged_write": pools,
@@ -106,7 +107,8 @@ def test_every_kernel_has_a_source_and_a_c_entry():
     sources = {p.name for p in _build.CSRC.glob("*.cu")}
     assert sources == {"w4a8_gemm.cu", "fused_gemv.cu", "decode_attention.cu",
                        "batched_decode_attention.cu", "paged_attention.cu",
-                       "paged_write.cu", "dequant_matmul.cu"}
+                       "paged_write.cu", "dequant_matmul.cu",
+                       "paged_latent.cu"}
     text = "".join((_build.CSRC / s).read_text() for s in sources)
     for entry in _build.SIGNATURES:
         assert f"NCTT_API int {entry}(" in text
@@ -161,20 +163,41 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version(tmp_path,
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.vpu_gemv(xb[0], wq, sc2, sc2, bits=4, group_size=128,
                          out_dtype=torch.bfloat16)
+    lat = torch.empty(5, 1, 8, 24, dtype=torch.bfloat16, device=meta)
+    bt = torch.empty(2, 2, dtype=torch.int32, device=meta)
+    n = torch.empty(2, dtype=torch.int32, device=meta)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.paged_latent_write(torch.empty(2, 24, dtype=torch.bfloat16,
+                                               device=meta), lat, bt, n)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.paged_latent_attn(torch.empty(2, 4, 24, dtype=torch.bfloat16,
+                                              device=meta), lat, bt, n, 16,
+                                  0.1)
 
 
 def test_wrappers_check_their_operands():
     meta = torch.device("meta")
+    # any group size since the repair, but K a multiple of it (250 is not
+    # of 250 // 3)
     xq = torch.empty(4, 250, dtype=torch.int8, device=meta)
-    with pytest.raises(ValueError, match="K % 32"):
+    with pytest.raises(ValueError, match="multiple of the group size"):
         kernels.w4a8_gemm(xq, torch.empty(256, 125, dtype=torch.uint8,
                                           device=meta),
-                          torch.empty(2, 256, device=meta),
+                          torch.empty(3, 256, device=meta),
                           torch.empty(4, device=meta))
-    q = torch.empty(1, 4, 48, dtype=torch.bfloat16, device=meta)
-    kv = torch.empty(1, 4, 16, 48, dtype=torch.bfloat16, device=meta)
-    with pytest.raises(ValueError, match="D in"):
+    # any head width up to 256 since the repair
+    q = torch.empty(1, 4, 300, dtype=torch.bfloat16, device=meta)
+    kv = torch.empty(1, 4, 16, 300, dtype=torch.bfloat16, device=meta)
+    with pytest.raises(ValueError, match="D <= 256"):
         kernels.decode_attn(q, kv, kv, 3)
+    lat = torch.empty(4, 1, 8, 24, dtype=torch.bfloat16, device=meta)
+    with pytest.raises(ValueError, match="r <= C"):
+        kernels.paged_latent_attn(torch.empty(1, 4, 24, dtype=torch.bfloat16,
+                                              device=meta), lat,
+                                  torch.empty(1, 2, dtype=torch.int32,
+                                              device=meta),
+                                  torch.empty(1, dtype=torch.int32,
+                                              device=meta), 32, 0.1)
     xb = torch.empty(4, 256, dtype=torch.bfloat16, device=meta)
     with pytest.raises(ValueError, match="N % 128"):
         kernels.dequant_gemm(xb, torch.empty(32, 96, dtype=torch.int32,
