@@ -104,9 +104,26 @@ non-zero:
      layer), its tokens against greedy's, exact launch counts, the pool's
      bytes against expanded K/V, one decode dispatch profiled
      (``deepseek_serve``).
-Development runs name checks of phases 2-4, or ``deepseek_serve``, as
-arguments (``python3 chip_smoke.py gemma_kernels gemma_envelope``): the
-build, those checks, no result line.
+ 13. The flag-selected decode variants, each set through the port's own
+     switch: K15 (v1 paged attention, ``set_paged_v2(False)``), K16 (the
+     in-kernel cache write, ``set_cache_write_mode("kernel")``, bf16 and
+     int8; the bulk-copied caches, ``set_ro_cache_space("hbm")``), K17
+     (o + MLP in one cooperative launch, ``set_omlp_fused(True)``) and K18
+     (attention inside the o-projection, ``ATTN_O_FUSED``): each against
+     its plain version at llama2-7b's shapes with planted faults
+     (``variant_kernels``); at rep 1/4/8, D 64/80, K17's tiles of h,
+     K17's and K18's declines counted, and the repaired K5's per-slot
+     positions (``variant_envelope``); a full-width 2-layer llama2-7b
+     under each switch, card against CPU, and the v1 engine over paged
+     bf16, int8 and fp8 pools (``variant_model_check``); and phase 5's
+     model at B=1 under each switch (prompts 16 and 371, 48 new; K16's
+     int8 write over an int8 cache) and the 8-slot v1 engine over paged
+     bf16 and int8 pools (16 requests), each against the default path in
+     the same run, exact launch counts (``variant_serve``).
+Development runs name checks of phases 2-4 and 13, or ``deepseek_serve``
+or ``variant_serve``, as arguments (``python3 chip_smoke.py
+variant_kernels variant_envelope``): the build, those checks, no result
+line.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path and its times.
 """
@@ -219,7 +236,12 @@ FORMAT_ENTRIES = {
     "paged_attn_gemma": {
         "paged_attn_gemma_band": tuple(f"band_{f}" for f in POOL_FORMATS),
         "paged_attn_gemma_softcap": tuple(f"softcap_{f}"
-                                          for f in POOL_FORMATS)}}
+                                          for f in POOL_FORMATS)},
+    # K15 (v1 paged attention) over every pool format it takes, one entry
+    "paged_attn_v1": {"paged_attn_v1": ("bf16", "int8", "fp8_e4m3")},
+    # K16's in-kernel write: bf16 and int8 caches apart
+    "decode_attn_write": {"decode_attn_write": ("bf16",),
+                          "decode_attn_write_int8": ("int8",)}}
 # kernels-line entries that sum several launch_counts() entries
 LINE_SUMS = {"paged_attn_gemma": ("paged_attn_gemma_band",
                                   "paged_attn_gemma_softcap")}
@@ -363,15 +385,18 @@ def phase_kernels(torch, nct, peaks: dict) -> dict:
           for _ in range(n_copies(2 * Hkv * T * D * 2))]
     k, v = kv[0]
     for pos in ATTN_POS:
-        ok_ = decode_attn(q, k, v, pos)
-        op = decode_attn_plain(q, k, v, pos)
+        # K5 reads the position on the device, as an int32 [B] tensor
+        posd = torch.tensor([pos], dtype=torch.int32, device=dev)
+        ok_ = decode_attn(q, k, v, posd)
+        op = decode_attn_plain(q, k, v, posd)
         torch.cuda.synchronize()
         err = float((ok_.float() - op.float()).abs().max())
         ok = math.isfinite(err) and err <= TOL["attn"]
         L = pos + 1
-        ms = timed_ms(torch, [lambda a=a, b=b: decode_attn(q, a, b, pos)
+        ms = timed_ms(torch, [lambda a=a, b=b: decode_attn(q, a, b, posd)
                               for a, b in kv], 200)
-        pms = timed_ms(torch, [lambda: decode_attn_plain(q, k, v, pos)], 20)
+        pms = timed_ms(torch, [lambda: decode_attn_plain(q, k, v, posd)],
+                       20)
         q4 = q[:, :, None]
         lms = timed_ms(torch, [
             lambda a=a, b=b: torch.nn.functional.scaled_dot_product_attention(
@@ -1032,11 +1057,9 @@ def phase_model_check(torch, nct) -> None:
     del m_cpu, m_gpu
 
 
-def phase_serve(torch, nct) -> dict:
-    from neural_compressor_tpu_torch import kernels
-    from neural_compressor_tpu_torch.kernels import dequant_dot
-    from neural_compressor_tpu_torch.models.llama import init_kv_cache
-
+def w4a8_model(torch, nct):
+    """Phase 5's model: llama2-7b at full width cut to ``W4A8_LAYERS``
+    layers, RTN int4 g128 W4A8 with fused B=1 decode, on the card."""
     from neural_compressor_tpu_torch.models.llama import (LLAMA_PRESETS,
                                                           LlamaConfig)
 
@@ -1059,6 +1082,16 @@ def phase_serve(torch, nct) -> dict:
           flush=True)
     if n_fused != nl:
         fail(f"fused decode on {n_fused} of {nl} layers")
+    return model
+
+
+def phase_serve(torch, nct) -> dict:
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.kernels import dequant_dot
+    from neural_compressor_tpu_torch.models.llama import init_kv_cache
+
+    model = w4a8_model(torch, nct)
+    nl = model.cfg.num_hidden_layers
     gen = torch.Generator().manual_seed(2)
     prompts = [torch.randint(0, model.cfg.vocab_size, (1, P), generator=gen)
                for P in PROMPTS]
@@ -2633,11 +2666,12 @@ def phase_spec_model_check(torch, nct) -> None:
             k=4, max_len=128, return_stats=True)
 
     # the draft's k+1 single-token steps a round carry position tensors:
-    # K7 at B=1 (bf16 cache) after its fused projections (K4)
+    # K5 at B=1 (bf16 cache), as JAX's dispatch sends every B=1 call,
+    # after its fused projections (K4)
     both(draft, m_cpu, m_gpu, "draft-verify W4A8",
          lambda st: dict(w4a8_gemm=(4 * L + 1) * (st["rounds"] + 2),
                          fused_gemv=(4 * L + 1) * 5 * st["rounds"],
-                         batched_decode_attn=L * 5 * st["rounds"]))
+                         decode_attn=L * 5 * st["rounds"]))
     del d_cpu, d_gpu
 
     # the engine in every pool mode: a looping prompt and a random one
@@ -4193,6 +4227,9 @@ DS_CACHE_MODES = ((False, None), (True, None), (True, "int8"),
 DS_LAYERS = 4
 DS_PROMPTS, DS_NEW = (16, 371, 2000), 48
 DS_ENGINE_PROMPTS, DS_ENGINE_NEW = (16, 371, 1000, 3000), 16
+# the deepseek engine's requests: 8, 2 a prompt length, for the check's
+# 1,200 s (PERF.md §4)
+DS_ENGINE_REQUESTS = 8
 
 
 def ds_model(nct, seed, device, **cut):
@@ -4403,8 +4440,8 @@ def phase_deepseek_serve(torch, nct) -> dict:
     dequantize-then-matmul, K9 decodes, attention in plain PyTorch as JAX
     runs it in XLA); then ``ContinuousBatchingEngine(n_slots=8,
     max_len=4096, paged=True)`` over the latent pool (pages of 128 rows,
-    the default n_pages), 16 requests (prompts of 16, 371, 1,000 and 3,000
-    tokens, 4 each, 16 new), ``run(chunk=8)``: each decode step of each
+    the default n_pages), ``DS_ENGINE_REQUESTS`` = 8 requests (prompts of
+    16, 371, 1,000 and 3,000 tokens, 2 each, 16 new), ``run(chunk=8)``: each decode step of each
     layer writes with K14's write and attends with K14's attention, the
     projections on K8 (M = 8). Its tokens held against ``greedy_search``
     (over the contiguous latent cache), equal or parted
@@ -4477,7 +4514,7 @@ def phase_deepseek_serve(torch, nct) -> dict:
     gen = torch.Generator().manual_seed(62)
     e_prompts = [torch.randint(0, V, (DS_ENGINE_PROMPTS[i % 4],),
                                generator=gen).numpy()
-                 for i in range(ENGINE_REQUESTS)]
+                 for i in range(DS_ENGINE_REQUESTS)]
     sink = []  # each model call's logits while a hook records
 
     def recording():
@@ -4630,8 +4667,8 @@ def phase_deepseek_serve(torch, nct) -> dict:
             fail(f"deepseek engine: parts from greedy at new token {i} of a "
                  f"{len(p)}-token prompt where greedy's top-2 gap {gap} "
                  f"exceeds the paths' difference {diff}")
-    print(f"deepseek engine: {ENGINE_REQUESTS - len(parted)} of "
-          f"{ENGINE_REQUESTS} requests equal to greedy_search; partings "
+    print(f"deepseek engine: {DS_ENGINE_REQUESTS - len(parted)} of "
+          f"{DS_ENGINE_REQUESTS} requests equal to greedy_search; partings "
           f"{parted}", flush=True)
     out["deepseek_engine_paged_latent"] = launches
     if not profiled:
@@ -4641,6 +4678,852 @@ def phase_deepseek_serve(torch, nct) -> dict:
     del eng_rows, ref_rows, model
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------ flag-selected variants
+# K15-K18: the switches of the fused B=1 W4A8 decode layer and the engine's
+# paged v1 kernel, each set through the port's own switch
+VARIANT_FLAGS = ("omlp", "attn_o", "write", "hbm")
+VARIANT_PROMPTS = (16, 371)
+# at most this share of a variant kernel's outputs may sit one bf16 ulp off
+# its plain version (the two take float64 sums in other orders; a rounding
+# flips only where that order decides it) and none further
+VARIANT_ULP_SHARE = 1e-3
+
+
+def port_module(name: str):
+    """A kernels module of the port (the package exports functions named
+    like some of its modules)."""
+    import importlib
+
+    return importlib.import_module(f"neural_compressor_tpu_torch.kernels."
+                                   f"{name}")
+
+
+@contextlib.contextmanager
+def variant(flag):
+    """The port's switches set for ``flag`` ("omlp": K17, "attn_o": K18,
+    "write": K16's in-kernel write, "hbm": K16's bulk copies, "v1": K15;
+    None: the default path), restored after."""
+    da, fm = port_module("decode_attention"), port_module("fused_matvec")
+    om, pa = port_module("omlp_matvec"), port_module("paged_attention")
+    om.set_omlp_fused(flag == "omlp")
+    fm.ATTN_O_FUSED = flag == "attn_o"
+    da.set_cache_write_mode("kernel" if flag == "write" else "outside")
+    da.set_ro_cache_space("hbm" if flag == "hbm" else "vmem")
+    pa.set_paged_v2(flag != "v1")
+    try:
+        yield
+    finally:
+        om.set_omlp_fused(False)
+        fm.ATTN_O_FUSED = False
+        da.set_cache_write_mode("outside")
+        da.set_ro_cache_space("vmem")
+        pa.set_paged_v2(True)
+
+
+def ulp_check(torch, out, ref) -> tuple:
+    """A bf16 output against its plain version: (max |diff|, the share of
+    outputs off by one bf16 ulp of the reference, ok): ok when no output is
+    off by more than one ulp and at most ``VARIANT_ULP_SHARE`` by one."""
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    ulp = torch.where(ref == 0, torch.full_like(ref, 2.0 ** -133),
+                      2.0 ** (torch.floor(torch.log2(ref.abs())) - 7))
+    off = diff > 0
+    share = float(off.float().mean())
+    ok = bool(torch.isfinite(out).all()) and bool((diff <= ulp).all()) \
+        and share <= VARIANT_ULP_SHARE
+    return float(diff.max()), share, ok
+
+
+def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
+    """K15-K18 against their plain versions at llama2-7b's shapes, with
+    their times, the plain version's, one PyTorch yardstick's (never used
+    by the port) and the bound:
+      * K15 (``paged_attn_v1``) over the 8-slot pools of 128-row pages at
+        ``SLOT_POS``, bf16, int8 and fp8 (yardstick: SDPA over the rows
+        gathered out of the pages); faults: one softmax over all pages (K11's
+        order), the v scale applied after the bf16 cast;
+      * K16's write (``decode_attn_write``) at B=1, T 1024, pos 0/517/1023,
+        bf16 (equal to K5 plus the outside write bit for bit) and int8
+        (codes and scales bit for bit, an all-zero row among the new ones;
+        faults: the raw row attended, ``_kv_quant``'s rule); K16's bulk
+        copies (``decode_attn_hbm``, equal to K5 bit for bit); yardstick
+        SDPA over the visited rows;
+      * K17 (``omlp``) at o 4096x4096, gate_up 4096x22016, down 11008x4096,
+        with and without o (yardstick: three ``torch.matmul`` of the bf16
+        weights); faults: one h scale a token, x1 through bf16;
+      * K18 (``attn_o``) at H 32, D 128, T 1024 (yardstick: SDPA and a
+        ``torch.matmul``); faults: the bf16-rounded output quantized, one
+        scale a head.
+    Outputs within ``ulp_check``; every planted fault must fail it."""
+    from neural_compressor_tpu_torch import kernels as K
+    from neural_compressor_tpu_torch.kernels.decode_attention import \
+        _attend_plain
+    from neural_compressor_tpu_torch.ops import (dequantize_packed,
+                                                 pack_qtensor,
+                                                 quantize_tensor, to_hopper)
+    from neural_compressor_tpu_torch.ops import kv_quant as kq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bf16 = torch.bfloat16
+    rows = {"k15": [], "k16w": [], "k16h": [], "k17": [], "k18": []}
+    missed = []
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def record(kind, label, out, ref, ms, pms, lms, nbytes, ops, extra_ok=True,
+               **extra):
+        torch.cuda.synchronize()
+        err, share, ok = ulp_check(torch, out, ref)
+        ok = ok and extra_ok
+        bms, by = bound(nbytes, ops, peaks["int8_s" if kind in ("k17", "k18")
+                                            else "bf16_s"], peaks)
+        rows[kind].append(dict(label=label, err=err, ulp_share=share, ok=ok,
+                               ms=ms, plain_ms=pms, library_ms=lms,
+                               bound_ms=bms, bound_by=by, **extra))
+        lib = "null" if lms is None else f"{lms:.4f}"
+        print(f"{kind} {label} max_abs_err={err:.3e} ulp_share={share:.2e} "
+              f"ok={ok} ms={ms:.4f} plain_ms={pms:.4f} library_ms={lib} "
+              f"bound_ms={bms:.4f} ({by})", flush=True)
+
+    def fault(label, out, faulty_ref, extra_flag=False):
+        torch.cuda.synchronize()
+        _e, _s, ok = ulp_check(torch, out, faulty_ref)
+        flagged = not ok or extra_flag
+        print(f"  planted fault {label}: flagged={flagged}", flush=True)
+        if not flagged:
+            missed.append(label)
+
+    B, H, Hkv, D, T = SLOTS, HEADS, HEADS, HEAD_DIM, MAX_LEN
+
+    # K15 over the engine's pools at SLOT_POS
+    pos = torch.tensor(SLOT_POS, dtype=torch.int32, device=dev)
+    lengths = (pos + 1).contiguous()
+    L = lengths.long()
+    n_vis = int(L.sum())
+    Lmax = int(L.max())
+    mask = (torch.arange(Lmax, device=dev)[None, :] < L[:, None])[:, None,
+                                                                 None]
+    pmax = T // PAGE
+    n_pages = B * pmax + 1
+    bt = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                         .manual_seed(62)) + 1).reshape(B, pmax)
+    bt = bt.to(torch.int32).to(dev)
+    q = randn(B, H, D)
+    q4 = q[:, :, None]
+    for fmt in ("bf16", "int8", "fp8_e4m3"):
+        esize = 2 if fmt == "bf16" else 1
+
+        def make_pool():
+            kr = randn(n_pages, Hkv, PAGE, D)
+            vr = randn(n_pages, Hkv, PAGE, D)
+            if fmt == "bf16":
+                return kr, None, vr, None
+            return (*kq.kv_quant(kr, fmt), *kq.kv_quant(vr, fmt))
+
+        pool_bytes = 2 * n_pages * Hkv * PAGE * D * esize
+        pools = [make_pool() for _ in range(n_copies(pool_bytes))]
+        kp, ks, vp, vs = pools[0]
+        out = K.paged_attn_v1(q, kp, ks, vp, vs, bt, lengths)
+        ref = K.paged_attn_v1_plain(q, kp, ks, vp, vs, bt, lengths)
+        ms = timed_ms(torch, [lambda p=p: K.paged_attn_v1(q, *p, bt, lengths)
+                              for p in pools], 200)
+        pms = timed_ms(torch, [lambda: K.paged_attn_v1_plain(
+            q, kp, ks, vp, vs, bt, lengths)], 5)
+
+        def gathered(pages, scales):
+            g = pages[bt.long()].transpose(1, 2).reshape(B, Hkv, T, D)
+            if scales is not None:
+                s_ = scales[bt.long()].transpose(1, 2).reshape(B, Hkv, T)
+                g = g.float() * s_[..., None]
+            return g[:, :, :Lmax].to(bf16).contiguous()
+
+        gk = [(gathered(p[0], p[1]), gathered(p[2], p[3])) for p in pools]
+        lms = timed_ms(torch, [lambda a=a, b=b: sdpa(q4, a, b, attn_mask=mask)
+                               for a, b in gk], 200)
+        del gk
+        record("k15", f"{fmt} B={B} H={H} D={D} page={PAGE} pmax={pmax} "
+               f"lengths={tuple(lengths.tolist())}", out, ref, ms, pms, lms,
+               2 * Hkv * n_vis * (D * esize + (4 if ks is not None else 0))
+               + 2 * B * H * D * 2 + B * pmax * 4 + B * 4,
+               4 * H * n_vis * D, fmt=fmt)
+        # faults: K11's one softmax over all pages; v scale after the cast
+        fault(f"k15 {fmt} one softmax over all pages", out,
+              K.paged_attn_plain(q, kp, ks, vp, vs, bt, lengths))
+        if ks is not None:
+            fault(f"k15 {fmt} v scale after the bf16 cast", out,
+                  v1_scale_after_cast(torch, q, kp, ks, vp, vs, bt, lengths))
+        del pools, kp, ks, vp, vs
+
+    # K16 at B=1, T 1024
+    q1 = randn(1, H, D)
+    for p_ in ATTN_POS:
+        posd = torch.tensor([p_], dtype=torch.int32, device=dev)
+        L1 = p_ + 1
+        kn, vn = randn(1, Hkv, D), randn(1, Hkv, D)
+        kv = [(randn(1, Hkv, T, D), randn(1, Hkv, T, D))
+              for _ in range(n_copies(2 * Hkv * T * D * 2))]
+        k, v = kv[0]
+        # bf16 write: equal to K5 plus the outside write, bit for bit
+        k1, v1 = k.clone(), v.clone()
+        out = K.decode_attn_write(q1, kn, vn, k1, None, v1, None, posd)
+        k2, v2 = k.clone(), v.clone()
+        k2[:, :, p_], v2[:, :, p_] = kn, vn
+        ref = K.decode_attn(q1, k2, v2, posd)
+        torch.cuda.synchronize()
+        same = (torch.equal(out, ref) and torch.equal(k1, k2)
+                and torch.equal(v1, v2))
+        ms = timed_ms(torch, [lambda a=a, b=b: K.decode_attn_write(
+            q1, kn, vn, a, None, b, None, posd) for a, b in kv], 200)
+        pms = timed_ms(torch, [lambda: K.decode_attn_write_plain(
+            q1, kn, vn, k2.clone(), None, v2.clone(), None, posd)], 5)
+        lms = timed_ms(torch, [lambda a=a, b=b: sdpa(
+            q1[:, :, None], a[:, :, :L1], b[:, :, :L1]) for a, b in kv], 200)
+        nb = 2 * Hkv * L1 * D * 2 + H * D * 2 * 2 + 2 * Hkv * D * 2 * 2
+        record("k16w", f"bf16 pos={p_} T={T} H={H} D={D} (== K5 + write: "
+               f"{same})", out, ref, ms, pms, lms, nb, 4 * H * L1 * D,
+               extra_ok=same, fmt="bf16", pos=p_)
+        # the bulk-copy kernel: equal to K5 bit for bit
+        out = K.decode_attn_hbm(q1, k2, v2, posd)
+        torch.cuda.synchronize()
+        same = torch.equal(out, ref)
+        ms = timed_ms(torch, [lambda a=a, b=b: K.decode_attn_hbm(
+            q1, a, b, posd) for a, b in kv], 200)
+        pms = timed_ms(torch, [lambda: K.decode_attn_hbm_plain(
+            q1, k2, v2, posd)], 5)
+        record("k16h", f"pos={p_} T={T} H={H} D={D} (== K5: {same})", out,
+               ref, ms, pms, lms, nb - 2 * Hkv * D * 2 * 2, 4 * H * L1 * D,
+               extra_ok=same, pos=p_)
+        del kv, k1, v1, k2, v2
+        # int8 write: codes and scales bit for bit, one all-zero new row
+        kn8 = kn.clone()
+        kn8[0, 1] = 0
+        rk, rv = randn(1, Hkv, T, D), randn(1, Hkv, T, D)
+        cache = (*kq.kv_quant(rk, "int8"), *kq.kv_quant(rv, "int8"))
+        c_k = [t.clone() for t in cache]
+        c_p = [t.clone() for t in cache]
+        out = K.decode_attn_write(q1, kn8, vn, *c_k, posd)
+        ref = K.decode_attn_write_plain(q1, kn8, vn, *c_p, posd)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(c_k, c_p))
+        copies = [[t.clone() for t in cache]
+                  for _ in range(n_copies(2 * Hkv * T * (D + 4)))]
+        ms = timed_ms(torch, [lambda c=c: K.decode_attn_write(
+            q1, kn8, vn, *c, posd) for c in copies], 200)
+        pms = timed_ms(torch, [lambda: K.decode_attn_write_plain(
+            q1, kn8, vn, *[t.clone() for t in cache], posd)], 5)
+        deq = [(kq.kv_dequant(c[0], c[1], bf16), kq.kv_dequant(c[2], c[3],
+                                                               bf16))
+               for c in copies[:2]]
+        lms = timed_ms(torch, [lambda a=a, b=b: sdpa(
+            q1[:, :, None], a[:, :, :L1], b[:, :, :L1]) for a, b in deq], 200)
+        record("k16w", f"int8 pos={p_} T={T} H={H} D={D} (codes and scales "
+               f"bit-equal: {same})", out, ref, ms, pms, lms,
+               2 * Hkv * L1 * (D + 4) + H * D * 4 + 2 * Hkv * (D * 3 + 4),
+               4 * H * L1 * D, extra_ok=same, fmt="int8", pos=p_)
+        # faults: the raw row attended (K6); _kv_quant's rule (its scale
+        # of 1 on the all-zero row)
+        raw = K.decode_attn_quant_plain(q1, kn8, vn, *cache, posd)
+        fault(f"k16w int8 pos={p_} raw row attended", out, raw)
+        kvq_scale = kq.kv_quant(kn8[:, :, None], "int8")[1][0, 1, 0]
+        fault(f"k16w int8 pos={p_} _kv_quant's rule (all-zero row's scale "
+              f"{float(kvq_scale)}, the kernel's "
+              f"{float(c_k[1][0, 1, p_]):.3e})", out, ref,
+              extra_flag=not torch.equal(kvq_scale, c_k[1][0, 1, p_]))
+        del copies, deq, cache, c_k, c_p
+
+    # K17 and K18: llama2-7b's projections
+    def hopper(K_, N_):
+        w = randn(K_, N_, dtype=torch.float32) * K_ ** -0.5
+        pw = to_hopper(pack_qtensor(quantize_tensor(w, bits=4, group_size=G)))
+        return pw, dequantize_packed(pw, bf16)
+
+    (pwo, wo), (pwg, wg), (pwd, wd) = (hopper(*SHAPES[n])
+                                       for n in ("o", "gate_up", "down"))
+    Kh, I = SHAPES["down"][1], SHAPES["down"][0]
+    tn_i = port_module("omlp_matvec")._pick_tiles(Kh, I, True, Kh)[1]
+    x = randn(Kh)
+    res = randn(Kh)
+    rms_w = 1.0 + 0.1 * randn(Kh, dtype=torch.float32)
+    wbytes = sum(pw.packed.numel() + pw.scales.numel() * 4
+                 for pw in (pwo, pwg, pwd))
+    wcopies = [[(pw.packed.clone(), pw.scales.clone())
+                for pw in (pwo, pwg, pwd)] for _ in range(n_copies(wbytes))]
+    for has_o in (True, False):
+        xin = x if has_o else res
+
+        def call(ws, fn=K.omlp):
+            (ow, osc), (gw, gsc), (dw_, dsc) = ws
+            return fn(xin, res if has_o else None, rms_w,
+                      ow if has_o else None, osc if has_o else None, gw, gsc,
+                      dw_, dsc, eps=1e-5, tn_i=tn_i)
+
+        out = call(wcopies[0])
+        ref = call(wcopies[0], K.omlp_plain)
+        ms = timed_ms(torch, [lambda c=c: call(c) for c in wcopies], 50)
+        pms = timed_ms(torch, [lambda: call(wcopies[0], K.omlp_plain)], 3)
+        x2 = xin.reshape(1, Kh)
+
+        def lib():
+            y = torch.matmul(x2, wo) if has_o else x2
+            g = torch.matmul(y, wg)
+            return torch.matmul(g[:, :I], wd)
+
+        lms = timed_ms(torch, [lib], 50)
+        nb = (wbytes - (0 if has_o else pwo.packed.numel()
+                        + pwo.scales.numel() * 4) + Kh * 2 * 3 + Kh * 4)
+        ops = 2 * ((Kh * Kh if has_o else 0) + Kh * 2 * I + I * Kh)
+        record("k17", f"{'o+' if has_o else ''}gate_up+down Kh={Kh} I={I} "
+               f"tn_i={tn_i}", out, ref, ms, pms, lms, nb, ops, has_o=has_o)
+        # faults: one h scale a token; x1 through bf16
+        fault(f"k17 has_o={has_o} one h scale a token", out,
+              K.omlp_plain(xin, res if has_o else None, rms_w,
+                           pwo.packed if has_o else None,
+                           pwo.scales if has_o else None, pwg.packed,
+                           pwg.scales, pwd.packed, pwd.scales, eps=1e-5,
+                           tn_i=I))
+        if has_o:
+            x1 = port_module("fused_matvec").fused_gemv_plain(
+                x, None, pwo.packed, pwo.scales, None, res, eps=0.0,
+                silu=False, out_dtype=bf16)
+            fault("k17 x1 through bf16", out, K.omlp_plain(
+                x1, None, rms_w, None, None, pwg.packed, pwg.scales,
+                pwd.packed, pwd.scales, eps=1e-5, tn_i=tn_i))
+    del wcopies
+
+    qh = randn(H, D)
+    N = SHAPES["o"][1]
+    for p_ in ATTN_POS:
+        L1 = p_ + 1
+        kv = [(randn(Hkv, T, D), randn(Hkv, T, D), pwo.packed.clone(),
+               pwo.scales.clone())
+              for _ in range(n_copies(2 * Hkv * T * D * 2
+                                      + pwo.packed.numel()
+                                      + pwo.scales.numel() * 4))]
+        k, v = kv[0][:2]
+        out = K.attn_o(qh, k, v, p_, pwo.packed, pwo.scales, res)
+        ref = K.attn_o_plain(qh, k, v, p_, pwo.packed, pwo.scales, res)
+        ms = timed_ms(torch, [lambda c=c: K.attn_o(qh, *c[:2], p_, *c[2:],
+                                                   res) for c in kv], 200)
+        pms = timed_ms(torch, [lambda: K.attn_o_plain(
+            qh, k, v, p_, pwo.packed, pwo.scales, res)], 5)
+
+        def lib(a, b):
+            o = sdpa(qh[None, :, None], a[None, :, :L1], b[None, :, :L1])
+            return torch.matmul(o.reshape(1, H * D), wo)
+
+        lms = timed_ms(torch, [lambda c=c: lib(*c[:2]) for c in kv], 200)
+        nb = (pwo.packed.numel() + pwo.scales.numel() * 4
+              + 2 * Hkv * L1 * D * 2 + H * D * 2 + N * 2 * 2)
+        record("k18", f"pos={p_} H={H} D={D} T={T} N={N}", out, ref, ms, pms,
+               lms, nb, 2 * H * D * N + 4 * H * L1 * D, pos=p_)
+        o32 = _attend_plain(qh[None], k[None], v[None], p_).reshape(-1)
+        fm = port_module("fused_matvec")
+        if p_:  # at pos 0 the output is V's row 0, already bf16
+            fault(f"k18 pos={p_} bf16-rounded output quantized", out,
+                  fm.fused_gemv_plain(o32.to(bf16), None, pwo.packed,
+                                      pwo.scales, None, res, eps=0.0,
+                                      silu=False, out_dtype=bf16))
+        # one scale a head: each head's codes at its own amax; with
+        # G == D each group is one head, so its scale multiplies the group's
+        oh = o32.reshape(H, D)
+        s_h = oh.abs().amax(dim=1) * (1.0 / 127)
+        s_h = torch.where(s_h <= 0, torch.ones_like(s_h), s_h)
+        codes = torch.clamp(torch.round(oh / s_h[:, None]), -128, 127)
+        yh = fm.group_dot(codes.reshape(-1), pwo.packed, pwo.scales,
+                          gmul=s_h)
+        fault(f"k18 pos={p_} one scale a head", out,
+              (yh + res.float()).to(bf16))
+        del kv
+    bad = [r for rs in rows.values() for r in rs if not r["ok"]]
+    if bad:
+        fail(f"a variant kernel disagrees with its plain version: {bad}")
+    if missed:
+        fail(f"planted faults not flagged: {missed}")
+    return rows
+
+
+def v1_scale_after_cast(torch, q, kp, ks, vp, vs, bt, lengths):
+    """K15 with the planted fault "v scale after the bf16 cast": p =
+    bf16(e) times v_scale, where v1 casts bf16(e * v_scale). v1's plain
+    version over V rows that carry their scale exactly (float64) and
+    scales of 1, so the probabilities are cast before the scale multiplies
+    them."""
+    pa = port_module("paged_attention")
+    vrows = vp.to(torch.bfloat16).to(torch.float64) \
+        * vs[..., None].to(torch.float64)
+    saved = pa._as_rows
+    pa._as_rows = lambda pages, fmt: (pages if pages.dtype == torch.float64
+                                      else saved(pages, fmt))
+    try:
+        return pa.paged_attn_v1_plain(q, kp, ks, vrows, torch.ones_like(vs),
+                                      bt, lengths)
+    finally:
+        pa._as_rows = saved
+
+
+def phase_variant_envelope(torch, nct) -> None:
+    """K15-K18 and the repaired K5 at shapes llama2-7b does not give them,
+    each within ``ulp_check`` of its plain version (bit for bit where the
+    kernel is K5's function):
+      * K15 and K16 (write bf16 and int8, bulk copies) at rep 1, 4 and 8 and
+        D 64 and 80; K15 with zero-length and idle slots (every entry on
+        trash page 0) and a PMAX not a multiple of 4;
+      * K17 at I with tn_i 128, 256 and 512, and declining where tn_i is
+        not a multiple of the down projection's group (counted in
+        ``omlp_fused.declined``);
+      * K18 declining at G != D and over an int8 cache (counted in
+        ``attn_o_fused.declined``);
+      * the repaired K5: per-slot positions in one launch, and pos >= T."""
+    from neural_compressor_tpu_torch import kernels as K
+    from neural_compressor_tpu_torch.models.llama import KVCache, QuantKVCache
+    from neural_compressor_tpu_torch.ops import (pack_qtensor,
+                                                 quantize_tensor, to_hopper)
+    from neural_compressor_tpu_torch.ops import kv_quant as kq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(71)
+    bf16 = torch.bfloat16
+    bad, n = [], 0
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check(label, out, ref, exact=False):
+        nonlocal n
+        n += 1
+        torch.cuda.synchronize()
+        ok = torch.equal(out, ref) if exact else ulp_check(torch, out, ref)[2]
+        if not ok:
+            bad.append(label)
+
+    # K15 and K16 at rep 1, 4, 8 and D 64, 80
+    for rep in (1, 4, 8):
+        for D in (64, 80):
+            Hkv = 4
+            H, T, page = Hkv * rep, 300, 16
+            tag = f"rep={rep} D={D}"
+            q1 = randn(1, H, D)
+            k, v = randn(1, Hkv, T, D), randn(1, Hkv, T, D)
+            for p_ in (0, 77, T - 1):
+                posd = torch.tensor([p_], dtype=torch.int32, device=dev)
+                kn, vn = randn(1, Hkv, D), randn(1, Hkv, D)
+                kn[0, 1] = 0
+                a = [t.clone() for t in (k, v)]
+                b = [t.clone() for t in (k, v)]
+                check(f"k16w bf16 {tag} pos={p_}",
+                      K.decode_attn_write(q1, kn, vn, a[0], None, a[1], None,
+                                          posd),
+                      K.decode_attn_write_plain(q1, kn, vn, b[0], None, b[1],
+                                                None, posd))
+                check(f"k16w bf16 cache {tag} pos={p_}", a[0], b[0],
+                      exact=True)
+                check(f"k16h {tag} pos={p_}", K.decode_attn_hbm(
+                    q1, a[0], a[1], posd), K.decode_attn(q1, a[0], a[1], posd),
+                      exact=True)
+                c8 = (*kq.kv_quant(k, "int8"), *kq.kv_quant(v, "int8"))
+                a8 = [t.clone() for t in c8]
+                b8 = [t.clone() for t in c8]
+                check(f"k16w int8 {tag} pos={p_}",
+                      K.decode_attn_write(q1, kn, vn, *a8, posd),
+                      K.decode_attn_write_plain(q1, kn, vn, *b8, posd))
+                for x, y, what in zip(a8, b8, ("kc", "ks", "vc", "vs")):
+                    check(f"k16w int8 {what} {tag} pos={p_}", x, y,
+                          exact=True)
+            # K15: slots of length 0, 1, a page, a page and one, the table;
+            # an idle slot on trash page 0; PMAX 19 (not a multiple of 4)
+            pmax = -(-T // page)
+            lengths = torch.tensor([0, 1, page, page + 1, T, T], device=dev,
+                                   dtype=torch.int32)
+            B = lengths.numel()
+            P = (B - 1) * pmax + 1
+            bt = (torch.randperm(P - 1, generator=torch.Generator()
+                                 .manual_seed(72)) + 1).reshape(B - 1, pmax)
+            bt = torch.cat([bt, torch.zeros((1, pmax), dtype=bt.dtype)])
+            bt = bt.to(torch.int32).to(dev)
+            qb = randn(B, H, D)
+            for fmt in ("bf16", "int8", "fp8_e4m3"):
+                kr, vr = randn(P, Hkv, page, D), randn(P, Hkv, page, D)
+                pool = ((kr, None, vr, None) if fmt == "bf16" else
+                        (*kq.kv_quant(kr, fmt), *kq.kv_quant(vr, fmt)))
+                out = K.paged_attn_v1(qb, *pool, bt, lengths)
+                check(f"k15 {fmt} {tag} pmax={pmax}", out,
+                      K.paged_attn_v1_plain(qb, *pool, bt, lengths))
+                check(f"k15 {fmt} {tag} zero-length slot", out[0],
+                      torch.zeros_like(out[0]), exact=True)
+
+    # the repaired K5: per-slot positions in one launch, and pos >= T
+    H, Hkv, D, T = 8, 2, 128, 200
+    qb = randn(4, H, D)
+    k, v = randn(4, Hkv, T, D), randn(4, Hkv, T, D)
+    for posv in ((0, 57, 199, 260), (199, 199, 3, 0)):
+        posd = torch.tensor(posv, dtype=torch.int32, device=dev)
+        check(f"k5 per-slot positions {posv}", K.decode_attn(qb, k, v, posd),
+              K.decode_attn_plain(qb, k, v, posd), exact=True)
+        check(f"k16h per-slot positions {posv}",
+              K.decode_attn_hbm(qb, k, v, posd),
+              K.decode_attn(qb, k, v, posd), exact=True)
+
+    # K17 at tn_i 128, 256, 512, and its decline
+    om, fm = port_module("omlp_matvec"), port_module("fused_matvec")
+
+    def hopper(K_, N_, g=G):
+        w = randn(K_, N_, dtype=torch.float32) * K_ ** -0.5
+        return to_hopper(pack_qtensor(quantize_tensor(w, bits=4,
+                                                      group_size=g)))
+
+    Kh = 1024
+    pwo = hopper(Kh, Kh)
+    for I, want_tn in ((384, 128), (768, 256), (2048, 512)):
+        pwg, pwd = hopper(Kh, 2 * I), hopper(I, Kh)
+        tn_i = om._pick_tiles(Kh, I, True, Kh)[1]
+        if tn_i != want_tn:
+            bad.append(f"k17 I={I}: tn_i {tn_i}, expected {want_tn}")
+        x, res = randn(Kh), randn(Kh)
+        rw = 1 + 0.1 * randn(Kh, dtype=torch.float32)
+        for has_o in (True, False):
+            args = ((x if has_o else res), res if has_o else None, rw,
+                    pwo.packed if has_o else None,
+                    pwo.scales if has_o else None, pwg.packed, pwg.scales,
+                    pwd.packed, pwd.scales)
+            check(f"k17 I={I} tn_i={tn_i} has_o={has_o}",
+                  K.omlp(*args, eps=1e-5, tn_i=tn_i),
+                  K.omlp_plain(*args, eps=1e-5, tn_i=tn_i))
+    om.omlp_fused.declined = 0
+    I = 640                  # tn_i 128, the down projection's group 640
+    pwg, pwd = hopper(Kh, 2 * I), hopper(I, Kh, g=I)
+    r = om.omlp_fused(randn(1, 1, Kh), pwo, pwg, pwd, residual=randn(1, 1, Kh),
+                      rms_w=torch.ones(Kh, device=dev), eps=1e-5)
+    if r is not None or om.omlp_fused.declined != 1:
+        bad.append(f"k17 took tn_i % Gd != 0 (declined "
+                   f"{om.omlp_fused.declined})")
+    print(f"variant envelope: omlp_fused declined "
+          f"{om.omlp_fused.declined} time(s) at I={I}, down group {I}",
+          flush=True)
+
+    # K18 declines: G != D, and an int8 cache
+    fm.attn_o_fused.declined = 0
+    H, Hkv, D, T = 8, 8, 128, 64
+    q, kn, vn = randn(1, H, 1, D), randn(1, Hkv, 1, D), randn(1, Hkv, 1, D)
+    res = randn(1, 1, 512)
+    cache = KVCache(randn(1, Hkv, T, D), randn(1, Hkv, T, D))
+    r1 = fm.attn_o_fused(q, kn, vn, cache, 5, hopper(H * D, 512, g=256), res)
+    qc = QuantKVCache(*kq.kv_quant(cache.k, "int8"),
+                      *kq.kv_quant(cache.v, "int8"))
+    r2 = fm.attn_o_fused(q, kn, vn, qc, 5, hopper(H * D, 512), res)
+    r3 = fm.attn_o_fused(q, kn, vn, cache, 5, hopper(H * D, 512), res)
+    if (r1, r2) != (None, None) or r3 is None \
+            or fm.attn_o_fused.declined != 2:
+        bad.append(f"k18 envelope: declined {fm.attn_o_fused.declined}")
+    print(f"variant envelope: attn_o_fused declined "
+          f"{fm.attn_o_fused.declined} time(s) (G 256 != D 128; an int8 "
+          f"cache), took the bf16 cache", flush=True)
+    print(f"variant envelope: {n} checks, {len(bad)} failed", flush=True)
+    if bad:
+        fail(f"variant envelope: {bad}")
+
+
+def variant_launches(flag, L: int, steps: int, fmt=None) -> dict:
+    """The exact launches of ``steps`` fused B=1 decode steps of an L-layer
+    W4A8 llama under ``flag`` after one prefill (K1 for its 4L + 1
+    projections), over a bf16 cache or (``fmt`` "int8") an int8 one: K4 for
+    the projections the variant leaves (4L + 1 a step; L + 1 beside K17,
+    3L + 1 beside K18), and the variant's kernel once a layer a step."""
+    s = steps * L
+    attn = {"write": {("decode_attn_write_int8" if fmt
+                       else "decode_attn_write"): s},
+            "hbm": {"decode_attn_hbm": s},
+            "omlp": {"omlp": s, "decode_attn": s},
+            "attn_o": {"attn_o": s}}[flag]
+    gemv = {"omlp": L + 1, "attn_o": 3 * L + 1}.get(flag, 4 * L + 1)
+    return expect(w4a8_gemm=4 * L + 1, fused_gemv=steps * gemv, **attn)
+
+
+def phase_variant_model_check(torch, nct) -> None:
+    """A full-width 2-layer llama2-7b W4A8 with fused decode, on the card
+    (kernels) against the same weights on the CPU (plain versions), under
+    each switch: ``two_layer_check`` (a 32-token prefill, 8 greedy steps,
+    tokens equal but at near-ties under ``card_cpu_tie``'s rule, exact
+    launches) under K17, K18 and K16's bulk copies over a bf16 cache and
+    K16's write over bf16 and int8 caches; then the engine under
+    ``set_paged_v2(False)`` over paged bf16, int8 and fp8 pools (K15),
+    card against CPU, tokens equal."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.models.llama import (LLAMA_PRESETS,
+                                                          LlamaConfig)
+
+    torch.set_num_threads(8)
+    cfg = LlamaConfig(**dict(LLAMA_PRESETS["llama2-7b"], num_hidden_layers=2))
+    m_cpu = nct.build_quantized(
+        cfg, nct.RTNConfig(dtype="int4", group_size=G, quant_lm_head=True),
+        seed=7, device="cpu")
+    nct.fuse_for_serving(m_cpu)
+    nct.to_w4a8_serving(m_cpu)
+    nct.enable_fused_decode(m_cpu)
+    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    gen = torch.Generator().manual_seed(8)
+    ids = torch.randint(0, cfg.vocab_size, (1, 32), generator=gen)
+    for flag in VARIANT_FLAGS:
+        formats = (None, "int8") if flag == "write" else (None,)
+        with variant(flag):
+            two_layer_check(torch, f"variant check {flag}", m_cpu, m_gpu, ids,
+                            woq=False, formats=formats, tie_any=True,
+                            want_fn=lambda fmt, f=flag: variant_launches(
+                                f, 2, 8, fmt))
+    lens = (12, 20, 5, 33)
+    prompts = [torch.randint(0, cfg.vocab_size, (P,), generator=gen).numpy()
+               for P in lens]
+    kw = dict(n_slots=4, max_len=128, prefill_chunk=16, page_size=32)
+    for mode in ("paged_bf16", "paged_int8", "paged_fp8"):
+        t1 = time.perf_counter()
+        with variant("v1"):
+            kernels.reset_launch_counts()
+            _e, got, _s = serve_engine(torch, nct, m_gpu, mode, prompts,
+                                       (4, 3, 4, 2), chunk=2, **kw)
+            launched = launch_counts()
+            with unpack_once():
+                _e, want, _s = serve_engine(torch, nct, m_cpu, mode, prompts,
+                                            (4, 3, 4, 2), chunk=2, **kw)
+        toks = [r.generated for r in got]
+        ok = (toks == [r.generated for r in want]
+              and launched["paged_attn_v1"] > 0
+              and launched["paged_attn"] + launched["paged_attn_fp8"] == 0)
+        print(f"variant engine check v1 {mode} (2 layers, full width): card "
+              f"tokens {toks} cpu tokens {[r.generated for r in want]} "
+              f"launches { {k: v for k, v in launched.items() if v} } "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+        if not ok:
+            fail(f"v1 engine {mode}: card and CPU differ or K15 did not run")
+    del m_cpu, m_gpu
+
+
+def recording(model, sink):
+    """A forward hook on ``model`` that keeps each call's logits in
+    ``sink``; remove it after."""
+    return model.register_forward_hook(lambda _m, _a, out: sink.append(
+        out[0] if isinstance(out, tuple) else out))
+
+
+def engine_decode_rows(eng, sink) -> dict:
+    """Make ``eng`` record, while a ``recording`` hook fills ``sink``, the
+    logits that chose each decode token of each request: {(request uid,
+    new-token index): logits}. The first new token comes from the prefill,
+    which no switch of this slice changes."""
+    rows = {}
+    decode = eng._decode_forward
+
+    def observed(k):
+        base = {s_: (eng.slot_req[s_].uid, len(eng.slot_req[s_].generated))
+                for s_ in range(eng.n_slots)
+                if eng.slot_state[s_] == "decode"}
+        sink.clear()
+        out = decode(k)
+        for j, lg in enumerate(sink):
+            for s_, (uid, n0) in base.items():
+                rows[(uid, n0 + j)] = lg[s_, 0].clone()
+        sink.clear()
+        return out
+
+    eng._decode_forward = observed
+    return rows
+
+
+def parting_rule(label, want, got, rows_want, rows_got) -> dict:
+    """Tokens ``got`` of a variant path against the default path's ``want``:
+    equal, or parted first at a new token n where the default path's top-2
+    gap between the two tokens is at most the two paths' logit difference
+    there, each path's logits the ones recorded in this run that chose
+    token n (``rows_*(n)``). Returns the parting (or {})."""
+    n = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if n is None:
+        return {}
+    a, b = rows_want(n), rows_got(n)
+    if a is None or b is None:
+        fail(f"{label}: parts at new token {n}, where no switch of this "
+             "slice changes the path")
+    a, b = a.float(), b.float()
+    gap = float(a[want[n]] - a[got[n]])
+    diff = float((a - b).abs().max())
+    part = dict(step=n, default=want[n], variant=got[n], gap=gap, diff=diff)
+    print(f"{label}: parts from the default path at new token {n}: {part}",
+          flush=True)
+    if gap > diff:
+        fail(f"{label}: parts from the default path where its top-2 gap "
+             f"{gap} exceeds the paths' difference {diff}")
+    return part
+
+
+def phase_variant_serve(torch, nct, model) -> dict:
+    """The flag-selected variants on phase 5's llama2-7b W4A8 model
+    (``W4A8_LAYERS`` of 32 layers, full width; not rebuilt):
+      * B=1 greedy, prompts of 16 and 371 tokens, 48 new, under K17, K18,
+        K16's bf16 write and K16's bulk copies, against the default path on
+        the same prompts (measured before and after them);
+      * K16's int8 write with the model's KV cache flagged int8 as
+        ``KVCacheQuantConfig`` flags it, against the default int8 path (K6
+        and K12);
+      * the 8-slot engine under v1 (K15) over the paged bf16 and int8 pools,
+        16 requests, against the default v2 engine on the same requests.
+    Exact launch counts (``expect``), tok/s beside the default path's in
+    this run, tokens under ``parting_rule`` (a forward hook records the
+    logits that chose each token on both paths), one decode step (or
+    dispatch) profiled a variant. Returns {path: launches}."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.models.llama import init_kv_cache
+
+    nl = model.cfg.num_hidden_layers
+    V = model.cfg.vocab_size
+    gen = torch.Generator().manual_seed(9)
+    prompts = [torch.randint(0, V, (1, P), generator=gen)
+               for P in VARIANT_PROMPTS]
+    steps = NEW_TOKENS - 1
+    sink = []
+    out = {}
+
+    def greedy(flag, fmt):
+        """Each prompt's new tokens, seconds, the logits that chose each
+        token, and the launches, under ``flag`` over a cache of ``fmt``."""
+        set_kv_format(model, fmt)
+        hook = recording(model, sink)
+        try:
+            with variant(flag):
+                toks, secs, rows = [], [], []
+                kernels.reset_launch_counts()
+                for ids in prompts:
+                    sink.clear()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    toks.append(nct.greedy_search(
+                        model, ids, max_new_tokens=NEW_TOKENS,
+                        max_len=MAX_LEN)[0, ids.shape[1]:].tolist())
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t)
+                    rows.append([lg[0, -1] for lg in sink])
+                return toks, secs, rows, launch_counts()
+        finally:
+            hook.remove()
+            sink.clear()
+            set_kv_format(model, None)
+
+    def tok_s(secs):
+        return [round(steps / x, 2) for x in secs]
+
+    nct.greedy_search(model, prompts[0], max_new_tokens=4, max_len=MAX_LEN)
+    for fmt in (None, "int8"):
+        flags = VARIANT_FLAGS if fmt is None else ("write",)
+        base = greedy(None, fmt)
+        runs = {flag: greedy(flag, fmt) for flag in flags}
+        again = greedy(None, fmt)
+        print(f"default path{' int8' if fmt else ''}: {tok_s(base[1])} tok/s "
+              f"before the variants, {tok_s(again[1])} after", flush=True)
+        for flag, (toks, secs, rows, launched) in runs.items():
+            want = variant_launches(flag, nl, steps * len(prompts), fmt)
+            want["w4a8_gemm"] *= len(prompts)
+            key = f"variant_b1_{flag}" + (f"_{fmt}" if fmt else "")
+            print(f"{key}: {nl} layers, prompts {VARIANT_PROMPTS}, "
+                  f"{NEW_TOKENS} new: {tok_s(secs)} tok/s (request time, "
+                  f"prefill included) launches "
+                  f"{ {k: v for k, v in launched.items() if v} }",
+                  flush=True)
+            if launched != want:
+                fail(f"{key}: launch counts {launched} != {want}")
+            for i, ids in enumerate(prompts):
+                parting_rule(f"{key} prompt {ids.shape[1]}", base[0][i],
+                             toks[i], base[2][i].__getitem__,
+                             rows[i].__getitem__)
+            out[key] = launched
+            # where the time goes: one decode step under the variant
+            set_kv_format(model, fmt)
+            try:
+                with variant(flag), torch.no_grad():
+                    ids = prompts[0].cuda()
+                    P = ids.shape[1]
+                    caches = init_kv_cache(model.cfg, 1, MAX_LEN,
+                                           quantized=fmt or False)
+                    model(ids, None, caches, 0)
+                    tok = ids[:, -1:]
+
+                    def step():
+                        model(tok, torch.full((1, 1), P, device="cuda"),
+                              caches, P)
+
+                    step()
+                    profile_window(torch, f"{key} decode step", step)
+            finally:
+                set_kv_format(model, None)
+        del base, runs, again
+
+    # the 8-slot engine under v1 against the default (v2) engine
+    eprompts = [torch.randint(0, V, (PROMPTS[i % len(PROMPTS)],),
+                              generator=gen).numpy()
+                for i in range(ENGINE_REQUESTS)]
+    new = [48 + (7 * i) % 17 for i in range(ENGINE_REQUESTS)]
+    for mode in ("paged_bf16", "paged_int8"):
+        res = {}
+        for flag in (None, "v1"):
+            with variant(flag):
+                eng = engine_for(nct, model, mode, n_slots=SLOTS,
+                                 max_len=MAX_LEN, page_size=PAGE)
+                rows = engine_decode_rows(eng, sink)
+                hook = recording(model, sink)
+                reqs = [eng.submit(p, max_new_tokens=m)
+                        for p, m in zip(eprompts, new)]
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                try:
+                    done = eng.run(chunk=CHUNK)
+                finally:
+                    hook.remove()
+                    sink.clear()
+                torch.cuda.synchronize()
+                if len(done) != len(reqs):
+                    fail(f"engine {mode} ({flag}) finished {len(done)} of "
+                         f"{len(reqs)} requests")
+                res[flag] = (eng, reqs, time.perf_counter() - t,
+                             launch_counts(), rows)
+        eng, reqs, seconds, launched, rows = res["v1"]
+        m = eng.metrics()
+        dsteps = CHUNK * m["decode_dispatches"]
+        chunks = m["prefill_chunk_dispatches"]
+        want = expect(w4a8_gemm=(4 * nl + 1) * (dsteps + chunks),
+                      paged_attn_v1=nl * dsteps, paged_write=nl * dsteps)
+        base_m = res[None][0].metrics()
+        key = f"variant_engine_v1_{mode}"
+        print(f"{key}: {len(reqs)} requests in {seconds:.3f} s, generated "
+              f"{m['generated_tok_s']:.2f} tok/s (default v2 engine "
+              f"{base_m['generated_tok_s']:.2f} tok/s), launches "
+              f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+        if launched != want:
+            fail(f"{key}: launch counts {launched} != {want}")
+        parted = []
+        for r2, r1, p in zip(res[None][1], reqs, eprompts):
+            part = parting_rule(
+                f"{key} prompt {len(p)}", r2.generated, r1.generated,
+                lambda n, u=r2.uid: res[None][4].get((u, n)),
+                lambda n, u=r1.uid: rows.get((u, n)))
+            parted += [part] if part else []
+        print(f"{key}: {len(reqs) - len(parted)} of {len(reqs)} requests "
+              "equal to the default engine's", flush=True)
+        out[key] = launched
+        with variant("v1"):
+            eng = engine_for(nct, model, mode, n_slots=SLOTS,
+                             max_len=MAX_LEN, page_size=PAGE)
+            for p in eprompts[:SLOTS]:
+                eng.submit(p, max_new_tokens=64)
+            while eng.queue or "prefill" in eng.slot_state:
+                eng.run(max_steps=1, chunk=1)
+            profile_window(torch, f"{key} decode dispatch, 8 slots x "
+                           f"{CHUNK} steps", lambda: eng.step_many(CHUNK))
+        del eng, res, rows
     return out
 
 
@@ -4704,9 +5587,17 @@ def main() -> None:
               "deepseek_envelope": lambda: phase_deepseek_envelope(torch,
                                                                    nct),
               "deepseek_model_check": lambda: phase_deepseek_model_check(
+                  torch, nct),
+              "variant_kernels": lambda: phase_variant_kernels(torch, nct,
+                                                               peaks),
+              "variant_envelope": lambda: phase_variant_envelope(torch, nct),
+              "variant_model_check": lambda: phase_variant_model_check(
                   torch, nct)}
-    # the serving phases a development run may name as well
-    serves = {"deepseek_serve": lambda: phase_deepseek_serve(torch, nct)}
+    # the serving phases a development run may name as well (there
+    # variant_serve builds phase 5's model itself)
+    serves = {"deepseek_serve": lambda: phase_deepseek_serve(torch, nct),
+              "variant_serve": lambda: phase_variant_serve(
+                  torch, nct, w4a8_model(torch, nct))}
     if len(sys.argv) > 1:
         # a development run: only the named checks, no serving, no result
         unknown = [a for a in sys.argv[1:] if a not in {**checks, **serves}]
@@ -4721,7 +5612,7 @@ def main() -> None:
     rows, erows = results["kernels"], results["engine_kernels"]
     wrows, kvrows = results["woq_kernels"], results["kv_kernels"]
     srows, grows = results["spec_kernels"], results["gemma_kernels"]
-    drows = results["deepseek_kernels"]
+    drows, vrows = results["deepseek_kernels"], results["variant_kernels"]
     launches, model, prompts = timed_phase(
         "serve", lambda: phase_serve(torch, nct))
     timed_phase("profile", lambda: phase_profile(torch, model, prompts[1]))
@@ -4732,6 +5623,9 @@ def main() -> None:
         by_path[f"engine_{mode}"] = counts
     by_path.update(timed_phase("spec_serve",
                                lambda: phase_spec_serve(torch, nct, model)))
+    by_path.update(timed_phase("variant_serve",
+                               lambda: phase_variant_serve(torch, nct,
+                                                           model)))
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4808,6 +5702,13 @@ def main() -> None:
     k14w_u = unit([drows["write"]], ds_layers, bytes_)
     k14a_u = unit([drows["attn"]], ds_layers,
                   lambda rs: rs[0]["bound_by"])
+
+    def variant_unit(kind, pick=lambda r: True):
+        u = unit([r for r in vrows[kind] if pick(r)], layers, bytes_)
+        u["max_abs_err"] = max(r["err"] for r in vrows[kind])
+        return u
+
+    at_unit = lambda r: r.get("pos") == UNIT_POS  # noqa: E731
     entries = [
         ("w4a8_gemm", "neural_compressor_tpu_torch/csrc/w4a8_gemm.cu",
          "neural_compressor_tpu/kernels/w4a8_matmul.py:88 (_w4a8_impl, K1); "
@@ -4882,6 +5783,32 @@ def main() -> None:
          "neural_compressor_tpu_torch/csrc/paged_latent.cu",
          "neural_compressor_tpu/kernels/paged_attention.py:1187 "
          "(_paged_latent_attn_impl, K14's attention)", k14a_u),
+        ("paged_attn_v1",
+         "neural_compressor_tpu_torch/csrc/paged_attention_v1.cu",
+         "neural_compressor_tpu/kernels/paged_attention.py:166, :231 "
+         "(_paged_attn_impl, _paged_attn_quant_impl, K15)",
+         variant_unit("k15", lambda r: r["fmt"] == "int8")),
+        ("decode_attn_write",
+         "neural_compressor_tpu_torch/csrc/decode_attention.cu",
+         "neural_compressor_tpu/kernels/decode_attention.py:77 "
+         "(_decode_attn_impl, K16's in-kernel write, bf16)",
+         variant_unit("k16w", lambda r: at_unit(r) and r["fmt"] == "bf16")),
+        ("decode_attn_write_int8",
+         "neural_compressor_tpu_torch/csrc/decode_attention.cu",
+         "neural_compressor_tpu/kernels/decode_attention.py:170 "
+         "(_decode_attn_quant_impl, K16's in-kernel write, int8)",
+         variant_unit("k16w", lambda r: at_unit(r) and r["fmt"] == "int8")),
+        ("decode_attn_hbm",
+         "neural_compressor_tpu_torch/csrc/decode_attention_hbm.cu",
+         "neural_compressor_tpu/kernels/decode_attention.py:364 "
+         "(_decode_attn_ro_hbm_impl, K16's bulk-copied caches)",
+         variant_unit("k16h", at_unit)),
+        ("omlp", "neural_compressor_tpu_torch/csrc/omlp.cu",
+         "neural_compressor_tpu/kernels/omlp_matvec.py:250 "
+         "(_omlp_impl, K17)", variant_unit("k17", lambda r: r["has_o"])),
+        ("attn_o", "neural_compressor_tpu_torch/csrc/attn_o.cu",
+         "neural_compressor_tpu/kernels/fused_matvec.py:489 "
+         "(_attn_o_impl, K18)", variant_unit("k18", at_unit)),
     ]
     print(smi, flush=True)
     print("unit of the kernels line: w4a8_gemm = one 128-token prefill "
@@ -4921,7 +5848,16 @@ def main() -> None:
           f"{DS_PRESET} decode step (lengths {DS_LENGTHS}, H 128, C 576, "
           "r 512, pages of 128 rows) over the latent pool, 61 layers (the "
           "write's yardstick an index_put_, the attention's SDPA over the "
-          "gathered rows), their launches from the deepseek engine path",
+          "gathered rows), their launches from the deepseek engine path; "
+          "paged_attn_v1 = the 8-slot step over the int8 pool under "
+          "set_paged_v2(False) (32 layers; bf16 and fp8 in the log); "
+          "decode_attn_write, decode_attn_write_int8 and decode_attn_hbm "
+          f"= one B=1 decode step at pos {UNIT_POS} over the bf16 (int8) "
+          "cache (32 layers); omlp = one decode step's o + gate_up + down "
+          "(32 layers; without o in the log); attn_o = one decode step's "
+          f"attention and o-projection at pos {UNIT_POS} (32 layers); "
+          "their launches from the variant paths (B=1 greedy under each "
+          "switch, the 8-slot engine under v1 over paged bf16 and int8)",
           flush=True)
     kernels_line = {"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,

@@ -1,24 +1,38 @@
 // B = 1 single-token decode attention over a head-major KV cache: bf16 rows
-// (K5), or int8 / fp8-e4m3 codes with per-(token, head) float32 scales (K6).
+// (K5), int8 / fp8-e4m3 codes with per-(token, head) float32 scales (K6),
+// and K16's variant that writes the new row inside the kernel (bf16 rows,
+// or int8 codes it quantizes itself).
 //
 // Replaces: neural_compressor_tpu/kernels/decode_attention.py
-//   _decode_attn_ro_impl / _kernel_ro (K5), and
-//   _decode_attn_quant_ro_impl / _kernel_q_ro (K6).
+//   _decode_attn_ro_impl / _kernel_ro (K5),
+//   _decode_attn_quant_ro_impl / _kernel_q_ro (K6), and
+//   _decode_attn_impl / _kernel and _decode_attn_quant_impl / _kernel_q
+//   (K16's in-kernel write, set_cache_write_mode("kernel")).
 //
 // Semantics (as K5): q [B, H, D] against caches [B, Hkv, T, D] that already
 //   hold the new row at `pos` (the port writes it in place before the
 //   launch; K5 folds the same bf16 row in by a select); float32 scores times
 //   1/sqrt(D); keys t > pos masked out; softmax; probabilities cast to bf16
 //   before the PV product; float32 accumulation; rep = H/Hkv query heads per
-//   KV head; bf16 output.
+//   KV head; bf16 output. Per-slot positions are an int32 [B] tensor read
+//   on the device, as the TPU kernel's grid (B, Hkv) reads pos_ref[b]; at
+//   pos >= T all T rows are attended, as the TPU kernel's mask leaves them.
 // Semantics (as K6): the same over codes, with the RAW bf16 new row
 //   (k_new, v_new [B, Hkv, D]) at `pos` and scale 1 there, whatever the
 //   cache holds at pos (the port writes the row's codes after the launch);
-//   pos is read on the device, and at pos >= T every code row is attended
-//   and no raw row is folded in, as the TPU kernel's mask leaves them:
+//   at pos >= T every code row is attended and no raw row is folded in:
 //   s = f32(q . k) * f32(k_scale * 1/sqrt(D)); p = f32(exp(s - m) / l) *
 //   v_scale, rounded to bf16 for PV. int8 and e4m3 codes convert to float
 //   exactly (e4m3 through Hopper's conversion to half).
+// Semantics (as K16's write): bf16 is K5 with row pos taken from k_new /
+//   v_new and stored into the cache by the kernel (attend.cuh); int8 is K6
+//   with the new row QUANTIZED in the kernel by the TPU kernel's own rule,
+//   scale = f32(max(amax, 1e-6) * f32(1/127)) and codes clip(round(x /
+//   scale), -127, 127) (not _kv_quant's: amax <= 0 -> 1, clip to -128), the
+//   codes and scale stored at pos and the quantized row (codes times the
+//   new scale) attended there. The TPU kernel rewrote the whole aliased
+//   [T, D] block; here only the row is written. Nothing reads the cache at
+//   pos, so the store races with no read; at pos >= T nothing is stored.
 //
 // Bound on this card: bytes. Each visited cache row is read once for
 //   2*rep*D flops: 2*Hkv*(pos+1)*D*2 bytes of K and V per layer for bf16,
@@ -46,147 +60,83 @@
 //   allocated by the wrapper; they pass through L2), so shared memory does
 //   not grow with T and any context length fits. A simple first kernel:
 //   only Hkv*B*ng blocks, no split of T across blocks.
-#include "nctt_common.cuh"
+#include "attend.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_REP = 8;
+constexpr int THREADS = nctt::ATT_THREADS;
+constexpr int WARPS = nctt::ATT_WARPS;
+constexpr int MAX_REP = nctt::ATT_MAX_REP;
 
-template <int DPL, bool FULL>
+// K5 (NEW = false) and K16's bf16 write (NEW = true): one block a work item
+template <int DPL, bool FULL, bool NEW>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ kc,
-                        const __nv_bfloat16* __restrict__ vc,
+                        __nv_bfloat16* kc, __nv_bfloat16* vc,
+                        const __nv_bfloat16* __restrict__ kn,
+                        const __nv_bfloat16* __restrict__ vn,
                         __nv_bfloat16* __restrict__ out,
                         float* __restrict__ ws, int H, int Hkv, int T,
-                        int D_, int pos, float scale) {
-  const int D = FULL ? DPL * 32 : D_;
+                        int D, const int* __restrict__ pos_b, float scale) {
   extern __shared__ __align__(16) double smem[];
-  const int rep = H / Hkv;
-  const int L = pos + 1;                              // visited rows
-  const int hk = blockIdx.x, b = blockIdx.y;
-  // this block's G query rows: group blockIdx.z of the rep rows
-  const int gs = (rep + gridDim.z - 1) / gridDim.z;
-  const int g0 = blockIdx.z * gs, G = min(gs, rep - g0);
-  if (G <= 0) return;
-  const size_t q0 = (size_t)b * H + (size_t)hk * rep + g0;  // first row
-  double* sred = smem;                                // [WARPS][G][D]
-  float* sq = reinterpret_cast<float*>(sred + WARPS * gs * D);  // [G][D]
-
-  float* sp = ws + q0 * T;                            // [G][T]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t head = ((size_t)b * Hkv + hk) * (size_t)T * D;
-  const __nv_bfloat16* kh = kc + head;
-  const __nv_bfloat16* vh = vc + head;
-  const __nv_bfloat16* qh = q + q0 * D;
-
-  for (int i = tid; i < G * D; i += THREADS) sq[i] = __bfloat162float(qh[i]);
-  __syncthreads();
-
-  // pass 1: scores
-  for (int t = warp; t < L; t += WARPS) {
-    float kv[DPL];
-    nctt::load_lane<DPL>(kh + (size_t)t * D, lane, D, kv);
-#pragma unroll
-    for (int r = 0; r < MAX_REP; ++r) {
-      if (r >= G) break;
-      double d = 0.0;
-#pragma unroll
-      for (int e = 0; e < DPL; ++e)
-        if (FULL || lane * DPL + e < D)
-          d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
-      d = nctt::warp_sum(d);
-      if (lane == 0) sp[r * T + t] = (float)d * scale;
-    }
-  }
-  __syncthreads();
-
-  // softmax per query row; p is rounded to bf16 as K5 casts it for PV
-  for (int r = warp; r < G; r += WARPS) {
-    float* row = sp + r * T;
-    float m = -INFINITY;
-    for (int t = lane; t < L; t += 32) m = fmaxf(m, row[t]);
-    m = nctt::warp_max(m);
-    double l = 0.0;
-    for (int t = lane; t < L; t += 32) l += exp((double)row[t] - (double)m);
-    l = nctt::warp_sum(l);
-    for (int t = lane; t < L; t += 32) {
-      const double e = exp((double)row[t] - (double)m);
-      row[t] = __bfloat162float(__float2bfloat16_rn((float)(e / l)));
-    }
-  }
-  __syncthreads();
-
-  // pass 2: PV, each warp over its rows, then a cross-warp sum
-  double o[MAX_REP][DPL];
-#pragma unroll
-  for (int r = 0; r < MAX_REP; ++r)
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) o[r][e] = 0.0;
-  for (int t = warp; t < L; t += WARPS) {
-    float vv[DPL];
-    nctt::load_lane<DPL>(vh + (size_t)t * D, lane, D, vv);
-#pragma unroll
-    for (int r = 0; r < MAX_REP; ++r) {
-      if (r >= G) break;
-      const double p = sp[r * T + t];
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) o[r][e] += p * (double)vv[e];
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < MAX_REP; ++r) {
-    if (r >= G) break;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e)
-      if (FULL || lane * DPL + e < D)
-        sred[(warp * G + r) * D + lane * DPL + e] = o[r][e];
-  }
-  __syncthreads();
-  __nv_bfloat16* oh = out + q0 * D;
-  for (int i = tid; i < G * D; i += THREADS) {
-    double acc = 0.0;
-#pragma unroll
-    for (int wi = 0; wi < WARPS; ++wi) acc += sred[wi * G * D + i];
-    oh[i] = __float2bfloat16_rn((float)acc);
-  }
+  nctt::attend_bf16<DPL, FULL, NEW, false>(
+      q, kc, vc, kn, vn, out, ws, nullptr, H, Hkv, T, D, pos_b[blockIdx.y],
+      scale, blockIdx.y, blockIdx.x, blockIdx.z, gridDim.z, smem);
 }
 
-template <int DPL, bool FULL>
-int launch(const void* q, const void* k, const void* v, void* out, void* ws,
-           int B, int H, int Hkv, int T, int D, int pos, float scale,
-           cudaStream_t stream) {
+template <int DPL, bool FULL, bool NEW>
+int launch(const void* q, void* k, void* v, const void* kn, const void* vn,
+           void* out, void* ws, int B, int H, int Hkv, int T, int D,
+           const int* pos, float scale, cudaStream_t stream) {
   const int rep = H / Hkv;
-  const int ng = (rep + MAX_REP - 1) / MAX_REP;       // groups of rows
+  const int ng = nctt::attend_groups(rep);
   const int gs = (rep + ng - 1) / ng;
-  const size_t smem = sizeof(double) * (size_t)WARPS * gs * D +
-      sizeof(float) * (size_t)gs * D;
+  const size_t smem = nctt::attend_smem(gs, D);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_kernel<DPL, FULL>,
+        decode_attention_kernel<DPL, FULL, NEW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_attention_kernel<DPL, FULL><<<dim3(Hkv, B, ng), THREADS, smem,
-                                 stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, (float*)ws, H, Hkv, T, D,
-      pos, scale);
+  decode_attention_kernel<DPL, FULL, NEW><<<dim3(Hkv, B, ng), THREADS, smem,
+                                           stream>>>(
+      (const __nv_bfloat16*)q, (__nv_bfloat16*)k, (__nv_bfloat16*)v,
+      (const __nv_bfloat16*)kn, (const __nv_bfloat16*)vn,
+      (__nv_bfloat16*)out, (float*)ws, H, Hkv, T, D, pos, scale);
   return (int)cudaGetLastError();
 }
 
-// K6: the same walk over int8 / e4m3 codes (C), the raw new row at pos
-template <int DPL, bool FULL, typename C>
+template <bool NEW>
+int dispatch_bf16(const void* q, void* k, void* v, const void* kn,
+                  const void* vn, void* out, void* ws, int B, int H, int Hkv,
+                  int T, int D, const int* pos, float scale,
+                  cudaStream_t s) {
+#define NCTT_K5(DPL_)                                                     \
+  case DPL_:                                                              \
+    return D == 32 * DPL_ && nctt::full_width(DPL_)                       \
+               ? launch<DPL_, nctt::full_width(DPL_), NEW>(               \
+                     q, k, v, kn, vn, out, ws, B, H, Hkv, T, D, pos,     \
+                     scale, s)                                            \
+               : launch<DPL_, false, NEW>(q, k, v, kn, vn, out, ws, B, H, \
+                                          Hkv, T, D, pos, scale, s);
+  switch (D >= 1 ? (D + 31) / 32 : 0) {
+    NCTT_K5(1) NCTT_K5(2) NCTT_K5(3) NCTT_K5(4)
+    NCTT_K5(5) NCTT_K5(6) NCTT_K5(7) NCTT_K5(8)
+#undef NCTT_K5
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K6 (QROW = false): the same walk over int8 / e4m3 codes (C), the raw new
+// row at pos. K16's int8 write (QROW = true, C = int8_t): the new row
+// quantized in the kernel, attended as codes times its new scale, and stored
+// at pos by the block of query group 0.
+template <int DPL, bool FULL, typename C, bool QROW>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ kn,
                               const __nv_bfloat16* __restrict__ vn,
-                              const C* __restrict__ kc,
-                              const float* __restrict__ ks,
-                              const C* __restrict__ vc,
-                              const float* __restrict__ vs,
+                              C* kc, float* ks, C* vc, float* vs,
                               __nv_bfloat16* __restrict__ out,
                               float* __restrict__ ws, int H, int Hkv, int T,
                               int D_, const int* __restrict__ pos_b,
@@ -195,7 +145,7 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   extern __shared__ __align__(16) double smem[];
   const int rep = H / Hkv;
   const int hk = blockIdx.x, b = blockIdx.y;
-  // pos at or past T: every code row, no raw row (JAX's mask keeps all T)
+  // pos at or past T: every code row, no new row (JAX's mask keeps all T)
   const int pos = pos_b[b];
   const int L = min(max(pos, 0), T - 1) + 1;          // visited rows
   // this block's G query rows: group blockIdx.z of the rep rows
@@ -205,29 +155,91 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t q0 = (size_t)b * H + (size_t)hk * rep + g0;  // first row
   double* sred = smem;                                // [WARPS][G][D]
   float* sq = reinterpret_cast<float*>(sred + WARPS * gs * D);  // [G][D]
+  float* snew = sq + gs * D;       // QROW: [2][D] the new row's codes, k, v
+  float* sscl = snew + 2 * D;      // QROW: [2] its scales; [2][WARPS] amax
   float* sp = ws + q0 * T;                            // [G][T]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t bh = (size_t)b * Hkv + hk;
-  const C* kh = kc + bh * (size_t)T * D;
-  const C* vh = vc + bh * (size_t)T * D;
-  const float* ksh = ks + bh * (size_t)T;
-  const float* vsh = vs + bh * (size_t)T;
+  C* kh = kc + bh * (size_t)T * D;
+  C* vh = vc + bh * (size_t)T * D;
+  float* ksh = ks + bh * (size_t)T;
+  float* vsh = vs + bh * (size_t)T;
   const __nv_bfloat16* knh = kn + bh * D;
   const __nv_bfloat16* vnh = vn + bh * D;
   const __nv_bfloat16* qh = q + q0 * D;
 
   for (int i = tid; i < G * D; i += THREADS) sq[i] = __bfloat162float(qh[i]);
+  float nks = 1.0f, nvs = 1.0f;    // the scales at pos (raw row: 1)
+  if constexpr (QROW) {
+    // the TPU kernel's rule: scale = max(amax, 1e-6) / 127, codes
+    // clip(round(x / scale), -127, 127)
+    float ak = 0.f, av = 0.f;
+    for (int i = tid; i < D; i += THREADS) {
+      ak = fmaxf(ak, fabsf(__bfloat162float(knh[i])));
+      av = fmaxf(av, fabsf(__bfloat162float(vnh[i])));
+    }
+    ak = nctt::warp_max(ak);
+    av = nctt::warp_max(av);
+    if (lane == 0) {
+      sscl[2 + warp] = ak;
+      sscl[2 + WARPS + warp] = av;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      for (int w = 1; w < WARPS; ++w) {
+        ak = fmaxf(ak, sscl[2 + w]);
+        av = fmaxf(av, sscl[2 + WARPS + w]);
+      }
+      sscl[0] = fmaxf(ak, 1e-6f) * (1.0f / 127.0f);
+      sscl[1] = fmaxf(av, 1e-6f) * (1.0f / 127.0f);
+    }
+    __syncthreads();
+    nks = sscl[0];
+    nvs = sscl[1];
+    for (int i = tid; i < D; i += THREADS) {
+      snew[i] = fminf(fmaxf(rintf(__fdiv_rn(__bfloat162float(knh[i]), nks)),
+                            -127.f), 127.f);
+      snew[D + i] =
+          fminf(fmaxf(rintf(__fdiv_rn(__bfloat162float(vnh[i]), nvs)),
+                      -127.f), 127.f);
+    }
+    __syncthreads();
+    if (blockIdx.z == 0 && pos >= 0 && pos < T) {
+      for (int i = tid; i < D; i += THREADS) {
+        kh[(size_t)pos * D + i] = (C)(int)snew[i];
+        vh[(size_t)pos * D + i] = (C)(int)snew[D + i];
+      }
+      if (tid == 0) {
+        ksh[pos] = nks;
+        vsh[pos] = nvs;
+      }
+    }
+  }
   __syncthreads();
+
+  // a lane's DPL elements of the new row at pos
+  auto new_row = [&](const __nv_bfloat16* raw, const float* codes,
+                     float (&out_)[DPL]) {
+    if constexpr (QROW) {
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) {
+        const int i = lane * DPL + e;
+        out_[e] = i < D ? codes[i] : 0.0f;
+      }
+    } else {
+      nctt::load_lane<DPL>(raw, lane, D, out_);
+    }
+  };
 
   // pass 1: scores, s = f32(q . k) * f32(k_scale * scale)
   for (int t = warp; t < L; t += WARPS) {
     float kv[DPL];
     if (t == pos)
-      nctt::load_lane<DPL>(knh, lane, D, kv);
+      new_row(knh, snew, kv);
     else
       nctt::load_lane<DPL>(kh + (size_t)t * D, lane, D, kv);
-    const float ksc = (t == pos ? 1.0f : ksh[t]) * scale;
+    const float ksc = (t == pos ? nks : ksh[t]) * scale;
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) {
       if (r >= G) break;
@@ -253,7 +265,7 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
     l = nctt::warp_sum(l);
     for (int t = lane; t < L; t += 32) {
       const double e = exp((double)row[t] - (double)m);
-      const float vsc = t == pos ? 1.0f : vsh[t];
+      const float vsc = t == pos ? nvs : vsh[t];
       row[t] = __bfloat162float(__float2bfloat16_rn((float)(e / l) * vsc));
     }
   }
@@ -268,7 +280,7 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = warp; t < L; t += WARPS) {
     float vv[DPL];
     if (t == pos)
-      nctt::load_lane<DPL>(vnh, lane, D, vv);
+      new_row(vnh, snew + D, vv);
     else
       nctt::load_lane<DPL>(vh + (size_t)t * D, lane, D, vv);
 #pragma unroll
@@ -297,47 +309,44 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DPL, bool FULL, typename C>
-int launch_quant(const void* q, const void* kn, const void* vn,
-                 const void* kc, const void* ks, const void* vc,
-                 const void* vs, void* out, void* ws, int B, int H, int Hkv,
-                 int T, int D, const int* pos, float scale,
+template <int DPL, bool FULL, typename C, bool QROW>
+int launch_quant(const void* q, const void* kn, const void* vn, void* kc,
+                 void* ks, void* vc, void* vs, void* out, void* ws, int B,
+                 int H, int Hkv, int T, int D, const int* pos, float scale,
                  cudaStream_t stream) {
   const int rep = H / Hkv;
-  const int ng = (rep + MAX_REP - 1) / MAX_REP;       // groups of rows
+  const int ng = nctt::attend_groups(rep);            // groups of rows
   const int gs = (rep + ng - 1) / ng;
-  const size_t smem = sizeof(double) * (size_t)WARPS * gs * D +
-      sizeof(float) * (size_t)gs * D;
+  const size_t smem = nctt::attend_smem(gs, D) +
+      (QROW ? sizeof(float) * (2 * (size_t)D + 2 + 2 * WARPS) : 0);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_quant_kernel<DPL, FULL, C>,
+        decode_attention_quant_kernel<DPL, FULL, C, QROW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_attention_quant_kernel<DPL, FULL, C><<<dim3(Hkv, B, ng), THREADS, smem,
-                                          stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
-      (const __nv_bfloat16*)vn, (const C*)kc, (const float*)ks, (const C*)vc,
-      (const float*)vs, (__nv_bfloat16*)out, (float*)ws, H, Hkv, T, D, pos,
-      scale);
+  decode_attention_quant_kernel<DPL, FULL, C, QROW>
+      <<<dim3(Hkv, B, ng), THREADS, smem, stream>>>(
+          (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
+          (const __nv_bfloat16*)vn, (C*)kc, (float*)ks, (C*)vc, (float*)vs,
+          (__nv_bfloat16*)out, (float*)ws, H, Hkv, T, D, pos, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename C>
-int dispatch_quant(const void* q, const void* kn, const void* vn,
-                   const void* kc, const void* ks, const void* vc,
-                   const void* vs, void* out, void* ws, int B, int H,
-                   int Hkv, int T, int D, const int* pos, float scale,
+template <typename C, bool QROW>
+int dispatch_quant(const void* q, const void* kn, const void* vn, void* kc,
+                   void* ks, void* vc, void* vs, void* out, void* ws, int B,
+                   int H, int Hkv, int T, int D, const int* pos, float scale,
                    cudaStream_t s) {
 #define NCTT_K6(DPL_)                                                    \
   case DPL_:                                                             \
     return D == 32 * DPL_ && nctt::full_width(DPL_)                      \
-               ? launch_quant<DPL_, nctt::full_width(DPL_), C>(           \
+               ? launch_quant<DPL_, nctt::full_width(DPL_), C, QROW>(     \
                      q, kn, vn, kc, ks, vc, vs, out, ws, B, H, Hkv, T, D, \
                      pos, scale, s)                                      \
-               : launch_quant<DPL_, false, C>(q, kn, vn, kc, ks, vc, vs,  \
-                                              out, ws, B, H, Hkv, T, D,   \
-                                              pos, scale, s);
+               : launch_quant<DPL_, false, C, QROW>(                      \
+                     q, kn, vn, kc, ks, vc, vs, out, ws, B, H, Hkv, T, D, \
+                     pos, scale, s);
   switch (D >= 1 ? (D + 31) / 32 : 0) {
     NCTT_K6(1) NCTT_K6(2) NCTT_K6(3) NCTT_K6(4)
     NCTT_K6(5) NCTT_K6(6) NCTT_K6(7) NCTT_K6(8)
@@ -348,28 +357,16 @@ int dispatch_quant(const void* q, const void* kn, const void* vn,
 
 }  // namespace
 
-// q bf16 [B, H, D]; caches bf16 [B, Hkv, T, D] holding row `pos`;
-// out bf16 [B, H, D]; ws f32 [B, H, T] scratch for the score rows.
-// 1 <= D <= 256; H % Hkv == 0.
-NCTT_API int nctt_decode_attention(const void* q, const void* k,
-                                   const void* v, void* out, void* ws, int B,
-                                   int H, int Hkv, int T, int D, int pos,
+// q bf16 [B, H, D]; caches bf16 [B, Hkv, T, D] holding row pos[b]; pos
+// int32 [B] on the device (pos >= T: all T rows); out bf16 [B, H, D]; ws
+// f32 [B, H, T] scratch for the score rows. 1 <= D <= 256; H % Hkv == 0.
+NCTT_API int nctt_decode_attention(const void* q, void* k, void* v,
+                                   void* out, void* ws, int B, int H,
+                                   int Hkv, int T, int D, const void* pos,
                                    float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-#define NCTT_K5(DPL_)                                                   \
-  case DPL_:                                                            \
-    return D == 32 * DPL_ && nctt::full_width(DPL_)                     \
-               ? launch<DPL_, nctt::full_width(DPL_)>(q, k, v, out, ws, B, \
-                                                      H, Hkv, T, D, pos,   \
-                                                      scale, s)            \
-               : launch<DPL_, false>(q, k, v, out, ws, B, H, Hkv, T, D,  \
-                                     pos, scale, s);
-  switch (D >= 1 ? (D + 31) / 32 : 0) {
-    NCTT_K5(1) NCTT_K5(2) NCTT_K5(3) NCTT_K5(4)
-    NCTT_K5(5) NCTT_K5(6) NCTT_K5(7) NCTT_K5(8)
-#undef NCTT_K5
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch_bf16<false>(q, k, v, nullptr, nullptr, out, ws, B, H, Hkv,
+                              T, D, (const int*)pos, scale,
+                              (cudaStream_t)stream);
 }
 
 // q bf16 [B, H, D]; k_new/v_new bf16 [B, Hkv, D] (the raw new rows, folded
@@ -386,9 +383,36 @@ NCTT_API int nctt_decode_attention_quant(const void* q, const void* kn,
                                          float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int* pos = (const int*)pos_b;
-  return fp8 ? dispatch_quant<nctt::fp8e4m3>(q, kn, vn, kc, ks, vc, vs, out,
-                                             ws, B, H, Hkv, T, D, pos, scale,
-                                             s)
-             : dispatch_quant<int8_t>(q, kn, vn, kc, ks, vc, vs, out, ws, B,
-                                      H, Hkv, T, D, pos, scale, s);
+  void *kc_ = const_cast<void*>(kc), *ks_ = const_cast<void*>(ks);
+  void *vc_ = const_cast<void*>(vc), *vs_ = const_cast<void*>(vs);
+  return fp8 ? dispatch_quant<nctt::fp8e4m3, false>(
+                   q, kn, vn, kc_, ks_, vc_, vs_, out, ws, B, H, Hkv, T, D,
+                   pos, scale, s)
+             : dispatch_quant<int8_t, false>(q, kn, vn, kc_, ks_, vc_, vs_,
+                                             out, ws, B, H, Hkv, T, D, pos,
+                                             scale, s);
+}
+
+// K16's in-kernel write: q bf16 [B, H, D]; k_new/v_new bf16 [B, Hkv, D];
+// fmt 0: caches bf16 [B, Hkv, T, D] (scales null); fmt 1: int8 codes
+// [B, Hkv, T, D] with scales f32 [B, Hkv, T]. The kernel stores each
+// slot's new row at pos[b] < T (int8: quantized by the TPU kernel's rule)
+// and attends it from its inputs; pos int32 [B] on the device; out bf16
+// [B, H, D]; ws f32 [B, H, T]. 1 <= D <= 256; H % Hkv == 0.
+NCTT_API int nctt_decode_attention_write(const void* q, const void* kn,
+                                         const void* vn, void* kc, void* ks,
+                                         void* vc, void* vs, void* out,
+                                         void* ws, int B, int H, int Hkv,
+                                         int T, int D, const void* pos_b,
+                                         int fmt, float scale,
+                                         void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int* pos = (const int*)pos_b;
+  if (fmt == 0)
+    return dispatch_bf16<true>(q, kc, vc, kn, vn, out, ws, B, H, Hkv, T, D,
+                               pos, scale, s);
+  if (fmt == 1)
+    return dispatch_quant<int8_t, true>(q, kn, vn, kc, ks, vc, vs, out, ws,
+                                        B, H, Hkv, T, D, pos, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -28,7 +28,7 @@
 //   shows: the kernel and its plain version (kernels/fused_matvec.py)
 //   agree bit for bit on the main path's inputs. silu pairs column n with
 //   column n + N/2 of the same concatenated gate_up weight.
-#include "nctt_common.cuh"
+#include "gemv_dot.cuh"
 
 namespace {
 
@@ -39,45 +39,6 @@ constexpr int TN = WARPS * COLS_PER_WARP;  // output columns per block
 // the activation codes a block keeps in shared memory: 227 KiB less the
 // static reductions
 constexpr int MAX_K = 227 * 1024 - 1024;
-
-// sum over one column's K codes, float64 across groups; valid in all lanes
-__device__ __forceinline__ float dot_column(const uint8_t* __restrict__ col,
-                                            const int8_t* __restrict__ sx,
-                                            const float* __restrict__ scales,
-                                            int n, int N, int K, int G,
-                                            int lane) {
-  const int nvec = K / 32;  // 16-byte vectors in the column
-  const int vpg = G / 32;   // vectors per group (a multiple of 4)
-  double acc = 0.0;
-  for (int v0 = 0; v0 < nvec; v0 += 32) {
-    const int v = v0 + lane;
-    int part = 0;
-    if (v < nvec) {
-      const uint4 pk = *reinterpret_cast<const uint4*>(col + (size_t)v * 16);
-      const int4 xa = *reinterpret_cast<const int4*>(sx + v * 32);
-      const int4 xb = *reinterpret_cast<const int4*>(sx + v * 32 + 16);
-      uint32_t lo, hi;
-      nctt::unpack8(pk.x, lo, hi);
-      part = __dp4a((int)lo, xa.x, part);
-      part = __dp4a((int)hi, xa.y, part);
-      nctt::unpack8(pk.y, lo, hi);
-      part = __dp4a((int)lo, xa.z, part);
-      part = __dp4a((int)hi, xa.w, part);
-      nctt::unpack8(pk.z, lo, hi);
-      part = __dp4a((int)lo, xb.x, part);
-      part = __dp4a((int)hi, xb.y, part);
-      nctt::unpack8(pk.w, lo, hi);
-      part = __dp4a((int)lo, xb.z, part);
-      part = __dp4a((int)hi, xb.w, part);
-    }
-    // lanes 4i..4i+3 hold 4 consecutive vectors = 128 codes of one group
-    part += __shfl_xor_sync(nctt::FULL_MASK, part, 1);
-    part += __shfl_xor_sync(nctt::FULL_MASK, part, 2);
-    if ((lane & 3) == 0 && v < nvec)
-      acc += (double)part * (double)scales[(size_t)(v / vpg) * N + n];
-  }
-  return (float)nctt::warp_sum(acc);
-}
 
 // The prologue, run by a whole block: RMSNorm's sum of squares and the max
 // |z|, z = x * w_rms, then the K int8 codes of z into `codes` (shared or
@@ -176,12 +137,12 @@ fused_gemv_kernel(const __nv_bfloat16* __restrict__ x,
   for (int j = 0; j < COLS_PER_WARP; ++j) {
     const int n = blockIdx.x * TN + warp * COLS_PER_WARP + j;
     if (n >= n_out) break;  // uniform across the warp
-    const float g = dot_column(w + (size_t)n * wrow, codes, scales, n, N, K,
-                               G, lane);
+    const float g = nctt::dot_column(w + (size_t)n * wrow, codes, scales, n,
+                                     N, K, G, lane);
     float u = 0.f;
     if (silu)
-      u = dot_column(w + (size_t)(n + n_out) * wrow, codes, scales,
-                     n + n_out, N, K, G, lane);
+      u = nctt::dot_column(w + (size_t)(n + n_out) * wrow, codes, scales,
+                           n + n_out, N, K, G, lane);
     if (lane == 0) {
       float v;
       if (silu) {

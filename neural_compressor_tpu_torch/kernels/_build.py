@@ -39,10 +39,30 @@ SIGNATURES = {
     # codes, scl (global scratch past MAX_K, else null), stream
     "nctt_fused_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _P, _P, _P],
-    # q, k_cache, v_cache, out, ws (f32 score rows), B, H, Hkv, T, D, pos,
-    # scale, stream
-    "nctt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+    # q, k_cache, v_cache, out, ws (f32 score rows), B, H, Hkv, T, D, pos
+    # (int32 [B] on the device), scale, stream
+    "nctt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F,
                               _P],
+    # the same entry's arguments, K16's bulk-copy kernel
+    "nctt_decode_attention_hbm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                                  _F, _P],
+    # q, k_new, v_new, k_cache, k_scale, v_cache, v_scale (scales null for
+    # bf16), out, ws, B, H, Hkv, T, D, pos, fmt (0 bf16, 1 int8), scale,
+    # stream
+    "nctt_decode_attention_write": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _P, _I, _F, _P],
+    # q, k_cache, v_cache, pos, w, scales, residual, y, att (f32 scratch),
+    # amax (u32, zeroed), ws, H, Hkv, T, D, N, scale, stream
+    "nctt_attn_o": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                    _I, _I, _F, _P],
+    # x, residual, rms_w, ow, osc, guw, gusc, dw, dsc, y, x1s, hs (f32
+    # scratch), Ko, Kh, I, Go, Gg, Gd, tn_i, eps, has_o, stream
+    "nctt_omlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                  _I, _I, _I, _I, _F, _I, _P],
+    # q, k_pages, k_scales, v_pages, v_scales, block_tables, lengths, out,
+    # B, H, Hkv, page, PMAX, D, fmt (0 bf16, 1 int8, 2 fp8), scale, stream
+    "nctt_paged_attention_v1": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _I, _F, _P],
     # q, k_new, v_new, k_codes, k_scale, v_codes, v_scale, out, ws, B, H,
     # Hkv, T, D, pos (int32 [B] on the device), fp8, scale, stream
     "nctt_decode_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,

@@ -1,6 +1,7 @@
 """Single-token decode attention over a head-major KV cache: B=1 over bf16
-(K5) and over int8/fp8 codes (K6), and batched with per-slot positions
-over bf16 or int8/fp8 codes (K7).
+(K5, or K16 with the cache write or the bulk copies inside the kernel) and
+over int8/fp8 codes (K6, or K16's int8 write), and batched with per-slot
+positions over bf16 or int8/fp8 codes (K7).
 
 q [B, H, D] against caches [B, Hkv, T, D]; the ``rep = H / Hkv`` query
 heads of a KV head share its rows (GQA). Scores are float32 times
@@ -19,6 +20,10 @@ Ports ``neural_compressor_tpu/kernels/decode_attention.py``:
     sees the same values (the select uses the row cast to the cache
     dtype), and the cache is updated without a copy. It visits only the
     rows ``t <= pos``, which is what the -1e30 mask leaves of the softmax.
+    Per-slot positions are an int32 [B] tensor read on the device, as the
+    TPU kernel's grid (B, Hkv) reads ``pos_ref[b]``: a one-slot engine's
+    decode runs here, as JAX's dispatch sends every B=1 call to K5. At
+    ``pos >= T`` it attends all T rows.
   * K6, ``_decode_attn_quant_ro_impl`` / ``_kernel_q_ro``
     (``decode_attn_quant``, a second entry of ``csrc/decode_attention.cu``):
     K5 over int8 or fp8-e4m3 codes with per-(token, head) float32 scales.
@@ -37,6 +42,27 @@ Ports ``neural_compressor_tpu/kernels/decode_attention.py``:
     normalises after PV (K5 normalises before the bf16 cast); scales
     multiply the scores before ``D^-1/2`` and the probabilities before
     the bf16 cast.
+
+  * K16, the flag-selected B=1 variants (``set_cache_write_mode``,
+    ``set_ro_cache_space``):
+      - ``"kernel"`` write mode: ``_decode_attn_impl`` / ``_kernel``
+        (bf16) and ``_decode_attn_quant_impl`` / ``_kernel_q`` (int8),
+        ``decode_attn_write``, a third entry of
+        ``csrc/decode_attention.cu``. The kernel stores the new row at
+        ``pos`` and attends it from its inputs. bf16 equals K5 plus the
+        outside write bit for bit. int8 quantizes the row by the TPU
+        kernel's own rule, ``scale = max(amax, 1e-6) / 127`` and codes
+        clipped to +-127 (``_kv_quant`` takes ``amax <= 0 -> 1`` and
+        clips to -128), and attends the QUANTIZED row (codes times the new
+        scale) where K6 attends the raw one. fp8 caches stay on K6 plus
+        the outside write, as in JAX;
+      - ``"hbm"`` cache space: ``_decode_attn_ro_hbm_impl`` /
+        ``_kernel_ro_hbm``, ``decode_attn_hbm``
+        (``csrc/decode_attention_hbm.cu``): K5's math with the rows brought
+        into shared memory by bulk copies the kernel issues itself, equal
+        to K5 bit for bit. ``"pin"`` is a TPU placement with no kernel of
+        its own: on Hopper it takes K5, as does ``"vmem"``.
+    The port reads the switches at call time (JAX at trace time).
 
 The CUDA kernels keep each query row's float32 scores over the visited rows
 in a workspace in device memory (``score_workspace``), not in a block's
@@ -67,45 +93,65 @@ def score_workspace(B: int, rows: int, T: int, device) -> torch.Tensor:
     return torch.empty((B, rows, T), dtype=torch.float32, device=device)
 
 
+def _attend_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, pos) -> torch.Tensor:
+    """K5's attention up to its float32 output [B, H, D] (K18 quantizes it
+    unrounded). ``pos`` an int or int32 [B]; a slot at ``pos >= T``
+    attends every row."""
+    B, H, D = q.shape
+    Hkv, T = k_cache.shape[1], k_cache.shape[2]
+    rep = H // Hkv
+    f64 = torch.float64
+    dev = q.device
+    last = pos_vector(pos, B, dev).to(torch.int64).clamp(0, T - 1)
+    valid = (torch.arange(T, device=dev)[None, :]
+             <= last[:, None])[:, None, None, :]               # [B,1,1,T]
+    qr = q.reshape(B, Hkv, rep, D).to(f64)
+    s = torch.einsum("bgrd,bgtd->bgrt", qr, k_cache.to(f64)).to(
+        torch.float32) * (1.0 / (D ** 0.5))
+    s = torch.where(valid, s, torch.tensor(-1e30, device=dev))
+    e = torch.exp(s.to(f64) - s.amax(dim=-1, keepdim=True).to(f64))
+    e = torch.where(valid, e, torch.zeros((), dtype=f64, device=dev))
+    p = (e / e.sum(dim=-1, keepdim=True)).to(torch.float32).to(v_cache.dtype)
+    o = torch.einsum("bgrt,bgtd->bgrd", p.to(f64), v_cache.to(f64))
+    return o.to(torch.float32).reshape(B, H, D)
+
+
 def decode_attn_plain(q: torch.Tensor, k_cache: torch.Tensor,
-                      v_cache: torch.Tensor, pos: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: q [B, H, D]; caches
-    [B, Hkv, T, D] already holding row ``pos`` -> [B, H, D] in q's dtype.
+                      v_cache: torch.Tensor, pos) -> torch.Tensor:
+    """Plain PyTorch version of K5: q [B, H, D]; caches [B, Hkv, T, D]
+    already holding row ``pos``; ``pos`` an int or an int32 [B] tensor of
+    per-slot positions (a slot at ``pos >= T`` attends all T rows) ->
+    [B, H, D] in q's dtype.
 
     Sums run in float64 over exact bf16 products and round once, so the
     summation order almost never shows and the kernel matches it bit for
     bit."""
-    B, H, D = q.shape
-    Hkv = k_cache.shape[1]
-    rep = H // Hkv
-    f64 = torch.float64
-    qr = q.reshape(B, Hkv, rep, D).to(f64)
-    k = k_cache[:, :, :pos + 1].to(f64)
-    v = v_cache[:, :, :pos + 1]
-    s = torch.einsum("bgrd,bgtd->bgrt", qr, k).to(torch.float32) \
-        * (1.0 / (D ** 0.5))
-    e = torch.exp(s.to(f64) - s.amax(dim=-1, keepdim=True).to(f64))
-    p = (e / e.sum(dim=-1, keepdim=True)).to(torch.float32).to(v.dtype)
-    o = torch.einsum("bgrt,bgtd->bgrd", p.to(f64), v.to(f64))
-    return o.to(torch.float32).reshape(B, H, D).to(q.dtype)
+    return _attend_plain(q, k_cache, v_cache, pos).to(q.dtype)
 
 
-def decode_attn(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                pos: int) -> torch.Tensor:
-    """The decode attention kernel on the card (``csrc/decode_attention.cu``);
-    the plain version for CPU tensors. Arguments as in
-    ``decode_attn_plain``."""
-    if q.device.type == "cpu":
-        return decode_attn_plain(q, k_cache, v_cache, pos)
-    dev = q.device
+def _check_b1(name: str, q, k_cache, D_ok) -> tuple:
     B, H, D = q.shape
     _b, Hkv, T, _d = k_cache.shape
     rep = H // Hkv if Hkv else 0
-    if not (D in KERNEL_D and Hkv * rep == H and rep >= 1
-            and 0 <= pos < T):
-        raise ValueError(f"decode_attn needs 1 <= D <= 256, H a multiple "
-                         f"of Hkv and 0 <= pos < T "
-                         f"(H={H}, Hkv={Hkv}, D={D}, pos={pos}, T={T})")
+    if not (D_ok(D) and Hkv * rep == H and rep >= 1 and T >= 1):
+        raise ValueError(f"{name} needs 1 <= D <= 256 and H a multiple of "
+                         f"Hkv (H={H}, Hkv={Hkv}, D={D}, T={T})")
+    return B, H, Hkv, T, D
+
+
+def decode_attn(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                pos) -> torch.Tensor:
+    """K5 on the card (``csrc/decode_attention.cu``); the plain version for
+    CPU tensors. Arguments as in ``decode_attn_plain``; the positions go to
+    the kernel as an int32 [B] tensor on the device (an int is made one; a
+    tensor is not read back)."""
+    if q.device.type == "cpu":
+        return decode_attn_plain(q, k_cache, v_cache, pos)
+    dev = q.device
+    B, H, Hkv, T, D = _check_b1("decode_attn", q, k_cache,
+                                lambda d: d in KERNEL_D)
+    pos = pos_vector(pos, B, dev)
     _build.require(q, "q", torch.bfloat16, dev, (B, H, D))
     _build.require(k_cache, "k_cache", torch.bfloat16, dev, (B, Hkv, T, D))
     _build.require(v_cache, "v_cache", torch.bfloat16, dev, (B, Hkv, T, D))
@@ -113,7 +159,7 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     ws = score_workspace(B, H, T, dev)
     err = _build.library().nctt_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), B, H, Hkv, T, D, int(pos), 1.0 / (D ** 0.5),
+        ws.data_ptr(), B, H, Hkv, T, D, pos.data_ptr(), 1.0 / (D ** 0.5),
         _build.stream_handle(dev))
     _build.check(err, "nctt_decode_attention")
     decode_attn.launches += 1
@@ -123,27 +169,192 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 decode_attn.launches = 0
 
 
+# K16's switches, JAX's names and values; read at call time
+_WRITE_MODE = "outside"  # "kernel" (write inside the kernel) | "outside"
+_RO_CACHE_SPACE = "vmem"  # "vmem" | "hbm" (bulk copies) | "pin"
+
+
+def set_cache_write_mode(mode: str) -> None:
+    """"outside" (default): the port writes the new row into the cache and
+    K5/K6 attend; "kernel": K16 writes it inside the kernel (bf16 and int8
+    caches at B=1; fp8 stays on K6 and the outside write)."""
+    global _WRITE_MODE
+    if mode not in ("kernel", "outside"):
+        raise ValueError(f"cache write mode {mode!r}")
+    _WRITE_MODE = mode
+
+
+def set_ro_cache_space(space: str) -> None:
+    """Where JAX's read-only B=1 kernel keeps its cache operands. On
+    Hopper: "hbm" takes K16's kernel, which copies the caches into shared
+    memory itself by bulk copies; "vmem" and "pin" (a TPU placement with no
+    kernel of its own) take K5."""
+    global _RO_CACHE_SPACE
+    if space not in ("vmem", "hbm", "pin"):
+        raise ValueError(f"read-only cache space {space!r}")
+    _RO_CACHE_SPACE = space
+
+
+def decode_attn_hbm_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, pos) -> torch.Tensor:
+    """Plain PyTorch version of K16's bulk-copy kernel: K5's function
+    (``decode_attn_plain``), which the kernel computes in K5's order."""
+    return decode_attn_plain(q, k_cache, v_cache, pos)
+
+
+def decode_attn_hbm(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, pos) -> torch.Tensor:
+    """K16's bulk-copy kernel on the card (``csrc/decode_attention_hbm.cu``);
+    the plain version for CPU tensors. Arguments as in ``decode_attn``;
+    rows must be 16-byte multiples (D % 8 == 0) for the bulk copy."""
+    if q.device.type == "cpu":
+        return decode_attn_hbm_plain(q, k_cache, v_cache, pos)
+    dev = q.device
+    B, H, Hkv, T, D = _check_b1("decode_attn_hbm", q, k_cache,
+                                lambda d: d in KERNEL_D and d % 8 == 0)
+    pos = pos_vector(pos, B, dev)
+    _build.require(q, "q", torch.bfloat16, dev, (B, H, D))
+    _build.require(k_cache, "k_cache", torch.bfloat16, dev, (B, Hkv, T, D))
+    _build.require(v_cache, "v_cache", torch.bfloat16, dev, (B, Hkv, T, D))
+    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
+    ws = score_workspace(B, H, T, dev)
+    err = _build.library().nctt_decode_attention_hbm(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
+        ws.data_ptr(), B, H, Hkv, T, D, pos.data_ptr(), 1.0 / (D ** 0.5),
+        _build.stream_handle(dev))
+    _build.check(err, "nctt_decode_attention_hbm")
+    decode_attn_hbm.launches += 1
+    return out
+
+
+decode_attn_hbm.launches = 0
+
+
+def k16_quant_row(x: torch.Tensor):
+    """The TPU write kernel's int8 rule for new rows x [..., D]: scale =
+    f32(max(amax, 1e-6) * f32(1/127)) (XLA multiplies by the reciprocal),
+    codes = clip(round(x / scale), -127, 127). Not ``_kv_quant``'s rule,
+    which takes scale 1 at amax 0 and clips to -128. Returns (int8 codes,
+    float32 scales [...])."""
+    xf = x.to(torch.float32)
+    s = torch.clamp_min(xf.abs().amax(dim=-1), 1e-6) * (1.0 / 127)
+    codes = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+    return codes.to(torch.int8), s
+
+
+def _write_rows_at(pos: torch.Tensor, T: int, pairs) -> None:
+    """Store each slot's row at ``pos[b] < T`` in place: ``pairs`` of
+    (cache [B, Hkv, T, ...], rows [B, Hkv, ...]); a slot at or past T
+    stores nothing, as the TPU kernel's select finds no row."""
+    for b in range(pos.shape[0]):
+        p = int(pos[b])
+        if 0 <= p < T:
+            for cache, rows in pairs:
+                cache[b, :, p] = rows[b].to(cache.dtype)
+
+
+def decode_attn_write_plain(q, k_new, v_new, k_cache, k_scale, v_cache,
+                            v_scale, pos) -> torch.Tensor:
+    """Plain PyTorch version of K16's in-kernel write: q [B, H, D] bf16;
+    ``k_new``/``v_new`` [B, Hkv, D] bf16; bf16 caches [B, Hkv, T, D]
+    (scales None) or int8 codes with float32 scales [B, Hkv, T]; ``pos``
+    an int or int32 [B]. Stores each slot's new row at ``pos < T`` IN PLACE
+    (int8: ``k16_quant_row``'s codes and scale) and returns the attention
+    over the cache so written -> [B, H, D] bf16: bf16 is K5's function,
+    int8 K6's with the quantized row at pos (codes times the new scale)
+    where K6 has the raw one."""
+    B, T = q.shape[0], k_cache.shape[2]
+    p = pos_vector(pos, B, q.device)
+    if k_scale is None:
+        _write_rows_at(p, T, ((k_cache, k_new), (v_cache, v_new)))
+        return decode_attn_plain(q, k_cache, v_cache, p)
+    kc, ks = k16_quant_row(k_new)
+    vc, vs = k16_quant_row(v_new)
+    _write_rows_at(p, T, ((k_cache, kc), (k_scale, ks), (v_cache, vc),
+                          (v_scale, vs)))
+    return decode_attn_quant_plain(q, None, None, k_cache, k_scale, v_cache,
+                                   v_scale, p)
+
+
+# cache format -> (name, csrc/decode_attention.cu's code) of K16's write
+_K16_FORMATS = {torch.bfloat16: ("bf16", 0), torch.int8: ("int8", 1)}
+
+
+def decode_attn_write(q, k_new, v_new, k_cache, k_scale, v_cache, v_scale,
+                      pos) -> torch.Tensor:
+    """K16's in-kernel write on the card (``csrc/decode_attention.cu``,
+    ``nctt_decode_attention_write``); the plain version for CPU tensors.
+    Arguments as in ``decode_attn_write_plain``; the positions stay on the
+    device. Launches are counted per cache format in
+    ``decode_attn_write.launches``."""
+    if q.device.type == "cpu":
+        return decode_attn_write_plain(q, k_new, v_new, k_cache, k_scale,
+                                       v_cache, v_scale, pos)
+    dev = q.device
+    B, H, Hkv, T, D = _check_b1("decode_attn_write", q, k_cache,
+                                lambda d: d in KERNEL_D)
+    cdt = k_cache.dtype
+    fmt, code = _K16_FORMATS.get(cdt, (None, None))
+    if fmt is None or (code == 0) != (k_scale is None):
+        raise ValueError(f"decode_attn_write takes bf16 caches, or int8 "
+                         f"codes with scales, not {cdt}")
+    pos = pos_vector(pos, B, dev)
+    _build.require(q, "q", torch.bfloat16, dev, (B, H, D))
+    _build.require(k_new, "k_new", torch.bfloat16, dev, (B, Hkv, D))
+    _build.require(v_new, "v_new", torch.bfloat16, dev, (B, Hkv, D))
+    _build.require(k_cache, "k_cache", cdt, dev, (B, Hkv, T, D))
+    _build.require(v_cache, "v_cache", cdt, dev, (B, Hkv, T, D))
+    if code:
+        _build.require(k_scale, "k_scale", torch.float32, dev, (B, Hkv, T))
+        _build.require(v_scale, "v_scale", torch.float32, dev, (B, Hkv, T))
+    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
+    ws = score_workspace(B, H, T, dev)
+    err = _build.library().nctt_decode_attention_write(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
+        k_scale.data_ptr() if code else None, v_cache.data_ptr(),
+        v_scale.data_ptr() if code else None, out.data_ptr(), ws.data_ptr(),
+        B, H, Hkv, T, D, pos.data_ptr(), code, 1.0 / (D ** 0.5),
+        _build.stream_handle(dev))
+    _build.check(err, "nctt_decode_attention_write")
+    decode_attn_write.launches[fmt] += 1
+    return out
+
+
+decode_attn_write.launches = dict.fromkeys(("bf16", "int8"), 0)
+
+
 def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
     """Single-token attention with cache update.
 
     q [B, H, 1, D]; k_new/v_new [B, Hkv, 1, D] (rope applied); caches
     [B, Hkv, T, D]; ``pos`` an int, or a [B] tensor of per-slot positions.
-    Writes the new rows into the caches IN PLACE, then attends: B == 1 with
-    an int ``pos`` on the B=1 kernel (K5), otherwise on K7
-    (``batched_decode_attention``). Returns (out [B, H, 1, D], k_cache,
-    v_cache); out is None where ``batched_decode_attention`` declines, and
-    the caller attends the updated caches itself."""
+    B == 1 goes to the B=1 kernels, whatever the type of ``pos``, as JAX's
+    dispatch sends it (``use_fused_decode_attention(1)``): under
+    ``set_cache_write_mode("kernel")`` K16 writes the row and attends;
+    otherwise the new rows are written into the caches IN PLACE and K5
+    attends (K16's bulk-copy kernel under ``set_ro_cache_space("hbm")``).
+    B > 1 writes the rows and takes K7 (``batched_decode_attention``).
+    Returns (out [B, H, 1, D], k_cache, v_cache); out is None where
+    ``batched_decode_attention`` declines, and the caller attends the
+    updated caches itself."""
     from ..models.llama import _update_rows
 
     B, H, S, D = q.shape
     if S != 1:
         raise ValueError("decode attention is single-token")
+    if B == 1 and _WRITE_MODE == "kernel":
+        out = decode_attn_write(q[:, :, 0].contiguous(),
+                                k_new[:, :, 0].contiguous(),
+                                v_new[:, :, 0].contiguous(), k_cache, None,
+                                v_cache, None, pos)
+        return out[:, :, None], k_cache, v_cache
     k_cache = _update_rows(k_cache, k_new, pos)
     v_cache = _update_rows(v_cache, v_new, pos)
-    if B != 1 or not isinstance(pos, int):
+    if B != 1:
         return (batched_decode_attention(q, k_cache, v_cache, pos),
                 k_cache, v_cache)
-    out = decode_attn(q[:, :, 0].contiguous(), k_cache, v_cache, pos)
+    attend = decode_attn_hbm if _RO_CACHE_SPACE == "hbm" else decode_attn
+    out = attend(q[:, :, 0].contiguous(), k_cache, v_cache, pos)
     return out[:, :, None], k_cache, v_cache
 
 
@@ -173,7 +384,8 @@ def pos_vector(pos, B: int, device) -> torch.Tensor:
 def decode_attn_quant_plain(q, k_new, v_new, k_codes, k_scale, v_codes,
                             v_scale, pos) -> torch.Tensor:
     """Plain PyTorch version of K6: q [B, H, D] bf16; ``k_new``/``v_new``
-    [B, Hkv, D] bf16, the raw new rows; codes [B, Hkv, T, D] int8 or fp8;
+    [B, Hkv, D] bf16, the raw new rows (None: the codes at ``pos`` are
+    attended as written, K16's int8 write); codes [B, Hkv, T, D] int8 or fp8;
     scales [B, Hkv, T] float32; ``pos`` an int or int32 [B] -> [B, H, D]
     bf16. Row ``pos[b]`` is the raw new row with scale 1, whatever the
     cache holds there; a slot at ``pos >= T`` attends all T code rows and
@@ -190,15 +402,15 @@ def decode_attn_quant_plain(q, k_new, v_new, k_codes, k_scale, v_codes,
     dev = q.device
     p = pos_vector(pos, B, dev).to(torch.int64)
     t = torch.arange(T, device=dev)[None, :]
-    raw = (t == p[:, None])[:, None, :]                       # [B, 1, T]
     valid = (t <= p.clamp(0, T - 1)[:, None])[:, None, None]  # [B,1,1,T]
-    k = torch.where(raw[..., None], k_new.to(f64)[:, :, None],
-                    _as_f64(k_codes))
-    v = torch.where(raw[..., None], v_new.to(f64)[:, :, None],
-                    _as_f64(v_codes))
-    one = torch.ones((), dtype=f32, device=dev)
-    ks = torch.where(raw, one, k_scale)
-    vs = torch.where(raw, one, v_scale)
+    k, v, ks, vs = _as_f64(k_codes), _as_f64(v_codes), k_scale, v_scale
+    if k_new is not None:
+        raw = (t == p[:, None])[:, None, :]                   # [B, 1, T]
+        k = torch.where(raw[..., None], k_new.to(f64)[:, :, None], k)
+        v = torch.where(raw[..., None], v_new.to(f64)[:, :, None], v)
+        one = torch.ones((), dtype=f32, device=dev)
+        ks = torch.where(raw, one, k_scale)
+        vs = torch.where(raw, one, v_scale)
     scale = torch.tensor(1.0 / (D ** 0.5), dtype=f32)
     qr = q.reshape(B, Hkv, rep, D).to(f64)
     s = torch.einsum("bgrd,bgtd->bgrt", qr, k).to(f32) \
@@ -261,8 +473,10 @@ def decode_attention_quant(q, k_new, v_new, cache, pos):
     the raw new row at ``pos``, then the row's codes and scales are written
     into the cache IN PLACE (K12, ``models.llama._write_quant_row``).
     q [B, H, 1, D]; ``k_new``/``v_new`` [B, Hkv, 1, D]; ``pos`` an int or
-    a tensor of per-slot positions, never read back. Returns
-    (out [B, H, 1, D], cache)."""
+    a tensor of per-slot positions, never read back. Under
+    ``set_cache_write_mode("kernel")`` an int8 cache takes K16's write,
+    which quantizes the row by its own rule and attends it (fp8 stays
+    here, as in JAX). Returns (out [B, H, 1, D], cache)."""
     from ..models.llama import _write_quant_row
 
     B = q.shape[0]
@@ -272,6 +486,13 @@ def decode_attention_quant(q, k_new, v_new, cache, pos):
         raise ValueError("int4 caches take the grouped code-domain "
                          "attention (models.llama._grouped_attention_int4)")
     pos = pos_vector(pos, B, q.device)
+    if _WRITE_MODE == "kernel" and cache.fmt == "int8":
+        out = decode_attn_write(q[:, :, 0].contiguous(),
+                                k_new[:, :, 0].contiguous(),
+                                v_new[:, :, 0].contiguous(), cache.k_codes,
+                                cache.k_scale, cache.v_codes, cache.v_scale,
+                                pos)
+        return out[:, :, None], cache
     out = decode_attn_quant(q[:, :, 0].contiguous(),
                             k_new[:, :, 0].contiguous(),
                             v_new[:, :, 0].contiguous(), cache.k_codes,

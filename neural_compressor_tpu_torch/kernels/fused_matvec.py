@@ -51,6 +51,35 @@ def _pick_tn(n_out: int, allow_ragged: bool = False) -> int:
     return 0
 
 
+def act_codes(z: torch.Tensor):
+    """Per-token symmetric int8 activation codes of float32 ``z``: scale
+    ``f32(max |z| * f32(1/127))`` (1 where it is 0; XLA compiles
+    ``amax / 127`` as that product) and ``clip(round(z / s), -128, 127)``,
+    half to even. Returns (scale, float32 codes)."""
+    s = torch.amax(torch.abs(z)) * (1.0 / 127)
+    s = torch.where(s <= 0, torch.ones_like(s), s)
+    return s, torch.clamp(torch.round(z / s), -128, 127)
+
+
+def group_dot(codes: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
+              gmul: torch.Tensor | None = None) -> torch.Tensor:
+    """The grouped int4 dot of one activation row: float32 ``codes`` [K]
+    against "hopper_nk" ``w`` [N, K/2] with float32 ``scales`` [K/G, N] ->
+    float32 [N]. Each group's int32 dot is exact; times its scale (with
+    ``gmul`` [K/G], first multiplied in float32 by ``gmul[g]``) it is summed
+    over groups in float64 and rounded once, as ``csrc/gemv_dot.cuh``
+    does."""
+    from ..ops.packing import unpack_codes_hopper
+
+    f64 = torch.float64
+    ng, N = scales.shape
+    G = codes.numel() // ng
+    wq = unpack_codes_hopper(w).to(torch.float32).reshape(ng, G, N)
+    d = torch.bmm(codes.reshape(ng, 1, G), wq)[:, 0]          # [ng, N] exact
+    sc = scales if gmul is None else scales * gmul[:, None]
+    return (d.to(f64) * sc.to(f64)).sum(dim=0).to(torch.float32)
+
+
 def fused_gemv_plain(x, rms_w, w, scales, bias, residual, *, eps: float,
                      silu: bool, out_dtype) -> torch.Tensor:
     """Plain PyTorch version of the kernel. x [K]; rms_w f32 [K] or None;
@@ -60,8 +89,6 @@ def fused_gemv_plain(x, rms_w, w, scales, bias, residual, *, eps: float,
     The sum of squares, the sum over groups and the sigmoid run in float64
     and round once, so the summation order almost never shows and the
     kernel matches this bit for bit."""
-    from ..ops.packing import unpack_codes_hopper
-
     f64 = torch.float64
     xf = x.reshape(-1).to(torch.float32)
     K = xf.shape[0]
@@ -73,15 +100,10 @@ def fused_gemv_plain(x, rms_w, w, scales, bias, residual, *, eps: float,
     else:
         inv = torch.ones((), dtype=torch.float32, device=x.device)
         z = xf
-    s = torch.amax(torch.abs(z)) * (1.0 / 127)
-    s = torch.where(s <= 0, torch.ones_like(s), s)
-    codes = torch.clamp(torch.round(z / s), -128, 127)
+    s, codes = act_codes(z)
     ssc = s * inv
-    ng, N = scales.shape
-    G = K // ng
-    wq = unpack_codes_hopper(w).to(torch.float32).reshape(ng, G, N)
-    d = torch.bmm(codes.reshape(ng, 1, G), wq)[:, 0]          # [ng, N] exact
-    acc = (d.to(f64) * scales.to(f64)).sum(dim=0).to(torch.float32)
+    acc = group_dot(codes, w, scales)
+    N = scales.shape[1]
     if silu:
         n_out = N // 2
         gacc, uacc = acc[:n_out] * ssc, acc[n_out:] * ssc
@@ -179,3 +201,116 @@ def fused_matvec(x: torch.Tensor, pw: PackedWeight, *, rms_w=None,
         None if residual is None else residual.reshape(n_out),
         eps=float(eps), silu=silu_gate, out_dtype=out_dtype)
     return y.reshape(*lead, n_out)
+
+
+# ---------------------------------------------------------------------------
+# K18: B=1 decode attention fused into the o-projection
+# ---------------------------------------------------------------------------
+
+# JAX's switch (neural_compressor_tpu/kernels/fused_matvec.py ATTN_O_FUSED),
+# read at call time by LlamaDecoderLayer._fused_call
+ATTN_O_FUSED = False
+
+
+def attn_o_plain(q, k_cache, v_cache, pos, w, scales, residual,
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain PyTorch version of K18: q [H, D] bf16 (rope applied); bf16
+    caches [Hkv, T, D] already holding row ``pos`` (an int or an int32 [1]
+    tensor); ``w`` "hopper_nk" [N, H*D/2] with float32 ``scales``
+    [H*D/D, N]; ``residual`` [N] -> y [N] bf16.
+
+    The TPU kernel's order (``_make_attn_o_kernel``): each head's attention
+    as K5 computes it up to its FLOAT32 output (not rounded to bf16), one
+    activation scale over the outputs of all heads, their int8 codes, the
+    grouped int4 dot, ``acc * s + residual``. That second half is K4's
+    function on the float32 row (``fused_gemv_plain`` without a norm)."""
+    from .decode_attention import _attend_plain
+
+    H, D = q.shape
+    o = _attend_plain(q[None], k_cache[None], v_cache[None], pos)
+    return fused_gemv_plain(o.reshape(H * D), None, w, scales, None,
+                            residual, eps=0.0, silu=False,
+                            out_dtype=out_dtype)
+
+
+def attn_o(q, k_cache, v_cache, pos, w, scales, residual) -> torch.Tensor:
+    """K18 on the card (``csrc/attn_o.cu``, one cooperative launch); the
+    plain version for CPU tensors. Arguments as in ``attn_o_plain``; the
+    position stays on the device."""
+    if q.device.type == "cpu":
+        return attn_o_plain(q, k_cache, v_cache, pos, w, scales, residual,
+                            q.dtype)
+    from .decode_attention import pos_vector, score_workspace
+
+    dev = q.device
+    H, D = q.shape
+    Hkv, T, _d = k_cache.shape
+    K, N = H * D, w.shape[0]
+    rep = H // Hkv if Hkv else 0
+    if not (D in (128, 256) and Hkv * rep == H and rep >= 1 and T >= 1
+            and N % 128 == 0):
+        raise ValueError(f"attn_o needs D 128 or 256 (the group size), H a "
+                         f"multiple of Hkv and N % 128 == 0 (H={H}, "
+                         f"Hkv={Hkv}, D={D}, N={N})")
+    pos = pos_vector(pos, 1, dev)
+    _build.require(q, "q", torch.bfloat16, dev, (H, D))
+    _build.require(k_cache, "k_cache", torch.bfloat16, dev, (Hkv, T, D))
+    _build.require(v_cache, "v_cache", torch.bfloat16, dev, (Hkv, T, D))
+    _build.require(w, "w", torch.uint8, dev, (N, K // 2))
+    _build.require(scales, "scales", torch.float32, dev, (K // D, N))
+    residual = residual.reshape(N)
+    _build.require(residual, "residual", torch.bfloat16, dev, (N,))
+    y = torch.empty(N, dtype=torch.bfloat16, device=dev)
+    att = torch.empty(K, dtype=torch.float32, device=dev)
+    amax = torch.zeros(1, dtype=torch.int32, device=dev)
+    ws = score_workspace(1, H, T, dev)
+    err = _build.library().nctt_attn_o(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+        w.data_ptr(), scales.data_ptr(), residual.data_ptr(), y.data_ptr(),
+        att.data_ptr(), amax.data_ptr(), ws.data_ptr(), H, Hkv, T, D, N,
+        1.0 / (D ** 0.5), _build.stream_handle(dev))
+    _build.check(err, "nctt_attn_o")
+    attn_o.launches += 1
+    return y
+
+
+attn_o.launches = 0
+
+
+def attn_o_fused(q, k_new, v_new, cache, pos, pw_o: PackedWeight, residual,
+                 out_dtype=None):
+    """B=1 decode attention and the o-projection in one launch (K18).
+
+    q [1, H, 1, D] (rope applied); ``k_new``/``v_new`` [1, Hkv, 1, D];
+    ``cache`` a ``KVCache`` ([1, Hkv, T, D] tensors); ``pos`` an int or a
+    [1] tensor; ``pw_o`` the o-projection's symmetric int4 "hopper_nk"
+    weight; ``residual`` [1, 1, N]. Writes the new row into the cache IN
+    PLACE before the launch (JAX writes it after, outside the kernel), then
+    returns (y [1, 1, N], cache). Returns None outside JAX's envelope, and
+    counts it in ``attn_o_fused.declined``: a cache of two tensors of bf16
+    or float32, q's dtype; the weight in ``fused_ok``'s envelope with
+    G == D, K == H*D and ``_pick_tn(N)``; B = S = 1. The caller then takes
+    the split attention-then-o path (and checks the o bias, as JAX's
+    caller does)."""
+    from ..models.llama import KVCache, _update_rows
+
+    B, H, S, D = q.shape
+    ok = isinstance(cache, tuple) and len(cache) == 2 and B == 1 and S == 1
+    if ok:
+        k_cache, v_cache = cache
+        K, N = pw_o.orig_shape
+        G = pw_o.group_size if pw_o.group_size > 0 else K
+        ok = (fused_ok(pw_o, 1) and G == D and K == H * D
+              and k_cache.dtype in (torch.bfloat16, torch.float32)
+              and k_cache.dtype == q.dtype and bool(_pick_tn(N)))
+    if not ok:
+        attn_o_fused.declined += 1
+        return None
+    k_cache = _update_rows(k_cache, k_new, pos)
+    v_cache = _update_rows(v_cache, v_new, pos)
+    y = attn_o(q[0, :, 0].contiguous(), k_cache[0], v_cache[0], pos,
+               pw_o.packed, pw_o.scales, residual.reshape(N))
+    return y.to(out_dtype or q.dtype).reshape(1, 1, N), KVCache(k_cache, v_cache)
+
+
+attn_o_fused.declined = 0

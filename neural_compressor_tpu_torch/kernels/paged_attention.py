@@ -39,6 +39,17 @@ Ports ``neural_compressor_tpu/kernels/paged_attention.py``:
     ``paged_write``, its launches counted per pool format; CUDA kernel
     ``csrc/paged_write.cu``. The contiguous int8/fp8 caches of
     ``models.llama`` take it too, as pools of one T-row page a slot.
+  * K15, ``paged_decode_attention`` under ``set_paged_v2(False)``
+    (``_paged_attn_impl`` / ``_paged_kernel`` over bf16 pools and
+    ``_paged_attn_quant_impl`` / ``_paged_quant_kernel`` over int8 and fp8
+    pools, the v1 kernels): one page a step with an online softmax whose
+    running max moves page by page; ``exp(s - m_cur)`` [times ``v_scale``]
+    is cast to bf16 for PV unnormalised, and divided by ``l`` only at the
+    end, so it rounds in its own places, not K11's. Wrapper
+    ``paged_attn_v1``, its launches counted per pool format; CUDA kernel
+    ``csrc/paged_attention_v1.cu``. int4 pools stay on K11 (v1 has no int4
+    branch), and gemma's ``window``/``softcap`` raise ``NotImplementedError``
+    under v1, as in JAX.
   * K13, ``paged_write_window`` (``_paged_write_window_impl`` with
     ``_write_kernel_bf16_w``, ``_write_kernel_quant_w`` and
     ``_write_kernel_int4_w``): W consecutive rows a slot, which may cross
@@ -520,6 +531,122 @@ def paged_write_rows(cache, k_new, v_new, pos):
     return cache
 
 
+def paged_attn_v1_plain(q, k_pages, k_scales, v_pages, v_scales,
+                        block_tables, lengths) -> torch.Tensor:
+    """Plain PyTorch version of K15: q [B, H, D] bf16; bf16 pools (scales
+    None) or int8/fp8 codes with float32 scales [P, Hkv, page];
+    ``block_tables`` [B, PMAX] int32; ``lengths`` [B] int32 (the new row
+    included) -> [B, H, D] in q's dtype, zeros for a slot of length 0.
+
+    The v1 kernels' order of operations, page by page: ``s = f32(q . k) *
+    scale`` (codes: ``* f32(k_scale * scale)``), keys past the length
+    masked; ``m_cur = max(m_prev, max s)``, the running max up to this
+    page; ``alpha = exp(m_prev - m_cur)``; ``e = f32(exp(s - m_cur))``;
+    ``l = l * alpha + sum e``; ``acc = acc * alpha + sum bf16(e [*
+    v_scale]) * v``; ``out = f32(acc) / max(f32(l), 1e-30)``. alpha, l and
+    acc in float64 (the TPU carries float32), the dot products over exact
+    terms in float64, as the CUDA kernel does; a float32 pool's rows and
+    probabilities stay float32, as v1 casts p to the rows' dtype."""
+    fmt = pool_format(k_pages, k_scales)
+    B, H, D = q.shape
+    P, Hkv, page, _d = k_pages.shape
+    PMAX = block_tables.shape[1]
+    rep = H // Hkv
+    dev = q.device
+    quant = k_scales is not None
+    scale = 1.0 / (D ** 0.5)
+    qr = q.reshape(B, Hkv, rep, D).to(_F64)
+    n = lengths.to(torch.int64).reshape(B, 1)
+    m = torch.full((B, Hkv, rep), -1e30, dtype=_F32, device=dev)
+    l = torch.zeros((B, Hkv, rep), dtype=_F64, device=dev)
+    acc = torch.zeros((B, Hkv, rep, D), dtype=_F64, device=dev)
+    for p in range(PMAX):
+        pid = block_tables[:, p].to(torch.int64)
+        t = p * page + torch.arange(page, device=dev)[None, :]
+        valid = (t < n)[:, None, None, :]                 # [B, 1, 1, page]
+        k = _as_rows(k_pages[pid], fmt)                   # [B, Hkv, page, D]
+        v = _as_rows(v_pages[pid], fmt)
+        s = torch.einsum("bgrd,bgtd->bgrt", qr, k).to(_F32)
+        if quant:
+            s = s * (k_scales[pid] * scale)[:, :, None, :]
+        else:
+            s = s * scale
+        s = torch.where(valid, s, torch.tensor(-1e30, device=dev))
+        m_cur = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m.to(_F64) - m_cur.to(_F64))
+        e = torch.exp(s.to(_F64) - m_cur.to(_F64)[..., None]).to(_F32)
+        e = torch.where(valid, e, torch.zeros((), dtype=_F32, device=dev))
+        l = l * alpha + e.to(_F64).sum(dim=-1)
+        pe = e * v_scales[pid][:, :, None, :] if quant else e
+        if fmt != "f32":
+            pe = pe.to(torch.bfloat16)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bgrt,bgtd->bgrd", pe.to(_F64), v)
+        m = m_cur
+    out = acc.to(_F32) / l.to(_F32).clamp_min(1e-30)[..., None]
+    out = torch.where((lengths > 0).reshape(B, 1, 1, 1), out,
+                      torch.zeros((), device=dev))
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+def _as_rows(pages: torch.Tensor, fmt: str) -> torch.Tensor:
+    """Gathered pages (bf16 or float32 rows, int8 or fp8 codes) as float64,
+    exactly."""
+    if fmt == "fp8_e4m3":
+        pages = pages.to(torch.bfloat16)
+    return pages.to(_F64)
+
+
+def paged_attn_v1(q, k_pages, k_scales, v_pages, v_scales, block_tables,
+                  lengths) -> torch.Tensor:
+    """K15 on the card (``csrc/paged_attention_v1.cu``) over bf16, int8 and
+    fp8-e4m3 pools; the plain version for CPU tensors. Arguments as in
+    ``paged_attn_v1_plain``. Launches are counted per pool format in
+    ``paged_attn_v1.launches``."""
+    if q.device.type == "cpu":
+        return paged_attn_v1_plain(q, k_pages, k_scales, v_pages, v_scales,
+                                   block_tables, lengths)
+    fmt = pool_format(k_pages, k_scales)
+    if fmt not in paged_attn_v1.launches:
+        raise ValueError(f"paged_attn_v1 takes bf16, int8 and fp8 pools, "
+                         f"not {fmt}")
+    dev = q.device
+    B, H, D = q.shape
+    P, Hkv, page, _d = k_pages.shape
+    PMAX = block_tables.shape[1]
+    rep = H // Hkv if Hkv else 0
+    if not (D in KERNEL_D and Hkv * rep == H and rep >= 1 and page >= 1
+            and PMAX >= 1):
+        raise ValueError(f"paged_attn_v1 needs 1 <= D <= 256 and H a "
+                         f"multiple of Hkv (H={H}, Hkv={Hkv}, D={D})")
+    _build.require(q, "q", torch.bfloat16, dev, (B, H, D))
+    _require_pools("paged_attn_v1", fmt, dev, k_pages, k_scales, v_pages,
+                   v_scales, None, None)
+    _build.require(block_tables, "block_tables", torch.int32, dev, (B, PMAX))
+    _build.require(lengths, "lengths", torch.int32, dev, (B,))
+    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
+    err = _build.library().nctt_paged_attention_v1(
+        q.data_ptr(), k_pages.data_ptr(), _ptr(k_scales), v_pages.data_ptr(),
+        _ptr(v_scales), block_tables.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), B, H, Hkv, page, PMAX, D, _FMT_CODE[fmt],
+        1.0 / (D ** 0.5), _build.stream_handle(dev))
+    _build.check(err, "nctt_paged_attention_v1")
+    paged_attn_v1.launches[fmt] += 1
+    return out
+
+
+paged_attn_v1.launches = dict.fromkeys(("bf16", "int8", "fp8_e4m3"), 0)
+
+# JAX's switch (paged_attention.py _PAGED_V2): v2 (K11) is the default, v1
+# (K15) the A/B comparator; read at call time
+_PAGED_V2 = True
+
+
+def set_paged_v2(on: bool) -> None:
+    global _PAGED_V2
+    _PAGED_V2 = bool(on)
+
+
 def paged_decode_attention(q, cache, lengths, window=None, softcap=None):
     """Single-token attention over a ``PagedKVCache``: q [B, H, 1, D];
     ``lengths`` [B] = tokens in the cache INCLUDING the current one (its
@@ -527,12 +654,22 @@ def paged_decode_attention(q, cache, lengths, window=None, softcap=None):
     ``window`` (gemma's sliding band: keys with q_pos - k_pos < window)
     and ``softcap`` (``cap * tanh(s / cap)`` on the scaled scores, before
     the mask) take ``paged_attn_gemma``; without them ``paged_attn``.
-    Returns [B, H, 1, D] bf16."""
+    Under ``set_paged_v2(False)`` bf16, int8 and fp8 pools take K15
+    (``paged_attn_v1``), int4 pools stay on K11, and a window or softcap
+    raises ``NotImplementedError``, as in JAX. Returns [B, H, 1, D]
+    bf16."""
     B, _H, S, _D = q.shape
     if S != 1:
         raise ValueError("paged decode attention is single-token")
-    args = (q[:, :, 0].contiguous(), *_pool_args(cache),
-            pos_vector(lengths, B, q.device), cache.k_offs, cache.v_offs)
+    lengths = pos_vector(lengths, B, q.device)
+    if not _PAGED_V2 and cache.k_pages.dtype != torch.uint8:  # v1: no int4
+        if window is not None or softcap is not None:
+            raise NotImplementedError(
+                "window/softcap need the v2 paged kernel (set_paged_v2)")
+        return paged_attn_v1(q[:, :, 0].contiguous(), *_pool_args(cache),
+                             lengths)[:, :, None]
+    args = (q[:, :, 0].contiguous(), *_pool_args(cache), lengths,
+            cache.k_offs, cache.v_offs)
     if window is None and softcap is None:
         out = paged_attn(*args)
     else:

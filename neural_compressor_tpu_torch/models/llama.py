@@ -28,6 +28,7 @@ the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import NamedTuple
 
 import numpy as np
@@ -687,8 +688,8 @@ class LlamaAttention(nn.Module):
                                       cache_pos)
         if cache is not None:
             if S == 1:
-                # B == 1 with an int position on the B=1 kernel (K5), B > 1
-                # and per-slot positions on the batched one (K7); None where
+                # B == 1 on the B=1 kernels (K5, or K16 under its
+                # switches), B > 1 on the batched one (K7); None where
                 # JAX's K7 dispatch declines and K7 cannot take D either:
                 # the rows are written, attend them below
                 out, k_all, v_all = decode_attention(
@@ -795,7 +796,9 @@ class LlamaDecoderLayer(nn.Module):
                                                 cfg.rms_norm_eps, cfg.dtype,
                                                 device)
         self.mlp = LlamaMLP(cfg, device, generator)
-        self.fused_decode = False  # set by quantization.fuse.enable_fused_decode
+        # set by quantization.fuse.enable_fused_decode
+        self.fused_decode = False
+        self.fused_fold_norms = True
 
     def forward(self, x, cos, sin, mask, cache=None, cache_pos=None):
         if (self.fused_decode and x.shape[0] == 1 and x.shape[1] == 1
@@ -812,9 +815,20 @@ class LlamaDecoderLayer(nn.Module):
     def _fused_call(self, x, cos, sin, mask, cache, cache_pos):
         """Fused B=1 decode: each projection is one fused GEMV launch that
         also does the adjacent glue (RMSNorm by scale invariance, act
-        quant, silu(g)*u, residual adds). Returns None to fall back to the
+        quant, silu(g)*u, residual adds). JAX's switches, read at call
+        time, select two variants: ``fused_matvec.ATTN_O_FUSED`` runs the
+        attention inside the o-projection's launch (K18; it comes first),
+        ``omlp_matvec.OMLP_FUSED`` the o-projection and the MLP in one
+        launch (K17; it needs ``fused_fold_norms`` and no o/gate_up/down
+        bias). A variant that declines falls back as in JAX. With
+        ``fused_fold_norms`` False the layer applies its RMSNorms itself
+        and the GEMVs take no norm weight. Returns None to fall back to the
         modular path (ineligible weights)."""
+        from ..kernels import omlp_matvec as _om
         from ..kernels.fused_matvec import fused_matvec
+
+        # the module (the package exports a function of its name)
+        _fm = sys.modules[fused_matvec.__module__]
 
         attn, mlp = self.self_attn, self.mlp
         cfg = attn.cfg
@@ -825,8 +839,10 @@ class LlamaDecoderLayer(nn.Module):
         if qkv_m is None or gu_m is None:
             return None
         ln1, ln2 = self.input_layernorm, self.post_attention_layernorm
-        qkv = fused_matvec(x, qkv_m.packed_weight(), rms_w=ln1.weight,
-                           eps=ln1.eps, bias=qkv_m.bias, out_dtype=x.dtype)
+        fold = getattr(self, "fused_fold_norms", True)
+        qkv = fused_matvec(x if fold else ln1(x), qkv_m.packed_weight(),
+                           rms_w=ln1.weight if fold else None, eps=ln1.eps,
+                           bias=qkv_m.bias, out_dtype=x.dtype)
         if qkv is None:
             return None
         q, k, v = torch.split(qkv, [H * D, Hkv * D, Hkv * D], dim=-1)
@@ -834,14 +850,31 @@ class LlamaDecoderLayer(nn.Module):
         k = apply_rope(k.reshape(B, S, Hkv, D), cos, sin, cfg.rope_style)
         q, k = q.transpose(1, 2), k.transpose(1, 2)
         v = v.reshape(B, S, Hkv, D).transpose(1, 2)
-        out, new_cache = attn._attend(x.dtype, q, k, v, mask, cache,
-                                      cache_pos)
-        x1 = fused_matvec(out, attn.o_proj.packed_weight(), residual=x,
-                          bias=attn.o_proj.bias, out_dtype=x.dtype)
+        x1 = None
+        if _fm.ATTN_O_FUSED and attn.o_proj.bias is None:
+            r = _fm.attn_o_fused(q, k, v, cache, cache_pos,
+                                 attn.o_proj.packed_weight(), residual=x,
+                                 out_dtype=x.dtype)
+            if r is not None:
+                x1, new_cache = r
+        if x1 is None:
+            out, new_cache = attn._attend(x.dtype, q, k, v, mask, cache,
+                                          cache_pos)
+            if (_om.OMLP_FUSED and fold and attn.o_proj.bias is None
+                    and gu_m.bias is None and mlp.down_proj.bias is None):
+                x2 = _om.omlp_fused(
+                    out, attn.o_proj.packed_weight(), gu_m.packed_weight(),
+                    mlp.down_proj.packed_weight(), residual=x,
+                    rms_w=ln2.weight, eps=ln2.eps, out_dtype=x.dtype)
+                if x2 is not None:
+                    return x2, new_cache
+            x1 = fused_matvec(out, attn.o_proj.packed_weight(), residual=x,
+                              bias=attn.o_proj.bias, out_dtype=x.dtype)
         if x1 is None:
             return None
-        h = fused_matvec(x1, gu_m.packed_weight(), rms_w=ln2.weight,
-                         eps=ln2.eps, silu_gate=True, out_dtype=x.dtype)
+        h = fused_matvec(x1 if fold else ln2(x1), gu_m.packed_weight(),
+                         rms_w=ln2.weight if fold else None, eps=ln2.eps,
+                         silu_gate=True, out_dtype=x.dtype)
         if h is None:
             return None
         x2 = fused_matvec(h, mlp.down_proj.packed_weight(), residual=x1,

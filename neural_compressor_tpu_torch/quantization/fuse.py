@@ -104,11 +104,14 @@ def to_w4a8_serving(model) -> int:
     return n
 
 
-def enable_fused_decode(model) -> int:
+def enable_fused_decode(model, fold_norms: bool = True) -> int:
     """Flag llama decoder layers (and the lm_head) for the fused B=1 decode
     path (``LlamaDecoderLayer._fused_call``). Needs the fused qkv/gate_up
     projections on "hopper_nk" ``W4A8Linear`` modules: run after
-    ``fuse_for_serving`` and ``to_w4a8_serving``. Returns #layers flagged."""
+    ``fuse_for_serving`` and ``to_w4a8_serving``. ``fold_norms`` (JAX's
+    argument): the GEMVs fold the layer's RMSNorms into their activation
+    quantization; False applies each norm first (and K17, which folds it,
+    is not taken). Returns #layers flagged."""
 
     def _ok(m):
         return (type(m) is W4A8Linear and m.layout == HOPPER_LAYOUT
@@ -131,6 +134,7 @@ def enable_fused_decode(model) -> int:
                 and type(layer.post_attention_layernorm).__name__
                 == "RMSNorm"):
             layer.fused_decode = True
+            layer.fused_fold_norms = fold_norms
             n += 1
     head = getattr(model, "lm_head", None)
     if (n and head is not None and _ok(head)

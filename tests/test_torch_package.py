@@ -81,7 +81,9 @@ def test_each_kernel_wrapper_counts_its_launches():
                      "paged_attn", "paged_write", "dequant_gemm", "vpu_gemv",
                      "paged_write_window_kernel", "paged_window_attn",
                      "paged_attn_gemma", "paged_latent_write",
-                     "paged_latent_attn"]
+                     "paged_latent_attn", "paged_attn_v1",
+                     "decode_attn_write", "decode_attn_hbm", "omlp",
+                     "attn_o"]
     pools = ["bf16", "int8", "fp8_e4m3", "int4"]
     by_format = {"batched_decode_attn": ["bf16", "int8", "fp8_e4m3"],
                  "paged_attn": pools, "paged_write": pools,
@@ -90,7 +92,11 @@ def test_each_kernel_wrapper_counts_its_launches():
                  # K11's gemma branches: the band (with or without the
                  # softcap) and the softcap alone, per pool format
                  "paged_attn_gemma": [f"{b}_{f}" for b in ("band", "softcap")
-                                      for f in pools]}
+                                      for f in pools],
+                 # the flag-selected variants: K15 (v1 paged, no int4) and
+                 # K16's in-kernel write (bf16 and int8 caches)
+                 "paged_attn_v1": pools[:3],
+                 "decode_attn_write": pools[:2]}
     for fn in kernels.KERNEL_WRAPPERS:
         if fn.__name__ in by_format:
             assert list(fn.launches) == by_format[fn.__name__]
@@ -108,7 +114,8 @@ def test_every_kernel_has_a_source_and_a_c_entry():
     assert sources == {"w4a8_gemm.cu", "fused_gemv.cu", "decode_attention.cu",
                        "batched_decode_attention.cu", "paged_attention.cu",
                        "paged_write.cu", "dequant_matmul.cu",
-                       "paged_latent.cu"}
+                       "paged_latent.cu", "paged_attention_v1.cu",
+                       "decode_attention_hbm.cu", "omlp.cu", "attn_o.cu"}
     text = "".join((_build.CSRC / s).read_text() for s in sources)
     for entry in _build.SIGNATURES:
         assert f"NCTT_API int {entry}(" in text
