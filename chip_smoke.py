@@ -36,7 +36,7 @@ non-zero:
      and the W4A8 model served by the engine on the card and on the CPU
      in each pool mode (contiguous bf16/int8/fp8/int4, paged
      bf16/int8/fp8/int4);
-  5. llama2-7b at full width, cut to ``W4A8_LAYERS`` = 8 of its 32
+  5. llama2-7b at full width, cut to ``W4A8_LAYERS`` = 4 of its 32
      layers for the run's time limit, RTN int4 g128 W4A8, answering
      three greedy requests at B=1 (prompts of 16, 100 and 371 tokens, 48
      new tokens each, max_len 1024), with exact kernel launch counts;
@@ -48,7 +48,7 @@ non-zero:
      paged int8 pool, ``run(chunk=8)``, with exact launch counts derived
      from the engine's counters, and one B=8 decode dispatch profiled;
   8. after the W4A8 model is freed, llama2-7b asym-int4 g128 W4A16 at full
-     width, cut to ``WOQ_LAYERS`` = 8 of its 32 layers for the run's time
+     width, cut to ``WOQ_LAYERS`` = 4 of its 32 layers for the run's time
      limit (built with ``RTNConfig + KVCacheQuantConfig``):
      three greedy requests at B=1 and 16 through the 8-slot engine over
      bf16 caches, exact launch counts of K8, K9, K5 and K7 and the
@@ -79,7 +79,7 @@ non-zero:
      ``gemma_envelope``); full-width 2-layer gemma2-9b and gemma3-4b-text
      W4A16 (window cut to 64), card against CPU, greedy in every KV format
      and the engine in every pool mode (phase 4's ``gemma_model_check``);
-     and gemma2-9b W4A16 at full width, ``GEMMA_LAYERS`` = 21 of its 42
+     and gemma2-9b W4A16 at full width, ``GEMMA_LAYERS`` = 6 of its 42
      layers: three B=1 requests
      (prompts of 16, 371 and 4,500 tokens) and the 8-slot engine over
      8192-row paged bf16 and int8 pools (8 requests, 2 past the window),
@@ -97,8 +97,8 @@ non-zero:
      deepseek-v3's widths cut to 2 layers and 32 routed experts, W4A16,
      card against CPU, greedy over the expanded and every latent cache
      and the engine contiguous and paged (phase 4's
-     ``deepseek_model_check``); and deepseek-v3 W4A16 at 4 of its 61
-     layers (its 3 dense layers and one MoE layer of 257 experts): three
+     ``deepseek_model_check``); and deepseek-v3 W4A16 at 2 of its 61
+     layers (one dense layer and one MoE layer of 257 experts): three
      B=1 greedy requests over the contiguous latent cache and the 8-slot
      engine over the paged latent pool (K14 each decode step of each
      layer), its tokens against greedy's, exact launch counts, the pool's
@@ -120,8 +120,24 @@ non-zero:
      int8 write over an int8 cache) and the 8-slot v1 engine over paged
      bf16 and int8 pools (16 requests), each against the default path in
      the same run, exact launch counts (``variant_serve``).
-Development runs name checks of phases 2-4 and 13, or ``deepseek_serve``
-or ``variant_serve``, as arguments (``python3 chip_smoke.py
+ 14. Hybrid GPTQ (W4A8) and the last two TPU kernels: K2 (``s4_gemm``, on
+     "s4_rowpack" words) at M 1, 8 and 128, K1 on "tpu_strided" words
+     (``w4a8_gemm_strided``, the repair) at M 4, 8 and 128, and K10
+     (``vpu_int8act``, the all-integer M = 1 matvec) at the B=1 step's
+     shapes in sym and asym int4, int2 and with a row permutation, bit for
+     bit against their plain versions, with planted faults
+     (``hybrid_kernels``); their envelope and its declines
+     (``hybrid_envelope``); and llama2-7b at full width, ``HYB_LAYERS`` = 4
+     of its 32 layers, calibrated on the card by ``quantize(...,
+     HybridGPTQConfig(...), run_fn=calibration_forward)`` over 8 random
+     sequences of 512 tokens (GPTQ's objective under RTN's for every
+     matrix, one matrix's codes against the CPU's), then served three
+     ways, each against the same weights' plain path: "s4_rowpack" (B=1
+     greedy and the 8-slot engine: K2 at every M), "tpu_strided" under
+     ``M_INT8_THRESHOLD = 2`` (B=1 greedy: K1's strided loader and K10) and
+     "hopper_nk" with fused decode (``hybrid_serve``).
+Development runs name checks of phases 2-4, 13 and 14, or
+``deepseek_serve``, ``variant_serve`` or ``hybrid_serve``, as arguments (``python3 chip_smoke.py
 variant_kernels variant_envelope``): the build, those checks, no result
 line.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -144,7 +160,7 @@ G = 128
 SHAPES = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
           "down": (11008, 4096), "lm_head": (4096, 32000)}
 LAYERS, HEADS, HEAD_DIM, MAX_LEN = 32, 32, 128, 1024
-W4A8_LAYERS = 8               # depth of the served W4A8 model (5-7, 10)
+W4A8_LAYERS = 4               # depth of the served W4A8 model (5-7, 10, 13)
 PROMPTS, NEW_TOKENS = (16, 100, 371), 48
 GEMM_MS = (17, 128, 512)
 UNIT_M = 128                  # the GEMM row of the kernels line: a 128-token prefill
@@ -796,6 +812,7 @@ def unpack_once():
     from neural_compressor_tpu_torch.kernels import dequant_matmul
     from neural_compressor_tpu_torch.ops import packing
 
+    s4m, w4m = port_module("s4_matmul"), port_module("w4a8_matmul")
     held = {}
 
     def once(fn):
@@ -810,7 +827,8 @@ def unpack_once():
     saved = [(packing, "unpack_codes_hopper"), (packing, "unpack_codes"),
              (dequant_matmul, "unpack_codes"),
              (dequant_matmul, "plain_weight_f32"),
-             (dequant_matmul, "codes_f32")]
+             (dequant_matmul, "codes_f32"),
+             (s4m, "unpack_codes_s4"), (w4m, "unpack_codes")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
     for mod, name, fn in saved:
         setattr(mod, name, once(fn))
@@ -1277,7 +1295,7 @@ def phase_engine_serve(torch, nct, model) -> dict:
 
 # ------------------------------------------------------------------ W4A16
 WOQ_MS = (8, 100, 256)          # K8 rows timed at the llama2-7b shapes
-WOQ_LAYERS = 8                  # depth of the served W4A16 model (phases 8-9)
+WOQ_LAYERS = 4                  # depth of the served W4A16 model (phases 8-9)
 WOQ_UNIT_M = 8                  # K8's row of the kernels line: one 8-slot step
 
 
@@ -3136,8 +3154,8 @@ def phase_kv_engine(torch, nct, model) -> dict:
 # binds on the slots past 4096
 GEMMA_PRESET = "gemma2-9b"
 # depth of the served gemma2-9b, cut from 42 to keep the whole check
-# inside its time limit: 11 sliding and 10 global layers
-GEMMA_LAYERS = 21
+# inside its time limit: 3 sliding and 3 global layers (21 in PR 8-9)
+GEMMA_LAYERS = 6
 GEMMA_POS = (0, 1023, 4095, 4096, 4097, 5000, 6500, 8191)
 GEMMA_MAX_LEN = 8192
 GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0
@@ -3651,7 +3669,7 @@ def gemma_paged_gap(torch, model, fmt, prefix, tok_a: int,
 
 def phase_gemma_serve(torch, nct) -> dict:
     """The slice's path at full width: gemma2-9b cut to ``GEMMA_LAYERS`` =
-    21 of its 42 layers (11 sliding), RTN asym-int4 g128 W4A16, random
+    6 of its 42 layers (3 sliding), RTN asym-int4 g128 W4A16, random
     weights from a seed made on
     the card. Three B=1 greedy requests over contiguous bf16 caches
     (prompts of 16, 371 and 4,500 tokens, the last through the chunked
@@ -4222,9 +4240,10 @@ DS_CHECK = dict(num_hidden_layers=2, first_k_dense_replace=1,
 # (latent, KV format) of the 2-layer check's greedy runs
 DS_CACHE_MODES = ((False, None), (True, None), (True, "int8"),
                   (True, "fp8_e4m3"), (True, "int4"))
-# the served model: 4 of deepseek-v3's 61 layers, its 3 dense layers and
-# one MoE layer with all 256 routed experts and the shared one
-DS_LAYERS = 4
+# the served model: 2 of deepseek-v3's 61 layers, one dense layer and one
+# MoE layer with all 256 routed experts and the shared one (4 in PR 8-9,
+# its 3 dense layers and the MoE layer: the check's time limit)
+DS_LAYERS = 2
 DS_PROMPTS, DS_NEW = (16, 371, 2000), 48
 DS_ENGINE_PROMPTS, DS_ENGINE_NEW = (16, 371, 1000, 3000), 16
 # the deepseek engine's requests: 8, 2 a prompt length, for the check's
@@ -4430,8 +4449,8 @@ def phase_deepseek_model_check(torch, nct) -> None:
 
 
 def phase_deepseek_serve(torch, nct) -> dict:
-    """The slice's path at full width: deepseek-v3 cut to ``DS_LAYERS`` = 4
-    of its 61 layers (its 3 dense layers and one MoE layer with all 256
+    """The slice's path at full width: deepseek-v3 cut to ``DS_LAYERS`` = 2
+    of its 61 layers (one dense layer and one MoE layer with all 256
     routed experts and the shared one), RTN asym-int4 g128 W4A16 (router
     float32, embedding and lm_head bf16), random weights made on the card
     from a seed, in latent mode. Three B=1 greedy requests over the
@@ -4458,7 +4477,8 @@ def phase_deepseek_serve(torch, nct) -> dict:
     from neural_compressor_tpu_torch.kernels import dequant_dot
 
     t0 = time.perf_counter()
-    model = ds_model(nct, seed=0, device="cuda", num_hidden_layers=DS_LAYERS)
+    model = ds_model(nct, seed=0, device="cuda", num_hidden_layers=DS_LAYERS,
+                     first_k_dense_replace=DS_LAYERS - 1)
     cfg = model.cfg
     L, V, H = cfg.num_hidden_layers, cfg.vocab_size, cfg.num_attention_heads
     n_k = ds_kernel_projections(cfg, True)
@@ -5527,6 +5547,565 @@ def phase_variant_serve(torch, nct, model) -> dict:
     return out
 
 
+# ------------------------------------------------------------- hybrid GPTQ
+HYB_LAYERS = 4                # depth of the served hybrid-GPTQ llama2-7b
+HYB_CALIB = (8, 512)          # calibration: 8 sequences of 512 random ids
+HYB_PROMPTS = (16, 371)
+S4_MS = (1, 8, 128)           # K2: the B=1 step, the engine's M = 8, a prefill
+K1S_MS = (4, 8, 128)          # K1 on tpu_strided words (the repair)
+# the share of a 4096x4096 matrix's GPTQ codes that must agree between the
+# card and the CPU: the CPU tests hold the port to JAX at this share
+# (tests/test_torch_gptq.py, GPTQ_CODE_SHARE)
+GPTQ_CODE_SHARE = 0.995
+HYB_DEV = "cuda"              # (a CPU rehearsal of these phases sets "cpu")
+
+
+def hyb_weights(torch, gen, K, N, bits=4, scheme="sym", perm=False):
+    """A random llama2-7b-scaled weight, quantized and packed
+    "tpu_strided" on the card (with a random row permutation if asked)."""
+    pk = {}
+    if perm:
+        pk["perm"] = torch.randperm(K, generator=gen, device=HYB_DEV)
+    return woq_weight(torch, gen, K, N, G=G, scheme=scheme, bits=bits, **pk)
+
+
+def phase_hybrid_kernels(torch, nct, peaks: dict) -> dict:
+    """K2, K1's "tpu_strided" loader and K10 against their plain versions at
+    llama2-7b's shapes, bit for bit (each keeps its plain version's order of
+    float operations), with their times, the plain version's, one PyTorch
+    yardstick's (``torch.matmul`` of the bf16 weights; never used by the
+    port) and the bound:
+      * K2 (``s4_gemm``) at M 1, 8 and 128 on qkv, o, gate_up, down and the
+        lm_head, also equal to K1 on the same codes ("hopper_nk");
+      * K1 on "tpu_strided" words (``w4a8_gemm_strided``) at M 4, 8, 128,
+        equal to K1 on "hopper_nk";
+      * K10 (``vpu_int8act``) at the B=1 step's five shapes, sym and asym
+        int4, int2, and through ``vpu_matvec_int8act`` with a row
+        permutation;
+    and planted faults, each of which must be flagged: a flipped nibble and
+    a wrong scale (K2, K1's loader, K10), a wrong zero and a wrong xs
+    (K10)."""
+    from neural_compressor_tpu_torch.kernels import (
+        s4_gemm, s4_gemm_plain, vpu_int8act, vpu_int8act_plain, w4a8_gemm,
+        w4a8_gemm_strided, w4a8_gemm_strided_plain)
+    from neural_compressor_tpu_torch.kernels.dequant_matmul import (
+        _vpu_tiles, vpu_matvec_int8act)
+    from neural_compressor_tpu_torch.ops import (dequantize_packed,
+                                                 quantize_act_per_token,
+                                                 to_hopper, to_s4_rowpack)
+
+    gen = torch.Generator(device=HYB_DEV)
+    gen.manual_seed(10)
+    rows = {"k2": [], "k1s": [], "k10": []}
+    faults = []
+
+    def copies(*ts):
+        n = n_copies(sum(t.numel() * t.element_size() for t in ts))
+        return [tuple(t.clone() for t in ts) for _ in range(n)]
+
+    def flip(w):
+        """A copy of packed words with one word's eight nibbles flipped
+        (bit 3 of each, in the middle of the tensor)."""
+        w = w.clone()
+        flat = w.view(-1)
+        flat[flat.numel() // 2 + 3] ^= -0x77777778   # 0x88888888
+        return w
+
+    def bad_scale(s, by=None):
+        """One group scale (or zero point, ``by`` added) off."""
+        s = s.clone()
+        i, j = s.shape[0] // 2, s.shape[1] // 3
+        if by is None:
+            s[i, j] *= 1.5
+        else:
+            s[i, j] += by
+        return s
+
+    def record(kind, name, M, yk, yp, ms, pms, lms, nbytes, ops, **extra):
+        same = bool(torch.equal(yk, yp))
+        err = float((yk.float() - yp.float()).abs().max())
+        bms, by = bound(nbytes, ops, peaks["int8_s"], peaks)
+        row = dict(shape=name, M=M, err=err, ok=same, ms=ms, plain_ms=pms,
+                   library_ms=lms, bound_ms=bms, bound_by=by, **extra)
+        rows[kind].append(row)
+        print(f"{kind} {name:8s} M={M:4d} bit-equal={same} "
+              f"max_abs_err={err:.3e} ms={ms:.4f} plain_ms={pms:.4f} "
+              f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by}) "
+              f"{' '.join(f'{k}={v}' for k, v in extra.items())}",
+              flush=True)
+
+    def fault(label, yk, yp):
+        flagged = not bool(torch.equal(yk, yp))
+        faults.append((label, flagged))
+        print(f"planted fault {label}: flagged={flagged}", flush=True)
+
+    for name, (K, N) in SHAPES.items():
+        pw = hyb_weights(torch, gen, K, N)
+        s4, hop = to_s4_rowpack(pw), to_hopper(pw)
+        wbf = dequantize_packed(pw, torch.bfloat16)
+        sc = pw.scales
+        wbytes = K * N // 2 + (K // G) * N * 4
+        for M in sorted(set(S4_MS) | set(K1S_MS)):
+            x = (torch.randn((M, K), generator=gen, device=HYB_DEV)
+                 ).to(torch.bfloat16)
+            xq, xs = quantize_act_per_token(x)
+            xs = xs.reshape(-1).contiguous()
+            y1 = w4a8_gemm(xq, hop.packed, sc, xs)
+            lms = timed_ms(torch, [lambda: torch.matmul(x, wbf)], 50)
+            io = M * K + M * 4 + M * N * 4
+            for kind, Ms, fn, plain, words in (
+                    ("k2", S4_MS, s4_gemm, s4_gemm_plain, s4.packed),
+                    ("k1s", K1S_MS, w4a8_gemm_strided,
+                     w4a8_gemm_strided_plain, pw.packed)):
+                if M not in Ms:
+                    continue
+                yk = fn(xq, words, sc, xs)
+                yp = plain(xq, words, sc, xs)
+                torch.cuda.synchronize()
+                cps = copies(words, sc)
+                ms = timed_ms(torch, [lambda w_=w_, s_=s_: fn(xq, w_, s_, xs)
+                                      for w_, s_ in cps], 50)
+                del cps
+                pms = timed_ms(torch, [lambda: plain(xq, words, sc, xs)], 3)
+                record(kind, name, M, yk, yp, ms, pms, lms, wbytes + io,
+                       2 * M * N * K, equal_to_k1_hopper=bool(
+                           torch.equal(yk, y1)))
+                if name == "o" and M == 8:
+                    fault(f"{kind} flipped nibble",
+                          fn(xq, flip(words), sc, xs), yp)
+                    fault(f"{kind} wrong scale",
+                          fn(xq, words, bad_scale(sc), xs), yp)
+        # K10: the B=1 step's shape, sym int4 timed; asym, int2 and a row
+        # permutation checked
+        tk, _tn = _vpu_tiles(K, N, G)
+        x = torch.randn((K,), generator=gen, device=HYB_DEV).to(torch.bfloat16)
+        args = dict(bits=4, group_size=G, tk=tk, out_dtype=torch.bfloat16)
+        yk = vpu_int8act(x, pw.packed, sc, None, **args)
+        yp = vpu_int8act_plain(x, pw.packed, sc, None, **args)
+        torch.cuda.synchronize()
+        cps = copies(pw.packed, sc)
+        ms = timed_ms(torch, [lambda w_=w_, s_=s_: vpu_int8act(
+            x, w_, s_, None, **args) for w_, s_ in cps], 200)
+        del cps
+        pms = timed_ms(torch, [lambda: vpu_int8act_plain(
+            x, pw.packed, sc, None, **args)], 3)
+        x2 = x.reshape(1, K)
+        lms = timed_ms(torch, [lambda: torch.matmul(x2, wbf)], 200)
+        record("k10", name, 1, yk, yp, ms, pms, lms,
+               wbytes + K * 2 + N * 2, 2 * K * N, fmt="sym_int4", tk=tk)
+        if name == "o":
+            fault("k10 flipped nibble",
+                  vpu_int8act(x, flip(pw.packed), sc, None, **args), yp)
+            fault("k10 wrong scale",
+                  vpu_int8act(x, pw.packed, bad_scale(sc), None, **args), yp)
+            # x doubled: the same codes under twice the xs
+            fault("k10 wrong xs",
+                  vpu_int8act(x * 2, pw.packed, sc, None, **args), yp)
+        for fmt, bits, scheme in (("asym_int4", 4, "asym"),
+                                  ("sym_int2", 2, "sym")):
+            pa = hyb_weights(torch, gen, K, N, bits=bits, scheme=scheme)
+            a2 = dict(args, bits=bits)
+            zk = vpu_int8act(x, pa.packed, pa.scales, pa.zeros, **a2)
+            zp = vpu_int8act_plain(x, pa.packed, pa.scales, pa.zeros, **a2)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(zk, zp))
+            rows["k10"].append(dict(shape=name, M=1, fmt=fmt, ok=same,
+                                    err=float((zk.float() - zp.float())
+                                              .abs().max()), timed=False))
+            print(f"k10 {name:8s} {fmt}: bit-equal={same}", flush=True)
+            if name == "o" and fmt == "asym_int4":
+                fault("k10 wrong zero",
+                      vpu_int8act(x, pa.packed, pa.scales,
+                                  bad_scale(pa.zeros, by=1.0), **a2), zp)
+            del pa
+        pp = hyb_weights(torch, gen, K, N, perm=True)
+        m = port_module("dequant_matmul")
+        yk = vpu_matvec_int8act(x.reshape(1, K), pp)
+        plain_fn = m.vpu_int8act
+        m.vpu_int8act = vpu_int8act_plain
+        try:
+            yp = vpu_matvec_int8act(x.reshape(1, K), pp)
+        finally:
+            m.vpu_int8act = plain_fn
+        torch.cuda.synchronize()
+        same = bool(torch.equal(yk, yp))
+        rows["k10"].append(dict(shape=name, M=1, fmt="perm", ok=same,
+                                err=float((yk.float() - yp.float())
+                                          .abs().max()), timed=False))
+        print(f"k10 {name:8s} perm: bit-equal={same}", flush=True)
+        del pw, s4, hop, wbf, pp
+    bad = [r for rs in rows.values() for r in rs if not r["ok"]
+           or not r.get("equal_to_k1_hopper", True)]
+    if bad:
+        fail(f"a hybrid kernel disagrees with its plain version: {bad}")
+    missed = [label for label, flagged in faults if not flagged]
+    if missed:
+        fail(f"planted faults not flagged: {missed}")
+    print(f"hybrid kernels: {sum(len(r) for r in rows.values())} checks "
+          f"bit-equal, {len(faults)} planted faults flagged", flush=True)
+    return rows
+
+
+def phase_hybrid_envelope(torch, nct) -> None:
+    """The hybrid kernels at shapes llama2-7b does not give them, bit for
+    bit against their plain versions: K2 and K1's "tpu_strided" loader at
+    ragged M (1, 17, 130), at group sizes 32, 64, 256, 384 (the loaders'
+    other branches) and 8, 16, 24 (the general path), K10 at group 32 and
+    64, int2, f32 x and out, N 384 and 640, K past 1024 in one tile
+    (group = K); and the declines of the JAX package's envelope, counted:
+    ``s4_matmul`` and ``w4a8_matmul`` take the dequant-and-dot at N % 256
+    and on asymmetric words, ``vpu_matvec_int8act`` returns None at M 2,
+    N % 128, 8-bit codes and nf4."""
+    from neural_compressor_tpu_torch.kernels import (
+        dequant_dot, s4_gemm, s4_gemm_plain, vpu_int8act, vpu_int8act_plain,
+        w4a8_gemm_strided, w4a8_gemm_strided_plain)
+    from neural_compressor_tpu_torch.kernels.dequant_matmul import (
+        _vpu_tiles, vpu_matvec_int8act)
+    from neural_compressor_tpu_torch.ops import (quantize_act_per_token,
+                                                 to_s4_rowpack)
+
+    s4m, w4m = port_module("s4_matmul"), port_module("w4a8_matmul")
+    gen = torch.Generator(device=HYB_DEV)
+    gen.manual_seed(11)
+    n, bad = 0, []
+    for (K, N, Gs) in ((768, 512, 32), (768, 256, 64), (1024, 256, 256),
+                       (768, 256, 384), (264, 256, 8), (256, 256, 16),
+                       (264, 512, 24), (2048, 256, 2048)):
+        pw = woq_weight(torch, gen, K, N, G=Gs, scheme="sym")
+        s4 = to_s4_rowpack(pw)
+        for M in (1, 17, 130):
+            xq, xs = quantize_act_per_token(torch.randn(
+                (M, K), generator=gen, device=HYB_DEV).to(torch.bfloat16))
+            xs = xs.reshape(-1).contiguous()
+            for label, fn, plain, words in (
+                    ("k2", s4_gemm, s4_gemm_plain, s4.packed),
+                    ("k1s", w4a8_gemm_strided, w4a8_gemm_strided_plain,
+                     pw.packed)):
+                yk, yp = fn(xq, words, pw.scales, xs), plain(
+                    xq, words, pw.scales, xs)
+                n += 1
+                if not bool(torch.equal(yk, yp)):
+                    bad.append((label, K, N, Gs, M))
+    for (K, N, Gs, bits, scheme, xd, od) in (
+            (1024, 384, 32, 4, "sym", torch.float32, torch.float32),
+            (2048, 640, 64, 2, "asym", torch.bfloat16, torch.float32),
+            (1536, 256, 1536, 4, "sym", torch.bfloat16, torch.bfloat16),
+            (11008, 128, 128, 2, "sym", torch.float32, torch.bfloat16)):
+        pw = woq_weight(torch, gen, K, N, G=Gs, scheme=scheme, bits=bits)
+        tk, _tn = _vpu_tiles(K, N, Gs)
+        x = torch.randn((K,), generator=gen, device=HYB_DEV).to(xd)
+        args = dict(bits=bits, group_size=Gs, tk=tk, out_dtype=od)
+        yk = vpu_int8act(x, pw.packed, pw.scales, pw.zeros, **args)
+        yp = vpu_int8act_plain(x, pw.packed, pw.scales, pw.zeros, **args)
+        n += 1
+        if not bool(torch.equal(yk, yp)):
+            bad.append(("k10", K, N, Gs, bits, scheme))
+    torch.cuda.synchronize()
+    # the envelope's declines
+    declines = 0
+    x5 = torch.randn((5, 256), generator=gen, device=HYB_DEV).to(
+        torch.bfloat16)
+    for pw in (woq_weight(torch, gen, 256, 384, scheme="sym"),
+               woq_weight(torch, gen, 256, 256, scheme="asym")):
+        before = dequant_dot.calls
+        w4m.w4a8_matmul(x5, pw)
+        if pw.zeros is None:
+            s4m.s4_matmul(x5, to_s4_rowpack(pw))
+        declines += dequant_dot.calls - before
+    for pw, M in ((woq_weight(torch, gen, 256, 256, scheme="sym"), 2),
+                  (woq_weight(torch, gen, 256, 96, scheme="sym"), 1),
+                  (woq_weight(torch, gen, 256, 256, scheme="sym", bits=8), 1),
+                  (woq_weight(torch, gen, 256, 256, scheme="sym",
+                              dtype="nf4"), 1)):
+        if vpu_matvec_int8act(x5[:M], pw) is None:
+            declines += 1
+    print(f"hybrid envelope: {n - len(bad)} of {n} shapes bit-equal, "
+          f"{declines} of 7 declines where the JAX package declines",
+          flush=True)
+    if bad or declines != 7:
+        fail(f"hybrid envelope: unequal {bad}, declines {declines} != 7")
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Every kernel wrapper of the port replaced, where it is called from,
+    by its plain PyTorch version (``<wrapper>_plain``), which runs on the
+    card as well: the same weights' plain path, launching no kernel."""
+    from neural_compressor_tpu_torch import kernels
+
+    saved = []
+    for fn in kernels.KERNEL_WRAPPERS:
+        mod = sys.modules[fn.__module__]
+        plain = getattr(mod, fn.__name__ + "_plain", None)
+        if plain is not None:
+            saved.append((mod, fn.__name__, fn))
+            setattr(mod, fn.__name__, plain)
+    try:
+        with unpack_once():
+            yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def gptq_objective(torch, W, Q, H) -> float:
+    """GPTQ's objective tr((W - Q)ᵀ H (W - Q)) in float64."""
+    D = (W.double() - Q.double())
+    return float((D * (H.double() @ D)).sum())
+
+
+def phase_hybrid_serve(torch, nct) -> dict:
+    """Hybrid GPTQ on llama2-7b at full width, cut to ``HYB_LAYERS`` of its
+    32 layers, random bf16 weights from a seed, on the card:
+      * calibration: ``quantize(model, HybridGPTQConfig(dtype="int4",
+        group_size=128, block_size=128, quant_lm_head=True),
+        run_fn=calibration_forward)`` over 8 sequences of 512 random ids;
+        for every matrix GPTQ's objective tr((W-Q)ᵀH(W-Q)) no larger than
+        RTN's on the same H; layer 0's q_proj (4096x4096) quantized again on
+        the CPU from the same W and H, its codes equal to the card's in at
+        least ``GPTQ_CODE_SHARE``; seconds per layer;
+      * served three ways, each against the same weights' plain path (every
+        wrapper's plain version on the card, ``plain_path``), tokens equal
+        but at a near-tie (``parting_rule`` on the logits both paths
+        recorded), exact launch counts:
+        1. ``to_w4a8_serving(s4="s4")``: B=1 greedy (prompts 16 and 371, 48
+           new) and the 8-slot engine over contiguous bf16 caches (16
+           requests): K2 at every M, K5, K7, no K4;
+        2. ``W4A8Linear.M_INT8_THRESHOLD = 2`` on the "tpu_strided" words:
+           B=1 greedy, K1's strided loader for every prefill projection and
+           K10 for every decode projection;
+        3. ``to_w4a8_serving()`` ("hopper_nk") with fused decode: B=1 greedy
+           (K1, K4, K5), the yardstick.
+    Returns {path: launches}."""
+    from neural_compressor_tpu_torch import kernels
+    from neural_compressor_tpu_torch.algorithms import gptq as tg
+    from neural_compressor_tpu_torch.algorithms.calib_capture import \
+        calibration_forward
+    from neural_compressor_tpu_torch.kernels import dequant_dot
+    from neural_compressor_tpu_torch.layers import W4A8Linear
+    from neural_compressor_tpu_torch.models.llama import (LLAMA_PRESETS,
+                                                          LlamaConfig,
+                                                          LlamaForCausalLM)
+    from neural_compressor_tpu_torch.ops import qdq_tensor, unpack_to_codes
+
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(**dict(LLAMA_PRESETS["llama2-7b"],
+                             num_hidden_layers=HYB_LAYERS))
+    model = LlamaForCausalLM(cfg, seed=10, device=HYB_DEV)
+    nl, V = HYB_LAYERS, cfg.vocab_size
+    gen = torch.Generator(device=HYB_DEV)
+    gen.manual_seed(10)
+    calib = torch.randint(0, V, HYB_CALIB, generator=gen, device=HYB_DEV)
+    batches = [calib[i:i + 1] for i in range(HYB_CALIB[0])]
+    torch.cuda.synchronize()
+    print(f"hybrid: llama2-7b ({nl} of {LAYERS} layers, bf16) built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # record each matrix's objective against RTN's on the same H, and keep
+    # the first 4096x4096 matrix (layer 0's q_proj) for the CPU
+    seen = []
+    keep = {}
+    inner = tg.gptq_layer_to_woq
+
+    def observed(kernel, H, cfg_, bias=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lin = inner(kernel, H, cfg_, bias=bias)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        W = kernel.float()
+        og = gptq_objective(torch, W, lin.dequantized_kernel(torch.float32),
+                            H)
+        orr = gptq_objective(torch, W, qdq_tensor(
+            W, bits=4, group_size=G, scheme="sym", out_dtype=torch.float32),
+            H)
+        seen.append(dict(K=W.shape[0], N=W.shape[1], gptq=og, rtn=orr,
+                         s=secs))
+        if not keep and tuple(W.shape) == (cfg.hidden_size,) * 2:
+            keep.update(W=kernel.cpu(), H=H.cpu(), cfg=cfg_,
+                        codes=unpack_to_codes(lin.packed_weight()).cpu())
+        return lin
+
+    tg.gptq_layer_to_woq = observed
+    try:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nct.quantize(model, nct.HybridGPTQConfig(
+            dtype="int4", group_size=G, block_size=128, quant_lm_head=True),
+            run_fn=lambda m: calibration_forward(m, batches))
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t
+    finally:
+        tg.gptq_layer_to_woq = inner
+    worse = [r for r in seen if not r["gptq"] <= r["rtn"]]
+    ratio = [r["gptq"] / r["rtn"] for r in seen]
+    print(f"hybrid calibration: {calib_s:.1f} s for {nl} layers and the "
+          f"lm_head ({calib_s / nl:.2f} s a layer with the head's share; "
+          f"GPTQ sweeps {sum(r['s'] for r in seen):.1f} s), {len(seen)} "
+          f"matrices, GPTQ/RTN objective {min(ratio):.4f}-{max(ratio):.4f}",
+          flush=True)
+    for r in seen[:8] + seen[-1:]:
+        print(f"  gptq {r['K']}x{r['N']}: objective {r['gptq']:.6e} vs RTN "
+              f"{r['rtn']:.6e} ({r['s']:.2f} s)", flush=True)
+    if len(seen) != 7 * nl + 1 or worse:
+        fail(f"GPTQ: {len(seen)} matrices, objective above RTN's: {worse}")
+    w4a8 = [m for m in model.modules() if type(m) is W4A8Linear]
+    if len(w4a8) != 7 * nl + 1 or {m.layout for m in w4a8} != {
+            "tpu_strided"}:
+        fail("hybrid GPTQ did not leave W4A8Linear modules on tpu_strided "
+             "words")
+    # one matrix again on the CPU from the same W and H
+    t = time.perf_counter()
+    torch.set_num_threads(8)
+    lin = inner(keep["W"], keep["H"], keep["cfg"])
+    share = float((unpack_to_codes(lin.packed_weight()) == keep["codes"])
+                  .float().mean())
+    print(f"hybrid GPTQ card vs CPU, 4096x4096 q_proj: {share:.6f} of codes "
+          f"equal (at least {GPTQ_CODE_SHARE}; CPU "
+          f"{time.perf_counter() - t:.1f} s)", flush=True)
+    if share < GPTQ_CODE_SHARE:
+        fail(f"GPTQ card vs CPU codes agree in {share} < {GPTQ_CODE_SHARE}")
+    del keep, lin
+
+    nct.fuse_for_serving(model)
+    ways = {"s4": copy.deepcopy(model), "strided": model,
+            "hopper": copy.deepcopy(model)}
+    if nct.to_w4a8_serving(ways["s4"], s4="s4") != 4 * nl + 1:
+        fail("to_w4a8_serving(s4='s4') did not upgrade every module")
+    if nct.to_w4a8_serving(ways["hopper"]) != 4 * nl + 1:
+        fail("to_w4a8_serving() did not upgrade every module")
+    if nct.enable_fused_decode(ways["hopper"]) != nl:
+        fail("fused decode not enabled on every layer")
+    prompts = [torch.randint(0, V, (1, P), generator=gen, device=HYB_DEV)
+               for P in HYB_PROMPTS]
+    steps = NEW_TOKENS - 1
+    sink = []
+    out = {}
+
+    def greedy(m):
+        hook = recording(m, sink)
+        toks, secs, rows = [], [], []
+        try:
+            for ids in prompts:
+                sink.clear()
+                torch.cuda.synchronize()
+                tt = time.perf_counter()
+                toks.append(nct.greedy_search(
+                    m, ids, max_new_tokens=NEW_TOKENS,
+                    max_len=MAX_LEN)[0, ids.shape[1]:].tolist())
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - tt)
+                rows.append([lg[0, -1] for lg in sink])
+        finally:
+            hook.remove()
+            sink.clear()
+        return toks, secs, rows
+
+    proj = 4 * nl + 1
+    n_req = len(prompts)
+    want_b1 = {"s4": dict(s4_gemm=n_req * (1 + steps) * proj,
+                          decode_attn=n_req * steps * nl),
+               "strided": dict(w4a8_gemm_strided=n_req * proj,
+                               vpu_int8act=n_req * steps * proj,
+                               decode_attn=n_req * steps * nl),
+               "hopper": dict(w4a8_gemm=n_req * proj,
+                              fused_gemv=n_req * steps * proj,
+                              decode_attn=n_req * steps * nl)}
+    for way, m in ways.items():
+        threshold = W4A8Linear.M_INT8_THRESHOLD
+        W4A8Linear.M_INT8_THRESHOLD = 2 if way == "strided" else 1
+        try:
+            nct.greedy_search(m, prompts[0], max_new_tokens=2,
+                              max_len=MAX_LEN)        # warm
+            with plain_path():
+                ptoks, psecs, prows = greedy(m)
+            kernels.reset_launch_counts()
+            dequant_dot.calls = 0
+            ktoks, ksecs, krows = greedy(m)
+            launched = launch_counts()
+            fallbacks = dequant_dot.calls
+        finally:
+            W4A8Linear.M_INT8_THRESHOLD = threshold
+        want = expect(**want_b1[way])
+        key = f"hybrid_{way}_greedy_b1"
+        print(f"{key}: {nl} layers, prompts {HYB_PROMPTS}, {NEW_TOKENS} new: "
+              f"{[round(steps / s, 2) for s in ksecs]} tok/s (request time, "
+              f"prefill included; plain path "
+              f"{[round(steps / s, 2) for s in psecs]}), launches "
+              f"{ {k: v for k, v in launched.items() if v} }, "
+              f"dequant-and-dot {fallbacks}", flush=True)
+        if launched != want or fallbacks:
+            fail(f"{key}: launch counts {launched} != {want}, "
+                 f"{fallbacks} dequant-and-dot")
+        for i, ids in enumerate(prompts):
+            if not all(0 <= tok < V for tok in ktoks[i]):
+                fail(f"{key}: bad tokens {ktoks[i]}")
+            parting_rule(f"{key} prompt {ids.shape[1]}", ptoks[i], ktoks[i],
+                         prows[i].__getitem__, krows[i].__getitem__)
+        print(f"{key}: first new tokens {ktoks[0][:8]} (plain {ptoks[0][:8]})",
+              flush=True)
+        out[key] = launched
+
+    # the 8-slot engine over contiguous bf16 caches on the s4 words: K2 at
+    # the engine's M = 8 and its prefill chunks, against the plain path
+    m = ways["s4"]
+    eprompts = [torch.randint(0, V, (PROMPTS[i % len(PROMPTS)],),
+                              generator=gen, device=HYB_DEV).cpu().numpy()
+                for i in range(ENGINE_REQUESTS)]
+    new = [48 + (7 * i) % 17 for i in range(ENGINE_REQUESTS)]
+    res = {}
+    for label in ("plain", "kernels"):
+        ctx = plain_path() if label == "plain" else contextlib.nullcontext()
+        with ctx:
+            eng = engine_for(nct, m, "contiguous", n_slots=SLOTS,
+                             max_len=MAX_LEN)
+            rows = engine_decode_rows(eng, sink)
+            hook = recording(m, sink)
+            reqs = [eng.submit(p, max_new_tokens=k)
+                    for p, k in zip(eprompts, new)]
+            kernels.reset_launch_counts()
+            dequant_dot.calls = 0
+            torch.cuda.synchronize()
+            tt = time.perf_counter()
+            try:
+                done = eng.run(chunk=CHUNK)
+            finally:
+                hook.remove()
+                sink.clear()
+            torch.cuda.synchronize()
+            if len(done) != len(reqs):
+                fail(f"hybrid s4 engine ({label}) finished {len(done)} of "
+                     f"{len(reqs)} requests")
+            res[label] = (eng, reqs, time.perf_counter() - tt,
+                          launch_counts(), rows, dequant_dot.calls)
+    eng, reqs, seconds, launched, rows, fallbacks = res["kernels"]
+    mt = eng.metrics()
+    dsteps = CHUNK * mt["decode_dispatches"]
+    chunks = mt["prefill_chunk_dispatches"]
+    want = expect(s4_gemm=proj * (dsteps + chunks),
+                  batched_decode_attn=nl * dsteps)
+    key = "hybrid_s4_engine_contiguous"
+    print(f"{key}: {len(reqs)} requests in {seconds:.3f} s, generated "
+          f"{mt['generated_tok_s']:.2f} tok/s (plain path "
+          f"{res['plain'][0].metrics()['generated_tok_s']:.2f}), launches "
+          f"{ {k: v for k, v in launched.items() if v} }", flush=True)
+    if launched != want or fallbacks:
+        fail(f"{key}: launch counts {launched} != {want}, {fallbacks} "
+             "dequant-and-dot")
+    parted = []
+    for r2, r1, p in zip(res["plain"][1], reqs, eprompts):
+        part = parting_rule(
+            f"{key} prompt {len(p)}", r2.generated, r1.generated,
+            lambda n, u=r2.uid: res["plain"][4].get((u, n)),
+            lambda n, u=r1.uid: rows.get((u, n)))
+        parted += [part] if part else []
+    print(f"{key}: {len(reqs) - len(parted)} of {len(reqs)} requests equal "
+          "to the plain path's", flush=True)
+    out[key] = launched
+    del ways, m, model, eng, res
+    return out
+
+
 def main() -> None:
     import torch
 
@@ -5592,12 +6171,16 @@ def main() -> None:
                                                                peaks),
               "variant_envelope": lambda: phase_variant_envelope(torch, nct),
               "variant_model_check": lambda: phase_variant_model_check(
-                  torch, nct)}
+                  torch, nct),
+              "hybrid_kernels": lambda: phase_hybrid_kernels(torch, nct,
+                                                             peaks),
+              "hybrid_envelope": lambda: phase_hybrid_envelope(torch, nct)}
     # the serving phases a development run may name as well (there
     # variant_serve builds phase 5's model itself)
     serves = {"deepseek_serve": lambda: phase_deepseek_serve(torch, nct),
               "variant_serve": lambda: phase_variant_serve(
-                  torch, nct, w4a8_model(torch, nct))}
+                  torch, nct, w4a8_model(torch, nct)),
+              "hybrid_serve": lambda: phase_hybrid_serve(torch, nct)}
     if len(sys.argv) > 1:
         # a development run: only the named checks, no serving, no result
         unknown = [a for a in sys.argv[1:] if a not in {**checks, **serves}]
@@ -5613,6 +6196,7 @@ def main() -> None:
     wrows, kvrows = results["woq_kernels"], results["kv_kernels"]
     srows, grows = results["spec_kernels"], results["gemma_kernels"]
     drows, vrows = results["deepseek_kernels"], results["variant_kernels"]
+    hrows = results["hybrid_kernels"]
     launches, model, prompts = timed_phase(
         "serve", lambda: phase_serve(torch, nct))
     timed_phase("profile", lambda: phase_profile(torch, model, prompts[1]))
@@ -5647,6 +6231,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     by_path.update(timed_phase("deepseek_serve", serves["deepseek_serve"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    by_path.update(timed_phase("hybrid_serve", serves["hybrid_serve"]))
     print(f"all phases done in {time.perf_counter() - T_START:.1f} s",
           flush=True)
     print(f"launches by main path: {json.dumps(by_path)}", flush=True)
@@ -5709,6 +6296,13 @@ def main() -> None:
         return u
 
     at_unit = lambda r: r.get("pos") == UNIT_POS  # noqa: E731
+
+    def hybrid_unit(kind, M):
+        u = unit([r for r in hrows[kind] if r["M"] == M and "ms" in r],
+                 per_layer, mixed)
+        u["max_abs_err"] = max(r["err"] for r in hrows[kind])
+        return u
+
     entries = [
         ("w4a8_gemm", "neural_compressor_tpu_torch/csrc/w4a8_gemm.cu",
          "neural_compressor_tpu/kernels/w4a8_matmul.py:88 (_w4a8_impl, K1); "
@@ -5809,6 +6403,15 @@ def main() -> None:
         ("attn_o", "neural_compressor_tpu_torch/csrc/attn_o.cu",
          "neural_compressor_tpu/kernels/fused_matvec.py:489 "
          "(_attn_o_impl, K18)", variant_unit("k18", at_unit)),
+        ("w4a8_gemm_strided", "neural_compressor_tpu_torch/csrc/w4a8_gemm.cu",
+         "neural_compressor_tpu/kernels/w4a8_matmul.py:88 (_w4a8_impl, K1, "
+         "its own tpu_strided words)", hybrid_unit("k1s", UNIT_M)),
+        ("s4_gemm", "neural_compressor_tpu_torch/csrc/s4_gemm.cu",
+         "neural_compressor_tpu/kernels/s4_matmul.py:83 (_s4_impl, K2)",
+         hybrid_unit("k2", UNIT_M)),
+        ("vpu_int8act", "neural_compressor_tpu_torch/csrc/vpu_int8act.cu",
+         "neural_compressor_tpu/kernels/dequant_matmul.py:547 "
+         "(_vpu_matvec_int_impl, K10)", hybrid_unit("k10", 1)),
     ]
     print(smi, flush=True)
     print("unit of the kernels line: w4a8_gemm = one 128-token prefill "
@@ -5857,7 +6460,12 @@ def main() -> None:
           "(32 layers; without o in the log); attn_o = one decode step's "
           f"attention and o-projection at pos {UNIT_POS} (32 layers); "
           "their launches from the variant paths (B=1 greedy under each "
-          "switch, the 8-slot engine under v1 over paged bf16 and int8)",
+          "switch, the 8-slot engine under v1 over paged bf16 and int8); "
+          "w4a8_gemm_strided and s4_gemm = one 128-token prefill (32 x 4 + "
+          "lm_head) on tpu_strided / s4_rowpack words, vpu_int8act = one B=1 "
+          "decode step (32 x 4 + lm_head), their launches from the "
+          "hybrid-GPTQ paths (s4: B=1 greedy and the engine contiguous; "
+          "tpu_strided under M_INT8_THRESHOLD 2: B=1 greedy)",
           flush=True)
     kernels_line = {"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,

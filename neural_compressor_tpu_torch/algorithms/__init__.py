@@ -1,8 +1,9 @@
 """Algorithm registry: config name -> entry function.
 
 The counterpart of ``neural_compressor_tpu.algorithms``. Entries import
-lazily on first dispatch; RTN and KV-cache quantization are ported so
-far, and a registered name without a port raises ``NotImplementedError``.
+lazily on first dispatch; RTN, GPTQ, hybrid GPTQ and KV-cache
+quantization are ported so far, and a registered name without a port
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,13 +16,15 @@ algos_mapping: dict[str, Callable] = {}
 # algo name -> module that defines/registers its entry
 _LAZY_ENTRIES = {
     "rtn": ".rtn",
+    "gptq": ".gptq",
     "kv_cache": ".kv_cache",
+    "hybrid_gptq": ".hybrid_gptq",
 }
 
 # algorithms of the JAX package that the port has not reached yet
-_NOT_PORTED = ("gptq", "awq", "teq", "autoround", "hqq", "smooth_quant",
+_NOT_PORTED = ("awq", "teq", "autoround", "hqq", "smooth_quant",
                "static_quant", "dynamic_quant", "fp8_quant", "mx_quant",
-               "mixed_precision", "qat", "hybrid_gptq")
+               "mixed_precision", "qat")
 
 
 def register_algo(name: str) -> Callable:

@@ -4,7 +4,9 @@ CUDA tensor it launches its kernel (and counts the launch in its
 ``launches`` attribute: an int, or for the kernels that take several
 cache formats a dict of counts by format) or raises."""
 
-from .w4a8_matmul import w4a8_gemm, w4a8_gemm_plain, w4a8_matmul
+from .w4a8_matmul import (w4a8_gemm, w4a8_gemm_plain, w4a8_gemm_strided,
+                          w4a8_gemm_strided_plain, w4a8_matmul)
+from .s4_matmul import s4_gemm, s4_gemm_plain, s4_matmul, s4_usable
 from .fused_matvec import (attn_o, attn_o_fused, attn_o_plain, fused_gemv,
                            fused_gemv_plain, fused_matvec, fused_ok)
 from .omlp_matvec import (mlp_fused, omlp, omlp_fused, omlp_plain,
@@ -30,14 +32,15 @@ from .paged_attention import (paged_attn, paged_attn_gemma, paged_attn_plain,
                               paged_write_window_plain, set_paged_v2)
 from .dequant_matmul import (dequant_dot, dequant_gemm, dequant_gemm_plain,
                              set_default_impl, vpu_gemv, vpu_gemv_plain,
-                             vpu_matvec, woq_matmul)
+                             vpu_int8act, vpu_int8act_plain, vpu_matvec,
+                             vpu_matvec_int8act, woq_matmul)
 
 KERNEL_WRAPPERS = (w4a8_gemm, fused_gemv, decode_attn, decode_attn_quant,
                    batched_decode_attn, paged_attn, paged_write, dequant_gemm,
                    vpu_gemv, paged_write_window_kernel, paged_window_attn,
                    paged_attn_gemma, paged_latent_write, paged_latent_attn,
                    paged_attn_v1, decode_attn_write, decode_attn_hbm, omlp,
-                   attn_o)
+                   attn_o, w4a8_gemm_strided, s4_gemm, vpu_int8act)
 
 
 def reset_launch_counts() -> None:

@@ -6,6 +6,12 @@ The counterpart of ``neural_compressor_tpu/kernels/dequant_matmul.py``:
     with float32 accumulation; for 1 <= M <= 256;
   * ``vpu_gemv`` (K9; the TPU kernel ``_vpu_matvec_impl``): the M == 1
     product in float32 without rounding the weight, factored per group;
+  * ``vpu_int8act`` (K10; the TPU kernel ``_vpu_matvec_int_impl``): the
+    all-integer M == 1 product of a W4A8 decode step, x quantized to int8
+    per tensor, integer sums over the words' fields, the float work per
+    group and per K tile; reached through ``vpu_matvec_int8act`` from a
+    ``W4A8Linear`` on "tpu_strided" words below a raised
+    ``M_INT8_THRESHOLD``;
   * ``woq_matmul``: the dispatcher. ``"auto"`` on the card takes K9 at
     M == 1 (K8 where K9 declines), K8 up to M = 256 and dequantize-then-
     ``torch.matmul`` above; off the card it takes dequantize-then-matmul,
@@ -13,7 +19,8 @@ The counterpart of ``neural_compressor_tpu/kernels/dequant_matmul.py``:
     force K9 / K8 (their plain versions for CPU tensors), as JAX's ``impl=``
     runs its Pallas kernels in interpret mode.
 
-The CUDA kernels (``csrc/dequant_matmul.cu``) read the "tpu_strided"
+The CUDA kernels (``csrc/dequant_matmul.cu``, K10's
+``csrc/vpu_int8act.cu``) read the "tpu_strided"
 words and "int8" codes as the JAX package stores them. Dequantize-then-
 matmul is no kernel: ``dequant_dot`` counts its calls in ``.calls``.
 """
@@ -21,6 +28,7 @@ matmul is no kernel: ``dequant_dot`` counts its calls in ``.calls``.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -327,6 +335,159 @@ def vpu_matvec(x: torch.Tensor, pw: PackedWeight, out_dtype=None):
     y = vpu_gemv(x2.contiguous(), pw.packed, pw.scales.to(torch.float32),
                  None if pw.zeros is None else pw.zeros.to(torch.float32),
                  bits=pw.bits, group_size=G, out_dtype=out_dtype)
+    return y.reshape(*lead, N)
+
+
+def _vpu_tiles(K: int, N: int, G: int):
+    """(tk, tn) of the JAX package's VPU matvecs (``_vpu_tiles``), or None
+    where the shape does not tile. K10's tk is numerics, not only a
+    decision: the kernel folds its float sums tile by tile."""
+    tk = G
+    while tk * 2 <= min(K, 1024) and K % (tk * 2) == 0:
+        tk *= 2
+    tn = 512 if N % 512 == 0 else (256 if N % 256 == 0 else
+                                   (128 if N % 128 == 0 else None))
+    if tn is None or K % tk or tk % G:
+        return None
+    return tk, tn
+
+
+def act_quant_per_tensor(x: torch.Tensor):
+    """K10's activation quantization as the jitted TPU program computes it:
+    xs = max(max|x|, 1e-6) * f32(1/127), xq = clip(round(x / xs), +-127)
+    with a true division. Returns float32 (codes [K], xs [1])."""
+    xf = x.reshape(-1).to(torch.float32)
+    amax = torch.clamp_min(xf.abs().amax(), 1e-6)
+    xs = (amax * (1.0 / 127.0)).reshape(1)
+    return torch.clamp(torch.round(xf / xs), -127, 127), xs
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to float32, as a fused multiply-add (float32
+    a, b, c). The product of two float32 values is exact in float64; the
+    float64 sum can round, and then (only) where it lands exactly on a
+    float32 midpoint its error decides the side."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    c64 = c.to(torch.float64)
+    s = p + c64
+    bb = s - p
+    e = (p - (s - bb)) + (c64 - bb)              # s + e == p + c exactly
+    r = s.to(torch.float32)
+    up = torch.nextafter(r, torch.full_like(r, math.inf))
+    dn = torch.nextafter(r, torch.full_like(r, -math.inf))
+    other = torch.where(s > r.to(torch.float64), up, dn)
+    tie = (e != 0) & (s == (r.to(torch.float64) + other.to(torch.float64)) / 2)
+    lo, hi = torch.minimum(r, other), torch.maximum(r, other)
+    return torch.where(tie, torch.where(e > 0, hi, lo), r)
+
+
+def vpu_int8act_plain(x, packed, scales, zeros, *, bits: int, group_size: int,
+                      tk: int, out_dtype) -> torch.Tensor:
+    """Plain PyTorch version of K10: x [K] (bf16 or f32); packed int32
+    "tpu_strided" [K/P, N] (int2/int4); scales (zeros) f32 [K/G, N]; tk
+    the K tile -> [N] in ``out_dtype``. Per group the integer sums
+    a = sum u·xq over the offset-binary fields u and b = sum xq (exact in
+    float64), af = f32(a) - (2^(b-1) + z) · f32(b); per tile
+    part = fma(s, af, part) over the tile's groups in order, then
+    acc = fma(part, xs, acc) in tile order: the TPU kernel's order, with
+    the multiply-adds fused as XLA's CPU program of the reference fuses
+    them, so the card's kernel and the JAX function give these bits."""
+    xq, xs = act_quant_per_tensor(x)
+    K = xq.shape[0]
+    ng, N = scales.shape
+    G = group_size
+    u = unpack_codes(packed, bits, G, K, signed=False).to(torch.float64)
+    xg = xq.to(torch.float64).reshape(ng, 1, G)
+    a = torch.bmm(xg, u.reshape(ng, G, N))[:, 0].to(torch.float32)
+    b = xg.sum(dim=2).to(torch.float32)                    # [ng, 1]
+    off = float(1 << (bits - 1))
+    if zeros is not None:
+        off = off + zeros
+    nk, ngk = K // tk, tk // G
+    af = (a - off * b).expand(ng, N).reshape(nk, ngk, N)
+    sc = scales.reshape(nk, ngk, N)
+    # every tile at once, its groups in order; then the tiles in order
+    part = torch.zeros((nk, N), dtype=torch.float32, device=af.device)
+    for g in range(ngk):
+        part = fma_f32(sc[:, g], af[:, g], part)
+    acc = torch.zeros(N, dtype=torch.float32, device=af.device)
+    for t in range(nk):
+        acc = fma_f32(part[t], xs.expand(N), acc)
+    return acc.to(out_dtype)
+
+
+def vpu_int8act(x, packed, scales, zeros, *, bits: int, group_size: int,
+                tk: int, out_dtype) -> torch.Tensor:
+    """K10 on the card (``csrc/vpu_int8act.cu``); the plain version for
+    CPU tensors. Arguments as in ``vpu_int8act_plain``; on the card x is
+    bf16 or f32."""
+    if x.device.type == "cpu":
+        return vpu_int8act_plain(x, packed, scales, zeros, bits=bits,
+                                 group_size=group_size, tk=tk,
+                                 out_dtype=out_dtype)
+    dev = x.device
+    K = x.numel()
+    ng, N = scales.shape
+    G = group_size
+    P = LANE_BITS // bits if bits in (2, 4) else 0
+    if not (P and G > 0 and G % P == 0 and ng * G == K and tk % G == 0
+            and K % tk == 0 and N % 4 == 0):
+        raise ValueError(f"vpu_int8act needs int2/int4 tpu_strided words, "
+                         f"K % tk == 0, tk % G == 0, G % P == 0 and "
+                         f"N % 4 == 0 (K={K}, N={N}, G={G}, tk={tk}, "
+                         f"bits={bits})")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"vpu_int8act takes bf16 or f32 x, not {x.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"vpu_int8act stores bf16 or f32, not {out_dtype}")
+    x = x.reshape(K)
+    _build.require(x, "x", x.dtype, dev, (K,))
+    _build.require(packed, "packed", torch.int32, dev, (K // P, N))
+    _build.require(scales, "scales", torch.float32, dev, (ng, N))
+    if zeros is not None:
+        _build.require(zeros, "zeros", torch.float32, dev, (ng, N))
+    y = torch.empty(N, dtype=out_dtype, device=dev)
+    ws = torch.empty((K // tk) * N + 4, dtype=torch.float32, device=dev)
+    err = _build.library().nctt_vpu_int8act(
+        x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        None if zeros is None else zeros.data_ptr(), y.data_ptr(),
+        ws.data_ptr(), N, K, G, bits, tk, int(x.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), _build.stream_handle(dev))
+    _build.check(err, "nctt_vpu_int8act")
+    vpu_int8act.launches += 1
+    return y
+
+
+vpu_int8act.launches = 0
+
+
+def vpu_matvec_int8act(x: torch.Tensor, pw: PackedWeight, out_dtype=None):
+    """W4A8 single-row decode through K10, as ``neural_compressor_tpu``'s
+    ``vpu_matvec_int8act``: x quantized to int8 per tensor, the
+    multiply-accumulate in int32. Returns None where JAX's declines: M != 1,
+    a layout other than "tpu_strided", codebook dtypes, bits not in (2, 4),
+    G % (32 / bits), or a shape ``_vpu_tiles`` does not tile. Double
+    quantization is resolved and ``perm`` gathered first."""
+    K, N = pw.orig_shape
+    out_dtype = out_dtype or x.dtype
+    G = pw.group_size if pw.group_size > 0 else K
+    if (_rows(x) != 1 or pw.layout != "tpu_strided"
+            or pw.dtype in FLOAT_CODE_DTYPES or pw.bits not in (2, 4)
+            or G % (LANE_BITS // pw.bits)):
+        return None
+    tiles = _vpu_tiles(K, N, G)
+    if tiles is None:
+        return None
+    pw = resolve_double_quant(pw)
+    lead = x.shape[:-1]
+    x2, pw = _gather_perm(x.reshape(1, K), pw)
+    if x2.dtype not in (torch.bfloat16, torch.float32):
+        x2 = x2.to(torch.float32)
+    y = vpu_int8act(x2.contiguous(), pw.packed, pw.scales.to(torch.float32),
+                    None if pw.zeros is None else pw.zeros.to(torch.float32),
+                    bits=pw.bits, group_size=G, tk=tiles[0],
+                    out_dtype=out_dtype)
     return y.reshape(*lead, N)
 
 

@@ -4,8 +4,9 @@
 "int8" codes) and serves it with bf16 activations through ``woq_matmul``
 (K8/K9 on the card); ``neural_compressor_tpu/layers/woq_linear.py:23-105``.
 ``W4A8Linear`` serves symmetric int4 weights with int8 per-token
-activations on the "hopper_nk" layout and the port's integer kernels; its
-dispatch mirrors ``neural_compressor_tpu/layers/woq_linear.py:150-184`` and
+activations on the "hopper_nk", "s4_rowpack" or "tpu_strided" layout and
+the port's integer kernels (K1, K2, K4, K10); its dispatch mirrors
+``neural_compressor_tpu/layers/woq_linear.py:150-184`` and
 ``kernels/fused_matvec.py:359-396``.
 ``QDQLinear`` keeps the fake-quantized kernel in bf16 (the numeric
 reference of quantization at full memory cost).
@@ -16,9 +17,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..kernels.dequant_matmul import dequant_dot, woq_matmul
-from ..ops.packing import (HOPPER_LAYOUT, PackedWeight, dequantize_packed,
-                           hopper_eligible, pack_qtensor, to_hopper)
+from ..kernels.dequant_matmul import woq_matmul
+from ..ops.packing import (HOPPER_LAYOUT, S4_LAYOUT, PackedWeight,
+                           dequantize_packed, hopper_eligible, pack_qtensor,
+                           to_hopper)
 from ..ops.qtensor import QTensor, quantize_tensor
 
 
@@ -96,52 +98,59 @@ class WOQLinear(nn.Module):
 class W4A8Linear(WOQLinear):
     """INT4-weight x INT8-activation serving Linear.
 
-    Symmetric int4 weights move to the "hopper_nk" layout when the module
-    is built (exact: the codes are unchanged), unless ``M_INT8_THRESHOLD``
-    is raised then: the words stay "tpu_strided" for ``woq_matmul``.
-    Forward, by rows M:
-      * "hopper_nk" weights, or M >= ``M_INT8_THRESHOLD`` (1, so every M
-        by default):
-        - outside the envelope of the JAX package's integer kernel
-          (``w4a8_tiles_ok``: asymmetric weights, N % 256, K % tk, not
-          "hopper_nk"): the bf16 dequant-and-dot that ``w4a8_matmul``
-          falls back to;
-        - M == 1 inside ``fused_ok``: the fused GEMV with no prologue or
-          epilogue;
-        - otherwise: int8 per-token activations and the W4A8 GEMM;
-      * "tpu_strided" weights below a raised threshold: ``woq_matmul``
-        (K8), and at M == 1 the all-integer matvec (K10), which waits for
-        its port. The JAX package's serving layout likewise ignores the
-        threshold (``layers/woq_linear.py:165-172``).
+    Symmetric int4 "tpu_strided" weights move to the "hopper_nk" layout
+    when the module is built (exact: the codes are unchanged), unless
+    ``M_INT8_THRESHOLD`` is raised then or the caller passes
+    ``keep_layout=True`` (as ``to_w4a8_serving(s4=...)`` and hybrid GPTQ
+    do, to keep JAX's layouts). A module built at threshold 1 on
+    "hopper_nk" ignores a later raise, as a JAX module on "u4_kpack" does.
+    Forward, in the JAX package's order (``layers/woq_linear.py:150-184``;
+    the threshold is read at each call):
+      * "hopper_nk" (the port's counterpart of "u4_kpack"): at M == 1
+        inside the envelope the fused GEMV (K4), else ``w4a8_matmul`` (K1);
+      * "s4_rowpack": ``s4_matmul`` (K2) at every M;
+      * M >= ``M_INT8_THRESHOLD`` (1 by default): ``w4a8_matmul``, K1 on
+        the "tpu_strided" words;
+      * M == 1: ``vpu_matvec_int8act`` (K10), and ``woq_matmul`` where it
+        declines;
+      * otherwise ``woq_matmul``.
+    Outside the integer kernels' envelope (asymmetric weights, N % 256,
+    K % tk) ``w4a8_matmul`` and ``s4_matmul`` take the bf16
+    dequant-and-dot, as JAX's do.
     """
 
     M_INT8_THRESHOLD = 1
 
     def __init__(self, pw: PackedWeight, bias: torch.Tensor | None = None,
-                 impl: str = "auto", pre_scale: torch.Tensor | None = None):
-        if hopper_eligible(pw) and self.M_INT8_THRESHOLD <= 1:
+                 impl: str = "auto", pre_scale: torch.Tensor | None = None,
+                 keep_layout: bool = False):
+        if (not keep_layout and hopper_eligible(pw)
+                and self.M_INT8_THRESHOLD <= 1):
             pw = to_hopper(pw)
         super().__init__(pw, bias=bias, impl=impl, pre_scale=pre_scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ..kernels.dequant_matmul import vpu_matvec_int8act
         from ..kernels.fused_matvec import fused_matvec
+        from ..kernels.s4_matmul import s4_matmul
         from ..kernels.w4a8_matmul import w4a8_matmul, w4a8_tiles_ok
 
         x = self._scale_input(x)
         M = x.numel() // self.in_features
         pw = self.packed_weight()
-        if pw.layout == HOPPER_LAYOUT or M >= self.M_INT8_THRESHOLD:
-            if not w4a8_tiles_ok(pw, M):
-                y = dequant_dot(x, pw, torch.bfloat16, x.dtype)
-            else:
-                y = fused_matvec(x, pw) if M == 1 else None
-                if y is None:
-                    y = w4a8_matmul(x, pw)
+        if pw.layout == HOPPER_LAYOUT:
+            y = (fused_matvec(x, pw) if M == 1 and w4a8_tiles_ok(pw, M)
+                 else None)
+            if y is None:
+                y = w4a8_matmul(x, pw)
+        elif pw.layout == S4_LAYOUT:
+            y = s4_matmul(x, pw)
+        elif M >= self.M_INT8_THRESHOLD:
+            y = w4a8_matmul(x, pw)
         elif M == 1:
-            raise NotImplementedError(
-                "the all-integer M == 1 matvec below M_INT8_THRESHOLD waits "
-                "for the port of neural_compressor_tpu.kernels."
-                "dequant_matmul.vpu_matvec_int8act (K10)")
+            y = vpu_matvec_int8act(x, pw)
+            if y is None:
+                y = woq_matmul(x, pw, impl=self.impl)
         else:
             y = woq_matmul(x, pw, impl=self.impl)
         return self._add_bias(y)

@@ -1045,7 +1045,9 @@ def from_jax_params(flat: dict, cfg: LlamaConfig, device=None,
     "model.embed_tokens.embedding", ...) to numpy arrays. A quantized
     projection ("<path>.packed", "<path>.scales" and, where the JAX module
     has them, ".zeros", ".perm", ".sq_scales", ".sq_zeros", ".bias",
-    ".pre_scale") becomes a ``WOQLinear`` holding the same bytes; fused
+    ".pre_scale") becomes a ``WOQLinear`` holding the same bytes (a
+    ``W4A8Linear`` on JAX's layout, "tpu_strided" or "s4_rowpack", where
+    the meta's "type" says the JAX module is one); fused
     "qkv_proj"/"gate_up_proj" entries replace their parts.
 
     ``meta`` maps each quantized module's path to its static attributes
@@ -1067,12 +1069,13 @@ def load_jax_state(model, flat: dict, hidden_size: int, device,
                    kv_cache_format: str | None = None):
     """Load a JAX model's flat state into the port's ``model`` of the same
     family, in place (``from_jax_params`` of each family): quantized
-    projections become ``WOQLinear``s holding the same bytes (fused
+    projections become ``WOQLinear``s holding the same bytes (a JAX
+    ``W4A8Linear``, meta "type", a ``W4A8Linear`` on its layout; fused
     "qkv_proj"/"gate_up_proj" entries, whose K is ``hidden_size``, replace
     their parts), every other array is copied by name, and
     ``kv_cache_format`` flags the KV format. Returns ``model``."""
     from ..layers.module_utils import get_module, replace_module
-    from ..layers.woq_linear import WOQLinear
+    from ..layers.woq_linear import W4A8Linear, WOQLinear
     from ..ops.packing import PackedWeight
 
     tensors = {k: _tensor_from_numpy(v) for k, v in flat.items()}
@@ -1098,11 +1101,16 @@ def load_jax_state(model, flat: dict, hidden_size: int, device,
                              f"fit K={K} at group size {G}")
         pw = PackedWeight(packed, scales, opt(".zeros"), bits=m["bits"],
                           group_size=m["group_size"], dtype=m["wdtype"],
-                          orig_shape=(K, packed.shape[-1]), layout=m["layout"],
+                          orig_shape=(K, scales.shape[-1]), layout=m["layout"],
                           perm=opt(".perm"), sq_scales=opt(".sq_scales"),
                           sq_zeros=opt(".sq_zeros"))
-        mod = WOQLinear(pw, opt(".bias"), impl=m.get("impl", "auto"),
-                        pre_scale=opt(".pre_scale"))
+        if m.get("type") == "W4A8Linear":
+            # JAX's layout kept ("tpu_strided" or "s4_rowpack")
+            mod = W4A8Linear(pw, opt(".bias"), impl=m.get("impl", "auto"),
+                             pre_scale=opt(".pre_scale"), keep_layout=True)
+        else:
+            mod = WOQLinear(pw, opt(".bias"), impl=m.get("impl", "auto"),
+                            pre_scale=opt(".pre_scale"))
         if name in ("qkv_proj", "gate_up_proj"):
             parent = get_module(model, parent_path)
             setattr(parent, name, mod)

@@ -11,6 +11,13 @@ with P = 32/bits fields per word, each field offset-binary (signed + 2^(b-1)).
 PyTorch has no usable uint32 arithmetic, so the words are held as int32
 with the same bits.
 
+"s4_rowpack" (the JAX package's native-int4 serving layout, read where it
+lies by K2, ``csrc/s4_gemm.cu``): int32 [K, N/8]; word (k, j) holds the 8
+consecutive output columns 8j..8j+7 of input row k, nibble s = column
+8j+s, two's complement. The JAX package views these words as an int4
+[K, N] array (``s4_view``); the port has no such view and needs none: the
+kernel sign-extends the nibbles itself.
+
 "hopper_nk" (the port's serving layout, read by the CUDA kernels):
 uint8 [N, K/2]; byte (n, j) holds code[2j, n] in its low nibble and
 code[2j+1, n] in its high nibble, both two's complement. One output
@@ -29,16 +36,18 @@ from .qtensor import CODEBOOKS, FLOAT_CODE_DTYPES, QTensor
 
 LANE_BITS = 32
 HOPPER_LAYOUT = "hopper_nk"
+S4_LAYOUT = "s4_rowpack"
 
 
 class PackedWeight(NamedTuple):
     """A packed, serving-ready quantized weight.
 
-    ``packed``: int32 [K/P, N] ("tpu_strided"), uint8 [N, K/2]
-        ("hopper_nk") or int8 [K, N] ("int8").
+    ``packed``: int32 [K/P, N] ("tpu_strided"), int32 [K, N/8]
+        ("s4_rowpack"), uint8 [N, K/2] ("hopper_nk") or int8 [K, N]
+        ("int8").
     ``scales``: float32 [K/G, N]. ``zeros``: optional float32 [K/G, N].
     ``bits`` / ``group_size`` / ``dtype`` / ``orig_shape``: as in QTensor.
-    ``layout``: "tpu_strided" | "hopper_nk" | "int8".
+    ``layout``: "tpu_strided" | "s4_rowpack" | "hopper_nk" | "int8".
     ``perm``: optional int32 [K] input-row permutation: stored row i holds
         original input row ``perm[i]``; the matmul gathers ``x[..., perm]``
         and dequantization scatters the rows back.
@@ -122,13 +131,54 @@ def unpack_codes_hopper(packed: torch.Tensor) -> torch.Tensor:
     return c.t().contiguous().to(torch.int8)
 
 
+def pack_codes_s4(codes: torch.Tensor) -> torch.Tensor:
+    """Signed int4 codes [K, N] -> int32 [K, N/8] ("s4_rowpack"), the bits
+    of ``neural_compressor_tpu.ops.packing.pack_codes_s4``'s uint32 words."""
+    K, N = codes.shape
+    if N % 8:
+        raise ValueError(f"s4_rowpack needs N % 8 == 0, got N={N}")
+    c = (codes.to(torch.int64) & 0xF).reshape(K, N // 8, 8)
+    words = torch.zeros((K, N // 8), dtype=torch.int64, device=codes.device)
+    for s in range(8):
+        words = words | (c[..., s] << (4 * s))
+    return _to_int32_bits(words)
+
+
+def unpack_codes_s4(packed: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """Inverse of ``pack_codes_s4``: int32 [K, N/8] -> int8 codes [K, N]."""
+    planes = [(packed >> (4 * s)) & 0xF for s in range(8)]
+    c = torch.stack(planes, dim=-1).reshape(K, N)
+    return torch.where(c >= 8, c - 16, c).to(torch.int8)
+
+
+def s4_eligible(pw: PackedWeight) -> bool:
+    """What ``to_s4_rowpack`` converts: symmetric int4 integer words in the
+    tpu_strided layout with N % 8 == 0 (a row permutation and
+    double-quantized scales ride along unchanged)."""
+    return (pw.bits == 4 and pw.dtype == "int" and pw.zeros is None
+            and pw.orig_shape[1] % 8 == 0 and pw.layout == "tpu_strided")
+
+
+def to_s4_rowpack(pw: PackedWeight) -> PackedWeight:
+    """tpu_strided -> "s4_rowpack", exact (the codes are unchanged), as
+    ``neural_compressor_tpu.ops.packing.to_s4_rowpack``."""
+    if not s4_eligible(pw):
+        K, N = pw.orig_shape
+        raise ValueError(f"not s4_rowpack-convertible: bits={pw.bits} "
+                         f"dtype={pw.dtype} layout={pw.layout} N={N}")
+    return pw._replace(packed=pack_codes_s4(unpack_to_codes(pw)),
+                       layout=S4_LAYOUT)
+
+
 def unpack_to_codes(pw: PackedWeight) -> torch.Tensor:
     """PackedWeight -> int8 codes [K, N]."""
-    K, _N = pw.orig_shape
+    K, N = pw.orig_shape
     if pw.layout == "tpu_strided":
         signed = pw.dtype not in FLOAT_CODE_DTYPES
         return unpack_codes(pw.packed, pw.bits, pw.group_size, K,
                             signed=signed)
+    if pw.layout == S4_LAYOUT:
+        return unpack_codes_s4(pw.packed, K, N)
     if pw.layout == HOPPER_LAYOUT:
         return unpack_codes_hopper(pw.packed)
     return pw.packed.to(torch.int8)

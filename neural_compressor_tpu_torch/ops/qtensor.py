@@ -196,6 +196,28 @@ def qdq_tensor(w: torch.Tensor, bits: int = 4, group_size: int = 32,
     return dequantize(qt, out_dtype=out_dtype or w.dtype)
 
 
+def quantize_with_scale(w: torch.Tensor, scales: torch.Tensor,
+                        zeros: torch.Tensor | None, bits: int,
+                        group_size: int, scheme: str = "sym") -> torch.Tensor:
+    """Quantize ``w`` [K, N] with given group scales (and centered zero
+    points) [K/G, N], as GPTQ and AWQ do after their sweep; int8 codes
+    [K, N]. The divisions are by tensors: true divisions in both
+    packages."""
+    K, N = w.shape
+    G = _resolve_group(K, group_size)
+    wg = _grouped(w.to(torch.float32), G)
+    if scheme == "sym":
+        qmax = 2 ** (bits - 1) - 1
+        q = torch.clamp(torch.round(wg / scales[:, None, :]), -qmax - 1, qmax)
+    else:
+        qmax = 2 ** bits - 1
+        half = 2 ** (bits - 1)
+        z = zeros if zeros is not None else torch.zeros_like(scales)
+        q = torch.clamp(torch.round(wg / scales[:, None, :])
+                        + (z[:, None, :] + half), 0, qmax) - half
+    return q.to(torch.int8).reshape(-1, N)[:K]
+
+
 def search_clip(w: torch.Tensor, bits: int = 4, group_size: int = 32,
                 scheme: str = "sym", dtype: str = "int", n_grid: int = 20,
                 max_shrink: float = 0.8) -> torch.Tensor:

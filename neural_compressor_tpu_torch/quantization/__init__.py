@@ -1,3 +1,5 @@
-from .config import KVCacheQuantConfig, RTNConfig
-from .fuse import enable_fused_decode, fuse_for_serving, to_w4a8_serving
-from .quantize import quantize
+from .config import (GPTQConfig, HybridGPTQConfig, KVCacheQuantConfig,
+                     RTNConfig)
+from .fuse import (enable_fused_decode, fuse_for_serving, s4_prepare,
+                   to_w4a8_serving)
+from .quantize import convert, finalize_calibration, prepare, quantize

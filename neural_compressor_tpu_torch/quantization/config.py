@@ -1,4 +1,5 @@
-"""Config classes of the port: weight-only RTN and KV-cache quantization.
+"""Config classes of the port: weight-only RTN and GPTQ, hybrid GPTQ
+(W4A8) and KV-cache quantization.
 
 The same user-facing knobs and tuning semantics as
 ``neural_compressor_tpu.quantization.config``; op granularity is the
@@ -99,6 +100,33 @@ class RTNConfig(_WOQBase):
     """Round-to-nearest weight-only quantization."""
 
 
+@register_config("gptq", priority=60)
+class GPTQConfig(_WOQBase):
+    """Hessian-based weight-only quantization (``algorithms/gptq.py``)."""
+
+    params_list = ("dtype", "bits", "use_sym", "group_size", "act_order",
+                   "percdamp", "block_size")
+
+    def __init__(self, dtype="int4", bits=4, use_sym=True, group_size=32,
+                 act_order=False, hybrid_order=False, static_groups=False,
+                 true_sequential=False, percdamp=0.01, block_size=128,
+                 nsamples=128, use_mse_search=False, quant_lm_head=False,
+                 fp8_aware=False, white_list=DEFAULT_WHITE_LIST, **kw):
+        super().__init__(dtype=dtype, bits=bits, use_sym=use_sym,
+                         group_size=group_size, use_mse_search=use_mse_search,
+                         quant_lm_head=quant_lm_head, white_list=white_list,
+                         **kw)
+        self.act_order = act_order
+        self.hybrid_order = hybrid_order
+        self.static_groups = static_groups
+        self.true_sequential = true_sequential
+        self.percdamp = percdamp
+        self.block_size = block_size
+        self.nsamples = nsamples
+        # W4A8/fp8 protective-range quantization
+        self.fp8_aware = fp8_aware
+
+
 @register_config("kv_cache", priority=8)
 class KVCacheQuantConfig(BaseConfig):
     """KV-cache quantization: int8, fp8-e4m3 or int4 codes with per-(token,
@@ -132,3 +160,25 @@ class KVCacheQuantConfig(BaseConfig):
                     break
             mapping[(n, t)] = cfg
         return mapping
+
+
+@register_config("hybrid_gptq", priority=7)
+class HybridGPTQConfig(GPTQConfig):
+    """W4A8 serving: GPTQ int4 weights and int8 activations on the integer
+    kernels (``algorithms/hybrid_gptq.py``). Symmetric int4 only."""
+
+    def __init__(self, dtype="int4", bits=4, use_sym=True, group_size=128,
+                 act_dtype="int8", **kw):
+        if dtype not in ("int4", "int") or bits != 4:
+            raise ValueError(
+                f"HybridGPTQConfig is the sym-int4 W4A8 flow; dtype="
+                f"{dtype!r}/bits={bits} would only move the modules off the "
+                "integer kernels onto the dequant-and-dot; use GPTQConfig "
+                "for other dtypes")
+        if not use_sym:
+            raise ValueError(
+                "HybridGPTQConfig requires use_sym=True: the W4A8 integer "
+                "kernels are symmetric-only (zero points would be dropped)")
+        super().__init__(dtype=dtype, bits=bits, use_sym=True,
+                         group_size=group_size, **kw)
+        self.act_dtype = act_dtype

@@ -5,7 +5,9 @@ The counterpart of ``neural_compressor_tpu.quantization.fuse``:
     output-dim concatenation (scales are per (group, out-channel)), so
     q/k/v and gate/up fuse into one packed weight each, bit for bit;
   * ``to_w4a8_serving``: every eligible ``WOQLinear`` becomes a
-    ``W4A8Linear`` on the "hopper_nk" layout;
+    ``W4A8Linear``, on the "hopper_nk" layout by default, "s4_rowpack"
+    with ``s4="s4"``, or on its "tpu_strided" words with ``s4=False``;
+    "tpu_strided" ``W4A8Linear``s (hybrid GPTQ's) are upgraded in place;
   * ``enable_fused_decode``: flags decoder layers and the lm_head for the
     fused B=1 decode (RMSNorm, silu and residuals folded into the GEMVs).
 """
@@ -17,7 +19,8 @@ import torch
 from ..common import logger
 from ..layers.module_utils import named_modules, replace_module
 from ..layers.woq_linear import W4A8Linear, WOQLinear
-from ..ops.packing import HOPPER_LAYOUT, PackedWeight, hopper_eligible
+from ..ops.packing import (HOPPER_LAYOUT, PackedWeight, hopper_eligible,
+                           s4_eligible, to_hopper, to_s4_rowpack)
 
 
 def _fusible(mods) -> bool:
@@ -55,6 +58,8 @@ def _concat_woq(mods):
         layout=ref.layout)
     bias = (torch.cat([m.bias for m in mods])
             if ref.bias is not None else None)
+    if type(ref) is W4A8Linear:  # the parts' layout, as in JAX
+        return W4A8Linear(pw, bias=bias, impl=ref.impl, keep_layout=True)
     return type(ref)(pw, bias=bias, impl=ref.impl)
 
 
@@ -79,29 +84,81 @@ def fuse_for_serving(model) -> int:
     return n
 
 
-def to_w4a8_serving(model) -> int:
+def to_w4a8_serving(model, s4: bool | str = "auto") -> int:
     """Swap every symmetric-int4 ``WOQLinear`` (fused included) for a
-    ``W4A8Linear`` on the "hopper_nk" layout, in place. Same int4 codes;
-    activations are quantized to int8 per token at run time, so no
-    calibration is needed. Other weights (asymmetric, other widths) keep
-    their ``WOQLinear`` and its K8/K9 kernels. Returns the number of
-    modules converted."""
-    n = n_skip = 0
+    ``W4A8Linear``, in place. Same int4 codes; activations are quantized to
+    int8 per token at run time, so no calibration is needed. Other weights
+    (asymmetric, other widths) keep their ``WOQLinear`` and its K8/K9
+    kernels.
+
+    ``s4`` selects the serving layout of eligible weights, under JAX's
+    values (``quantization/fuse.py:96-138`` there):
+      * "auto" (or "u4k", the JAX name): "hopper_nk", the port's
+        counterpart of JAX's "u4_kpack" (K1, the fused decode's K4), while
+        ``W4A8Linear.M_INT8_THRESHOLD`` is 1; where ``hopper_eligible``
+        refuses (a row permutation, double-quantized scales) or the
+        threshold is raised, the words stay "tpu_strided";
+      * "s4" (or True): "s4_rowpack" where N % 256 == 0 (K2 at every M);
+      * False: keep "tpu_strided" (K1 on those words, K10 at M == 1 under a
+        raised ``M_INT8_THRESHOLD``).
+    A ``W4A8Linear`` already on "tpu_strided" words (hybrid GPTQ's) is
+    upgraded in place to the selected layout. Returns the number of modules
+    converted."""
+    if s4 is True:
+        s4 = "s4"
+    elif s4 == "u4k":
+        s4 = "auto"
+    if s4 not in ("auto", "s4", False):
+        raise ValueError(f"s4 must be 'auto', 'u4k', 's4', True or False, "
+                         f"got {s4!r}")
+
+    def _layout(pw: PackedWeight) -> tuple[PackedWeight, int]:
+        if (s4 == "auto" and hopper_eligible(pw)
+                and W4A8Linear.M_INT8_THRESHOLD <= 1):
+            return to_hopper(pw), 1
+        if s4 == "s4" and s4_eligible(pw) and pw.orig_shape[1] % 256 == 0:
+            return to_s4_rowpack(pw), 1
+        return pw, 0
+
+    n = n_up = n_skip = 0
     for path, mod in list(named_modules(model)):
-        if type(mod) is not WOQLinear:
-            continue
-        pw = mod.packed_weight()
-        if not hopper_eligible(pw):
-            n_skip += 1
-            continue
-        replace_module(model, path, W4A8Linear(
-            pw, bias=mod.bias, impl=mod.impl, pre_scale=mod.pre_scale))
-        n += 1
+        if type(mod) is WOQLinear:
+            pw = mod.packed_weight()
+            if not (pw.layout == "tpu_strided" and pw.bits == 4
+                    and pw.dtype == "int" and pw.zeros is None):
+                n_skip += 1
+                continue
+            pw, up = _layout(pw)
+            n_up += up
+            replace_module(model, path, W4A8Linear(
+                pw, bias=mod.bias, impl=mod.impl, pre_scale=mod.pre_scale,
+                keep_layout=True))
+            n += 1
+        elif type(mod) is W4A8Linear and mod.layout == "tpu_strided":
+            # hybrid GPTQ's modules: upgrade the storage layout in place
+            pw, up = _layout(mod.packed_weight())
+            if up:
+                mod.packed = pw.packed
+                mod.layout = pw.layout
+                n_up += 1
+                n += 1
     if n_skip:
         logger.info("to_w4a8_serving: left %d non-sym-int4 module(s) as "
                     "WOQLinear", n_skip)
-    logger.info("Converted %d modules to W4A8 serving (%s)", n, HOPPER_LAYOUT)
+    logger.info("Converted %d modules to W4A8 serving (%d to %s)", n, n_up,
+                "s4_rowpack" if s4 == "s4" else
+                HOPPER_LAYOUT if s4 == "auto" else "no other layout")
     return n
+
+
+def s4_prepare(model) -> int:
+    """JAX's ``s4_prepare`` (``quantization/fuse.py:236`` there) takes the
+    int4 view of every "s4_rowpack" weight once per jitted program, so that
+    XLA does not re-materialize it inside the decode loop. PyTorch runs
+    eagerly and K2 reads the 32-bit words where they lie, so there is
+    nothing to prepare: it returns 0, and the port's paths do not call it.
+    Kept under JAX's name for JAX's callers."""
+    return 0
 
 
 def enable_fused_decode(model, fold_norms: bool = True) -> int:

@@ -83,7 +83,8 @@ def test_each_kernel_wrapper_counts_its_launches():
                      "paged_attn_gemma", "paged_latent_write",
                      "paged_latent_attn", "paged_attn_v1",
                      "decode_attn_write", "decode_attn_hbm", "omlp",
-                     "attn_o"]
+                     "attn_o", "w4a8_gemm_strided", "s4_gemm",
+                     "vpu_int8act"]
     pools = ["bf16", "int8", "fp8_e4m3", "int4"]
     by_format = {"batched_decode_attn": ["bf16", "int8", "fp8_e4m3"],
                  "paged_attn": pools, "paged_write": pools,
@@ -115,7 +116,8 @@ def test_every_kernel_has_a_source_and_a_c_entry():
                        "batched_decode_attention.cu", "paged_attention.cu",
                        "paged_write.cu", "dequant_matmul.cu",
                        "paged_latent.cu", "paged_attention_v1.cu",
-                       "decode_attention_hbm.cu", "omlp.cu", "attn_o.cu"}
+                       "decode_attention_hbm.cu", "omlp.cu", "attn_o.cu",
+                       "s4_gemm.cu", "vpu_int8act.cu"}
     text = "".join((_build.CSRC / s).read_text() for s in sources)
     for entry in _build.SIGNATURES:
         assert f"NCTT_API int {entry}(" in text
@@ -170,6 +172,16 @@ def test_non_cpu_tensors_never_fall_back_to_the_plain_version(tmp_path,
     with pytest.raises(RuntimeError, match="nvcc"):
         kernels.vpu_gemv(xb[0], wq, sc2, sc2, bits=4, group_size=128,
                          out_dtype=torch.bfloat16)
+    # K1 on tpu_strided words, K2 on s4_rowpack words, K10
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.w4a8_gemm_strided(xq, torch.empty(32, 256, dtype=torch.int32,
+                                                  device=meta), sc, xs)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.s4_gemm(xq, torch.empty(256, 32, dtype=torch.int32,
+                                        device=meta), sc, xs)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        kernels.vpu_int8act(xb[0], wq, sc2, None, bits=4, group_size=128,
+                            tk=256, out_dtype=torch.bfloat16)
     lat = torch.empty(5, 1, 8, 24, dtype=torch.bfloat16, device=meta)
     bt = torch.empty(2, 2, dtype=torch.int32, device=meta)
     n = torch.empty(2, dtype=torch.int32, device=meta)
@@ -223,6 +235,19 @@ def test_wrappers_check_their_operands():
                                             device=meta),
                          torch.empty(2, 128, device=meta), None, bits=8,
                          group_size=128, out_dtype=torch.bfloat16)
+    # K10's tile must be whole groups dividing K (JAX's _vpu_tiles)
+    with pytest.raises(ValueError, match="tk % G"):
+        kernels.vpu_int8act(xb[0], torch.empty(32, 128, dtype=torch.int32,
+                                               device=meta),
+                            torch.empty(2, 128, device=meta), None, bits=4,
+                            group_size=128, tk=192,
+                            out_dtype=torch.bfloat16)
+    # s4_rowpack words pack 8 output columns a word
+    with pytest.raises(ValueError, match="N % 8"):
+        kernels.s4_gemm(torch.empty(4, 256, dtype=torch.int8, device=meta),
+                        torch.empty(256, 12, dtype=torch.int32, device=meta),
+                        torch.empty(2, 100, device=meta),
+                        torch.empty(4, device=meta))
 
 
 def test_digest_follows_the_sources(tmp_path, monkeypatch):

@@ -176,20 +176,16 @@ def test_forced_kernel_impls_match_jax_in_the_model(impl):
         assert d <= 2e-2 * np.abs(_f32(jy)).max(), (p, d)
 
 
-def test_w4a8linear_below_a_raised_int8_threshold_takes_woq_matmul(
-        monkeypatch):
-    """JAX's ``W4A8Linear`` hands M > 1 below ``M_INT8_THRESHOLD`` to
-    ``woq_matmul`` (its M == 1 branch runs K10, which waits for its
-    port); the port follows, keeping the "tpu_strided" words that
-    ``woq_matmul`` reads when the threshold is raised at build."""
+def _strided_w4a8_pair(monkeypatch, threshold: int, seed: int = 8):
+    """A JAX ``W4A8Linear`` and the port's on the same seeded 256x256
+    sym-int4 g128 "tpu_strided" words, both classes at ``threshold``."""
     from neural_compressor_tpu.layers.woq_linear import \
         W4A8Linear as JW4A8Linear
     from neural_compressor_tpu.ops import packing as jpk
     from neural_compressor_tpu.ops import qtensor as jqt
-    from neural_compressor_tpu_torch.kernels import dequant_dot
     from neural_compressor_tpu_torch.ops import PackedWeight
 
-    rng = np.random.default_rng(8)
+    rng = np.random.default_rng(seed)
     w = (rng.standard_normal((256, 256)) / 16).astype(np.float32)
     jpw = jpk.pack_qtensor(jqt.quantize_tensor(jnp.asarray(w), bits=4,
                                                group_size=128))
@@ -197,18 +193,60 @@ def test_w4a8linear_below_a_raised_int8_threshold_takes_woq_matmul(
         np.int32).copy()), torch.from_numpy(np.asarray(jpw.scales)), None,
         bits=4, group_size=128, dtype="int", orig_shape=(256, 256),
         layout="tpu_strided")
-    monkeypatch.setattr(JW4A8Linear, "M_INT8_THRESHOLD", 4)
-    monkeypatch.setattr(W4A8Linear, "M_INT8_THRESHOLD", 4)
+    monkeypatch.setattr(JW4A8Linear, "M_INT8_THRESHOLD", threshold)
+    monkeypatch.setattr(W4A8Linear, "M_INT8_THRESHOLD", threshold)
     jmod, tmod = JW4A8Linear(jpw), W4A8Linear(tpw)
     assert tmod.layout == "tpu_strided"
+    return jmod, tmod, rng
+
+
+def test_w4a8linear_below_a_raised_int8_threshold_takes_woq_matmul(
+        monkeypatch):
+    """JAX's ``W4A8Linear`` hands M > 1 below ``M_INT8_THRESHOLD`` to
+    ``woq_matmul``, and M == 1 to the all-integer matvec (K10,
+    ``vpu_matvec_int8act``); the port follows, keeping the "tpu_strided"
+    words that both read when the threshold is raised at build. K10's
+    plain version against JAX's kernel in interpret mode: within 1e-6 of
+    max|y| (the float sums of the same exact integer terms, which XLA may
+    contract into multiply-adds)."""
+    from neural_compressor_tpu_torch.kernels import dequant_dot
+    from neural_compressor_tpu_torch.kernels import dequant_matmul as tdm
+
+    calls = []
+    plain = tdm.vpu_int8act_plain
+    monkeypatch.setattr(tdm, "vpu_int8act_plain",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    jmod, tmod, rng = _strided_w4a8_pair(monkeypatch, 4)
     x = rng.standard_normal((2, 256)).astype(np.float32)
     before = dequant_dot.calls
     ty = _f32(tmod(torch.from_numpy(x)))
     assert dequant_dot.calls == before + 1     # woq_matmul off the card
     jy = _f32(jmod(jnp.asarray(x)))
     assert np.abs(ty - jy).max() <= 1e-5 * np.abs(jy).max()
-    with pytest.raises(NotImplementedError, match="K10"):
-        tmod(torch.from_numpy(x[:1]))
+    # M == 1: K10's plain version, as JAX runs K10 (interpret mode)
+    ty1 = _f32(tmod(torch.from_numpy(x[:1])))
+    jy1 = _f32(jmod(jnp.asarray(x[:1])))
+    assert dequant_dot.calls == before + 1 and calls == [1]
+    assert np.abs(ty1 - jy1).max() <= 1e-6 * np.abs(jy1).max()
+
+
+@pytest.mark.parametrize("M", [4, 8])
+def test_w4a8linear_at_a_raised_threshold_takes_k1_on_strided_words(
+        monkeypatch, M):
+    """The repair: at M >= a raised ``M_INT8_THRESHOLD`` a "tpu_strided"
+    sym-int4 ``W4A8Linear`` takes K1's integer result on its words (the
+    plain version of ``w4a8_gemm_strided`` here), as JAX's ``w4a8_matmul``
+    runs K1 on them; before, the port took the bf16 dequant-and-dot, 5.8e-3
+    of max|y| from JAX's at M = 4."""
+    from neural_compressor_tpu_torch.kernels import dequant_dot
+
+    jmod, tmod, rng = _strided_w4a8_pair(monkeypatch, 4)
+    x = rng.standard_normal((M, 256)).astype(np.float32)
+    before = dequant_dot.calls
+    ty = _f32(tmod(torch.from_numpy(x)))
+    assert dequant_dot.calls == before         # the integer path
+    jy = _f32(jmod(jnp.asarray(x)))
+    assert np.abs(ty - jy).max() <= 1e-6 * np.abs(jy).max()
 
 
 def test_from_jax_params_refuses_quantized_modules_without_meta():
