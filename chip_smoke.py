@@ -5583,8 +5583,9 @@ def phase_hybrid_kernels(torch, nct, peaks: dict) -> dict:
         int4, int2, and through ``vpu_matvec_int8act`` with a row
         permutation;
     and planted faults, each of which must be flagged: a flipped nibble and
-    a wrong scale (K2, K1's loader, K10), a wrong zero and a wrong xs
-    (K10)."""
+    a wrong scale (K2, K1's loader, K10), a wrong zero (K10), and the
+    reference's xs one float32 ulp high or low (K10 with float32 outputs,
+    also held bit-equal to its plain version)."""
     from neural_compressor_tpu_torch.kernels import (
         s4_gemm, s4_gemm_plain, vpu_int8act, vpu_int8act_plain, w4a8_gemm,
         w4a8_gemm_strided, w4a8_gemm_strided_plain)
@@ -5698,9 +5699,32 @@ def phase_hybrid_kernels(torch, nct, peaks: dict) -> dict:
                   vpu_int8act(x, flip(pw.packed), sc, None, **args), yp)
             fault("k10 wrong scale",
                   vpu_int8act(x, pw.packed, bad_scale(sc), None, **args), yp)
-            # x doubled: the same codes under twice the xs
-            fault("k10 wrong xs",
-                  vpu_int8act(x * 2, pw.packed, sc, None, **args), yp)
+            # xs one float32 ulp off on the reference's side, float32
+            # outputs (a bf16 output hides a one-ulp xs): the bit
+            # comparison must resolve an xs error as small as a kernel bug
+            # would make, e.g. a multiply in place of a division
+            a32 = dict(args, out_dtype=torch.float32)
+            yk32 = vpu_int8act(x, pw.packed, sc, None, **a32)
+            yp32 = vpu_int8act_plain(x, pw.packed, sc, None, **a32)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(yk32, yp32))
+            rows["k10"].append(dict(shape=name, M=1, fmt="sym_int4_f32_out",
+                                    ok=same, err=float((yk32 - yp32).abs()
+                                                       .max()), timed=False))
+            print(f"k10 {name:8s} sym_int4_f32_out: bit-equal={same}",
+                  flush=True)
+            dm = port_module("dequant_matmul")
+            quant = dm.act_quant_per_tensor
+            for label, to in (("high", math.inf), ("low", -math.inf)):
+                def quant_off(x_, to=to):
+                    xq_, xs_ = quant(x_)
+                    return xq_, torch.nextafter(xs_, torch.full_like(xs_, to))
+                dm.act_quant_per_tensor = quant_off
+                try:
+                    y_off = vpu_int8act_plain(x, pw.packed, sc, None, **a32)
+                finally:
+                    dm.act_quant_per_tensor = quant
+                fault(f"k10 xs one ulp {label} (reference)", yk32, y_off)
         for fmt, bits, scheme in (("asym_int4", 4, "asym"),
                                   ("sym_int2", 2, "sym")):
             pa = hyb_weights(torch, gen, K, N, bits=bits, scheme=scheme)

@@ -30,8 +30,7 @@ def hybrid_gptq_entry(model, configs_mapping, mode="quantize", run_fn=None,
     for path, mod in list(named_modules(model)):
         if type(mod) is WOQLinear:
             w4a8 = W4A8Linear(mod.packed_weight(), bias=mod.bias,
-                              impl=mod.impl, pre_scale=mod.pre_scale,
-                              keep_layout=True)
+                              impl=mod.impl, pre_scale=mod.pre_scale)
             fp8 = getattr(mod, "scale_bf16_to_fp8", None)
             if fp8 is not None:
                 w4a8.register_buffer("scale_bf16_to_fp8", fp8)

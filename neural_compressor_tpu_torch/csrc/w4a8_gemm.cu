@@ -21,11 +21,13 @@
 //   stages the weight tile as k-contiguous int8 codes in shared memory.
 //   The strided loader reads a column's words for four consecutive word
 //   rows (coalesced along N), transposes the 4 x 8 nibble matrix with byte
-//   permutes and stores one 4-byte k-run per field: where a 128-row stage
-//   covers whole word rows (G = 128, 256, 512, 1024, 2048, ...) every word
-//   is read once; other group sizes that are multiples of 32 read each
-//   word once per field (a slower loader off the main path). Group sizes
-//   below 32 take the general path of w4a8_core.cuh.
+//   permutes and stores one 4-byte k-run per field. Where a 128-row stage
+//   covers whole word rows (G = 128, 256, 512, 1024, 2048, ...) it keeps
+//   nf = 1024 / min(G, 1024) of a word's 8 fields, so each word is read
+//   min(G, 1024) / 128 times: once at G = 128, twice at 256, 4 times at
+//   512, 8 times from 1024 on. Other group sizes that are multiples of 32
+//   read each word once per field (a slower loader off the main path).
+//   Group sizes below 32 take the general path of w4a8_core.cuh.
 #include "w4a8_core.cuh"
 
 namespace {
@@ -58,8 +60,9 @@ struct HopperLoader {
 
 // "tpu_strided" int4, rpg = G/8 word rows a group. Where rpg divides 128
 // or 128 divides rpg, a stage [k0, k0 + 128) of group g covers fields
-// [s0, s0 + nf) of word rows [i0, i0 + nr) and every word is read once:
-// item (c, row quad), four words, nf 4-byte k-runs out.
+// [s0, s0 + nf) of word rows [i0, i0 + nr): item (c, row quad), four words
+// read, nf 4-byte k-runs out. A word is read once per stage that covers
+// one of its fields, 8 / nf times (once only at G = 128).
 struct StridedLoader {
   static __device__ __forceinline__ void stage(int8_t* sB, const void* wv,
                                                int n0, int k0, int kc, int N,

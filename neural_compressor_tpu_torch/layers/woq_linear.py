@@ -19,8 +19,7 @@ from torch import nn
 
 from ..kernels.dequant_matmul import woq_matmul
 from ..ops.packing import (HOPPER_LAYOUT, S4_LAYOUT, PackedWeight,
-                           dequantize_packed, hopper_eligible, pack_qtensor,
-                           to_hopper)
+                           dequantize_packed, pack_qtensor)
 from ..ops.qtensor import QTensor, quantize_tensor
 
 
@@ -98,12 +97,11 @@ class WOQLinear(nn.Module):
 class W4A8Linear(WOQLinear):
     """INT4-weight x INT8-activation serving Linear.
 
-    Symmetric int4 "tpu_strided" weights move to the "hopper_nk" layout
-    when the module is built (exact: the codes are unchanged), unless
-    ``M_INT8_THRESHOLD`` is raised then or the caller passes
-    ``keep_layout=True`` (as ``to_w4a8_serving(s4=...)`` and hybrid GPTQ
-    do, to keep JAX's layouts). A module built at threshold 1 on
-    "hopper_nk" ignores a later raise, as a JAX module on "u4_kpack" does.
+    The module keeps the words it is given, as JAX's does;
+    ``to_w4a8_serving`` alone chooses the serving layout ("hopper_nk" by
+    default, exact: the codes are unchanged). A module on "hopper_nk"
+    ignores a later raise of ``M_INT8_THRESHOLD``, as a JAX module on
+    "u4_kpack" does.
     Forward, in the JAX package's order (``layers/woq_linear.py:150-184``;
     the threshold is read at each call):
       * "hopper_nk" (the port's counterpart of "u4_kpack"): at M == 1
@@ -120,14 +118,6 @@ class W4A8Linear(WOQLinear):
     """
 
     M_INT8_THRESHOLD = 1
-
-    def __init__(self, pw: PackedWeight, bias: torch.Tensor | None = None,
-                 impl: str = "auto", pre_scale: torch.Tensor | None = None,
-                 keep_layout: bool = False):
-        if (not keep_layout and hopper_eligible(pw)
-                and self.M_INT8_THRESHOLD <= 1):
-            pw = to_hopper(pw)
-        super().__init__(pw, bias=bias, impl=impl, pre_scale=pre_scale)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         from ..kernels.dequant_matmul import vpu_matvec_int8act

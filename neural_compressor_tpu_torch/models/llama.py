@@ -1107,7 +1107,7 @@ def load_jax_state(model, flat: dict, hidden_size: int, device,
         if m.get("type") == "W4A8Linear":
             # JAX's layout kept ("tpu_strided" or "s4_rowpack")
             mod = W4A8Linear(pw, opt(".bias"), impl=m.get("impl", "auto"),
-                             pre_scale=opt(".pre_scale"), keep_layout=True)
+                             pre_scale=opt(".pre_scale"))
         else:
             mod = WOQLinear(pw, opt(".bias"), impl=m.get("impl", "auto"),
                             pre_scale=opt(".pre_scale"))

@@ -58,8 +58,6 @@ def _concat_woq(mods):
         layout=ref.layout)
     bias = (torch.cat([m.bias for m in mods])
             if ref.bias is not None else None)
-    if type(ref) is W4A8Linear:  # the parts' layout, as in JAX
-        return W4A8Linear(pw, bias=bias, impl=ref.impl, keep_layout=True)
     return type(ref)(pw, bias=bias, impl=ref.impl)
 
 
@@ -131,8 +129,7 @@ def to_w4a8_serving(model, s4: bool | str = "auto") -> int:
             pw, up = _layout(pw)
             n_up += up
             replace_module(model, path, W4A8Linear(
-                pw, bias=mod.bias, impl=mod.impl, pre_scale=mod.pre_scale,
-                keep_layout=True))
+                pw, bias=mod.bias, impl=mod.impl, pre_scale=mod.pre_scale))
             n += 1
         elif type(mod) is W4A8Linear and mod.layout == "tpu_strided":
             # hybrid GPTQ's modules: upgrade the storage layout in place

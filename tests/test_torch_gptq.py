@@ -135,6 +135,26 @@ def test_gptq_objective_at_width():
     assert abs(ot - oj) <= 1e-3 * oj
 
 
+@pytest.mark.parametrize("G", [32, 128])
+def test_gptq_without_error_feedback_is_rtn(G):
+    """GPTQ's sweep on H = I feeds no error forward (the damped Cholesky
+    factor of a multiple of I is diagonal), so its values are RTN's bit
+    for bit, in the port as in JAX: the tiny checkpoints' flow tests let
+    RTN stand for both wrong calibrations, RTN and GPTQ without error
+    feedback."""
+    W, _H = _problem(seed=3)
+    eye = np.eye(W.shape[0], dtype=np.float32)
+    kw = dict(bits=4, group_size=G, sym=True, block_size=128)
+    tq = tgptq.gptq_quantize_matrix(torch.from_numpy(W),
+                                    torch.from_numpy(eye), **kw)[0].numpy()
+    jq = np.asarray(jgptq.gptq_quantize_matrix(jnp.asarray(W),
+                                               jnp.asarray(eye), **kw)[0])
+    rtn = qdq_tensor(torch.from_numpy(W), bits=4, group_size=G,
+                     scheme="sym", out_dtype=torch.float32).numpy()
+    np.testing.assert_array_equal(tq, rtn)
+    np.testing.assert_array_equal(jq, rtn)
+
+
 def test_hessian_observer_matches_jax():
     """H = 2·XᵀX/n over every call's rows, float32; the inner module
     still runs."""

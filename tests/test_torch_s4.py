@@ -24,6 +24,9 @@ from neural_compressor_tpu.layers.woq_linear import W4A8Linear as JW4A8
 from neural_compressor_tpu.models import llama as jl
 from neural_compressor_tpu.ops import packing as jpk
 from neural_compressor_tpu.ops import qtensor as jqt
+from neural_compressor_tpu.algorithms.calib_capture import \
+    calibration_forward as j_calibration_forward
+from neural_compressor_tpu.quantization import GPTQConfig as JGPTQConfig
 from neural_compressor_tpu.quantization import RTNConfig as JRTNConfig
 from neural_compressor_tpu.quantization import fuse as jfuse
 from neural_compressor_tpu.quantization import quantize as j_quantize
@@ -245,6 +248,71 @@ def test_existing_w4a8_upgraded_in_place(monkeypatch):
     nct.to_w4a8_serving(tm2)   # WOQLinear -> W4A8Linear on hopper_nk
     assert {m.layout for m in tm2.modules()
             if type(m) is W4A8Linear} == {"hopper_nk"}
+
+
+@pytest.mark.parametrize("variant", ["hybrid_order", "double_quant"])
+def test_to_w4a8_serving_takes_perm_and_double_quant_to_k1_strided(
+        monkeypatch, variant):
+    """A sym-int4 ``WOQLinear`` with a row permutation (JAX's GPTQ with
+    ``hybrid_order``) or double-quantized scales (JAX's RTN with
+    ``use_double_quant``) becomes a ``W4A8Linear`` on its "tpu_strided"
+    words, as JAX's ``to_w4a8_serving`` makes it (``_w4a8_eligible``);
+    "hopper_nk" takes neither. The port serves it on K1's "tpu_strided"
+    path (its plain version here, no bf16 fallback): each such module
+    within 1e-6 of max|y| of JAX's module (K1 in interpret mode) at M = 1
+    and 5, and the bf16 model's logits within 2e-2 of max|logit| of JAX's
+    (the tolerance of the W4A8 model tests in ``test_torch_woq_llama.py``:
+    one-ulp bf16 roundings between layers part the two)."""
+    tw4a8 = importlib.import_module(
+        "neural_compressor_tpu_torch.kernels.w4a8_matmul")
+    jm = jl.LlamaForCausalLM(jl.LlamaConfig(**ENGINE_CFG), nnx.Rngs(6))
+    if variant == "hybrid_order":
+        rng = np.random.default_rng(6)
+        batches = [jnp.asarray(rng.integers(0, ENGINE_CFG["vocab_size"],
+                                            (2, 16)).astype(np.int32))
+                   for _ in range(2)]
+        j_quantize(jm, JGPTQConfig(dtype="int4", group_size=128,
+                                   hybrid_order=True, quant_lm_head=True),
+                   run_fn=lambda m: j_calibration_forward(m, batches))
+        marked = "perm"
+    else:
+        j_quantize(jm, JRTNConfig(dtype="int4", group_size=128,
+                                  use_double_quant=True, quant_lm_head=True))
+        marked = "sq_scales"
+    tm = tl.from_jax_params(_flat(jm), _port_cfg(jm.cfg), device="cpu",
+                            meta=_meta(jm))
+    woq = {p for p, m in tm.named_modules() if type(m) is WOQLinear}
+    assert len(woq) == 7 * 2 + 1
+    assert all(getattr(m, marked) is not None for p, m in tm.named_modules()
+               if p in woq)
+    assert nct.to_w4a8_serving(tm) == jfuse.to_w4a8_serving(jm) == len(woq)
+    jmods = dict(j_named_modules(jm))
+    calls = []
+    plain = tw4a8.w4a8_gemm_strided_plain
+    monkeypatch.setattr(tw4a8, "w4a8_gemm_strided_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    before = dequant_dot.calls
+    for p, m in tm.named_modules():
+        if p not in woq:
+            continue
+        assert type(m) is W4A8Linear and m.layout == "tpu_strided", p
+        assert type(jmods[p]) is JW4A8 and jmods[p].layout == "tpu_strided"
+        np.testing.assert_array_equal(
+            m.packed.numpy(), np.asarray(jmods[p].packed[...]).view(np.int32))
+        for M in (1, 5):
+            x = np.random.default_rng(M).standard_normal(
+                (M, m.in_features)).astype(np.float32)
+            ty = _f32(m(torch.from_numpy(x)))
+            jy = _f32(jmods[p](jnp.asarray(x)))
+            assert np.abs(ty - jy).max() <= 1e-6 * np.abs(jy).max(), (p, M)
+    assert len(calls) == 2 * len(woq) and dequant_dot.calls == before
+    ids = np.random.default_rng(7).integers(0, ENGINE_CFG["vocab_size"],
+                                            (2, 9)).astype(np.int32)
+    with torch.no_grad():
+        tl_ = _f32(tm(torch.from_numpy(ids)))
+    jl_ = _f32(jm(jnp.asarray(ids)))
+    assert dequant_dot.calls == before
+    assert np.abs(tl_ - jl_).max() <= 2e-2 * np.abs(jl_).max()
 
 
 def test_from_jax_params_carries_w4a8_modules_with_perm():
