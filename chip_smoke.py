@@ -60,7 +60,12 @@ non-zero:
      counts and one decode window profiled per format;
  10. greedy speculation: K13 (the verify window's write) and K11's W-query
      window against their plain versions at the 8-slot engine's shapes in
-     every pool format, with planted faults (phase 2's ``spec_kernels``);
+     every pool format, with planted faults, two of them in K11's split of
+     the keys (a fold that drops each slot's last part; p rounded against
+     its part's own maximum), planted in a float64 emulation of the split
+     that without a fault equals the kernel bit for bit (phase 2's
+     ``spec_kernels``); K11 at lengths on a part's boundaries with a band
+     starting inside a part (phase 3's ``spec_envelope``);
      K5, K6, K7 and K11 over contexts of 16,384-65,536 rows, which their
      score rows in device memory allow (phase 3's ``spec_envelope``);
      prompt lookup, draft-verify and the speculative engine in every pool
@@ -73,7 +78,10 @@ non-zero:
  11. Gemma: K11's sliding-band and softcap branches against their plain
      version at gemma2-9b's shapes (8 slots over 8192-row contexts, Hkv 8,
      rep 2, D 256) in every pool format, with planted faults (phase 2's
-     ``gemma_kernels``); the repaired envelope, K5/K6/K7 at rep 16, K8
+     ``gemma_kernels``); the device time of K11's two launches at the
+     main paths' shapes (``k11_profile``; ``k11_part_sweep`` in a
+     development run: the same at parts of 256, 512 and 1024 keys); the
+     repaired envelope, K5/K6/K7 at rep 16, K8
      with float32 activations, K4 at K 65,536, and the plain paths where
      JAX declines its kernel, their calls counted (phase 3's
      ``gemma_envelope``); full-width 2-layer gemma2-9b and gemma3-4b-text
@@ -136,7 +144,7 @@ non-zero:
      greedy and the 8-slot engine: K2 at every M), "tpu_strided" under
      ``M_INT8_THRESHOLD = 2`` (B=1 greedy: K1's strided loader and K10) and
      "hopper_nk" with fused decode (``hybrid_serve``).
-Development runs name checks of phases 2-4, 13 and 14, or
+Development runs name checks of phases 2-4, 13 and 14, ``k11_part_sweep``, or
 ``deepseek_serve``, ``variant_serve`` or ``hybrid_serve``, as arguments (``python3 chip_smoke.py
 variant_kernels variant_envelope``): the build, those checks, no result
 line.
@@ -167,7 +175,7 @@ UNIT_M = 128                  # the GEMM row of the kernels line: a 128-token pr
 ATTN_POS = (0, 517, 1023)
 UNIT_POS = 517                # the attention row: one decode step at pos 517
 TOL = {"gemm": 1e-5, "gemv": 1e-2, "attn": 1e-2, "batched": 1e-2,
-       "paged_attn": 1e-2, "paged_write": 0.0}
+       "paged_write": 0.0}
 # the engine: 8 slots; its decode positions spread over the 1024-row cache
 SLOTS, PAGE, CHUNK = 8, 128, 8
 SLOT_POS = (0, 127, 128, 300, 517, 640, 901, 1023)
@@ -480,14 +488,19 @@ def phase_engine_kernels(torch, nct, peaks: dict) -> dict:
     q = randn(B, H, D)
     q4 = q[:, :, None]
 
-    def record(kind, label, err, tol, ms, pms, lms, nbytes, ops, **extra):
-        ok = math.isfinite(err) and err <= tol
+    def record(kind, label, err, tol, ms, pms, lms, nbytes, ops, ok=None,
+               **extra):
+        """``tol`` an absolute tolerance, or a label where ``ok`` says
+        whether the outputs held an elementwise one (K11: ``kv_tol``)."""
+        if ok is None:
+            ok = math.isfinite(err) and err <= tol
         bms, by = bound(nbytes, ops, peaks["bf16_s"], peaks)
         rows[kind].append(dict(label=label, err=err, tol=tol, ok=ok, ms=ms,
                                plain_ms=pms, library_ms=lms, bound_ms=bms,
                                bound_by=by, **extra))
         lib = "null" if lms is None else f"{lms:.4f}"
-        print(f"{kind} {label} max_abs_err={err:.3e} tol={tol:.1e} ok={ok} "
+        tol_s = tol if isinstance(tol, str) else f"{tol:.1e}"
+        print(f"{kind} {label} max_abs_err={err:.3e} tol={tol_s} ok={ok} "
               f"ms={ms:.4f} plain_ms={pms:.4f} library_ms={lib} "
               f"bound_ms={bms:.4f} ({by})", flush=True)
 
@@ -530,7 +543,11 @@ def phase_engine_kernels(torch, nct, peaks: dict) -> dict:
         out = paged_attn(q, kp, ks, vp, vs, bt, lengths)
         ref = paged_attn_plain(q, kp, ks, vp, vs, bt, lengths)
         torch.cuda.synchronize()
-        err = float((out.float() - ref.float()).abs().max())
+        d = (out.float() - ref.float()).abs()
+        err = float(d.max())
+        # held at kv_tol, as K11's other phases hold it
+        ok = (bool(torch.isfinite(out.float()).all())
+              and bool((d <= kv_tol(ref)).all()))
         ms = timed_ms(torch, [lambda p=p: paged_attn(q, *p, bt, lengths)
                               for p in pools], 200)
         pms = timed_ms(torch, [lambda: paged_attn_plain(
@@ -552,10 +569,10 @@ def phase_engine_kernels(torch, nct, peaks: dict) -> dict:
         del gk
         record("paged_attn", f"{tag} B={B} H={H} D={D} page={PAGE} "
                f"pmax={pmax} lengths={tuple(lengths.tolist())}", err,
-               TOL["paged_attn"], ms, pms, lms,
+               "kv_tol", ms, pms, lms,
                2 * Hkv * n_vis * (D * esize + (4 if quant else 0))
                + 2 * B * H * D * 2 + B * pmax * 4 + B * 4,
-               4 * H * n_vis * D, pool=tag)
+               4 * H * n_vis * D, ok=ok, pool=tag)
         del pools
 
         # K12: the 8 slots' new rows at their positions
@@ -2261,6 +2278,94 @@ def pool_bytes_equal(torch, a, b, skip_trash=True) -> bool:
     return True
 
 
+def k11_split_emulated(torch, q, kp, ks, vp, vs, bt, lengths, ko=None,
+                       vo=None, window=None, softcap=None, fault=None):
+    """K11's two launches emulated in float64 on the card, part by part
+    (``split_plan``'s parts; the fold in ascending part order) -> [B, H,
+    W, D] bf16, equal to the kernel bit for bit; or with a planted fault
+    of the split: ``"drop_last_part"`` (the fold drops each slot's last
+    part) or ``"part_max"`` (p rounded against its part's own maximum, the
+    parts rescaled by exp(m_part - m) in the fold, as a flash-decoding
+    fold would)."""
+    from neural_compressor_tpu_torch.kernels import paged_attention as pa
+    from neural_compressor_tpu_torch.ops import softcap as _softcap
+
+    f64, f32 = torch.float64, torch.float32
+    fmt = pa.pool_format(kp, ks, ko)
+    B, H, W, D = q.shape
+    Hkv = kp.shape[1]
+    rep, dev = H // Hkv, q.device
+    rows = W * rep
+    page = kp.shape[2] * (2 if fmt == "int4" else 1)
+    plan = pa.split_plan(B, H, Hkv, W, D, page, bt.shape[1])
+    btl = bt.long()
+    k = pa._gather_rows(kp, btl)
+    v = pa._gather_rows(vp, btl)
+    T = k.shape[2]
+    qr = (q.reshape(B, Hkv, rep, W, D).transpose(2, 3)
+          .reshape(B, Hkv, rows, D).to(f64))
+    w_of = torch.div(torch.arange(rows, device=dev), rep,
+                     rounding_mode="floor")
+    qpos = lengths.long().reshape(B, 1) - W + w_of[None, :]
+    t = torch.arange(T, device=dev)[None, None, :]
+    valid = t < (qpos + 1).clamp(0, T)[:, :, None]
+    if window is not None:
+        valid = valid & (qpos[:, :, None] - t < window)
+    valid = valid[:, None]                              # [B, 1, rows, T]
+    s = torch.einsum("bgrd,bgtd->bgrt", qr, k).to(f32)
+    if ks is not None:
+        s = s * pa._gather_pages(ks, btl)[:, :, None, :]
+    if fmt == "int4":
+        s = s + (qr.sum(dim=-1).to(f32)[..., None]
+                 * pa._gather_pages(ko, btl)[:, :, None, :])
+    s = s * (1.0 / (D ** 0.5))
+    if softcap is not None:
+        s = _softcap(s, softcap)
+    masked = torch.where(valid, s, torch.tensor(-float("inf"), device=dev))
+    cuts = [(i * plan.part_keys, min((i + 1) * plan.part_keys, T))
+            for i in range(plan.parts)]
+    m_part = torch.stack([masked[..., a:b].amax(dim=-1) for a, b in cuts],
+                         dim=-1)                        # [B, Hkv, rows, P]
+    m = m_part.amax(dim=-1, keepdim=True)
+    vsc = pa._gather_pages(vs, btl)[:, :, None, :] if ks is not None else None
+    voff = (pa._gather_pages(vo, btl).to(f64)[:, :, None, :]
+            if fmt == "int4" else None)
+    # each slot's last part: the one holding its last key
+    last = torch.div(lengths.long().clamp(1, T) - 1, plan.part_keys,
+                     rounding_mode="floor")
+    zero = torch.zeros((), dtype=f64, device=dev)
+    acc = torch.zeros(qr.shape, dtype=f64, device=dev)
+    l = torch.zeros(qr.shape[:-1], dtype=f64, device=dev)
+    corr = torch.zeros_like(l)
+    for i, (a, b) in enumerate(cuts):
+        mi = m_part[..., i:i + 1] if fault == "part_max" else m
+        vi = valid[..., a:b]
+        e = torch.where(vi, torch.exp(s[..., a:b].to(f64) - mi.to(f64)), zero)
+        pe = e.to(f32)
+        if vsc is not None:
+            pe = pe * vsc[..., a:b]
+        acc_i = torch.einsum("bgrt,bgtd->bgrd",
+                             pe.to(torch.bfloat16).to(f64), v[:, :, a:b])
+        l_i = e.sum(dim=-1)
+        c_i = ((e.to(f32).to(f64) * voff[..., a:b]).sum(dim=-1)
+               if voff is not None else torch.zeros_like(l_i))
+        if fault == "part_max":
+            rescale = torch.where(torch.isfinite(mi), torch.exp(
+                mi.to(f64) - m.to(f64)), zero)          # [B, Hkv, rows, 1]
+            acc_i, l_i, c_i = (acc_i * rescale, l_i * rescale[..., 0],
+                               c_i * rescale[..., 0])
+        if fault == "drop_last_part":
+            keep = (last != i).to(f64).reshape(B, 1, 1)
+            acc_i, l_i, c_i = acc_i * keep[..., None], l_i * keep, c_i * keep
+        acc, l, corr = acc + acc_i, l + l_i, corr + c_i
+    out = acc.to(f32)
+    if fmt == "int4":
+        out = out + corr.to(f32)[..., None]
+    out = out / l.to(f32).clamp_min(1e-30)[..., None]
+    return (out.reshape(B, Hkv, W, rep, D).transpose(2, 3)
+            .reshape(B, H, W, D).to(torch.bfloat16))
+
+
 def phase_spec_kernels(torch, nct, peaks: dict) -> dict:
     """The speculative verify window's kernels at the llama2-7b engine's
     shapes: 8 slots, Hkv 32, D 128, pools of 128-row pages, W = 9 at
@@ -2463,7 +2568,20 @@ def phase_spec_kernels(torch, nct, peaks: dict) -> dict:
         d = (whole.float() - ref.float()).abs()
         planted("k11w", f"{fmt}: no causal limit in the window",
                 int((d > kv_tol(ref)).sum()), d.numel())
-        del pools, p0
+        # the split's own faults, planted in its emulation, which without a
+        # fault equals the kernel bit for bit
+        if not torch.equal(k11_split_emulated(torch, q, *aargs(p0)), out):
+            bad.append(f"k11w {fmt}: the split's emulation differs from "
+                       "the kernel")
+        faulty = k11_split_emulated(torch, q, *aargs(p0), fault="part_max")
+        planted("k11w", f"{fmt}: p against its part's own maximum "
+                "(torch.equal)", int((faulty != out).sum()), out.numel())
+        faulty = k11_split_emulated(torch, q, *aargs(p0),
+                                    fault="drop_last_part")
+        d = (out.float() - faulty.float()).abs()
+        planted("k11w", f"{fmt}: the fold drops each slot's last part",
+                int((d > kv_tol(faulty)).sum()), d.numel())
+        del pools, p0, faulty
     if bad:
         fail(f"speculative kernels disagree with their plain versions: {bad}")
     if missed:
@@ -2552,6 +2670,45 @@ def phase_spec_envelope(torch) -> None:
                       qw[:, :, w].contiguous(), *a,
                       (lengths - W + w + 1).contiguous(), *ofs))
         del pool
+    # the split's boundaries: lengths on a part's last key, its first and
+    # the one after (parts of 512 keys at pages of 128 and 16, of 500 at
+    # pages of 100), a band starting inside a part with whole parts before
+    # it, the softcap, a slot of length 0
+    from neural_compressor_tpu_torch.kernels.paged_attention import \
+        split_plan
+
+    H, Hkv, Wq = 4, 2, 4
+    for page in (128, 16, 100):
+        pk = split_plan(1, H, Hkv, 1, D, page, 1).part_keys
+        pmax = -(-1600 // page)
+        lens = (pk, pk + 1, pk + 2, 1500, 0)
+        n_pages = len(lens) * pmax + 1
+        bt = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                             .manual_seed(45)) + 1).reshape(len(lens), pmax)
+        bt = bt.to(torch.int32).to(dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for fmt in POOL_FORMATS:
+            pool = spec_pool(torch, kq, randn, n_pages, Hkv, page, D, fmt)
+            a = (pool[0], pool[1], pool[2], pool[3], bt, lengths, pool[4],
+                 pool[5])
+            q = (randn(len(lens), H, D).float() * 4).to(torch.bfloat16)
+            tag = f"{fmt} page={page} lengths={lens}"
+            check(f"k11 split {tag}", K.paged_attn(q, *a),
+                  K.paged_attn_plain(q, *a))
+            for kw in (dict(window=700, softcap=50.0), dict(softcap=50.0)):
+                check(f"k11 split gemma {kw} {tag}",
+                      K.paged_attn_gemma(q, *a, **kw),
+                      K.paged_attn_plain(q, *a, **kw))
+            qw = randn(len(lens), H, Wq, D)
+            out = K.paged_window_attn(qw, *a)
+            check(f"k11 split window W={Wq} {tag}", out,
+                  K.paged_window_attn_plain(qw, *a))
+            for w in range(Wq):
+                ln = (lengths - Wq + w + 1).clamp_min(0).contiguous()
+                check(f"k11 split window {tag} row {w} vs single-query",
+                      out[:, :, w], K.paged_attn(qw[:, :, w].contiguous(),
+                                                 *a[:5], ln, *a[6:]))
+            del pool
     print(f"spec envelope (long contexts): {n} checks, card vs plain: "
           f"{'all equal, none raised' if not bad else bad}", flush=True)
     if bad:
@@ -3354,7 +3511,10 @@ def gemma_faults(torch, kernel, plain, q, pool, bt, lengths, W, cap,
     qu = (-6.25 * u).expand(B, H, D).to(torch.bfloat16).contiguous()
     under = kernel(qu, ku, None, vp, None, bt, lengths, window=W,
                    softcap=cap)
+    cut = k11_split_emulated(torch, q[:, :, None], *base, window=W,
+                             softcap=cap, fault="drop_last_part")[:, :, 0]
     faults = {
+        "the fold drops each slot's last part": (band, cut),
         "band off by one (q - k <= window)": (
             band, plain(q, *base, window=W + 1, softcap=cap)),
         "softcap applied after the mask": (
@@ -3374,6 +3534,102 @@ def gemma_faults(torch, kernel, plain, q, pool, bt, lengths, W, cap,
             missed.append(name)
     if missed:
         fail(f"K11's gemma check missed planted faults: {missed}")
+
+
+def phase_k11_profile(torch, part_keys=None) -> dict:
+    """K11's two launches under torch.profiler at the main paths' shapes,
+    operands rotated through >200 MB of copies as in ``timed_ms``: the
+    llama2-7b 8-slot step over the int8 pool (``SLOT_POS``), its 9-row
+    verify window (``SPEC_POS``), and gemma2-9b's band and softcap steps
+    over its int8 pool (``GEMMA_POS``). Prints the device time a call of
+    the scores launch and of the PV-and-fold launch, and the event time a
+    call (``timed_ms``; host-paced where it exceeds their sum), at the
+    plan's part size, or at each of ``part_keys`` (``PART_KEYS`` set for
+    the measurement, then restored). Returns {(case, part keys): (scores
+    ms, pv ms, event ms)}."""
+    from neural_compressor_tpu_torch import kernels as K
+    from neural_compressor_tpu_torch.kernels import paged_attention as pa
+    from neural_compressor_tpu_torch.ops import kv_quant as kq
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(47)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def table(B, pmax, seed):
+        n_pages = B * pmax + 1
+        bt = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                             .manual_seed(seed)) + 1).reshape(B, pmax)
+        return n_pages, bt.to(torch.int32).to(dev)
+
+    cases = {}
+    n_pages, bt = table(SLOTS, MAX_LEN // PAGE, 12)
+    lengths = torch.tensor(SLOT_POS, dtype=torch.int32, device=dev) + 1
+    row_b = 2 * n_pages * HEADS * PAGE * (HEAD_DIM + 4)
+    pools = [spec_pool(torch, kq, randn, n_pages, HEADS, PAGE, HEAD_DIM,
+                       "int8") for _ in range(n_copies(row_b))]
+    q = randn(SLOTS, HEADS, HEAD_DIM)
+    cases["single query, llama2-7b int8"] = [
+        lambda p=p: K.paged_attn(q, *p[:4], bt, lengths) for p in pools]
+    qw = randn(SLOTS, HEADS, SPEC_W, HEAD_DIM)
+    lw = torch.tensor(SPEC_POS, dtype=torch.int32, device=dev) + SPEC_W
+    cases["window W=9, llama2-7b int8"] = [
+        lambda p=p: K.paged_window_attn(qw, *p[:4], bt, lw) for p in pools]
+    Hkv, D = 8, 256
+    g_pages, gbt = table(SLOTS, GEMMA_MAX_LEN // PAGE, 32)
+    glen = torch.tensor(GEMMA_POS, dtype=torch.int32, device=dev) + 1
+    gpools = [spec_pool(torch, kq, randn, g_pages, Hkv, PAGE, D, "int8")
+              for _ in range(n_copies(2 * g_pages * Hkv * PAGE * (D + 4)))]
+    qg = (randn(SLOTS, 2 * Hkv, D).float() * 6).to(torch.bfloat16)
+    for label, kw in (("band", dict(window=GEMMA_WINDOW,
+                                    softcap=GEMMA_SOFTCAP)),
+                      ("softcap", dict(softcap=GEMMA_SOFTCAP))):
+        cases[f"gemma2-9b {label}, int8"] = [
+            lambda p=p, kw=kw: K.paged_attn_gemma(qg, *p[:4], gbt, glen,
+                                                  **kw) for p in gpools]
+    out = {}
+    default = pa.PART_KEYS
+    for pk, (label, fns) in ((pk, c) for pk in (part_keys or (default,))
+                             for c in cases.items()):
+        pa.PART_KEYS = pk
+        pa.split_plan.cache_clear()
+        try:
+            ev_ms = timed_ms(torch, fns, 100)
+            dev_ms = profiled(torch, fns)
+        finally:
+            pa.PART_KEYS = default
+            pa.split_plan.cache_clear()
+        a, b = dev_ms.get("scores_kernel", 0.0), dev_ms.get("pv_kernel", 0.0)
+        print(f"k11 device time {label}, parts of {pk} keys: scores "
+              f"{a:.4f} ms + pv and fold {b:.4f} ms = {a + b:.4f} ms a call; "
+              f"event time {ev_ms:.4f} ms a call", flush=True)
+        out[(label, pk)] = (a, b, ev_ms)
+    return out
+
+
+def profiled(torch, fns, n: int = 40) -> dict:
+    """Device ms a call of K11's two kernels over ``n`` calls of ``fns``
+    (cycled), from torch.profiler: {"scores_kernel": ms, "pv_kernel":
+    ms}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    dev_ms = {}
+    for e in prof.key_averages():
+        for kname in ("scores_kernel", "pv_kernel"):
+            if kname in e.key:
+                dev_ms[kname] = (dev_ms.get(kname, 0.0)
+                                 + e.self_device_time_total / 1e3 / n)
+    return dev_ms
 
 
 def phase_gemma_envelope(torch, nct) -> None:
@@ -6182,6 +6438,7 @@ def main() -> None:
               "spec_model_check": lambda: phase_spec_model_check(torch,
                                                                  nct),
               "gemma_kernels": lambda: phase_gemma_kernels(torch, nct, peaks),
+              "k11_profile": lambda: phase_k11_profile(torch),
               "gemma_envelope": lambda: phase_gemma_envelope(torch, nct),
               "gemma_model_check": lambda: phase_gemma_model_check(torch,
                                                                    nct),
@@ -6200,8 +6457,11 @@ def main() -> None:
                                                              peaks),
               "hybrid_envelope": lambda: phase_hybrid_envelope(torch, nct)}
     # the serving phases a development run may name as well (there
-    # variant_serve builds phase 5's model itself)
-    serves = {"deepseek_serve": lambda: phase_deepseek_serve(torch, nct),
+    # variant_serve builds phase 5's model itself), and K11's profile at
+    # parts of 256, 512 and 1024 keys
+    serves = {"k11_part_sweep": lambda: phase_k11_profile(
+                  torch, (256, 512, 1024)),
+              "deepseek_serve": lambda: phase_deepseek_serve(torch, nct),
               "variant_serve": lambda: phase_variant_serve(
                   torch, nct, w4a8_model(torch, nct)),
               "hybrid_serve": lambda: phase_hybrid_serve(torch, nct)}

@@ -23,99 +23,242 @@
 //   (float32 operations in K11's order, none fused), then with a softcap
 //   s = cap * f32(tanh(s * f32(1/cap))) (tanh in float64, rounded once),
 //   BEFORE the mask; with a window (band) only keys with q_pos - t <
-//   window attend, i.e. t >= q_pos - window + 1; p = exp(s - m)
-//   [* v_scale], rounded to bf16 for the PV product; l = sum exp(s - m)
-//   unrounded; int4 adds corr = sum_t f32(exp(s - m)) * v_off[t] to the PV
-//   sum in float32; out = acc / max(l, 1e-30). A slot of length 0, and a
-//   window row with no key, give exact zeros.
+//   window attend, i.e. t >= q_pos - window + 1; m = the row's maximum
+//   over all its keys; p = exp(s - m) [* v_scale], rounded to bf16 for
+//   the PV product; l = sum exp(s - m) unrounded; int4 adds corr =
+//   sum_t f32(exp(s - m)) * v_off[t] to the PV sum in float32; out = acc
+//   / max(l, 1e-30). A slot of length 0, and a window row with no key,
+//   give exact zeros.
 //
 // Bound on this card: bytes. Each visited row is read once: 2*Hkv*len*D
 //   code bytes (x2 for bf16, /2 for int4) plus 2*Hkv*len*4 scale bytes
-//   (x2 with int4 offsets) per slot.
+//   (x2 with int4 offsets) per slot; the design adds 4 bytes a (query
+//   row, key) of float32 scores, written by launch A and read by launch B
+//   (through L2 at the engine's sizes).
 //
-// Design: one block per (slot, KV head, group of query rows). The W*rep
-//   query rows of a (slot, KV head) split into ng = ceil(W*rep / 8) groups
-//   of at most MAX_REP = 8 rows, as even as they go (a window of 9 rows at
-//   rep 1 is 5 + 4, at rep 4 36 rows are 5 groups of 8 and 4), each group
-//   a block that reads the slot's K/V rows again, so the registers a
-//   thread holds (o[8][DPL] doubles) do not grow with W or rep. Single
-//   queries (rep <= 8) are one group. A group walks the slot's block
-//   table from its rows' lowest band start (0 without a window; a band
-//   slot starts its key loop at max(0, q_pos - window + 1), so its reads
-//   do not grow with the context) up to its longest row: warps take keys
-//   round-robin, lanes split D (DPL = ceil(D / 32) elements a lane, 1-8:
-//   any D up to 256, the tail past D masked and loaded by scalars, with a
-//   compile-time-D copy for 32, 64, 128 and 256, nctt::full_width; an int4
-//   lane loads its DPL bytes of the token's byte row and keeps one nibble
-//   of each), and a row skips the
-//   keys outside its own band and causal limit. The score
-//   rows live in a float32 workspace in device memory
-//   ([B, Hkv, ng * gs, PMAX*page], allocated by the wrapper; they
-//   pass through L2), so shared memory holds only the q rows and the
-//   cross-warp partials and any context length fits. Idle engine slots
-//   have every block-table entry 0 (the trash page) and a full length:
-//   they read page 0 again and again, which is valid memory, and their
-//   output is never used. Sums run in float64 over exact products (bf16 x
-//   bf16, int8, e4m3 or a nibble) and are rounded once, so the kernel and
-//   its plain version (kernels/paged_attention.py) agree bit for bit, and
-//   window row w equals the single query at length lengths[b] - W + w + 1
-//   bit for bit (the same keys in the same order). The TPU kernel's online
-//   softmax over 4-page groups equals this one pass where one group covers
-//   the visited pages. A simple first kernel: no split of the keys across
-//   blocks, no TMA or cp.async.
+// Design: two launches over a fixed plan of key parts. It answers the four
+//   causes that held the one-launch kernel back (one block a slot walking
+//   the whole context; one row in flight a warp; a shuffle reduction a key
+//   and row; three passes over the score rows in device memory).
+//   * Parts. A slot's key axis is cut into parts of a fixed number of
+//     whole pages (kernels/paged_attention.py split_plan: 512 keys at
+//     128-row pages, the 4-page group JAX's kernel stages). Part
+//     boundaries are absolute key positions, a function of the page size
+//     alone. The W*rep query rows of a (slot, KV head) split into ng
+//     balanced groups of at most 8 (as before). Both launches have one
+//     block per (part, KV head x group, slot), grid (parts, Hkv*ng, B); a
+//     block whose part holds no key of its group's rows (past the longest
+//     row, or before the lowest band start) exits at once, so the work of
+//     a launch follows the keys its rows attend and a long slot spreads
+//     over many SMs, where one block used to walk a whole slot (64 blocks
+//     for gemma2-9b's 8 slots on 132 SMs, the longest slot setting the
+//     time).
+//   * Staging. A block walks its part in tiles of 64 key slots (64 rows
+//     of one page, or 32 int4 byte rows holding 64 tokens), never across
+//     a page, so a tile is one contiguous slab of the pool (the part's
+//     page ids are read once into shared memory). Every thread issues
+//     16-byte cp.async copies of the slab into a ring of 3-6 tiles in
+//     shared memory (as many as ~72 KB hold; 3 where D is known only at
+//     run time), all but one in flight while one is used; where a row is
+//     not a whole number of 16-byte chunks, or a pool is not 16-byte
+//     aligned, scalar loads fill the tile and zero its tail. Staged rows
+//     are padded to an odd number of 16-byte chunks, so the 16-byte reads
+//     of eight consecutive rows hit all 32 banks once.
+//   * Launch A: scores and part maxima. Thread (key pair, segment h) sums
+//     one D segment (D split into blockDim/32 fixed segments) of q . k for
+//     keys kp and kp + 32 of the tile (int4: both nibbles of byte row kp)
+//     and every row of its group in float64, elements in ascending order:
+//     each key element is converted once and reused across the group's
+//     rows, and each q element loaded from shared memory serves two keys
+//     (every float64 product takes a shared-memory operand); segments add
+//     in ascending order. No shuffle a key. Conversions to float64 are
+//     exact bit moves (bf16 and e4m3 bits placed under a double's exponent
+//     and rebiased by a power of two; int8 and int4 codes by the 2^52
+//     magic number), which
+//     Hopper issues at the float64 rate, where its float-to-double
+//     conversion runs at a quarter of it. A key's scale and offset are
+//     fetched before its dot products. Scale, offset, 1/sqrt(D) and
+//     softcap as above; the score goes to the float32 workspace, each
+//     row's maximum over the part to maxima [B, Hkv, rows, parts].
+//   * Launch B: probabilities, PV partials and the fold. A block reads
+//     its rows' global maximum over the parts that hold their keys, stages
+//     the V tiles the same way, forms p, exp and corr for (row, slot)
+//     pairs from scores and v scales fetched one tile ahead, sums exp and
+//     corr per tile by a fixed butterfly over 32 slots and adds tile sums
+//     in ascending order. Thread (column pair, slot half) owns columns d
+//     and d + ceil(D/2) of every row and sums p * v in float64 over its
+//     half of each tile's slots (int4: one nibble) in ascending order,
+//     eight slots at a time with their loads ahead of the products and no
+//     branch between them, each p loaded serving two columns; the first
+//     half's sum plus the second's, exchanged through the free ring, is
+//     the part's. Partials go to a float64 [B, Hkv, rows, parts, D + 2]
+//     workspace (acc, then l and corr). The last block of a (slot, KV
+//     head, group), by an atomic ticket taken after __threadfence(), folds
+//     the parts in ascending order, adds corr, divides by max(l, 1e-30),
+//     writes bf16 and resets its ticket to 0, so the tickets stay zeroed
+//     without a memset launch. A part with no key of a row adds exact
+//     zeros for it; a group with no key at all has its part-0 block write
+//     zeros.
+//   * Compile-time copies: D 32, 64, 128 and 256 (nctt::full_width's
+//     widths), any other D at run time; at D 128 and 256 groups of 1 and 2
+//     rows (single queries at rep 1 and 2) also fix the row count, so the
+//     row loops carry no branch (more rows keep one branch a row: padding
+//     a window's 5-row groups to 8 measured slower).
+//   * Numerics. Sums run in float64 over exact products (bf16 x bf16,
+//     int8, e4m3 or a nibble) and are rounded once, so the kernel and its
+//     plain version (kernels/paged_attention.py) agree bit for bit but
+//     where a float64 sum's order tips a rounding. Every order a row's
+//     terms are summed in (D segments, slot halves within a tile, tiles
+//     within a part, parts within the fold) is a function of D, the page
+//     size and the absolute key index alone,
+//     never of W, rep, B, the lengths or the band, and a term outside a
+//     row's keys is an exact zero; so window row w equals the single query
+//     at length lengths[b] - W + w + 1 bit for bit. The maximum is global
+//     (over all parts) before p is rounded, as in the one-pass softmax: a
+//     flash-decoding fold of per-part maxima would round p elsewhere. The
+//     float64 sums stay because they are what makes the kernel equal its
+//     plain version and its window rows equal its single queries; a
+//     float32 tensor-core sum would change the tolerances. Their work fits
+//     under the byte bound (about 10 G multiply-adds for a 42-layer
+//     gemma2-9b step against ~34 TFLOP/s float64), but not the issue rate
+//     they take: a float64 product and a shared-memory operand for every
+//     element and row set the pace where a group holds several rows (the
+//     verify window, ~10x its byte bound).
+//   * Idle engine slots have every block-table entry 0 (the trash page)
+//     and a full length: they read page 0 again and again, which is valid
+//     memory, and their output is never used.
+//   * Workspaces (kernels/paged_attention.py split_workspace): scores
+//     [B*Hkv, ng*gs, PMAX*page] float32 (decode_attention.score_workspace);
+//     K11's own maxima, partials and int32 tickets [B*Hkv*ng], flat
+//     buffers kept per device. At gemma2-9b's 8-slot step (8 KV heads, 2
+//     rows, 8192-row contexts: 16 parts): scores 4 MiB, maxima 8 KiB,
+//     partials 4.2 MB, tickets 256 bytes.
 #include "nctt_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_REP = 8;
+constexpr int MAX_REP = 8;   // query rows of a group
+constexpr int SLOTS = 64;    // key slots of a tile
+// tiles in the ring: as many as ~72 KB hold, 3 to 6 (3 where D is known
+// only at run time)
+template <int FMT, int DC>
+__host__ __device__ constexpr int ring_stages() {
+  const int tile = (FMT == 3 ? SLOTS / 2 : SLOTS) *
+                   ((((DC ? DC : 256) * (FMT == 0 ? 2 : 1) + 15) / 16) | 1) *
+                   16;
+  const int n = 72 * 1024 / tile;
+  return !DC || n < 3 ? 3 : (n > 6 ? 6 : n);
+}
+constexpr int MAX_PAGES = 512;  // pages a part (kernels/paged_attention.py)
+// the most dynamic shared memory a launch takes: bf16 D 256, 8 rows (ring
+// 101 KiB, q 16 KiB and segment sums 32 KiB)
+constexpr int MAX_DYN_SMEM = 160 * 1024;
 
 // pool formats, as kernels/paged_attention.py numbers them
 constexpr int BF16 = 0, INT8 = 1, FP8 = 2, INT4 = 3;
 
-template <int FMT>
-struct Code;
-template <> struct Code<BF16> { using T = __nv_bfloat16; };
-template <> struct Code<INT8> { using T = int8_t; };
-template <> struct Code<FP8> { using T = nctt::fp8e4m3; };
-template <> struct Code<INT4> { using T = uint8_t; };
+struct Args {
+  const __nv_bfloat16* q;
+  const uint8_t* kp;
+  const float* ks;
+  const float* ko;
+  const uint8_t* vp;
+  const float* vs;
+  const float* vo;
+  const int* bt;
+  const int* lengths;
+  __nv_bfloat16* out;
+  float* ws;        // [B, Hkv, ng*gs, Tv] scores
+  float* pmax;      // [B, Hkv, ng*gs, parts] part maxima
+  double* part;     // [B, Hkv, ng*gs, parts, D + 2] partials
+  int* tickets;     // [B, Hkv, ng]
+  int H, Hkv, W, page, PMAX, D, ng, part_keys, parts, window, vec;
+  float scale, cap, inv_cap;
+};
 
-// lane's DPL elements of row r of pool page `pid` (head hk) as float
-// (elements lane*DPL + e; zero past D)
-template <int DPL, int FMT>
-__device__ __forceinline__ void load_page_row(const void* pages, int pid,
-                                              int hk, int Hkv, int page,
-                                              int r, int lane, int D,
-                                              float (&out)[DPL]) {
-  using C = typename Code<FMT>::T;
-  if constexpr (FMT == INT4) {
-    const int half = page >> 1;
-    const size_t brow = ((size_t)pid * Hkv + hk) * half + r % half;
-    const uint8_t* p = reinterpret_cast<const uint8_t*>(pages) + brow * D +
-        lane * DPL;
-    uint8_t b[DPL];
-    if (D == 32 * DPL) {
-      nctt::load_bytes<DPL>(p, b);
-    } else {  // a masked tail: scalar loads
+template <int FMT>
+struct Fmt {
+  static constexpr bool QUANT = FMT != BF16;
+  static constexpr bool AFFINE = FMT == INT4;
+  static constexpr int ESIZE = FMT == BF16 ? 2 : 1;   // bytes an element
+  static constexpr int EPC = 16 / ESIZE;              // elements a chunk
+  static constexpr int TU = FMT == INT4 ? SLOTS / 2 : SLOTS;  // rows a tile
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>   // all but the N newest groups landed
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// exact float64 values of the codes, by bit moves and one float64 operation
+__device__ __forceinline__ double bf16_bits(uint32_t b) {   // low 16 bits
+  return __hiloint2double(
+             (int)(((b & 0x7FFFu) << 13) | ((b & 0x8000u) << 16)), 0) *
+         0x1p896;
+}
+__device__ __forceinline__ double e4m3_bits(uint32_t b) {   // low 8 bits
+  return __hiloint2double((int)(((b & 0x7Fu) << 17) | ((b & 0x80u) << 24)),
+                          0) *
+         0x1p1016;
+}
+__device__ __forceinline__ double int8_bits(uint32_t b) {   // low 8 bits
+  return __hiloint2double(0x43300000, (int)((b & 0xFFu) ^ 0x80u)) -
+         4503599627370624.0;                                // 2^52 + 128
+}
+__device__ __forceinline__ double nibble(uint32_t n) {      // 0..15
+  return __hiloint2double(0x43300000, (int)n) - 4503599627370504.0;  // +8
+}
+
+// element e of a staged row (byte address `row`), int4: nibble `hi`
+template <int FMT>
+__device__ __forceinline__ double elem(const uint8_t* row, int e, int hi) {
+  if constexpr (FMT == BF16)
+    return bf16_bits(*reinterpret_cast<const uint16_t*>(row + 2 * e));
+  else if constexpr (FMT == INT8)
+    return int8_bits(row[e]);
+  else if constexpr (FMT == FP8)
+    return e4m3_bits(row[e]);
+  else
+    return nibble(hi ? row[e] >> 4 : row[e] & 15u);
+}
+
+// the EPC elements of one 16-byte chunk as float64
+template <int FMT>
+__device__ __forceinline__ void chunk(const uint4& c, int hi,
+                                      double (&x)[Fmt<FMT>::EPC]) {
+  const uint32_t w[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-      for (int e = 0; e < DPL; ++e)
-        b[e] = lane * DPL + e < D ? p[e] : (uint8_t)0x88;  // code 0
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (FMT == BF16) {
+      x[2 * i] = bf16_bits(w[i]);
+      x[2 * i + 1] = bf16_bits(w[i] >> 16);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t b = w[i] >> (8 * j);
+        if constexpr (FMT == INT8)
+          x[4 * i + j] = int8_bits(b);
+        else if constexpr (FMT == FP8)
+          x[4 * i + j] = e4m3_bits(b);
+        else
+          x[4 * i + j] = nibble(hi ? (b >> 4) & 15u : b & 15u);
+      }
     }
-    const bool hi = r >= half;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e)
-      out[e] = (float)((int)(hi ? b[e] >> 4 : b[e] & 15) - 8);
-  } else {
-    const size_t row = ((size_t)pid * Hkv + hk) * page + r;
-    nctt::load_lane<DPL>(reinterpret_cast<const C*>(pages) + row * D, lane,
-                         D, out);
   }
 }
 
-// rows of query row i of a block: window row w = i / rep sits at position
-// n - W + w and attends keys t <= that position, i.e. t < n - W + w + 1
-// (W = 1: the single query at n - 1 attends n rows), at most Tv rows
+// rows of query row i of a group: window row w = i / rep sits at position
+// n - W + w and attends keys t < n - W + w + 1 (W = 1: the single query at
+// n - 1 attends n rows), at most Tv rows
 __device__ __forceinline__ int row_len(int n, int W, int rep, int i,
                                        int Tv) {
   const int l = n - W + i / rep + 1;
@@ -131,229 +274,584 @@ __device__ __forceinline__ int row_lo(int n, int W, int rep, int i,
   return lo < 0 ? 0 : lo;
 }
 
-template <int DPL, bool FULL, int FMT>
-__global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const void* __restrict__ kp,
-                       const float* __restrict__ ks,
-                       const float* __restrict__ ko,
-                       const void* __restrict__ vp,
-                       const float* __restrict__ vs,
-                       const float* __restrict__ vo,
-                       const int* __restrict__ bt,
-                       const int* __restrict__ lengths,
-                       __nv_bfloat16* __restrict__ out,
-                       float* __restrict__ ws, int H, int Hkv, int W,
-                       int page, int PMAX, int D_, float scale, int window,
-                       float cap, float inv_cap) {
-  const int D = FULL ? DPL * 32 : D_;
-  constexpr bool QUANT = FMT != BF16;
-  constexpr bool AFFINE = FMT == INT4;
-  extern __shared__ __align__(16) double smem[];
-  const int rep = H / Hkv;
-  const int rows = W * rep;                           // query rows (w, r)
-  const int ng = gridDim.z;                           // groups of rows
-  const int gs = (rows + ng - 1) / ng;                // rows of a group
-  const int Tv = PMAX * page;                         // visitable rows
-  const int hk = blockIdx.x, b = blockIdx.y, g = blockIdx.z;
-  const int n = lengths[b];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  double* sred = smem;                                // [WARPS][gs][D]
-  double* sl = sred + WARPS * gs * D;                 // [gs]
-  double* scorr = sl + gs;                            // [gs] (int4)
-  float* sq = reinterpret_cast<float*>(scorr + gs);   // [gs][D]
-  float* sqsum = sq + gs * D;                         // [gs] (int4)
-  // the group's score rows, in device memory: [gs][Tv]
-  float* sp = ws + (((size_t)b * Hkv + hk) * ng + g) * gs * (size_t)Tv;
-  const int* btb = bt + (size_t)b * PMAX;
-  // query row i = (w, r) is q[b, hk*rep + r, w] and out[b, hk*rep + r, w]
-  auto qoff = [&](int i) {
-    return (((size_t)b * H + (size_t)hk * rep + i % rep) * W + i / rep) * D;
-  };
+// A block's group, its rows' keys and its part's tiles.
+template <int FMT>
+struct Block {
+  int b, hk, g, G, rep, n, Tv, row0;     // row0: the group's first ws row
+  int klo, khi;                          // keys of any of the group's rows
+  int p, p_lo, p_hi;                     // this part; the group's parts
+  int rows_pp, half, tpp, i_lo, i_hi;    // tile geometry, tiles to visit
+  int tsh;                               // log2(tpp), or -1
+  int rowbytes, srow, nc;                // staged row bytes, stride, chunks
+  int cw, cu, cdu;                       // this thread's copy column, rows
 
-  const int g0 = g * gs;
-  const int G = rows - g0 < gs ? rows - g0 : gs;
-  if (G <= 0) return;
-  int Lmax = 0, tlo = Tv;
-  for (int r = 0; r < G; ++r) {
-    const int l = row_len(n, W, rep, g0 + r, Tv);
-    const int lo = row_lo(n, W, rep, g0 + r, window);
-    Lmax = l > Lmax ? l : Lmax;
-    tlo = lo < tlo ? lo : tlo;
-  }
-  if (n <= 0 || Lmax == 0) {
-    for (int i = tid; i < G * D; i += THREADS)
-      out[qoff(g0 + i / D) + i % D] = __float2bfloat16_rn(0.0f);
-    return;
-  }
-  for (int i = tid; i < G * D; i += THREADS)
-    sq[i] = __bfloat162float(q[qoff(g0 + i / D) + i % D]);
-  __syncthreads();
-  if constexpr (AFFINE) {
-    // sum of each query row, for the rank-1 offset term of the scores
-    for (int r = warp; r < G; r += WARPS) {
-      double qs = 0.0;
-      for (int d = lane; d < D; d += 32) qs += (double)sq[r * D + d];
-      qs = nctt::warp_sum(qs);
-      if (lane == 0) sqsum[r] = (float)qs;
+  __device__ Block(const Args& a, int* slo, int* slen) {
+    p = blockIdx.x;
+    hk = blockIdx.y / a.ng;
+    g = blockIdx.y - hk * a.ng;
+    b = blockIdx.z;
+    rep = a.H / a.Hkv;
+    const int rows = a.W * rep;
+    const int gs = (rows + a.ng - 1) / a.ng;
+    const int g0 = g * gs;
+    G = rows - g0 < gs ? rows - g0 : gs;
+    n = a.lengths[b];
+    Tv = a.PMAX * a.page;
+    row0 = ((b * a.Hkv + hk) * a.ng + g) * gs;
+    klo = Tv;
+    khi = 0;
+    for (int r = 0; r < G; ++r) {
+      const int l = row_len(n, a.W, rep, g0 + r, Tv);
+      const int lo = row_lo(n, a.W, rep, g0 + r, a.window);
+      if (threadIdx.x == 0) {
+        slo[r] = lo;
+        slen[r] = l;
+      }
+      if (lo < l) {
+        klo = lo < klo ? lo : klo;
+        khi = l > khi ? l : khi;
+      }
     }
+    const int PK = a.part_keys;
+    p_lo = klo / PK;
+    p_hi = khi > klo ? (khi - 1) / PK + 1 : p_lo;
+    rows_pp = FMT == INT4 ? a.page / 2 : a.page;
+    half = a.page / 2;
+    tpp = (rows_pp + Fmt<FMT>::TU - 1) / Fmt<FMT>::TU;
+    tsh = (tpp & (tpp - 1)) ? -1 : __ffs(tpp) - 1;
+    rowbytes = a.D * Fmt<FMT>::ESIZE;
+    nc = (rowbytes + 15) >> 4;
+    srow = (nc | 1) * 16;
+    // 16-byte copies: chunk column cw of rows cu, cu + cdu, ... where the
+    // block's threads tile whole rows; else (cdu = 0) chunk by chunk
+    const int cpr = rowbytes >> 4;
+    cdu = cpr && blockDim.x % cpr == 0 ? blockDim.x / cpr : 0;
+    cw = cdu ? threadIdx.x % cpr : 0;
+    cu = cdu ? threadIdx.x / cpr : 0;
+    i_lo = i_hi = 0;
+    if (p < p_lo || p >= p_hi) return;
+    // keys of the group inside this part, then the tiles holding them
+    const int ps = p * PK;
+    const int k0 = klo > ps ? klo : ps;
+    const int k1 = khi < ps + PK ? khi : ps + PK;
+    const int j0 = (k0 - ps) / a.page, j1 = (k1 - 1 - ps) / a.page;
+    if constexpr (FMT == INT4) {   // a tile's tokens lie in both halves
+      i_lo = j0 * tpp;
+      i_hi = (j1 + 1) * tpp;
+    } else {
+      i_lo = j0 * tpp + (k0 - ps - j0 * a.page) / Fmt<FMT>::TU;
+      i_hi = j1 * tpp + (k1 - 1 - ps - j1 * a.page) / Fmt<FMT>::TU + 1;
+    }
+  }
+
+  __device__ bool active() const { return p >= p_lo && p < p_hi; }
+
+  // the pool pages of the part (those of the block table), into spid
+  __device__ void load_pages(const Args& a, int* spid) const {
+    const int kpp = a.part_keys / a.page, j0 = p * kpp;
+    const int n = a.PMAX - j0 < kpp ? a.PMAX - j0 : kpp;
+    for (int j = threadIdx.x; j < n; j += blockDim.x)
+      spid[j] = a.bt[(size_t)b * a.PMAX + j0 + j];
+  }
+
+  // tile i of the part: its pool page, first row, rows and first key
+  __device__ __forceinline__ void tile(const Args& a, const int* spid, int i,
+                                       int& pid, int& u0, int& nu,
+                                       int& kb) const {
+    const int j = tsh >= 0 ? i >> tsh : i / tpp;
+    u0 = (i - j * tpp) * Fmt<FMT>::TU;
+    nu = rows_pp - u0 < Fmt<FMT>::TU ? rows_pp - u0 : Fmt<FMT>::TU;
+    kb = p * a.part_keys + j * a.page;
+    pid = spid[j];
+  }
+
+  // slot k of a tile: its staged row, int4 nibble and token of the page
+  __device__ __forceinline__ void slot(int k, int u0, int& unit, int& hi,
+                                       int& tok) const {
+    if constexpr (FMT == INT4) {
+      unit = k & (SLOTS / 2 - 1);
+      hi = k >= SLOTS / 2;
+      tok = u0 + unit + (hi ? half : 0);
+    } else {
+      unit = k;
+      hi = 0;
+      tok = u0 + k;
+    }
+  }
+
+  // issue the copies of tile i's slab of `pages` into `dst`
+  __device__ void stage(const Args& a, const int* spid, const uint8_t* pages,
+                        int i, uint8_t* dst) const {
+    int pid, u0, nu, kb;
+    tile(a, spid, i, pid, u0, nu, kb);
+    const uint8_t* src =
+        pages + (((size_t)pid * a.Hkv + hk) * rows_pp + u0) * rowbytes;
+    if (a.vec && cdu) {
+      for (int u = cu; u < nu; u += cdu)
+        cp_async16(dst + u * srow + cw * 16, src + (size_t)u * rowbytes +
+                                                  cw * 16);
+    } else if (a.vec) {
+      const int cpr = rowbytes >> 4, m = nu * cpr;
+      for (int c = threadIdx.x; c < m; c += blockDim.x) {
+        const int u = c / cpr;
+        cp_async16(dst + u * srow + (c - u * cpr) * 16, src + (size_t)c * 16);
+      }
+    } else {   // a row of no whole 16-byte chunks: scalars, tail zeroed
+      const int rb = nc * 16, m = nu * rb;
+      for (int c = threadIdx.x; c < m; c += blockDim.x) {
+        const int u = c / rb, w = c - u * rb;
+        dst[u * srow + w] =
+            w < rowbytes ? __ldg(src + (size_t)u * rowbytes + w) : (uint8_t)0;
+      }
+    }
+  }
+};
+
+// Visit tiles i_lo .. i_hi-1 of `pages` with NST - 1 tiles in flight:
+// body(i, staged tile) runs between two block barriers.
+template <int NST, int FMT, typename Body>
+__device__ __forceinline__ void ring(const Args& a, const Block<FMT>& k,
+                                     const int* spid, const uint8_t* pages,
+                                     uint8_t* buf, Body body) {
+  const int stage_bytes = Fmt<FMT>::TU * k.srow;
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (k.i_lo + s < k.i_hi)
+      k.stage(a, spid, pages, k.i_lo + s, buf + s * stage_bytes);
+    cp_async_commit();
+  }
+  for (int i = k.i_lo; i < k.i_hi; ++i) {
+    const int c = i - k.i_lo;
+    if (i + NST - 1 < k.i_hi)
+      k.stage(a, spid, pages, i + NST - 1,
+              buf + ((c + NST - 1) % NST) * stage_bytes);
+    cp_async_commit();
+    cp_async_wait<NST - 1>();
     __syncthreads();
-  }
-
-  // pass 1: scores of the rows that attend key t
-  for (int t = tlo + warp; t < Lmax; t += WARPS) {
-    const int pid = btb[t / page], rr = t % page;
-    const size_t sidx = ((size_t)pid * Hkv + hk) * page + rr;
-    float kv[DPL];
-    load_page_row<DPL, FMT>(kp, pid, hk, Hkv, page, rr, lane, D, kv);
-#pragma unroll
-    for (int r = 0; r < MAX_REP; ++r) {
-      if (r >= G) break;
-      if (t >= row_len(n, W, rep, g0 + r, Tv) ||
-          t < row_lo(n, W, rep, g0 + r, window))
-        continue;  // warp-uniform
-      double d = 0.0;
-#pragma unroll
-      for (int e = 0; e < DPL; ++e)
-        if (FULL || lane * DPL + e < D)
-          d += (double)sq[r * D + lane * DPL + e] * (double)kv[e];
-      d = nctt::warp_sum(d);
-      if (lane == 0) {
-        float s = (float)d;
-        if constexpr (QUANT) s = __fmul_rn(s, ks[sidx]);
-        if constexpr (AFFINE)
-          s = __fadd_rn(s, __fmul_rn(sqsum[r], ko[sidx]));
-        s = __fmul_rn(s, scale);
-        if (cap > 0.f)  // gemma's logit softcap, before the mask
-          s = __fmul_rn(cap, (float)tanh((double)__fmul_rn(s, inv_cap)));
-        sp[(size_t)r * Tv + t] = s;
-      }
-    }
-  }
-  __syncthreads();
-
-  // softmax numerators: p = bf16(f32(exp(s - m)) [* v_scale]), l
-  // unrounded; int4: corr = sum f32(exp(s - m)) * v_off
-  for (int r = warp; r < G; r += WARPS) {
-    const int L = row_len(n, W, rep, g0 + r, Tv);
-    const int lo = row_lo(n, W, rep, g0 + r, window);
-    float* row = sp + (size_t)r * Tv;
-    float m = -INFINITY;
-    for (int t = lo + lane; t < L; t += 32) m = fmaxf(m, row[t]);
-    m = nctt::warp_max(m);
-    double l = 0.0, corr = 0.0;
-    for (int t = lo + lane; t < L; t += 32) {
-      const double e = exp((double)row[t] - (double)m);
-      l += e;
-      float pe = (float)e;
-      if constexpr (QUANT) {
-        const size_t sidx = ((size_t)btb[t / page] * Hkv + hk) * page +
-            t % page;
-        if constexpr (AFFINE) corr += (double)pe * (double)vo[sidx];
-        pe = __fmul_rn(pe, vs[sidx]);
-      }
-      row[t] = __bfloat162float(__float2bfloat16_rn(pe));
-    }
-    l = nctt::warp_sum(l);
-    if constexpr (AFFINE) corr = nctt::warp_sum(corr);
-    if (lane == 0) {
-      sl[r] = l;
-      scorr[r] = corr;
-    }
-  }
-  __syncthreads();
-
-  // pass 2: PV, each warp over its keys, then a cross-warp sum, + corr,
-  // / l
-  double o[MAX_REP][DPL];
-#pragma unroll
-  for (int r = 0; r < MAX_REP; ++r)
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) o[r][e] = 0.0;
-  for (int t = tlo + warp; t < Lmax; t += WARPS) {
-    float vv[DPL];
-    load_page_row<DPL, FMT>(vp, btb[t / page], hk, Hkv, page, t % page,
-                            lane, D, vv);
-#pragma unroll
-    for (int r = 0; r < MAX_REP; ++r) {
-      if (r >= G) break;
-      if (t >= row_len(n, W, rep, g0 + r, Tv) ||
-          t < row_lo(n, W, rep, g0 + r, window))
-        continue;  // warp-uniform
-      const double pr = sp[(size_t)r * Tv + t];
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) o[r][e] += pr * (double)vv[e];
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < MAX_REP; ++r) {
-    if (r >= G) break;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e)
-      if (FULL || lane * DPL + e < D)
-        sred[(warp * gs + r) * D + lane * DPL + e] = o[r][e];
-  }
-  __syncthreads();
-  for (int i = tid; i < G * D; i += THREADS) {
-    const int r = i / D;
-    double acc = 0.0;
-#pragma unroll
-    for (int wi = 0; wi < WARPS; ++wi) acc += sred[(wi * gs + r) * D + i % D];
-    float a = (float)acc;
-    if constexpr (AFFINE) a = __fadd_rn(a, (float)scorr[r]);
-    out[qoff(g0 + r) + i % D] = __float2bfloat16_rn(
-        __fdiv_rn(a, fmaxf((float)sl[r], 1e-30f)));
+    body(i, buf + (c % NST) * stage_bytes);
+    __syncthreads();
   }
 }
 
-template <int DPL, bool FULL, int FMT>
-int launch(const void* q, const void* kp, const void* ks, const void* ko,
-           const void* vp, const void* vs, const void* vo, const void* bt,
-           const void* lengths, void* out, void* ws, int B, int H, int Hkv,
-           int W, int page, int PMAX, int D, float scale, int window,
-           float cap, float inv_cap, cudaStream_t stream) {
-  const int rows = W * (H / Hkv);
-  const int ng = (rows + MAX_REP - 1) / MAX_REP;      // groups of rows
-  const int gs = (rows + ng - 1) / ng;
-  const size_t smem = sizeof(double) * ((size_t)WARPS * gs * D + 2 * gs) +
-      sizeof(float) * ((size_t)gs * D + gs);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<DPL, FULL, FMT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+// Launch A: the scores of the group's rows over this part's keys and each
+// row's maximum over the part. DC: D at compile time (0: at run time); GP:
+// the group's rows padded to a compile-time count, zero rows past G (0: G
+// at run time, each row behind a branch).
+template <int FMT, int NT, int DC, int GP>
+__global__ void __launch_bounds__(NT) scores_kernel(const Args a) {
+  using F = Fmt<FMT>;
+  constexpr int NST = ring_stages<FMT, DC>();
+  constexpr int NS = NT / 32;              // D segments
+  // chunks a segment where D is known at compile time (0: at run time)
+  constexpr int NCS = DC && ((DC * F::ESIZE + 15) / 16) % NS == 0
+                          ? (DC * F::ESIZE + 15) / 16 / NS : 0;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int slo[MAX_REP], slen[MAX_REP], spid[MAX_PAGES];
+  __shared__ float smx[2][MAX_REP];
+  __shared__ float sqsum[MAX_REP];
+  const Block<FMT> k(a, slo, slen);
+  if (!k.active()) return;
+  k.load_pages(a, spid);
+  const int D = DC ? DC : a.D;
+  const int nc = DC ? (DC * F::ESIZE + 15) / 16 : k.nc;
+  const int DQ = nc * F::EPC;              // D padded to whole chunks
+  const int G = k.G, tid = threadIdx.x;
+  const int gs = (a.W * k.rep + a.ng - 1) / a.ng;
+  const int RS = GP ? GP : gs;             // rows of the buffers
+  uint8_t* buf = smem;
+  double* sq = reinterpret_cast<double*>(buf + NST * F::TU * k.srow);
+  double* spart = sq + RS * DQ;            // [NS][RS][SLOTS]
+  // query row i = (w, r) is q[b, hk*rep + r, w]
+  const int g0 = k.g * gs;
+  for (int i = tid; i < RS * DQ; i += NT) {
+    const int r = i / DQ, d = i - r * DQ, qi = g0 + r;
+    sq[i] = d < D && r < G ? (double)__bfloat162float(
+                        a.q[(((size_t)k.b * a.H + (size_t)k.hk * k.rep +
+                              qi % k.rep) * a.W + qi / k.rep) * D + d])
+                  : 0.0;
   }
-  paged_attention_kernel<DPL, FULL, FMT><<<dim3(Hkv, B, ng), THREADS, smem,
-                                     stream>>>(
-      (const __nv_bfloat16*)q, kp, (const float*)ks, (const float*)ko, vp,
-      (const float*)vs, (const float*)vo, (const int*)bt, (const int*)lengths,
-      (__nv_bfloat16*)out, (float*)ws, H, Hkv, W, page, PMAX, D, scale,
-      window, cap, inv_cap);
+  __syncthreads();
+  if constexpr (F::AFFINE) {
+    // sum of each query row, for the rank-1 offset term of the scores
+    for (int r = tid >> 5; r < G; r += NT / 32) {
+      double s = 0.0;
+      for (int d = tid & 31; d < D; d += 32) s += sq[r * DQ + d];
+      s = nctt::warp_sum(s);
+      if ((tid & 31) == 0) sqsum[r] = (float)s;
+    }
+  }
+  // thread (key pair kp, D segment h) sums keys kp and kp + 32 of a tile
+  // (int4: both nibbles of byte row kp), so each q element it loads serves
+  // two keys; threads tid < 64 then finish key slot tid
+  const int kp = tid & 31, h = tid >> 5, ks_ = tid & (SLOTS - 1);
+  const int c_lo = h * nc / NS, c_hi = (h + 1) * nc / NS;
+  float mx[MAX_REP];
+#pragma unroll
+  for (int r = 0; r < MAX_REP; ++r) mx[r] = -INFINITY;
+
+  ring<NST>(a, k, spid, a.kp, buf, [&](int i, const uint8_t* tb) {
+    int pid, u0, nu, kb, unit, hi, tok;
+    k.tile(a, spid, i, pid, u0, nu, kb);
+    k.slot(ks_, u0, unit, hi, tok);
+    const bool fin = tid < SLOTS && unit < nu;   // finishes slot ks_
+    const size_t sidx = ((size_t)pid * a.Hkv + k.hk) * a.page + tok;
+    // the finishing threads fetch their key's scale and offset first, so
+    // the loads overlap the dot products
+    float ksc = 0.f, kof = 0.f;
+    if (fin) {
+      if constexpr (F::QUANT) ksc = a.ks[sidx];
+      if constexpr (F::AFFINE) kof = a.ko[sidx];
+    }
+    int ua, ha, ta, ub, hb, tb_;
+    k.slot(kp, u0, ua, ha, ta);
+    k.slot(kp + SLOTS / 2, u0, ub, hb, tb_);
+    if (ua < nu || ub < nu) {
+      // one sum a (row, key), its elements in ascending order
+      double acc[MAX_REP][2];
+#pragma unroll
+      for (int r = 0; r < MAX_REP; ++r) acc[r][0] = acc[r][1] = 0.0;
+      const uint8_t* rowa = tb + ua * k.srow;
+      const uint8_t* rowb = tb + ub * k.srow;
+      auto dot_chunk = [&](int c) {
+        const uint4 va = *reinterpret_cast<const uint4*>(rowa + c * 16);
+        const uint4 vb = F::AFFINE
+            ? va : *reinterpret_cast<const uint4*>(rowb + c * 16);
+        double xa[F::EPC], xb[F::EPC];
+        chunk<FMT>(va, ha, xa);
+        chunk<FMT>(vb, hb, xb);
+#pragma unroll
+        for (int r = 0; r < MAX_REP; ++r) {
+          if (GP ? r >= GP : r >= G) break;
+          const double2* qd =
+              reinterpret_cast<const double2*>(sq + r * DQ + c * F::EPC);
+#pragma unroll
+          for (int e = 0; e < F::EPC; e += 2) {
+            const double2 qq = qd[e / 2];
+            acc[r][0] += qq.x * xa[e];
+            acc[r][1] += qq.x * xb[e];
+            acc[r][0] += qq.y * xa[e + 1];
+            acc[r][1] += qq.y * xb[e + 1];
+          }
+        }
+      };
+      if constexpr (NCS > 0) {
+#pragma unroll
+        for (int c = 0; c < NCS; ++c) dot_chunk(c_lo + c);
+      } else {
+        for (int c = c_lo; c < c_hi; ++c) dot_chunk(c);
+      }
+#pragma unroll
+      for (int r = 0; r < MAX_REP; ++r) {
+        if (GP ? r >= GP : r >= G) break;
+        spart[(h * RS + r) * SLOTS + kp] = acc[r][0];
+        spart[(h * RS + r) * SLOTS + kp + SLOTS / 2] = acc[r][1];
+      }
+    }
+    __syncthreads();
+    if (fin) {
+      const int t = kb + tok;
+#pragma unroll
+      for (int r = 0; r < MAX_REP; ++r) {
+        if (r >= G) break;
+        if (t < slo[r] || t >= slen[r]) continue;
+        double d = spart[r * SLOTS + ks_];
+#pragma unroll
+        for (int hh = 1; hh < NS; ++hh)
+          d += spart[(hh * RS + r) * SLOTS + ks_];
+        float s = (float)d;
+        if constexpr (F::QUANT) s = __fmul_rn(s, ksc);
+        if constexpr (F::AFFINE) s = __fadd_rn(s, __fmul_rn(sqsum[r], kof));
+        s = __fmul_rn(s, a.scale);
+        if (a.cap > 0.f)  // gemma's logit softcap, before the mask
+          s = __fmul_rn(a.cap, (float)tanh((double)__fmul_rn(s, a.inv_cap)));
+        a.ws[(size_t)(k.row0 + r) * k.Tv + t] = s;
+        mx[r] = fmaxf(mx[r], s);
+      }
+    }
+  });
+
+  if (tid < SLOTS) {
+#pragma unroll
+    for (int r = 0; r < MAX_REP; ++r) {
+      if (r >= G) break;
+      const float m = nctt::warp_max(mx[r]);
+      if ((tid & 31) == 0) smx[tid >> 5][r] = m;
+    }
+  }
+  __syncthreads();
+  if (tid < G)
+    a.pmax[(size_t)(k.row0 + tid) * a.parts + k.p] =
+        fmaxf(smx[0][tid], smx[1][tid]);
+}
+
+// Launch B: p, l and corr against each row's global maximum, the part's
+// PV partials, and the ordered fold by the group's last block. DC and GP as
+// in scores_kernel.
+template <int FMT, int NT, int DC, int GP>
+__global__ void __launch_bounds__(NT) pv_kernel(const Args a) {
+  using F = Fmt<FMT>;
+  constexpr int NST = ring_stages<FMT, DC>();
+  constexpr int J = MAX_REP * SLOTS / NT;  // (row, slot) pairs a thread
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int slo[MAX_REP], slen[MAX_REP], spid[MAX_PAGES];
+  __shared__ float sm[MAX_REP], sfl[MAX_REP], sfc[MAX_REP];
+  __shared__ double se[2 * MAX_REP], sc[2 * MAX_REP];
+  __shared__ int last;
+  const Block<FMT> k(a, slo, slen);
+  const int D = DC ? DC : a.D;
+  const int G = k.G, tid = threadIdx.x;
+  const int gs = (a.W * k.rep + a.ng - 1) / a.ng;
+  const int g0 = k.g * gs;
+  auto out_at = [&](int r, int d) -> __nv_bfloat16& {
+    const int qi = g0 + r;
+    return a.out[(((size_t)k.b * a.H + (size_t)k.hk * k.rep + qi % k.rep) *
+                      a.W + qi / k.rep) * D + d];
+  };
+  if (!k.active()) {
+    if (k.p == 0 && k.p_hi <= k.p_lo)   // no key for any row: zeros
+      for (int i = tid; i < G * D; i += NT)
+        out_at(i / D, i % D) = __float2bfloat16_rn(0.0f);
+    return;
+  }
+  k.load_pages(a, spid);
+  uint8_t* buf = smem;
+  double* sp = reinterpret_cast<double*>(buf + NST * F::TU * k.srow);
+  for (int i = G * SLOTS + tid; i < GP * SLOTS; i += NT)
+    sp[i] = 0.0;       // the padded rows' p: never written, always read
+  __syncthreads();   // slo, slen, spid
+  if (tid < G && slo[tid] < slen[tid]) {
+    // the row's maximum over every part that holds its keys
+    const float* pm = a.pmax + (size_t)(k.row0 + tid) * a.parts;
+    float m = -INFINITY;
+    for (int pp = slo[tid] / a.part_keys;
+         pp <= (slen[tid] - 1) / a.part_keys; ++pp)
+      m = fmaxf(m, pm[pp]);
+    sm[tid] = m;
+  }
+  // the scores and v scales of a tile's (row, slot) pairs, fetched a tile
+  // ahead so that their loads overlap the PV products
+  float fs[J], fvs[J], fvo[J];
+  unsigned fok = 0;                    // bit j: pair j is a key of its row
+  auto fetch = [&](int i) {
+    int pid, u0, nu, kb;
+    k.tile(a, spid, i, pid, u0, nu, kb);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int pi = j * NT + tid, r = pi / SLOTS;
+      int unit, hi, tok;
+      k.slot(pi - r * SLOTS, u0, unit, hi, tok);
+      const int t = kb + tok;
+      const bool ok = r < G && unit < nu && t >= slo[r] && t < slen[r];
+      fok = ok ? fok | 1u << j : fok & ~(1u << j);
+      if (ok) {
+        fs[j] = a.ws[(size_t)(k.row0 + r) * k.Tv + t];
+        const size_t sidx = ((size_t)pid * a.Hkv + k.hk) * a.page + tok;
+        if constexpr (F::QUANT) fvs[j] = a.vs[sidx];
+        if constexpr (F::AFFINE) fvo[j] = a.vo[sidx];
+      }
+    }
+  };
+  if (k.i_lo < k.i_hi) fetch(k.i_lo);
+  // thread (column pair, slot half hs): columns d0 and d1 = d0 + DH of
+  // every row over slots hs*32 .. hs*32+31 of each tile; the two halves
+  // add at the part's end
+  const int DH = (D + 1) / 2, hs = tid / (NT / 2);
+  const int d0 = tid - hs * (NT / 2), d1 = d0 + DH;
+  double o[MAX_REP][2];              // [row][column d0, d1]
+#pragma unroll
+  for (int r = 0; r < MAX_REP; ++r) o[r][0] = o[r][1] = 0.0;
+  double l_run = 0.0, c_run = 0.0;   // threads r < G: row r's sums
+
+  ring<NST>(a, k, spid, a.vp, buf, [&](int i, const uint8_t* tb) {
+    // p = bf16(f32(exp(s - m)) [* v_scale]) of each (row, slot); the
+    // tile's sums of exp and of corr's terms over its slots
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int pi = j * NT + tid, r = pi / SLOTS;
+      if (j * NT + (tid & ~31) >= G * SLOTS) break;   // warp-uniform
+      double e = 0.0, cv = 0.0, pv = 0.0;
+      if (fok >> j & 1u) {
+        e = exp((double)fs[j] - (double)sm[r]);
+        float pe = (float)e;
+        if constexpr (F::AFFINE) cv = (double)pe * (double)fvo[j];
+        if constexpr (F::QUANT) pe = __fmul_rn(pe, fvs[j]);
+        pv = (double)__bfloat162float(__float2bfloat16_rn(pe));
+      }
+      sp[pi] = pv;
+      e = nctt::warp_sum(e);
+      if constexpr (F::AFFINE) cv = nctt::warp_sum(cv);
+      if ((tid & 31) == 0) {
+        se[pi >> 5] = e;
+        sc[pi >> 5] = cv;
+      }
+    }
+    if (i + 1 < k.i_hi) fetch(i + 1);
+    __syncthreads();
+    if (tid < G) {
+      l_run += se[2 * tid] + se[2 * tid + 1];
+      if constexpr (F::AFFINE) c_run += sc[2 * tid] + sc[2 * tid + 1];
+    }
+    if (d0 < DH) {
+      int pid, u0, nu, kb;
+      k.tile(a, spid, i, pid, u0, nu, kb);
+      // this thread's half of the slots (int4: one nibble), eight at a
+      // time, their loads ahead of the products; each p it loads serves
+      // its two columns
+#pragma unroll 2
+      for (int s0 = hs * SLOTS / 2; s0 < (hs + 1) * SLOTS / 2; s0 += 8) {
+        double xa[8], xb[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int unit = F::AFFINE ? (s0 + e) & (SLOTS / 2 - 1) : s0 + e;
+          const uint8_t* row = tb + unit * k.srow;
+          const double va = elem<FMT>(row, d0, hs);
+          const double vb = elem<FMT>(row, d1 < D ? d1 : d0, hs);
+          xa[e] = unit < nu ? va : 0.0;   // rows past a short tile: stale
+          xb[e] = unit < nu ? vb : 0.0;
+        }
+#pragma unroll
+        for (int r = 0; r < MAX_REP; ++r) {
+          if (GP ? r >= GP : r >= G) break;
+          const double2* pr =
+              reinterpret_cast<const double2*>(sp + r * SLOTS + s0);
+#pragma unroll
+          for (int e = 0; e < 8; e += 2) {
+            const double2 pq = pr[e / 2];
+            o[r][0] += pq.x * xa[e];
+            o[r][1] += pq.x * xb[e];
+            o[r][0] += pq.y * xa[e + 1];
+            o[r][1] += pq.y * xb[e + 1];
+          }
+        }
+      }
+    }
+  });
+
+  // this part's partials: acc[D] (the first half's slots plus the
+  // second's, exchanged through the free ring), then l and corr
+  double* xch = reinterpret_cast<double*>(buf);   // [G][D]
+  if (hs == 1 && d0 < DH) {
+#pragma unroll
+    for (int r = 0; r < MAX_REP; ++r) {
+      if (r >= G) break;
+      xch[r * D + d0] = o[r][0];
+      if (d1 < D) xch[r * D + d1] = o[r][1];
+    }
+  }
+  __syncthreads();
+  double* pw = a.part + (size_t)k.row0 * a.parts * (D + 2);
+  const size_t rstride = (size_t)a.parts * (D + 2);
+  if (hs == 0 && d0 < DH) {
+#pragma unroll
+    for (int r = 0; r < MAX_REP; ++r) {
+      if (r >= G) break;
+      double* pr = pw + r * rstride + (size_t)k.p * (D + 2);
+      pr[d0] = o[r][0] + xch[r * D + d0];
+      if (d1 < D) pr[d1] = o[r][1] + xch[r * D + d1];
+    }
+  }
+  if (tid < G) {
+    pw[tid * rstride + (size_t)k.p * (D + 2) + D] = l_run;
+    pw[tid * rstride + (size_t)k.p * (D + 2) + D + 1] = c_run;
+  }
+  __threadfence();
+  __syncthreads();
+  int* ticket = a.tickets + (k.b * a.Hkv + k.hk) * a.ng + k.g;
+  if (tid == 0) last = atomicAdd(ticket, 1) == k.p_hi - k.p_lo - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // the fold, parts in ascending order
+  if (tid < G) {
+    double l = 0.0, c = 0.0;
+    for (int pp = k.p_lo; pp < k.p_hi; ++pp) {
+      l += __ldcg(pw + tid * rstride + (size_t)pp * (D + 2) + D);
+      c += __ldcg(pw + tid * rstride + (size_t)pp * (D + 2) + D + 1);
+    }
+    sfl[tid] = (float)l;
+    sfc[tid] = (float)c;
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += NT) {
+    const int r = i / D, d = i - r * D;
+    const double* src = pw + r * rstride + d;
+    double acc = 0.0;
+    int pp = k.p_lo;
+    for (; pp + 4 <= k.p_hi; pp += 4) {   // four loads in flight
+      double v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        v[u] = __ldcg(src + (size_t)(pp + u) * (D + 2));
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc += v[u];
+    }
+    for (; pp < k.p_hi; ++pp) acc += __ldcg(src + (size_t)pp * (D + 2));
+    float v = (float)acc;
+    if constexpr (F::AFFINE) v = __fadd_rn(v, sfc[r]);
+    out_at(r, d) = __float2bfloat16_rn(__fdiv_rn(v, fmaxf(sfl[r], 1e-30f)));
+  }
+  if (tid == 0) *ticket = 0;
+}
+
+template <int FMT, int NT, int DC, int GP>
+int launch(const Args& a, int B, cudaStream_t stream) {
+  using F = Fmt<FMT>;
+  const int rows = a.W * (a.H / a.Hkv);
+  const int gs = GP ? GP : (rows + a.ng - 1) / a.ng;   // buffer rows
+  const int nc = (a.D * F::ESIZE + 15) / 16;
+  const size_t ring_bytes =
+      (size_t)ring_stages<FMT, DC>() * F::TU * (nc | 1) * 16;
+  const size_t smem_a = ring_bytes + sizeof(double) *
+      ((size_t)gs * nc * F::EPC + (size_t)(NT / 32) * gs * SLOTS);
+  const size_t smem_b = ring_bytes + sizeof(double) * (size_t)gs * SLOTS;
+  const dim3 grid(a.parts, a.Hkv * a.ng, B);
+  // dynamic shared memory past the default 48 KB (static included), once
+  static bool opted_in = false;
+  cudaError_t e = cudaSuccess;
+  if (!opted_in) {
+    e = cudaFuncSetAttribute(scores_kernel<FMT, NT, DC, GP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             MAX_DYN_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(pv_kernel<FMT, NT, DC, GP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               MAX_DYN_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
+  }
+  scores_kernel<FMT, NT, DC, GP><<<grid, NT, smem_a, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  pv_kernel<FMT, NT, DC, GP><<<grid, NT, smem_b, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// the main paths' widths 128 and 256: groups of 1 and 2 rows (single
+// queries at rep 1 and 2) with their row count at compile time, so the row
+// loops have no branch; more rows at run time (padding a window's 5-row
+// groups to 8 measured slower than the branches, and a copy for every
+// count from 1 to 8 gained little on the window and lengthened the build)
+template <int FMT, int NT, int DC>
+int by_rows(const Args& a, int B, cudaStream_t s) {
+  const int rows = a.W * (a.H / a.Hkv), gs = (rows + a.ng - 1) / a.ng;
+  if (gs == 1) return launch<FMT, NT, DC, 1>(a, B, s);
+  if (gs == 2) return launch<FMT, NT, DC, 2>(a, B, s);
+  return launch<FMT, NT, DC, 0>(a, B, s);
+}
+
+// a compile-time-D copy for the full widths 32, 64, 128 and 256
+// (nctt::full_width); any other D at run time, 128 threads up to D 128
 template <int FMT>
-int dispatch(const void* q, const void* kp, const void* ks, const void* ko,
-             const void* vp, const void* vs, const void* vo, const void* bt,
-             const void* lengths, void* out, void* ws, int B, int H, int Hkv,
-             int W, int page, int PMAX, int D, float scale, int window,
-             float cap, float inv_cap, cudaStream_t s) {
-#define NCTT_K11(DPL_)                                                      \
-  case DPL_:                                                                \
-    return D == 32 * DPL_ && nctt::full_width(DPL_)                         \
-               ? launch<DPL_, nctt::full_width(DPL_), FMT>(                  \
-                     q, kp, ks, ko, vp, vs, vo, bt, lengths, out, ws, B, H,  \
-                     Hkv, W, page, PMAX, D, scale, window, cap, inv_cap, s)  \
-               : launch<DPL_, false, FMT>(q, kp, ks, ko, vp, vs, vo, bt,     \
-                                          lengths, out, ws, B, H, Hkv, W,    \
-                                          page, PMAX, D, scale, window, cap, \
-                                          inv_cap, s);
-  switch (D >= 1 ? (D + 31) / 32 : 0) {
-    NCTT_K11(1) NCTT_K11(2) NCTT_K11(3) NCTT_K11(4)
-    NCTT_K11(5) NCTT_K11(6) NCTT_K11(7) NCTT_K11(8)
-    default: return (int)cudaErrorInvalidValue;
+int dispatch(const Args& a, int B, cudaStream_t s) {
+  switch (a.D) {
+    case 32: return launch<FMT, 128, 32, 0>(a, B, s);
+    case 64: return launch<FMT, 128, 64, 0>(a, B, s);
+    case 128: return by_rows<FMT, 128, 128>(a, B, s);
+    case 256: return by_rows<FMT, 256, 256>(a, B, s);
+    default:
+      return a.D <= 128 ? launch<FMT, 128, 0, 0>(a, B, s)
+                        : launch<FMT, 256, 0, 0>(a, B, s);
   }
-#undef NCTT_K11
 }
 
 }  // namespace
@@ -364,32 +862,63 @@ int dispatch(const void* q, const void* kp, const void* ks, const void* ko,
 // [P, Hkv, page/2, D] int4 bytes (3); k/v scales f32 [P, Hkv, page] (null
 // for bf16); k/v offsets f32 [P, Hkv, page] (int4 only); block_tables
 // int32 [B, PMAX]; lengths int32 [B] (the whole window included); out bf16
-// [B, H, W, D]; ws f32 [B, Hkv, ng * gs, PMAX*page] scratch for the score
-// rows, ng = ceil(W*H/Hkv / 8) groups of gs = ceil(W*H/Hkv / ng) rows;
-// window > 0: the sliding band (keys with q_pos - t < window), 0: none;
-// cap > 0: the logit softcap cap * tanh(s * inv_cap), 0: none. `page`
-// counts tokens. 1 <= D <= 256; H % Hkv == 0.
-NCTT_API int nctt_paged_decode_attention(const void* q, const void* kp,
-                                         const void* ks, const void* ko,
-                                         const void* vp, const void* vs,
-                                         const void* vo, const void* bt,
-                                         const void* lengths, void* out,
-                                         void* ws, int B, int H, int Hkv,
-                                         int W, int P, int page, int PMAX,
-                                         int D, int fmt, float scale,
-                                         int window, float cap,
-                                         float inv_cap, void* stream) {
+// [B, H, W, D]. The plan (kernels/paged_attention.py split_plan): ng groups
+// of gs = ceil(W*H/Hkv / ng) query rows, parts of part_keys keys (whole
+// pages), `parts` of them over PMAX pages. Workspaces: ws f32 [B, Hkv,
+// ng*gs, PMAX*page] score rows; pmax f32 [B, Hkv, ng*gs, parts]; part f64
+// [B, Hkv, ng*gs, parts, D + 2]; tickets int32 [B*Hkv*ng], zeroed (each
+// launch leaves them zeroed). window > 0: the sliding band (keys with
+// q_pos - t < window), 0: none; cap > 0: the logit softcap cap * tanh(s *
+// inv_cap), 0: none. `page` counts tokens. 1 <= D <= 256; H % Hkv == 0.
+// Two launches on `stream`.
+NCTT_API int nctt_paged_decode_attention(
+    const void* q, const void* kp, const void* ks, const void* ko,
+    const void* vp, const void* vs, const void* vo, const void* bt,
+    const void* lengths, void* out, void* ws, void* pmax, void* part,
+    void* tickets, int B, int H, int Hkv, int W, int P, int page, int PMAX,
+    int D, int fmt, int ng, int part_keys, int parts, float scale,
+    int window, float cap, float inv_cap, void* stream) {
   (void)P;
+  if (D < 1 || D > 256 || Hkv < 1 || H % Hkv || ng < 1 || parts < 1 ||
+      part_keys < 1 || part_keys % page || part_keys / page > MAX_PAGES)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-#define NCTT_FMT(F_)                                                       \
-  dispatch<F_>(q, kp, ks, ko, vp, vs, vo, bt, lengths, out, ws, B, H, Hkv, \
-               W, page, PMAX, D, scale, window, cap, inv_cap, s)
+  Args a;
+  a.q = (const __nv_bfloat16*)q;
+  a.kp = (const uint8_t*)kp;
+  a.ks = (const float*)ks;
+  a.ko = (const float*)ko;
+  a.vp = (const uint8_t*)vp;
+  a.vs = (const float*)vs;
+  a.vo = (const float*)vo;
+  a.bt = (const int*)bt;
+  a.lengths = (const int*)lengths;
+  a.out = (__nv_bfloat16*)out;
+  a.ws = (float*)ws;
+  a.pmax = (float*)pmax;
+  a.part = (double*)part;
+  a.tickets = (int*)tickets;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.W = W;
+  a.page = page;
+  a.PMAX = PMAX;
+  a.D = D;
+  a.ng = ng;
+  a.part_keys = part_keys;
+  a.parts = parts;
+  a.window = window;
+  a.scale = scale;
+  a.cap = cap;
+  a.inv_cap = inv_cap;
+  const int rowbytes = fmt == BF16 ? 2 * D : D;
+  a.vec = rowbytes % 16 == 0 && ((uintptr_t)kp & 15) == 0 &&
+          ((uintptr_t)vp & 15) == 0;
   switch (fmt) {
-    case BF16: return NCTT_FMT(BF16);
-    case INT8: return NCTT_FMT(INT8);
-    case FP8: return NCTT_FMT(FP8);
-    case INT4: return NCTT_FMT(INT4);
+    case BF16: return dispatch<BF16>(a, B, s);
+    case INT8: return dispatch<INT8>(a, B, s);
+    case FP8: return dispatch<FP8>(a, B, s);
+    case INT4: return dispatch<INT4>(a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef NCTT_FMT
 }

@@ -75,12 +75,14 @@ SIGNATURES = {
     "nctt_batched_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                       _I, _I, _I, _I, _F, _P],
     # q, k_pages, k_scales, k_offs, v_pages, v_scales, v_offs,
-    # block_tables, lengths, out, ws, B, H, Hkv, W, P, page, PMAX, D,
-    # fmt (0 bf16, 1 int8, 2 fp8, 3 int4), scale, window (0: none),
-    # softcap (0: none), 1/softcap, stream
+    # block_tables, lengths, out, ws (f32 scores), pmax (f32 part maxima),
+    # part (f64 partials), tickets (int32, zeroed), B, H, Hkv, W, P, page,
+    # PMAX, D, fmt (0 bf16, 1 int8, 2 fp8, 3 int4), ng, part_keys, parts,
+    # scale, window (0: none), softcap (0: none), 1/softcap, stream
     "nctt_paged_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                    _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                    _F, _I, _F, _F, _P],
+                                    _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _I, _F, _I, _F, _F,
+                                    _P],
     # k_new, v_new, k_pages, k_scales, k_offs, v_pages, v_scales, v_offs,
     # block_tables, pos, B, Hkv, P, page, PMAX, D, fmt, stream
     "nctt_paged_write_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

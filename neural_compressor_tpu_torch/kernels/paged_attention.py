@@ -25,8 +25,11 @@ Ports ``neural_compressor_tpu/kernels/paged_attention.py``:
     tanh(s / cap)`` before the mask; a band keeps only the keys with
     ``q_pos - k_pos < window``. Wrappers ``paged_attn``,
     ``paged_window_attn`` and ``paged_attn_gemma`` (a single query with a
-    band and/or a softcap), their launches counted apart per pool format;
-    one CUDA kernel, ``csrc/paged_attention.cu``.
+    band and/or a softcap), their calls counted apart per pool format in
+    ``.launches``; ``csrc/paged_attention.cu``, two CUDA launches a call
+    over a fixed plan of key parts (``split_plan``: scores and part maxima,
+    then probabilities, per-part PV partials and the ordered fold), with
+    its scratch from ``split_workspace``.
   * K12, ``paged_write_rows`` (``_paged_write_impl`` with
     ``_write_kernel_bf16``, ``_write_kernel_quant`` and
     ``_write_kernel_int4``): each slot's new K/V row into page
@@ -70,6 +73,10 @@ nothing in K12, as JAX's scatter drops it, and attention visits at most
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -232,11 +239,81 @@ def _require_pools(name: str, fmt: str, dev, k_pages, k_scales, v_pages,
         raise ValueError(f"{name}: K and V pools of different formats")
 
 
+class SplitPlan(NamedTuple):
+    """How K11 cuts one launch (``split_plan``): query-row groups, key
+    parts, the grid of both of its launches and its workspaces' shapes."""
+    groups: int          # ng: groups of query rows a (slot, KV head)
+    group_rows: int      # gs: rows a group, at most 8
+    part_keys: int       # keys a part: whole pages from key 0 on
+    parts: int           # parts over the block table's PMAX pages
+    grid: tuple          # (parts, Hkv * groups, B), both launches
+    scores: tuple        # float32 score rows [B * Hkv, ng * gs, PMAX*page]
+    maxima: tuple        # float32 part maxima [B, Hkv, ng * gs, parts]
+    partials: tuple      # float64 [B, Hkv, ng * gs, parts, D + 2]: acc, l, corr
+    tickets: int         # int32 tickets, one a (slot, KV head, group)
+
+
+# keys a part of K11's split holds: whole pages, 512 keys at the engine's
+# 128-row pages (4 pages, the page group JAX's kernel stages, its _KPP)
+PART_KEYS = 512
+
+
+@functools.lru_cache(maxsize=256)
+def split_plan(B: int, H: int, Hkv: int, W: int, D: int, page: int,
+               PMAX: int) -> SplitPlan:
+    """K11's plan for q [B, H, W, D] over pages of ``page`` tokens, PMAX a
+    slot. A (slot, KV head)'s W*H/Hkv query rows, packed (w, rep), split
+    into the fewest groups of at most 8 rows, as even as they go; a slot's
+    keys into parts of ``max(1, PART_KEYS // page)`` whole pages. Part
+    boundaries are absolute key positions that depend on the page size
+    alone (never on W, rep, B, the lengths or a band), so a row's terms
+    are summed in the same order whatever else shares its launch."""
+    rows = W * (H // Hkv)
+    ng = -(-rows // 8)
+    gs = -(-rows // ng)
+    part_keys = max(1, PART_KEYS // page) * page
+    parts = -(-(PMAX * page) // part_keys)
+    return SplitPlan(ng, gs, part_keys, parts, (parts, Hkv * ng, B),
+                     (B * Hkv, ng * gs, PMAX * page),
+                     (B, Hkv, ng * gs, parts), (B, Hkv, ng * gs, parts, D + 2),
+                     B * Hkv * ng)
+
+
+# device -> K11's own scratch, flat: part maxima (float32), partials
+# (float64) and tickets (int32, kept zeroed), each replaced by a larger one
+# when a launch needs more. Launches on one stream run in order, so one
+# launch's scratch is free when the next starts; the folding blocks of each
+# launch reset their tickets to 0.
+_SCRATCH: dict = {}
+
+
+def split_workspace(plan: SplitPlan, device) -> tuple:
+    """K11's workspaces for ``plan`` on ``device``: (scores, maxima,
+    partials, tickets). The score rows [B * Hkv, ng * gs, PMAX*page] come
+    from ``decode_attention.score_workspace``, which K5, K6 and K7 share;
+    the part maxima, the float64 partials and the tickets are K11's own,
+    flat buffers of at least ``plan``'s sizes kept per device between
+    launches."""
+    need = (math.prod(plan.maxima), math.prod(plan.partials), plan.tickets)
+    have = _SCRATCH.get(device)
+    if have is None or any(t.numel() < n for t, n in zip(have, need)):
+        old = have or (None, None, None)
+        grow = [n if t is None else max(n, t.numel())
+                for t, n in zip(old, need)]
+        have = (torch.empty(grow[0], dtype=_F32, device=device),
+                torch.empty(grow[1], dtype=_F64, device=device),
+                torch.zeros(max(grow[2], 1024), dtype=torch.int32,
+                            device=device))
+        _SCRATCH[device] = have
+    return (score_workspace(*plan.scores, device), *have)
+
+
 def _launch_paged_attn(name, q, k_pages, k_scales, v_pages, v_scales,
                        block_tables, lengths, k_offs, v_offs, window=None,
                        softcap=None):
     """Check the operands of K11 (q [B, H, W, D] on the card) and launch
-    ``csrc/paged_attention.cu``; returns (out [B, H, W, D], pool format)."""
+    ``csrc/paged_attention.cu`` (two CUDA launches: scores, then PV and
+    the fold); returns (out [B, H, W, D], pool format)."""
     fmt = pool_format(k_pages, k_scales, k_offs)
     dev = q.device
     B, H, Wq, D = q.shape
@@ -258,18 +335,17 @@ def _launch_paged_attn(name, q, k_pages, k_scales, v_pages, v_scales,
     _build.require(block_tables, "block_tables", torch.int32, dev, (B, PMAX))
     _build.require(lengths, "lengths", torch.int32, dev, (B,))
     out = torch.empty((B, H, Wq, D), dtype=torch.bfloat16, device=dev)
-    # the score rows of every query row, in the kernel's groups of at most
-    # 8 rows, as even as they go
-    rows = Wq * rep
-    ng = -(-rows // 8)
-    ws = score_workspace(B * Hkv, ng * -(-rows // ng), PMAX * page, dev)
+    plan = split_plan(B, H, Hkv, Wq, D, page, PMAX)
+    ws, pmax, part, tickets = split_workspace(plan, dev)
     err = _build.library().nctt_paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), _ptr(k_scales), _ptr(k_offs),
         v_pages.data_ptr(), _ptr(v_scales), _ptr(v_offs),
         block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), B, H, Hkv, Wq, P, page, PMAX, D, _FMT_CODE[fmt],
-        1.0 / (D ** 0.5), window or 0, softcap or 0.0,
-        1.0 / softcap if softcap else 0.0, _build.stream_handle(dev))
+        ws.data_ptr(), pmax.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+        B, H, Hkv, Wq, P, page, PMAX, D, _FMT_CODE[fmt], plan.groups,
+        plan.part_keys, plan.parts, 1.0 / (D ** 0.5), window or 0,
+        softcap or 0.0, 1.0 / softcap if softcap else 0.0,
+        _build.stream_handle(dev))
     _build.check(err, "nctt_paged_decode_attention")
     return out, fmt
 
