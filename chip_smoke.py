@@ -8,7 +8,10 @@ CUDA toolkit's nvcc; imports nothing of JAX. Phases, any failure exits
 non-zero:
   1. build the CUDA kernels from ``neural_compressor_tpu_torch/csrc``;
   2. each kernel against its plain PyTorch version at the llama2-7b shapes
-     of the main path (B=1 decode and prefill; the 8-slot engine's decode
+     of the main path (B=1 decode and prefill, K1 at the 8-slot engine's
+     M = 8 and prompts of 17-512 tokens, bit for bit, with planted faults:
+     a flipped nibble, a wrong scale and the group fold in reverse order;
+     the 8-slot engine's decode
      over a 1024-row cache and over pools of 128-row pages; W4A16's K8 and
      K9; the quantized caches' K6 (int8, fp8), K7's quantized branch and
      K11/K12 over fp8 and int4 pools), with its time, the plain version's
@@ -144,10 +147,12 @@ non-zero:
      greedy and the 8-slot engine: K2 at every M), "tpu_strided" under
      ``M_INT8_THRESHOLD = 2`` (B=1 greedy: K1's strided loader and K10) and
      "hopper_nk" with fused decode (``hybrid_serve``).
-Development runs name checks of phases 2-4, 13 and 14, ``k11_part_sweep``, or
-``deepseek_serve``, ``variant_serve`` or ``hybrid_serve``, as arguments (``python3 chip_smoke.py
-variant_kernels variant_envelope``): the build, those checks, no result
-line.
+Development runs name checks of phases 2-4, 13 and 14, ``k11_part_sweep``,
+``w4a8_core`` (K1 and K2 on the shared core's plans at llama2-7b's five
+projections, M 1-512, device times; other tiles:
+``tools/w4a8_core_sweep.py``), or ``deepseek_serve``, ``variant_serve`` or
+``hybrid_serve``, as arguments (``python3 chip_smoke.py variant_kernels
+variant_envelope``): the build, those checks, no result line.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists every kernel with its launches on the main path and its times.
 """
@@ -170,8 +175,9 @@ SHAPES = {"qkv": (4096, 12288), "o": (4096, 4096), "gate_up": (4096, 22016),
 LAYERS, HEADS, HEAD_DIM, MAX_LEN = 32, 32, 128, 1024
 W4A8_LAYERS = 4               # depth of the served W4A8 model (5-7, 10, 13)
 PROMPTS, NEW_TOKENS = (16, 100, 371), 48
-GEMM_MS = (17, 128, 512)
+GEMM_MS = (8, 17, 128, 512)
 UNIT_M = 128                  # the GEMM row of the kernels line: a 128-token prefill
+STEP_M = 8                    # K1's second unit: one step of the 8-slot engine
 ATTN_POS = (0, 517, 1023)
 UNIT_POS = 517                # the attention row: one decode step at pos 517
 TOL = {"gemm": 1e-5, "gemv": 1e-2, "attn": 1e-2, "batched": 1e-2,
@@ -297,6 +303,75 @@ def expect(**nonzero) -> dict:
     return want
 
 
+def flip_nibbles(torch, w):
+    """A copy of packed words with one 32-bit word's eight nibbles flipped
+    (bit 3 of each, in the middle of the tensor)."""
+    w = w.clone()
+    flat = w.view(-1).view(torch.int32)
+    flat[flat.numel() // 2 + 3] ^= -0x77777778   # 0x88888888
+    return w
+
+
+def bad_scale(s, by=None):
+    """One group scale 1.5 times too large (or, ``by`` given, one zero
+    point ``by`` off)."""
+    s = s.clone()
+    i, j = s.shape[0] // 2, s.shape[1] // 3
+    if by is None:
+        s[i, j] *= 1.5
+    else:
+        s[i, j] += by
+    return s
+
+
+def grouped_products(torch, xq, codes, scales):
+    """The core's per-group products on the card: each group's exact
+    integer sum (float64 matmul; |sum| < 2^53) times its scale in float32,
+    [K/G, M, N]."""
+    M, K = xq.shape
+    ng, N = scales.shape
+    Gs = K // ng
+    part = torch.bmm(xq.double().reshape(M, ng, Gs).transpose(0, 1),
+                     codes.double().reshape(ng, Gs, N))
+    return part.float() * scales[:, None, :]
+
+
+def fold_products(torch, prods, x_scale, order):
+    """The group fold over ``order`` (group indices) from 0, float32 adds,
+    times x_scale: the core's arithmetic, or a planted fault in it."""
+    acc = torch.zeros(prods.shape[1:], dtype=torch.float32,
+                      device=prods.device)
+    for g in order:
+        acc = acc + prods[g]
+    return acc * x_scale[:, None]
+
+
+def gemm_faults(torch, xq, pw, xs, yk, yp):
+    """K1 ("hopper_nk") on planted faults, each of which the bit comparison
+    must flag: a flipped nibble, a wrong scale, and the group fold in
+    reverse order, planted in an emulation of the core's arithmetic on the
+    card that without the fault equals the kernel bit for bit (else the
+    phase fails). Returns [(label, flagged)]."""
+    from neural_compressor_tpu_torch.kernels import w4a8_gemm
+    from neural_compressor_tpu_torch.ops.packing import unpack_codes_hopper
+
+    out = [("k1 flipped nibble",
+            not torch.equal(w4a8_gemm(xq, flip_nibbles(torch, pw.packed),
+                                      pw.scales, xs), yp)),
+           ("k1 wrong scale",
+            not torch.equal(w4a8_gemm(xq, pw.packed, bad_scale(pw.scales),
+                                      xs), yp))]
+    prods = grouped_products(torch, xq, unpack_codes_hopper(pw.packed),
+                             pw.scales)
+    ng = prods.shape[0]
+    if not torch.equal(fold_products(torch, prods, xs, range(ng)), yk):
+        fail("the emulated group fold differs from K1")
+    out.append(("k1 fold in reverse group order",
+                not torch.equal(fold_products(torch, prods, xs,
+                                              range(ng - 1, -1, -1)), yk)))
+    return out
+
+
 def phase_kernels(torch, nct, peaks: dict) -> dict:
     from neural_compressor_tpu_torch.kernels import (decode_attn,
                                                      decode_attn_plain,
@@ -328,7 +403,10 @@ def phase_kernels(torch, nct, peaks: dict) -> dict:
         n = n_copies(pw.packed.numel() + pw.scales.numel() * 4)
         return [(pw.packed.clone(), pw.scales.clone()) for _ in range(n)]
 
-    # GEMM: every projection at three prompt lengths
+    # GEMM: every projection at the 8-slot engine's step and three prompt
+    # lengths, bit for bit against the plain version (each path of the
+    # core keeps its order of float operations)
+    faults = []
     for name, (K, N) in SHAPES.items():
         pw, wbf = weights[name]
         cps = wcopies(pw)
@@ -340,8 +418,7 @@ def phase_kernels(torch, nct, peaks: dict) -> dict:
             yp = w4a8_gemm_plain(xq, pw.packed, pw.scales, xs)
             torch.cuda.synchronize()
             err = float((yk - yp).abs().max())
-            ref = float(yp.abs().max())
-            ok = math.isfinite(err) and err <= TOL["gemm"] * ref
+            ok = bool(torch.equal(yk, yp))
             ms = timed_ms(torch, [lambda p=p, s=s: w4a8_gemm(xq, p, s, xs)
                                   for p, s in cps], 50)
             pms = timed_ms(torch, [lambda: w4a8_gemm_plain(
@@ -350,15 +427,21 @@ def phase_kernels(torch, nct, peaks: dict) -> dict:
             nbytes = M * K + K * N // 2 + (K // G) * N * 4 + M * 4 + M * N * 4
             bms, by = bound(nbytes, 2 * M * N * K, peaks["int8_s"], peaks)
             rows["gemm"].append(dict(shape=name, M=M, K=K, N=N, err=err,
-                                     tol=TOL["gemm"] * ref, ok=ok, ms=ms,
-                                     plain_ms=pms, library_ms=lms,
-                                     bound_ms=bms, bound_by=by))
+                                     ok=ok, ms=ms, plain_ms=pms,
+                                     library_ms=lms, bound_ms=bms,
+                                     bound_by=by))
             print(f"gemm {name:8s} M={M:4d} K={K:5d} N={N:5d} "
-                  f"max_abs_err={err:.3e} tol={TOL['gemm'] * ref:.3e} "
-                  f"ok={ok} ms={ms:.4f} plain_ms={pms:.4f} "
-                  f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by})",
-                  flush=True)
+                  f"bit-equal={ok} max_abs_err={err:.3e} ms={ms:.4f} "
+                  f"plain_ms={pms:.4f} library_ms={lms:.4f} "
+                  f"bound_ms={bms:.4f} ({by})", flush=True)
+            if name == "o" and M == STEP_M:
+                faults += gemm_faults(torch, xq, pw, xs, yk, yp)
         del cps
+    missed = [label for label, flagged in faults if not flagged]
+    for label, flagged in faults:
+        print(f"planted fault {label}: flagged={flagged}", flush=True)
+    if missed:
+        fail(f"planted faults not flagged: {missed}")
 
     # GEMV: the five epilogue forms of the decode step
     forms = {"qkv": dict(rms=True), "o": dict(res=True),
@@ -3610,9 +3693,10 @@ def phase_k11_profile(torch, part_keys=None) -> dict:
     return out
 
 
-def profiled(torch, fns, n: int = 40) -> dict:
-    """Device ms a call of K11's two kernels over ``n`` calls of ``fns``
-    (cycled), from torch.profiler: {"scores_kernel": ms, "pv_kernel":
+def profiled(torch, fns, n: int = 40,
+             names=("scores_kernel", "pv_kernel")) -> dict:
+    """Device ms a call of the kernels ``names`` (by default K11's two)
+    over ``n`` calls of ``fns`` (cycled), from torch.profiler: {name:
     ms}."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -3625,7 +3709,7 @@ def profiled(torch, fns, n: int = 40) -> dict:
         torch.cuda.synchronize()
     dev_ms = {}
     for e in prof.key_averages():
-        for kname in ("scores_kernel", "pv_kernel"):
+        for kname in names:
             if kname in e.key:
                 dev_ms[kname] = (dev_ms.get(kname, 0.0)
                                  + e.self_device_time_total / 1e3 / n)
@@ -5860,24 +5944,6 @@ def phase_hybrid_kernels(torch, nct, peaks: dict) -> dict:
         n = n_copies(sum(t.numel() * t.element_size() for t in ts))
         return [tuple(t.clone() for t in ts) for _ in range(n)]
 
-    def flip(w):
-        """A copy of packed words with one word's eight nibbles flipped
-        (bit 3 of each, in the middle of the tensor)."""
-        w = w.clone()
-        flat = w.view(-1)
-        flat[flat.numel() // 2 + 3] ^= -0x77777778   # 0x88888888
-        return w
-
-    def bad_scale(s, by=None):
-        """One group scale (or zero point, ``by`` added) off."""
-        s = s.clone()
-        i, j = s.shape[0] // 2, s.shape[1] // 3
-        if by is None:
-            s[i, j] *= 1.5
-        else:
-            s[i, j] += by
-        return s
-
     def record(kind, name, M, yk, yp, ms, pms, lms, nbytes, ops, **extra):
         same = bool(torch.equal(yk, yp))
         err = float((yk.float() - yp.float()).abs().max())
@@ -5929,7 +5995,7 @@ def phase_hybrid_kernels(torch, nct, peaks: dict) -> dict:
                            torch.equal(yk, y1)))
                 if name == "o" and M == 8:
                     fault(f"{kind} flipped nibble",
-                          fn(xq, flip(words), sc, xs), yp)
+                          fn(xq, flip_nibbles(torch, words), sc, xs), yp)
                     fault(f"{kind} wrong scale",
                           fn(xq, words, bad_scale(sc), xs), yp)
         # K10: the B=1 step's shape, sym int4 timed; asym, int2 and a row
@@ -5952,7 +6018,8 @@ def phase_hybrid_kernels(torch, nct, peaks: dict) -> dict:
                wbytes + K * 2 + N * 2, 2 * K * N, fmt="sym_int4", tk=tk)
         if name == "o":
             fault("k10 flipped nibble",
-                  vpu_int8act(x, flip(pw.packed), sc, None, **args), yp)
+                  vpu_int8act(x, flip_nibbles(torch, pw.packed), sc, None,
+                              **args), yp)
             fault("k10 wrong scale",
                   vpu_int8act(x, pw.packed, bad_scale(sc), None, **args), yp)
             # xs one float32 ulp off on the reference's side, float32
@@ -6104,6 +6171,94 @@ def phase_hybrid_envelope(torch, nct) -> None:
           flush=True)
     if bad or declines != 7:
         fail(f"hybrid envelope: unequal {bad}, declines {declines} != 7")
+
+
+# ------------------------------------------------------ the W4A8 core
+CORE_MS = (1, 8, 17, 32, 64, 128, 512)
+CORE_KERNELS = ("small_kernel", "wgmma_kernel", "any_group_kernel")
+CORE_SHAPES = ("o", "qkv", "gate_up", "down", "lm_head")
+
+
+def core_layouts(torch, gen, K, N, Gs=G):
+    """One random sym int4 weight on K1's and K2's three layouts: name ->
+    (wrapper, plain version, words), and its scales."""
+    from neural_compressor_tpu_torch.kernels import (
+        s4_gemm, s4_gemm_plain, w4a8_gemm, w4a8_gemm_plain, w4a8_gemm_strided,
+        w4a8_gemm_strided_plain)
+    from neural_compressor_tpu_torch.ops import (pack_qtensor,
+                                                 quantize_tensor, to_hopper,
+                                                 to_s4_rowpack)
+
+    w = torch.randn((K, N), generator=gen, device=HYB_DEV) * K ** -0.5
+    pw = pack_qtensor(quantize_tensor(w, bits=4, group_size=Gs))
+    return ({"hopper_nk": (w4a8_gemm, w4a8_gemm_plain,
+                           to_hopper(pw).packed),
+             "tpu_strided": (w4a8_gemm_strided, w4a8_gemm_strided_plain,
+                             pw.packed),
+             "s4_rowpack": (s4_gemm, s4_gemm_plain,
+                            to_s4_rowpack(pw).packed)}, pw.scales)
+
+
+def phase_w4a8_core(torch, nct, peaks: dict) -> None:
+    """K1 (both loaders) and K2 on the shared core's plans at llama2-7b's
+    five projections, M in ``CORE_MS``: each launch bit-equal to its plain
+    version, its plan, event and device ms printed (weights rotated through
+    >200 MB of copies); short grids and gathered stages at small shapes."""
+    from neural_compressor_tpu_torch.ops import quantize_act_per_token
+
+    wm = port_module("w4a8_matmul")
+    gen = torch.Generator(device=HYB_DEV)
+    gen.manual_seed(12)
+    bad = []
+    for name in CORE_SHAPES:
+        K, N = SHAPES[name]
+        lays, sc = core_layouts(torch, gen, K, N)
+        wbytes = K * N // 2 + (K // G) * N * 4
+        for M in CORE_MS:
+            xq, xs = quantize_act_per_token(torch.randn(
+                (M, K), generator=gen, device=HYB_DEV).to(torch.bfloat16))
+            xs = xs.reshape(-1).contiguous()
+            bms, by = bound(wbytes + M * K + M * 4 + M * N * 4,
+                            2 * M * N * K, peaks["int8_s"], peaks)
+            for lay, (fn, plain, words) in lays.items():
+                yk, yp = fn(xq, words, sc, xs), plain(xq, words, sc, xs)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(yk, yp))
+                if not same:
+                    bad.append((name, M, lay))
+                cps = [(words.clone(), sc.clone())
+                       for _ in range(n_copies(wbytes))]
+                fns = [lambda w_=w_, s_=s_: fn(xq, w_, s_, xs)
+                       for w_, s_ in cps]
+                ms = timed_ms(torch, fns, 50)
+                dms = sum(profiled(torch, fns, names=CORE_KERNELS).values())
+                plan = wm.gemm_plan(M, N, K, G, lay)
+                print(f"core {name:5s} M={M:4d} {lay:11s} bit-equal={same} "
+                      f"ms={ms:.4f} device_ms={dms:.4f} "
+                      f"bound_ms={bms:.4f} ({by}) "
+                      f"{plan.path} mt={plan.mt} bn={plan.bn} ku={plan.ku} "
+                      f"stages={plan.stages} grid={plan.grid}", flush=True)
+                del cps
+    # short grids and the gathered "tpu_strided" stages
+    for (M, K, N, Gs) in ((1, 256, 256, 128), (8, 768, 512, 32),
+                          (5, 1536, 256, 384), (3, 4096, 256, 2048),
+                          (17, 768, 512, 64), (40, 768, 256, 384),
+                          (130, 2048, 256, 2048), (70, 768, 320, 32)):
+        lays, sc = core_layouts(torch, gen, K, N, Gs)
+        xq, xs = quantize_act_per_token(torch.randn(
+            (M, K), generator=gen, device=HYB_DEV).to(torch.bfloat16))
+        xs = xs.reshape(-1).contiguous()
+        for lay, (fn, plain, words) in lays.items():
+            same = bool(torch.equal(fn(xq, words, sc, xs),
+                                    plain(xq, words, sc, xs)))
+            plan = wm.gemm_plan(M, N, K, Gs, lay)
+            print(f"core M={M} K={K} N={N} G={Gs} {lay}: bit-equal={same} "
+                  f"{plan.path} grid={plan.grid} ku={plan.ku}",
+                  flush=True)
+            if not same:
+                bad.append((M, K, N, Gs, lay))
+    if bad:
+        fail(f"the W4A8 core disagrees with its plain versions: {bad}")
 
 
 @contextlib.contextmanager
@@ -6464,7 +6619,8 @@ def main() -> None:
               "deepseek_serve": lambda: phase_deepseek_serve(torch, nct),
               "variant_serve": lambda: phase_variant_serve(
                   torch, nct, w4a8_model(torch, nct)),
-              "hybrid_serve": lambda: phase_hybrid_serve(torch, nct)}
+              "hybrid_serve": lambda: phase_hybrid_serve(torch, nct),
+              "w4a8_core": lambda: phase_w4a8_core(torch, nct, peaks)}
     if len(sys.argv) > 1:
         # a development run: only the named checks, no serving, no result
         unknown = [a for a in sys.argv[1:] if a not in {**checks, **serves}]
@@ -6531,6 +6687,10 @@ def main() -> None:
                   lambda rs: "operations" if all(
                       r["bound_by"] == "operations" for r in rs) else "bytes")
     gemm_u["max_abs_err"] = max(r["err"] for r in rows["gemm"])
+    # K1's second unit: one step of the 8-slot engine (M = 8)
+    gemm_step_u = unit([r for r in rows["gemm"] if r["M"] == STEP_M],
+                       per_layer, lambda rs: "bytes")
+
     gemv_u = unit(rows["gemv"], per_layer, lambda rs: "bytes")
     attn_u = unit([r for r in rows["attn"] if r["pos"] == UNIT_POS],
                   lambda rs: [(r, LAYERS) for r in rs], lambda rs: "bytes")
@@ -6687,7 +6847,8 @@ def main() -> None:
         ("attn_o", "neural_compressor_tpu_torch/csrc/attn_o.cu",
          "neural_compressor_tpu/kernels/fused_matvec.py:489 "
          "(_attn_o_impl, K18)", variant_unit("k18", at_unit)),
-        ("w4a8_gemm_strided", "neural_compressor_tpu_torch/csrc/w4a8_gemm.cu",
+        ("w4a8_gemm_strided",
+         "neural_compressor_tpu_torch/csrc/w4a8_gemm_strided.cu",
          "neural_compressor_tpu/kernels/w4a8_matmul.py:88 (_w4a8_impl, K1, "
          "its own tpu_strided words)", hybrid_unit("k1s", UNIT_M)),
         ("s4_gemm", "neural_compressor_tpu_torch/csrc/s4_gemm.cu",
@@ -6699,7 +6860,9 @@ def main() -> None:
     ]
     print(smi, flush=True)
     print("unit of the kernels line: w4a8_gemm = one 128-token prefill "
-          "(32 layers x 4 projections + lm_head); fused_gemv = one decode "
+          "(32 layers x 4 projections + lm_head), its engine_step_m8 one "
+          "8-slot engine step (the same at M = 8); s4_gemm's b1_step_m1 one "
+          "B=1 decode step (M = 1); fused_gemv = one decode "
           "step (32 x 4 + lm_head); decode_attn = one decode step at "
           "pos 517 (32 layers); batched_decode_attn = one 8-slot decode "
           f"step at positions {SLOT_POS} (32 layers); paged_attn and "
@@ -6751,13 +6914,21 @@ def main() -> None:
           "hybrid-GPTQ paths (s4: B=1 greedy and the engine contiguous; "
           "tpu_strided under M_INT8_THRESHOLD 2: B=1 greedy)",
           flush=True)
+    # second units beside the kernels-line unit: K1's 8-slot engine step
+    # (M = 8), K2's B=1 decode step (M = 1)
+    second = {"w4a8_gemm": ("engine_step_m8", gemm_step_u),
+              "s4_gemm": ("b1_step_m1", hybrid_unit("k2", 1))}
+
+    def fields(u):
+        return {k: u[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms")}
+
     kernels_line = {"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(c[k] for c in by_path.values()
                          for k in LINE_SUMS.get(n, (n,))),
-         "max_abs_err": u["max_abs_err"],
-         "ms": u["ms"], "plain_ms": u["plain_ms"], "bound_ms": u["bound_ms"],
-         "bound_by": u["bound_by"], "library_ms": u["library_ms"]}
+         "max_abs_err": u["max_abs_err"], **fields(u),
+         **({second[n][0]: fields(second[n][1])} if n in second else {})}
         for n, src, rep, u in entries]}
     print(json.dumps(kernels_line), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,11 +33,15 @@ _L, _IP = ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
 # C entry -> argument types; every launching entry returns
 # cudaGetLastError(), every "_plan" entry 0 or cudaErrorInvalidValue
 SIGNATURES = {
-    # xq, w, scales, x_scale, y, M, N, K, G, stream (K1 on "hopper_nk"
-    # and "tpu_strided" words, K2 on "s4_rowpack")
-    "nctt_w4a8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "nctt_w4a8_gemm_strided": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "nctt_s4_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xq, w, scales, x_scale, y, M, N, K, G, then the plan (path, mt, bn,
+    # ku, stages), stream (K1 on "hopper_nk" and "tpu_strided" words, K2 on
+    # "s4_rowpack")
+    "nctt_w4a8_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _P],
+    "nctt_w4a8_gemm_strided": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _I, _P],
+    "nctt_s4_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _P],
     # x, rms_w, w, scales, bias, residual, y, K, N, G, n_out, silu, eps,
     # codes, scl (global scratch past MAX_K, else null), stream
     "nctt_fused_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,

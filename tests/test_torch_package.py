@@ -112,7 +112,8 @@ def test_each_kernel_wrapper_counts_its_launches():
 
 def test_every_kernel_has_a_source_and_a_c_entry():
     sources = {p.name for p in _build.CSRC.glob("*.cu")}
-    assert sources == {"w4a8_gemm.cu", "fused_gemv.cu", "decode_attention.cu",
+    assert sources == {"w4a8_gemm.cu", "w4a8_gemm_strided.cu",
+                       "fused_gemv.cu", "decode_attention.cu",
                        "batched_decode_attention.cu", "paged_attention.cu",
                        "paged_write.cu", "dequant_matmul.cu",
                        "paged_latent.cu", "paged_attention_v1.cu",
