@@ -138,7 +138,7 @@ non-zero:
      shapes in sym and asym int4, int2 and with a row permutation, bit for
      bit against their plain versions, with planted faults
      (``hybrid_kernels``); their envelope and its declines
-     (``hybrid_envelope``); and llama2-7b at full width, ``HYB_LAYERS`` = 4
+     (``hybrid_envelope``); and llama2-7b at full width, ``HYB_LAYERS`` = 2
      of its 32 layers, calibrated on the card by ``quantize(...,
      HybridGPTQConfig(...), run_fn=calibration_forward)`` over 8 random
      sequences of 512 tokens (GPTQ's objective under RTN's for every
@@ -150,7 +150,10 @@ non-zero:
 Development runs name checks of phases 2-4, 13 and 14, ``k11_part_sweep``,
 ``w4a8_core`` (K1 and K2 on the shared core's plans at llama2-7b's five
 projections, M 1-512, device times; other tiles:
-``tools/w4a8_core_sweep.py``), or ``deepseek_serve``, ``variant_serve`` or
+``tools/w4a8_core_sweep.py``), ``k8_core`` (K8 on its plans at
+llama2-7b's five projections and DeepSeek-V3's expert shapes, M 1-32, 100,
+128, 256, device times; other plans: ``tools/k8_sweep.py``), or
+``deepseek_serve``, ``variant_serve`` or
 ``hybrid_serve``, as arguments (``python3 chip_smoke.py variant_kernels
 variant_envelope``): the build, those checks, no result line.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
@@ -902,18 +905,23 @@ KV_MODES = ("contiguous_int8", "contiguous_fp8", "contiguous_int4",
 
 
 @contextlib.contextmanager
-def unpack_once():
+def unpack_once(held=None):
     """Within the block each packed weight is unpacked once: the plain
     kernel versions unpack their weight on every call, which sets the pace
     of a full-width reference model on the CPU. The codes (int8, as the
-    unpackers return them), the plain K8's float32 weights and the plain
-    K9's float32 fields are held until the block ends; callers only read
-    them."""
+    unpackers return them, and the W4A8 codes as float32), the plain K8's
+    float32 weights, the plain K9's float32 fields and the weights of the
+    dequantize-then-matmul path are held until the block ends, or in
+    ``held`` (a dict the caller clears) across the blocks that pass it, so
+    a phase's modes unpack each weight once; callers only read them."""
+    import torch
+
     from neural_compressor_tpu_torch.kernels import dequant_matmul
     from neural_compressor_tpu_torch.ops import packing
 
     s4m, w4m = port_module("s4_matmul"), port_module("w4a8_matmul")
-    held = {}
+    own = held is None
+    held = {} if own else held
 
     def once(fn):
         def unpack(packed, *args, **kw):
@@ -924,20 +932,38 @@ def unpack_once():
             return hit[1]
         return unpack
 
+    def once_pw(fn):
+        """``fn(pw, cdt)``, held by the identity of the weight's tensors
+        (each call passes a new PackedWeight of the same tensors)."""
+        def weight(pw, cdt):
+            key = (tuple(id(f) if isinstance(f, torch.Tensor) else f
+                         for f in pw), cdt)
+            hit = held.get(key)
+            if hit is None or any(a is not b for a, b in zip(hit[0], pw)
+                                  if isinstance(a, torch.Tensor)):
+                hit = held[key] = (pw, fn(pw, cdt))
+            return hit[1]
+        return weight
+
     saved = [(packing, "unpack_codes_hopper"), (packing, "unpack_codes"),
+             (packing, "unpack_codes_hopper_f32"),
              (dequant_matmul, "unpack_codes"),
              (dequant_matmul, "plain_weight_f32"),
              (dequant_matmul, "codes_f32"),
              (s4m, "unpack_codes_s4"), (w4m, "unpack_codes")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in saved]
+    saved.append((dequant_matmul, "dot_weight_f32",
+                  dequant_matmul.dot_weight_f32))
     for mod, name, fn in saved:
-        setattr(mod, name, once(fn))
+        setattr(mod, name, once_pw(fn) if name == "dot_weight_f32"
+                else once(fn))
     try:
         yield
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-        held.clear()
+        if own:
+            held.clear()
 
 
 def set_kv_format(model, fmt) -> None:
@@ -1017,6 +1043,7 @@ def phase_engine_check(torch, nct) -> None:
             "contiguous_int4": ("w4a8_gemm",),
             "paged_fp8": ("paged_attn_fp8", "paged_write_fp8"),
             "paged_int4": ("paged_attn_int4", "paged_write_int4")}
+    held = {}  # the CPU's unpacked weights, shared by the modes
     for mode in ENGINE_MODES:
         # the earlier modes: 3 requests on 4 slots; the quantized caches:
         # 4 requests on the engine's 8 slots
@@ -1028,7 +1055,7 @@ def phase_engine_check(torch, nct) -> None:
         _e, got, _s = serve_engine(torch, nct, m_gpu, mode, prompts[:n],
                                    mnew, chunk=2, **mkw)
         launched = launch_counts()
-        with unpack_once():
+        with unpack_once(held):
             _e, want, _s = serve_engine(torch, nct, m_cpu, mode, prompts[:n],
                                         mnew, chunk=2, **mkw)
         toks = [r.generated for r in got]
@@ -1043,6 +1070,7 @@ def phase_engine_check(torch, nct) -> None:
                  "did not run")
     print(f"engine check done in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    held.clear()
     del m_cpu, m_gpu
 
 
@@ -1051,8 +1079,8 @@ def unit(rows, pick, bound_by) -> dict:
     32 layers' projections plus the lm_head, or 32 layers' attention.
     A number that is None in any row (no library call) stays None."""
     out = {}
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-        picked = [(r[key], w) for r, w in pick(rows)]
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms"):
+        picked = [(r.get(key), w) for r, w in pick(rows)]
         out[key] = (None if any(x is None for x, _w in picked)
                     else sum(w * x for x, w in picked))
     out["bound_by"] = bound_by(rows)
@@ -1062,7 +1090,7 @@ def unit(rows, pick, bound_by) -> dict:
 
 def two_layer_check(torch, label, m_cpu, m_gpu, ids, woq: bool,
                     formats=(None,) + KV_FORMATS, max_len: int = 64,
-                    tie_any: bool = False, want_fn=None) -> None:
+                    tie_any: bool = False, want_fn=None, held=None) -> None:
     """A full-width 2-layer model on the card (kernels) against the same
     weights on the CPU (plain versions; W4A16 forced onto the plain K8 for
     the prefill and the plain K9 for decode), in each KV format of
@@ -1076,7 +1104,9 @@ def two_layer_check(torch, label, m_cpu, m_gpu, ids, woq: bool,
     whole step; printed with the gap and the difference); ``tie_any``
     allows that in every format (a gemma's final softcap squeezes its
     logits, ``card_cpu_tie``). Exact launch counts of the card's run
-    (``want_fn(fmt)``, else a Llama's). ``max_len`` rows of cache."""
+    (``want_fn(fmt)``, else a Llama's). ``max_len`` rows of cache. The
+    CPU's unpacked weights are shared by the formats, and with the caller
+    where it passes ``held`` (``unpack_once``)."""
     from neural_compressor_tpu_torch import kernels
     from neural_compressor_tpu_torch.models.llama import init_kv_cache
 
@@ -1107,12 +1137,14 @@ def two_layer_check(torch, label, m_cpu, m_gpu, ids, woq: bool,
             rows.append(logits[0, -1].float().cpu())
         return torch.stack(rows), toks
 
+    own = held is None
+    held = {} if own else held
     for fmt in formats:
         t0 = time.perf_counter()
         kernels.reset_launch_counts()
         lg_gpu, tok_gpu = run(m_gpu, fmt)
         launched = launch_counts()
-        with unpack_once():
+        with unpack_once(held):
             lg_cpu, _ = run(m_cpu, fmt, forced=tok_gpu)
         diff = (lg_gpu - lg_cpu).abs().amax(dim=1)          # per step
         err, ref = float(diff.max()), float(lg_cpu.abs().max())
@@ -1146,6 +1178,8 @@ def two_layer_check(torch, label, m_cpu, m_gpu, ids, woq: bool,
             fail(f"{label} {fmt}: card tokens {card_tok} vs CPU {cpu_tok} "
                  f"(parted {parted}), err {err}, launches {launched} != "
                  f"{want}")
+    if own:
+        held.clear()
 
 
 def phase_model_check(torch, nct) -> None:
@@ -1394,9 +1428,16 @@ def phase_engine_serve(torch, nct, model) -> dict:
 
 
 # ------------------------------------------------------------------ W4A16
-WOQ_MS = (8, 100, 256)          # K8 rows timed at the llama2-7b shapes
+WOQ_MS = (8, 100, 128, 256)     # K8 rows timed at the llama2-7b shapes
 WOQ_LAYERS = 4                  # depth of the served W4A16 model (phases 8-9)
 WOQ_UNIT_M = 8                  # K8's row of the kernels line: one 8-slot step
+WOQ_PREFILL_M = 128             # K8's second unit: one 128-token prefill chunk
+# K8's kernels in a profile (its small path, its tile path and the tile
+# path's split fold) and K9's
+K8_KERNELS = ("dequant_small_kernel", "dequant_gemm_kernel", "splitk_reduce")
+K9_KERNELS = ("vpu_gemv_kernel", "splitk_reduce")
+# DeepSeek-V3's routed experts (K8's few column tiles: K split across blocks)
+EXPERT_SHAPES = {"expert_up": (7168, 2048), "expert_down": (2048, 7168)}
 
 
 def woq_tol(torch, x, pw, y_ref, k9: bool, extra=None):
@@ -1461,41 +1502,67 @@ def woq_operands(pw):
     return (pw.packed, pw.scales, pw.zeros)
 
 
-def woq_faults(s, z):
-    """Faults planted in a kernel's scales and zero points, each of which
-    ``woq_tol`` must catch: (name, scales, zeros)."""
+def woq_faults(pw):
+    """Faults planted in a kernel's operands, each of which ``woq_tol``
+    must catch: (name, words, scales, zeros). The last swaps two word rows
+    of group 0 (their k-slots in every field): the order in which K8's
+    small path feeds fields and rows to its MMAs."""
+    s, z = pw.scales, pw.zeros
     g7 = s.clone()
     g7[7] *= 1.25
-    return (("zeros dropped", s, None),
-            ("scales one group late", s.roll(1, dims=0), z),
-            ("group 7 scale x1.25", g7, z))
+    swapped = pw.packed.clone()
+    swapped[[0, 1]] = pw.packed[[1, 0]]
+    return (("zeros dropped", pw.packed, s, None),
+            ("scales one group late", pw.packed, s.roll(1, dims=0), z),
+            ("group 7 scale x1.25", pw.packed, g7, z),
+            ("word rows 0 and 1 swapped", swapped, s, z))
 
 
 def phase_woq_kernels(torch, nct, peaks: dict) -> dict:
     """K8 and K9 at the llama2-7b asym-int4 g128 shapes of the W4A16 path:
-    K9 at M = 1, K8 at M = 8, 100 and 256, each against its plain version,
-    with its time (weights rotated through >200 MB of copies, so L2 is
-    cold), the plain version's, the yardstick ``torch.matmul`` of the
-    bf16-dequantized weight (dequantization not timed; never called by the
-    port) and the bound. At M = 1 and 8 the kernel also runs on faulty
-    scales or zero points (``woq_faults``), and the tolerance must flag
-    each fault."""
+    K9 at M = 1, K8 at M = 8, 100, 128 and 256, each against its plain
+    version, with its time (event ms over back-to-back launches, weights
+    rotated through >200 MB of copies, so L2 is cold; device ms from
+    torch.profiler over the same launches), the plain version's, the
+    yardstick ``torch.matmul`` of the bf16-dequantized weight
+    (dequantization not timed; never called by the port) and the bound.
+    At M = 1 and 8 the kernel also runs on faulty operands
+    (``woq_faults``), and the tolerance must flag each fault; every K8
+    launch is repeated and must give the same bits. K8 at DeepSeek-V3's
+    expert shapes (few column tiles: K split across blocks) is checked the
+    same way, untimed."""
     from neural_compressor_tpu_torch.kernels import dequant_matmul as dm
     from neural_compressor_tpu_torch.ops import dequantize_packed
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(21)
-    rows = {"k8": [], "k9": []}
-    missed = []
-    for name, (K, N) in SHAPES.items():
+    rows = {"k8": [], "k9": [], "k8_untimed": []}
+    missed, unequal = [], []
+
+    def faults(name, M, x, pw, yp, tol, kw):
+        for fault, fw, fs, fz in woq_faults(pw):
+            yf = (dm.vpu_gemv(x, fw, fs, fz, **kw) if M == 1
+                  else dm.dequant_gemm(x, fw, fs, fz, None, **kw))
+            df = (yf.float() - yp.float()).abs()
+            caught = int((df > tol).sum())
+            print(f"{'k9' if M == 1 else 'k8'} {name} M={M} planted "
+                  f"fault '{fault}': {caught}/{M * yp.shape[-1]} outputs "
+                  f"outside the tolerance, max d/tol="
+                  f"{float((df / tol).max()):.3g}", flush=True)
+            if not caught:
+                missed.append(f"{name} M={M} {fault}")
+            del yf, df
+
+    for name, (K, N) in dict(SHAPES, **EXPERT_SHAPES).items():
+        timed = name in SHAPES
         pw = woq_weight(torch, gen, K, N)
         wbf = dequantize_packed(pw, torch.bfloat16)
         wbytes = K * N // 2 + 2 * (K // G) * N * 4
         cps = [tuple(t.clone() for t in woq_operands(pw))
-               for _ in range(n_copies(wbytes))]
+               for _ in range(n_copies(wbytes) if timed else 0)]
         lcps = [wbf] + [wbf.clone() for _ in range(
-            n_copies(K * N * 2) - 1)]
-        for M in (1,) + WOQ_MS:
+            n_copies(K * N * 2) - 1 if timed else 0)]
+        for M in ((1,) + WOQ_MS if timed else (WOQ_UNIT_M,)):
             x = torch.randn((M, K), generator=gen, device="cuda").to(
                 torch.bfloat16)
             if M == 1:
@@ -1511,6 +1578,9 @@ def phase_woq_kernels(torch, nct, peaks: dict) -> dict:
                           out_dtype=torch.bfloat16)
                 yk = dm.dequant_gemm(x, *woq_operands(pw), None, **kw)
                 yp = dm.dequant_gemm_plain(x, *woq_operands(pw), None, **kw)
+                again = dm.dequant_gemm(x, *woq_operands(pw), None, **kw)
+                if not torch.equal(again, yk):
+                    unequal.append(f"{name} M={M}")
                 run = [lambda c=c: dm.dequant_gemm(x, *c, None, **kw)
                        for c in cps]
                 plain = [lambda: dm.dequant_gemm_plain(
@@ -1522,42 +1592,43 @@ def phase_woq_kernels(torch, nct, peaks: dict) -> dict:
             err, ratio = float(d.max()), float((d / tol).max())
             ok = bool(torch.isfinite(yk).all()) and bool((d <= tol).all())
             if M in (1, WOQ_UNIT_M):
-                for fault, fs, fz in woq_faults(pw.scales, pw.zeros):
-                    yf = (dm.vpu_gemv(x, pw.packed, fs, fz, **kw) if M == 1
-                          else dm.dequant_gemm(x, pw.packed, fs, fz, None,
-                                               **kw))
-                    df = (yf.float() - yp.float()).abs()
-                    caught = int((df > tol).sum())
-                    print(f"{'k9' if M == 1 else 'k8'} {name} M={M} planted "
-                          f"fault '{fault}': {caught}/{M * N} outputs "
-                          f"outside the tolerance, max d/tol="
-                          f"{float((df / tol).max()):.3g}", flush=True)
-                    if not caught:
-                        missed.append(f"{name} M={M} {fault}")
-                    del yf, df
+                faults(name, M, x, pw, yp, tol, kw)
+            kind = "k9" if M == 1 else "k8"
+            plan = ("" if M == 1 else
+                    str(dm.dequant_plan(M, N, K, G, 4, "tpu_strided")))
+            if not timed:
+                rows["k8_untimed"].append(dict(shape=name, M=M, err=err,
+                                               ok=ok))
+                print(f"k8 {name} M={M} K={K} N={N} max d/tol={ratio:.3g} "
+                      f"ok={ok} {plan}", flush=True)
+                continue
             ms = timed_ms(torch, run, 100 if M == 1 else 30)
+            dms = sum(profiled(torch, run, names=K9_KERNELS if M == 1
+                               else K8_KERNELS).values())
             pms = timed_ms(torch, plain, 3)
             lms = timed_ms(torch, [lambda b=b: torch.matmul(x, b)
                                    for b in lcps], 30)
             nbytes = M * K * 2 + wbytes + M * N * 2
             bms, by = bound(nbytes, ops, peak, peaks)
-            kind = "k9" if M == 1 else "k8"
             rows[kind].append(dict(shape=name, M=M, K=K, N=N, err=err,
-                                   tol_ratio=ratio, ok=ok, ms=ms, plain_ms=pms,
+                                   tol_ratio=ratio, ok=ok, ms=ms,
+                                   device_ms=dms, plain_ms=pms,
                                    library_ms=lms, bound_ms=bms,
                                    bound_by=by))
             print(f"{kind} {name:8s} M={M:4d} K={K:5d} N={N:5d} asym int4 "
                   f"g{G} max_abs_err={err:.3e} "
                   f"max_tol={float(tol.max()):.3e} max d/tol={ratio:.3g} "
-                  f"ok={ok} ms={ms:.4f} "
+                  f"ok={ok} ms={ms:.4f} device_ms={dms:.4f} "
                   f"plain_ms={pms:.4f} library_ms={lms:.4f} "
-                  f"bound_ms={bms:.4f} ({by})", flush=True)
+                  f"bound_ms={bms:.4f} ({by}) {plan}", flush=True)
         del cps, lcps, wbf
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
         fail(f"K8/K9 disagree with their plain versions: {bad}")
     if missed:
         fail(f"the K8/K9 tolerance missed planted faults: {missed}")
+    if unequal:
+        fail(f"a repeated K8 launch gave other bits: {unequal}")
     return rows
 
 
@@ -1616,6 +1687,12 @@ def phase_woq_envelope(torch, nct) -> None:
             check(f"k8 M=17 {tag}", x_of(17, 512), pw, k9=False)
             if pw.layout == "tpu_strided" and dtype == "int":
                 check(f"k9 {tag}", x_of(1, 512), pw, k9=True)
+    # zero points that are not integers (2^23 + off inexact: K8's small
+    # path subtracts 2^23 and off apart)
+    pw = woq_weight(torch, gen, 512, 384, G=128)
+    pw = pw._replace(zeros=pw.zeros + 0.37)
+    for M in (3, 17):
+        check(f"k8 M={M} zeros + 0.37", x_of(M, 512), pw, k9=False)
     # "int8"-layout codes of 4-bit weights, M and N edges, 3-D x
     pw = woq_weight(torch, gen, 256, 256, G=32, force_int8=True)
     check("k8 force_int8 asym4 M=5", x_of(5, 256), pw, k9=False)
@@ -2872,6 +2949,7 @@ def phase_spec_model_check(torch, nct) -> None:
     t0 = time.perf_counter()
     cfg = LlamaConfig(**dict(LLAMA_PRESETS["llama2-7b"], num_hidden_layers=2))
     L, V = cfg.num_hidden_layers, cfg.vocab_size
+    held = {}  # the CPU's unpacked weights, cleared with their models
 
     def w4a8(seed):
         m = nct.build_quantized(
@@ -2889,7 +2967,7 @@ def phase_spec_model_check(torch, nct) -> None:
         launched = launch_counts()
         if woq:
             set_woq_impl(m_cpu, "pallas")   # the card's K8 at M = 9 and 32
-        with unpack_once():
+        with unpack_once(held):
             want, wst = fn(m_cpu)
         want_l = expect(**want_fn(gst))
         ok = (torch.equal(got.cpu(), want) and gst == wst
@@ -2930,6 +3008,7 @@ def phase_spec_model_check(torch, nct) -> None:
          lambda st: dict(w4a8_gemm=(4 * L + 1) * (st["rounds"] + 2),
                          fused_gemv=(4 * L + 1) * 5 * st["rounds"],
                          decode_attn=L * 5 * st["rounds"]))
+    held.clear()
     del d_cpu, d_gpu
 
     # the engine in every pool mode: a looping prompt and a random one
@@ -2944,7 +3023,7 @@ def phase_spec_model_check(torch, nct) -> None:
                                     chunk=2, **kw)
         launched = launch_counts()
         mg = eng.metrics()
-        with unpack_once():
+        with unpack_once(held):
             eng, want, _s = serve_engine(torch, nct, m_cpu, mode, prompts,
                                          news, chunk=2, **kw)
         mc = eng.metrics()
@@ -2958,7 +3037,7 @@ def phase_spec_model_check(torch, nct) -> None:
             n = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
                      None)
             if n is not None:
-                with unpack_once():
+                with unpack_once(held):
                     gap, diff = card_cpu_tie(torch, m_cpu, m_gpu,
                                              ENGINE_MODES[mode][1],
                                              list(prompts[i]) + b[:n], b[n],
@@ -2977,6 +3056,7 @@ def phase_spec_model_check(torch, nct) -> None:
         if not ok:
             fail(f"spec engine {mode}: card and CPU differ or the path's "
                  "kernels did not run")
+    held.clear()
     del m_cpu, m_gpu
 
     # a W4A16 target: windows and the prefill on K8 (the CPU forced onto
@@ -2987,6 +3067,7 @@ def phase_spec_model_check(torch, nct) -> None:
     both(ngram, m_cpu, m_gpu, "ngram W4A16",
          lambda st: dict(dequant_gemm=(4 * L + 1) * (st["rounds"] + 1)),
          woq=True)
+    held.clear()
     del m_cpu, m_gpu
     print(f"spec model check done in {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -3897,11 +3978,12 @@ def phase_gemma_model_check(torch, nct) -> None:
         ids = torch.randint(0, cfg.vocab_size, (1, GEMMA_CHECK_PROMPT),
                             generator=torch.Generator().manual_seed(seed))
         n_proj = 7 * cfg.num_hidden_layers
+        held = {}  # the CPU's unpacked weights, shared by every check below
         two_layer_check(
             torch, f"gemma check {preset}", m_cpu, m_gpu, ids, woq=True,
             max_len=GEMMA_CHECK_PROMPT + 16, tie_any=True,
             want_fn=lambda fmt: expect(dequant_gemm=n_proj,
-                                       vpu_gemv=8 * n_proj))
+                                       vpu_gemv=8 * n_proj), held=held)
         set_woq_impl(m_cpu, "pallas")
         gen = torch.Generator().manual_seed(seed + 1)
         prompts = [torch.randint(0, cfg.vocab_size, (P,), generator=gen)
@@ -3915,7 +3997,7 @@ def phase_gemma_model_check(torch, nct) -> None:
             eng, got, _s = serve_engine(torch, nct, m_gpu, mode, prompts,
                                         new, chunk=2, **kw)
             launched = launch_counts()
-            with unpack_once():
+            with unpack_once(held):
                 _e, want, _s = serve_engine(torch, nct, m_cpu, mode, prompts,
                                             new, chunk=2, **kw)
             toks = [r.generated for r in got]
@@ -3947,6 +4029,7 @@ def phase_gemma_model_check(torch, nct) -> None:
                      f"not run as expected ({path})")
         print(f"gemma check {preset} done in {time.perf_counter() - t0:.1f} "
               "s", flush=True)
+        held.clear()
         del m_cpu, m_gpu
         gc.collect()
         torch.cuda.empty_cache()
@@ -4584,11 +4667,11 @@ DS_CACHE_MODES = ((False, None), (True, None), (True, "int8"),
 # MoE layer with all 256 routed experts and the shared one (4 in PR 8-9,
 # its 3 dense layers and the MoE layer: the check's time limit)
 DS_LAYERS = 2
-DS_PROMPTS, DS_NEW = (16, 371, 2000), 48
+DS_PROMPTS, DS_NEW = (16, 371, 2000), 16
 DS_ENGINE_PROMPTS, DS_ENGINE_NEW = (16, 371, 1000, 3000), 16
-# the deepseek engine's requests: 8, 2 a prompt length, for the check's
+# the deepseek engine's requests: 4, one a prompt length, for the check's
 # 1,200 s (PERF.md §4)
-DS_ENGINE_REQUESTS = 8
+DS_ENGINE_REQUESTS = 4
 
 
 def ds_model(nct, seed, device, **cut):
@@ -4794,13 +4877,13 @@ def phase_deepseek_serve(torch, nct) -> dict:
     routed experts and the shared one), RTN asym-int4 g128 W4A16 (router
     float32, embedding and lm_head bf16), random weights made on the card
     from a seed, in latent mode. Three B=1 greedy requests over the
-    contiguous latent cache (prompts of 16, 371 and 2,000 tokens, 48 new,
+    contiguous latent cache (prompts of 16, 371 and 2,000 tokens, 16 new,
     max_len 4096: K8 prefills the 16-token prompt, the others take
     dequantize-then-matmul, K9 decodes, attention in plain PyTorch as JAX
     runs it in XLA); then ``ContinuousBatchingEngine(n_slots=8,
     max_len=4096, paged=True)`` over the latent pool (pages of 128 rows,
-    the default n_pages), ``DS_ENGINE_REQUESTS`` = 8 requests (prompts of
-    16, 371, 1,000 and 3,000 tokens, 2 each, 16 new), ``run(chunk=8)``: each decode step of each
+    the default n_pages), ``DS_ENGINE_REQUESTS`` = 4 requests (prompts of
+    16, 371, 1,000 and 3,000 tokens, 16 new), ``run(chunk=8)``: each decode step of each
     layer writes with K14's write and attends with K14's attention, the
     projections on K8 (M = 8). Its tokens held against ``greedy_search``
     (over the contiguous latent cache), equal or parted
@@ -4881,7 +4964,7 @@ def phase_deepseek_serve(torch, nct) -> dict:
         return model.register_forward_hook(lambda _m, _a, out: sink.append(
             out[0] if isinstance(out, tuple) else out))
 
-    # the references: greedy_search over each prompt length's 4 prompts at
+    # the references: greedy_search over each prompt length's prompts at
     # once (one at a time for the 3,000-token ones, whose float64 prefill
     # attention would not fit four at once), and the logits that chose each
     # of their tokens
@@ -5631,13 +5714,14 @@ def phase_variant_model_check(torch, nct) -> None:
     m_gpu = copy.deepcopy(m_cpu).to("cuda")
     gen = torch.Generator().manual_seed(8)
     ids = torch.randint(0, cfg.vocab_size, (1, 32), generator=gen)
+    held = {}  # the CPU's unpacked weights, shared by every check below
     for flag in VARIANT_FLAGS:
         formats = (None, "int8") if flag == "write" else (None,)
         with variant(flag):
             two_layer_check(torch, f"variant check {flag}", m_cpu, m_gpu, ids,
                             woq=False, formats=formats, tie_any=True,
                             want_fn=lambda fmt, f=flag: variant_launches(
-                                f, 2, 8, fmt))
+                                f, 2, 8, fmt), held=held)
     lens = (12, 20, 5, 33)
     prompts = [torch.randint(0, cfg.vocab_size, (P,), generator=gen).numpy()
                for P in lens]
@@ -5649,7 +5733,7 @@ def phase_variant_model_check(torch, nct) -> None:
             _e, got, _s = serve_engine(torch, nct, m_gpu, mode, prompts,
                                        (4, 3, 4, 2), chunk=2, **kw)
             launched = launch_counts()
-            with unpack_once():
+            with unpack_once(held):
                 _e, want, _s = serve_engine(torch, nct, m_cpu, mode, prompts,
                                             (4, 3, 4, 2), chunk=2, **kw)
         toks = [r.generated for r in got]
@@ -5662,6 +5746,7 @@ def phase_variant_model_check(torch, nct) -> None:
               f"({time.perf_counter() - t1:.1f} s)", flush=True)
         if not ok:
             fail(f"v1 engine {mode}: card and CPU differ or K15 did not run")
+    held.clear()
     del m_cpu, m_gpu
 
 
@@ -5888,7 +5973,7 @@ def phase_variant_serve(torch, nct, model) -> dict:
 
 
 # ------------------------------------------------------------- hybrid GPTQ
-HYB_LAYERS = 4                # depth of the served hybrid-GPTQ llama2-7b
+HYB_LAYERS = 2                # depth of the served hybrid-GPTQ llama2-7b
 HYB_CALIB = (8, 512)          # calibration: 8 sequences of 512 random ids
 HYB_PROMPTS = (16, 371)
 S4_MS = (1, 8, 128)           # K2: the B=1 step, the engine's M = 8, a prefill
@@ -6261,6 +6346,53 @@ def phase_w4a8_core(torch, nct, peaks: dict) -> None:
         fail(f"the W4A8 core disagrees with its plain versions: {bad}")
 
 
+# ------------------------------------------------------------- K8's plans
+K8_CORE_MS = tuple(range(1, 33)) + (100, 128, 256)
+
+
+def phase_k8_core(torch, nct, peaks: dict) -> None:
+    """K8 on ``dequant_plan``'s plans at llama2-7b's five projections and
+    DeepSeek-V3's expert shapes, M 1-32, 100, 128 and 256: each launch
+    within ``woq_tol`` of its plain version, its plan, event and device ms
+    and bound printed (weights rotated through >200 MB of copies). Other
+    plans: ``tools/k8_sweep.py``."""
+    from neural_compressor_tpu_torch.kernels import dequant_matmul as dm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    bad = []
+    for name, (K, N) in dict(SHAPES, **EXPERT_SHAPES).items():
+        pw = woq_weight(torch, gen, K, N)
+        wbytes = K * N // 2 + 2 * (K // G) * N * 4
+        cps = [tuple(t.clone() for t in woq_operands(pw))
+               for _ in range(n_copies(wbytes))]
+        kw = dict(bits=4, group_size=G, layout="tpu_strided",
+                  out_dtype=torch.bfloat16)
+        for M in K8_CORE_MS:
+            x = torch.randn((M, K), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            yk = dm.dequant_gemm(x, *woq_operands(pw), None, **kw)
+            yp = dm.dequant_gemm_plain(x, *woq_operands(pw), None, **kw)
+            torch.cuda.synchronize()
+            ok = bool(((yk.float() - yp.float()).abs()
+                       <= woq_tol(torch, x, pw, yp, k9=False)).all())
+            if not ok:
+                bad.append((name, M))
+            run = [lambda c=c: dm.dequant_gemm(x, *c, None, **kw)
+                   for c in cps]
+            ms = timed_ms(torch, run, 30)
+            dms = sum(profiled(torch, run, names=K8_KERNELS).values())
+            bms, by = bound(M * K * 2 + wbytes + M * N * 2, 2 * M * N * K,
+                            peaks["bf16_s"], peaks)
+            print(f"k8 {name:11s} M={M:3d} ok={ok} ms={ms:.4f} "
+                  f"device_ms={dms:.4f} bound_ms={bms:.4f} ({by}) "
+                  f"{dm.dequant_plan(M, N, K, G, 4, 'tpu_strided')}",
+                  flush=True)
+        del cps
+    if bad:
+        fail(f"K8 disagrees with its plain version: {bad}")
+
+
 @contextlib.contextmanager
 def plain_path():
     """Every kernel wrapper of the port replaced, where it is called from,
@@ -6620,7 +6752,8 @@ def main() -> None:
               "variant_serve": lambda: phase_variant_serve(
                   torch, nct, w4a8_model(torch, nct)),
               "hybrid_serve": lambda: phase_hybrid_serve(torch, nct),
-              "w4a8_core": lambda: phase_w4a8_core(torch, nct, peaks)}
+              "w4a8_core": lambda: phase_w4a8_core(torch, nct, peaks),
+              "k8_core": lambda: phase_k8_core(torch, nct, peaks)}
     if len(sys.argv) > 1:
         # a development run: only the named checks, no serving, no result
         unknown = [a for a in sys.argv[1:] if a not in {**checks, **serves}]
@@ -6709,6 +6842,9 @@ def main() -> None:
     k8_u = unit([r for r in wrows["k8"] if r["M"] == WOQ_UNIT_M], per_layer,
                 mixed)
     k8_u["max_abs_err"] = max(r["err"] for r in wrows["k8"])
+    # K8's second unit: one 128-token W4A16 prefill chunk
+    k8_prefill_u = unit([r for r in wrows["k8"] if r["M"] == WOQ_PREFILL_M],
+                        per_layer, mixed)
     k9_u = unit(wrows["k9"], per_layer, mixed)
 
     def kv_unit(kind, pick=lambda r: True):
@@ -6869,7 +7005,9 @@ def main() -> None:
           "paged_write = the same step over the int8 pool of 128-row pages "
           "(32 layers; paged_write has no single library call for int8); "
           "dequant_gemm = one 8-slot W4A16 decode step (32 x 4 + lm_head "
-          "at M = 8); vpu_gemv = one B=1 W4A16 decode step (32 x 4 + "
+          "at M = 8), its prefill_m128 one 128-token W4A16 prefill chunk "
+          "(the same at M = 128), device_ms beside them from "
+          "torch.profiler; vpu_gemv = one B=1 W4A16 decode step (32 x 4 + "
           "lm_head); decode_attn_quant = one B=1 decode step at pos 517 "
           "over the int8 cache (32 layers; fp8 in the log); "
           "batched_decode_attn_quant = the 8-slot step over the int8 "
@@ -6917,11 +7055,14 @@ def main() -> None:
     # second units beside the kernels-line unit: K1's 8-slot engine step
     # (M = 8), K2's B=1 decode step (M = 1)
     second = {"w4a8_gemm": ("engine_step_m8", gemm_step_u),
-              "s4_gemm": ("b1_step_m1", hybrid_unit("k2", 1))}
+              "s4_gemm": ("b1_step_m1", hybrid_unit("k2", 1)),
+              "dequant_gemm": ("prefill_m128", k8_prefill_u)}
 
     def fields(u):
-        return {k: u[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "library_ms")}
+        """The line's times; device ms beside them where measured."""
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return {k: u[k] for k in keys + (("device_ms",) if u.get(
+            "device_ms") is not None else ())}
 
     kernels_line = {"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,

@@ -148,4 +148,62 @@ __device__ __forceinline__ void load_lane(const C* row, int lane, int D,
     out[e] = i0 + e < D ? to_float(row[i0 + e]) : 0.0f;
 }
 
+// a block's dynamic shared memory on the H100: 227 KB, the opt-in maximum
+constexpr int MAX_DYN_SMEM = 232448;
+
+// ------------------------------------------ asynchronous copies
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// BYTES (16, 8 or 4) bytes global -> shared, asynchronously; zeros where
+// `valid` is false (nothing is read then)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid = true) {
+  const uint32_t n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_u32(dst)),
+                 "l"(src), "n"(BYTES), "r"(n)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// all but the n newest commit groups have landed (n < 8)
+__device__ __forceinline__ void cp_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
+}
+
+
+// x / d and x % d by a shift and a mask where d is a power of 2 (the main
+// path's group sizes), by division elsewhere
+struct Div {
+  int d, sh;   // sh < 0: not a power of 2
+  __device__ __forceinline__ int q(int x) const {
+    return sh >= 0 ? x >> sh : x / d;
+  }
+  __device__ __forceinline__ int r(int x) const {
+    return sh >= 0 ? x & (d - 1) : x % d;
+  }
+};
+__device__ __forceinline__ Div make_div(int d) {
+  return Div{d, (d & (d - 1)) ? -1 : __ffs(d) - 1};
+}
+
 }  // namespace nctt

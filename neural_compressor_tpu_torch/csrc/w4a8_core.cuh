@@ -66,6 +66,15 @@
 namespace nctt {
 namespace w4a8 {
 
+// the asynchronous copies and divisions of nctt_common.cuh
+using nctt::cp_async;
+using nctt::cp_commit;
+using nctt::cp_wait;
+using nctt::Div;
+using nctt::make_div;
+using nctt::MAX_DYN_SMEM;
+using nctt::smem_u32;
+
 // the paths of a plan, as kernels/w4a8_matmul.py numbers them
 enum Path { GENERAL = 0, SMALL = 1, WGMMA = 2 };
 
@@ -83,7 +92,6 @@ constexpr int SRAW = KS / 2 + 16;      // bytes a column of the small path's
                                        // raw slot: its 64 and 16 of padding
 constexpr int SMALL_WARPS = 8;
 constexpr int SMALL_THREADS = 32 * SMALL_WARPS;
-constexpr int MAX_DYN_SMEM = 232448;   // 227 KB, the opt-in maximum
 
 // f(i) for i = tid, tid + NTHR, ... < COUNT, unrolled
 template <int COUNT, int NTHR, class F>
@@ -92,44 +100,6 @@ __device__ __forceinline__ void for_items(int tid, F&& f) {
   for (int n = 0; n < (COUNT + NTHR - 1) / NTHR; ++n) {
     const int i = tid + n * NTHR;
     if (COUNT % NTHR == 0 || i < COUNT) f(i);
-  }
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// BYTES (16 or 8) bytes global -> shared, asynchronously; zeros where
-// `valid` is false (nothing is read then)
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         bool valid = true) {
-  const uint32_t n = valid ? BYTES : 0;
-  if constexpr (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_u32(dst)),
-                 "l"(src), "n"(BYTES), "r"(n)
-                 : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// all but the n newest commit groups have landed (n < 8)
-__device__ __forceinline__ void cp_wait(int n) {
-  switch (n) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
   }
 }
 
@@ -237,21 +207,6 @@ __device__ __forceinline__ void unpack8(uint32_t w, uint32_t& lo4,
   const uint32_t od = (w >> 4) & 0x0F0F0F0Fu;   // k = 1, 3, 5, 7
   lo4 = __byte_perm(ev, od, 0x5140);
   hi4 = __byte_perm(ev, od, 0x7362);
-}
-
-// x / d and x % d by a shift and a mask where d is a power of 2 (the main
-// path's group sizes), by division elsewhere
-struct Div {
-  int d, sh;   // sh < 0: not a power of 2
-  __device__ __forceinline__ int q(int x) const {
-    return sh >= 0 ? x >> sh : x / d;
-  }
-  __device__ __forceinline__ int r(int x) const {
-    return sh >= 0 ? x & (d - 1) : x % d;
-  }
-};
-__device__ __forceinline__ Div make_div(int d) {
-  return Div{d, (d & (d - 1)) ? -1 : __ffs(d) - 1};
 }
 
 // One stage of KS k-slots. Natural order: k0 .. k0 + 127. Gathered

@@ -100,12 +100,11 @@ SIGNATURES = {
     # scale, stream
     "nctt_paged_latent_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _F, _P],
-    # x, w, scales, zeros, codebook, out, part, M, N, K, G, bits,
-    # layout_int8, x_f32, out_bf16, splits, chunks_per_split, stream
-    "nctt_dequant_gemm": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _P],
-    # M, N, K, G, bits, layout_int8, n_sm, wbytes -> splits, chunks_per_split
-    "nctt_dequant_gemm_plan": [_I, _I, _I, _I, _I, _I, _I, _L, _IP, _IP],
+    # x, w, scales, zeros, codebook, out, part, tickets, M, N, K, G, bits,
+    # layout_int8, x_f32, out_bf16, path, mt, bn, stages, per, splits,
+    # smem, stream (the plan from dequant_matmul.dequant_plan)
+    "nctt_dequant_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, w, scales, zeros, out, part, N, K, G, bits, x_bf16, out_bf16,
     # splits, groups_per_split, stream
     "nctt_vpu_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -165,17 +164,25 @@ def build() -> Path:
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
     tmp = Path(tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-"))
     try:
-        jobs = []
+        jobs, done = [], {}
         for src in _sources():
             obj = tmp / (src.stem + ".o")
             cmd = [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)]
-            jobs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+
+            def wait(proc=proc, src=src):
+                out, err = proc.communicate()
+                done[src] = (out, err, time.perf_counter() - t0)
+
+            waiter = threading.Thread(target=wait)
+            waiter.start()
+            jobs.append((src, obj, proc, waiter))
         log, errors = [], []
-        for src, _obj, proc in jobs:
-            out, err = proc.communicate()
-            log.append(f"== {src.name}\n{out}{err}")
+        for src, _obj, proc, waiter in jobs:
+            waiter.join()
+            out, err, secs = done[src]
+            log.append(f"== {src.name} ({secs:.1f} s)\n{out}{err}")
             if proc.returncode:
                 errors.append(f"nvcc failed on {src.name} "
                               f"(exit {proc.returncode}):\n{err}")
@@ -183,7 +190,7 @@ def build() -> Path:
             raise RuntimeError("\n".join(errors))
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp / LIB_NAME),
-             *(str(obj) for _s, obj, _p in jobs)],
+             *(str(obj) for _s, obj, _p, _w in jobs)],
             capture_output=True, text=True)
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
@@ -203,6 +210,8 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
+    if _lib is not None:   # no lock once loaded: a launch takes this path
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))

@@ -21,14 +21,18 @@ The counterpart of ``neural_compressor_tpu/kernels/dequant_matmul.py``:
 
 The CUDA kernels (``csrc/dequant_matmul.cu``, K10's
 ``csrc/vpu_int8act.cu``) read the "tpu_strided"
-words and "int8" codes as the JAX package stores them. Dequantize-then-
-matmul is no kernel: ``dequant_dot`` counts its calls in ``.calls``.
+words and "int8" codes as the JAX package stores them. K8's path and tiles
+come from ``dequant_plan`` (cached per shape; the C entry checks the plan
+it is given), K9's split from its C plan entry. Dequantize-then-matmul is
+no kernel: ``dequant_dot`` counts its calls in ``.calls``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -36,6 +40,7 @@ from ..ops.packing import (LANE_BITS, PackedWeight, dequantize_packed,
                            resolve_double_quant, unpack_codes)
 from ..ops.qtensor import CODEBOOKS, FLOAT_CODE_DTYPES
 from . import _build
+from .w4a8_matmul import MAX_DYN_SMEM
 
 IMPLS = ("auto", "pallas", "xla", "vpu")
 _DEFAULT_IMPL = "auto"
@@ -63,8 +68,8 @@ def _on_card(x: torch.Tensor) -> bool:
 
 
 def _plan(plan_fn, name: str, *args) -> tuple[int, int]:
-    """A kernel's split of K, (splits, chunks or groups per split), from
-    its C plan entry: the tiling lives in ``csrc/dequant_matmul.cu``."""
+    """K9's split of K, (splits, groups per split), from its C plan
+    entry: its tiling lives in ``csrc/dequant_matmul.cu``."""
     splits, per = ctypes.c_int(), ctypes.c_int()
     err = plan_fn(*args, ctypes.byref(splits), ctypes.byref(per))
     if err:
@@ -72,6 +77,7 @@ def _plan(plan_fn, name: str, *args) -> tuple[int, int]:
     return splits.value, per.value
 
 
+@functools.lru_cache(maxsize=None)
 def _sm_count(dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
@@ -93,21 +99,33 @@ def dequant_dot(x: torch.Tensor, pw: PackedWeight, cdt, out_dtype) -> torch.Tens
     K, N = pw.orig_shape
     lead = x.shape[:-1]
     x2, pw = _gather_perm(x.reshape(-1, K), resolve_double_quant(pw))
-    w = dequantize_packed(pw, out_dtype=cdt)
-    y = torch.matmul(x2.to(cdt).to(torch.float32), w.to(torch.float32))
+    y = torch.matmul(x2.to(cdt).to(torch.float32), dot_weight_f32(pw, cdt))
     return y.to(out_dtype).reshape(*lead, N)
 
 
 dequant_dot.calls = 0
 
 
+def dot_weight_f32(pw: PackedWeight, cdt) -> torch.Tensor:
+    """The weight [K, N] ``dequant_dot`` multiplies: dequantized to
+    ``cdt``, as float32."""
+    return dequantize_packed(pw, out_dtype=cdt).to(torch.float32)
+
+
 def _codebook(pw: PackedWeight, device):
+    """The 16-float table of a codebook dtype (nf4, fp4) on ``device``, or
+    None; made once per dtype and device."""
     if pw.dtype in FLOAT_CODE_DTYPES:
-        cb = torch.zeros(16, dtype=torch.float32)
-        table = CODEBOOKS[pw.dtype]
-        cb[:table.numel()] = table
-        return cb.to(device)
+        return _codebook_on(pw.dtype, torch.device(device))
     return None
+
+
+@functools.lru_cache(maxsize=None)
+def _codebook_on(dtype: str, device) -> torch.Tensor:
+    cb = torch.zeros(16, dtype=torch.float32)
+    table = CODEBOOKS[dtype]
+    cb[:table.numel()] = table
+    return cb.to(device)
 
 
 def dequant_gemm_plain(x, packed, scales, zeros, codebook, *, bits: int,
@@ -145,12 +163,154 @@ def plain_weight_f32(packed, scales, zeros, codebook, *, bits: int,
     return w.to(torch.float32)
 
 
+# K8's plan. The C entry checks every plan it is given against the same
+# rules (``plan_ok`` in ``csrc/dequant_matmul.cu``) and refuses the rest.
+PATHS = {"tile": 0, "small": 1}
+SMALL_M = 256                 # the small path up to this many rows of x
+SK_WARPS = 8                  # a small block's warps, each its own stream
+SK_CHUNK = 8                  # word rows a chunk, the unit of a warp's range
+SK_RS = 16                    # word rows a ring slot
+SK_WN = 32                    # a small block's columns
+TILE_BN, TILE_KC = 128, 64    # the tile kernel's columns, k-slots a stage
+N_SM = 132                    # the H100's SMs (the wrapper passes its own)
+
+
+class DequantPlan(NamedTuple):
+    """How K8 runs one product: ``path`` "small" (mma.sync with the weights
+    on the wide side: ``mt`` = 8 or 16 rows of x a block, ``bn`` = 32
+    columns, eight warps a block each streaming ``per`` chunks of 8 word
+    rows through a ring of ``stages`` slots of 16 word rows) or "tile"
+    (``mt`` = 16, 32 or 64 rows by 128 columns a block, ``per`` stages of
+    64 k-slots a split); ``splits`` blocks along K (the small path folds
+    them in the kernel, the tile path in a second launch); ``grid`` the
+    launch's blocks and ``smem`` its dynamic shared memory (the small
+    path's)."""
+    path: str
+    mt: int
+    bn: int
+    stages: int
+    per: int
+    splits: int
+    grid: tuple
+    smem: int
+
+
+def small_smem(mt: int, bits: int, stages: int) -> int:
+    """``small_smem`` of ``csrc/dequant_matmul.cu``: each warp's ring of
+    slots (16 word rows of 32 columns, x's ``mt`` rows at their k, a scale
+    row and a zero row a chunk), or the warps' fold where that is larger,
+    then 16 codebook floats."""
+    P = 32 // bits
+    slot = 4 * (SK_RS * SK_WN + mt * P * SK_RS // 2
+                + 2 * (SK_RS // SK_CHUNK) * SK_WN)
+    return max(SK_WARPS * stages * slot, SK_WARPS * mt * SK_WN * 4) + 64
+
+
+def _fields(bits: int, layout: str) -> int:
+    """Fields a stored element holds: 32 / bits for "tpu_strided" words
+    (int2, int4), 1 for "int8" codes; 0 for anything K8 does not take."""
+    if layout == "int8":
+        return 1
+    return LANE_BITS // bits if layout == "tpu_strided" and bits in (2, 4) \
+        else 0
+
+
+@functools.lru_cache(maxsize=4096)
+def dequant_plan(M: int, N: int, K: int, G: int, bits: int, layout: str,
+                 x_f32: bool = False, n_sm: int = N_SM) -> DequantPlan:
+    """The path and tiles of one K8 product. Raises ValueError on a shape
+    K8 does not take (N % 128, K % G, a "tpu_strided" G that is no multiple
+    of 32 / bits).
+
+    * bf16 x, "tpu_strided" int2/int4 words, M <= ``SMALL_M`` and whole
+      chunks of 8 word rows a group (G / P % 8 == 0: G % 64 at int4, G %
+      128 at int2): ``small_plan``'s;
+    * else ``tile_plan``'s (the "int8" layout, other group sizes, f32 x)."""
+    P = _fields(bits, layout)
+    if not (P and M >= 1 and N >= TILE_BN and N % TILE_BN == 0 and G >= 1
+            and K % G == 0 and G % P == 0):
+        raise ValueError(f"K8 needs N % 128 == 0, K % G == 0 and G % (32 / "
+                         f"bits) == 0 (M={M}, N={N}, K={K}, G={G}, "
+                         f"bits={bits}, layout={layout})")
+    if (layout == "tpu_strided" and not x_f32 and M <= SMALL_M
+            and (G // P) % SK_CHUNK == 0):
+        return small_plan(M, N, K, G, bits, n_sm)
+    return tile_plan(M, N, K, G, bits, layout, n_sm)
+
+
+def tile_plan(M: int, N: int, K: int, G: int, bits: int, layout: str,
+              n_sm: int) -> DequantPlan:
+    """The tile path's plan: 16, 32 or 64 rows (M <= 16, <= 32, above) by
+    128 columns a block; K split while the tiles fill fewer than four waves
+    of ``n_sm`` SMs, as long as the float32 partials move fewer bytes than
+    the weight."""
+    P = _fields(bits, layout)
+    nchunks = -(-(K // P) // (TILE_KC // P))
+    bm = 16 if M <= 16 else 32 if M <= 32 else 64
+    tiles = (N // TILE_BN) * -(-M // bm)
+    wbytes = K * N * (8 if layout == "int8" else bits) // 8 + (K // G) * N * 4
+    s = min(-(-4 * n_sm // tiles), max(1, nchunks // 4))
+    s = max(1, min(s, wbytes // (8 * M * N)))
+    per = -(-nchunks // s)
+    splits = -(-nchunks // per)
+    return DequantPlan("tile", bm, TILE_BN, 0, per, splits,
+                       (N // TILE_BN, -(-M // bm), splits), 0)
+
+
+def small_plan(M: int, N: int, K: int, G: int, bits: int,
+               n_sm: int) -> DequantPlan:
+    """The small path's plan: ``mt`` 8 rows (M <= 8) or 16, 32 columns a
+    block, ceil(M / mt) row tiles; K split across blocks (doubling) while
+    the blocks fill at most half the SMs (e.g. MoE experts at M = 8), as
+    long as each warp keeps two whole slots and the partials stay under
+    the weight's bytes; rings of two slots (the most blocks an SM), up to
+    four where every block has an SM of its own (measured on the H100 at
+    llama2-7b's and DeepSeek-V3's expert widths, ``tools/k8_sweep.py``)."""
+    P = LANE_BITS // bits
+    mt = 8 if M <= 8 else 16
+    blocks = (N // SK_WN) * -(-M // mt)
+    nchunks = (K // P) // SK_CHUNK
+    s = 1
+    while (blocks * s * 2 <= n_sm
+           and nchunks >= SK_WARPS * 2 * 2 * s
+           and 2 * s * M * N * 4 <= K * N * bits // 8):
+        s *= 2
+    per = -(-nchunks // (SK_WARPS * s))
+    splits = -(-nchunks // (SK_WARPS * per))
+    stages = max(st for st in (2, 3, 4) if st == 2 or (
+        blocks * splits <= n_sm
+        and small_smem(mt, bits, st) <= MAX_DYN_SMEM))
+    return DequantPlan("small", mt, SK_WN, stages, per, splits,
+                       (N // SK_WN, splits, -(-M // mt)),
+                       small_smem(mt, bits, stages))
+
+
+_WORKSPACE: dict = {}
+
+
+def _workspace(device, floats: int, tiles: int):
+    """K8's scratch on ``device``: float32 partials of at least ``floats``
+    and int32 tickets of at least ``tiles``, zero (the small path leaves
+    them zero), kept between launches and grown as needed."""
+    have = _WORKSPACE.get(device)
+    if have is None or have[0].numel() < floats or have[1].numel() < tiles:
+        old_f, old_t = (0, 0) if have is None else (have[0].numel(),
+                                                     have[1].numel())
+        have = (torch.empty(max(floats, old_f), dtype=torch.float32,
+                            device=device),
+                torch.zeros(max(tiles, old_t, 1024), dtype=torch.int32,
+                            device=device))
+        _WORKSPACE[device] = have
+    return have
+
+
 def dequant_gemm(x, packed, scales, zeros, codebook, *, bits: int,
                  group_size: int, layout: str, out_dtype) -> torch.Tensor:
-    """K8 on the card (``csrc/dequant_matmul.cu``); the plain version for
-    CPU tensors. Arguments as in ``dequant_gemm_plain``. A bf16 x runs on
-    the tensor cores over bf16 weights; a float32 x over float32 weights
-    in float32 FMAs, as the TPU kernel computes an f32 x (never TF32)."""
+    """K8 on the card (``csrc/dequant_matmul.cu``) on ``dequant_plan``'s
+    plan; the plain version for CPU tensors. Arguments as in
+    ``dequant_gemm_plain``. A bf16 x runs on the tensor cores over bf16
+    weights; a float32 x over float32 weights in float32 FMAs, as the TPU
+    kernel computes an f32 x (never TF32)."""
     if x.device.type == "cpu":
         return dequant_gemm_plain(x, packed, scales, zeros, codebook,
                                   bits=bits, group_size=group_size,
@@ -164,20 +324,16 @@ def dequant_gemm(x, packed, scales, zeros, codebook, *, bits: int,
                          f"{x.dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"dequant_gemm stores bf16 or f32, not {out_dtype}")
-    if layout == "tpu_strided":
-        ok = bits in (2, 4) and G % (LANE_BITS // bits) == 0
-        wshape, wdtype = (K * bits // LANE_BITS, N), torch.int32
-    else:
-        ok = layout == "int8"
-        wshape, wdtype = (K, N), torch.int8
-    # the kernel's contract (its C entry's comment); the tiling behind it
-    # lives in the C plan entry
-    if not (ok and 1 <= M and N % 128 == 0 and G > 0 and K % G == 0
-            and ng * G == K):
+    P = _fields(bits, layout)
+    # the kernel's contract (dequant_plan's and the C entry's)
+    if not (P and 1 <= M and N % 128 == 0 and G > 0 and K % G == 0
+            and G % P == 0 and ng * G == K):
         raise ValueError(f"dequant_gemm needs N % 128 == 0, K % G == 0 and "
                          f"a tpu_strided (bits 2 or 4) or int8 weight "
                          f"(M={M}, K={K}, N={N}, G={G}, bits={bits}, "
                          f"layout={layout})")
+    wshape, wdtype = (((K // P, N), torch.int32) if layout == "tpu_strided"
+                      else ((K, N), torch.int8))
     _build.require(x, "x", x.dtype, dev, (M, K))
     _build.require(packed, "packed", wdtype, dev, wshape)
     _build.require(scales, "scales", torch.float32, dev, (ng, N))
@@ -188,18 +344,20 @@ def dequant_gemm(x, packed, scales, zeros, codebook, *, bits: int,
             _build.require(t, name, torch.float32, dev, shape)
         ptrs.append(None if t is None else t.data_ptr())
     lib = _build.library()
-    wbytes = packed.numel() * packed.element_size() + scales.numel() * 4
-    splits, per = _plan(lib.nctt_dequant_gemm_plan, "nctt_dequant_gemm_plan",
-                        M, N, K, G, bits, int(layout == "int8"),
-                        _sm_count(dev), wbytes)
+    plan = dequant_plan(M, N, K, G, bits, layout, x.dtype == torch.float32,
+                        _sm_count(dev))
     y = torch.empty((M, N), dtype=out_dtype, device=dev)
-    part = (torch.empty((splits, M, N), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
+    part = tickets = None
+    if plan.splits > 1:
+        part, tickets = _workspace(dev, plan.splits * M * N,
+                                   plan.grid[0] * plan.grid[-1])
+        part, tickets = part.data_ptr(), tickets.data_ptr()
     err = lib.nctt_dequant_gemm(
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(), ptrs[0], ptrs[1],
-        y.data_ptr(), None if part is None else part.data_ptr(), M, N, K, G,
-        bits, int(layout == "int8"), int(x.dtype == torch.float32),
-        int(out_dtype == torch.bfloat16), splits, per,
+        y.data_ptr(), part, tickets, M, N, K, G, bits,
+        int(layout == "int8"), int(x.dtype == torch.float32),
+        int(out_dtype == torch.bfloat16), PATHS[plan.path], plan.mt,
+        plan.bn, plan.stages, plan.per, plan.splits, plan.smem,
         _build.stream_handle(dev))
     _build.check(err, "nctt_dequant_gemm")
     dequant_gemm.launches += 1

@@ -69,12 +69,12 @@ def group_dot(codes: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
     ``gmul`` [K/G], first multiplied in float32 by ``gmul[g]``) it is summed
     over groups in float64 and rounded once, as ``csrc/gemv_dot.cuh``
     does."""
-    from ..ops.packing import unpack_codes_hopper
+    from ..ops.packing import unpack_codes_hopper_f32
 
     f64 = torch.float64
     ng, N = scales.shape
     G = codes.numel() // ng
-    wq = unpack_codes_hopper(w).to(torch.float32).reshape(ng, G, N)
+    wq = unpack_codes_hopper_f32(w).reshape(ng, G, N)
     d = torch.bmm(codes.reshape(ng, 1, G), wq)[:, 0]          # [ng, N] exact
     sc = scales if gmul is None else scales * gmul[:, None]
     return (d.to(f64) * sc.to(f64)).sum(dim=0).to(torch.float32)

@@ -109,9 +109,9 @@ def w4a8_gemm_plain(xq: torch.Tensor, w: torch.Tensor, scales: torch.Tensor,
     """Plain PyTorch version of the kernel: xq int8 [M, K], w uint8
     "hopper_nk" [N, K/2], scales f32 [K/G, N], x_scale f32 [M] -> f32
     [M, N] (``grouped_gemm_plain``)."""
-    from ..ops.packing import unpack_codes_hopper
+    from ..ops.packing import unpack_codes_hopper_f32
 
-    return grouped_gemm_plain(xq, unpack_codes_hopper(w), scales, x_scale)
+    return grouped_gemm_plain(xq, unpack_codes_hopper_f32(w), scales, x_scale)
 
 
 def w4a8_gemm_strided_plain(xq: torch.Tensor, w: torch.Tensor,

@@ -131,6 +131,12 @@ def unpack_codes_hopper(packed: torch.Tensor) -> torch.Tensor:
     return c.t().contiguous().to(torch.int8)
 
 
+def unpack_codes_hopper_f32(packed: torch.Tensor) -> torch.Tensor:
+    """``unpack_codes_hopper``'s codes [K, N] as float32 (exact), the operand
+    of the plain W4A8 products."""
+    return unpack_codes_hopper(packed).to(torch.float32)
+
+
 def pack_codes_s4(codes: torch.Tensor) -> torch.Tensor:
     """Signed int4 codes [K, N] -> int32 [K, N/8] ("s4_rowpack"), the bits
     of ``neural_compressor_tpu.ops.packing.pack_codes_s4``'s uint32 words."""
