@@ -234,6 +234,25 @@ def n_copies(nbytes: int) -> int:
     return max(2, math.ceil(200e6 / max(nbytes, 1)))
 
 
+# K6's and K7's kernels (csrc/decode_split.cuh), as torch.profiler names them
+SPLIT_KERNELS = ("nctt_dsplit::",)
+
+
+def split_positions(torch, fmt, dev):
+    """A cache length of three of K6's and K7's key parts and a tail
+    (``decode_plan``), and slot positions on the split's boundaries: key 0,
+    a part's last key, its first, the key after, a later part's first, the
+    last row and past the end -> (T, part keys, int32 [7] positions)."""
+    from neural_compressor_tpu_torch.kernels.decode_attention import \
+        decode_plan
+
+    pk = decode_plan(1, 1, 1, 1, 128, fmt).part_keys
+    T = 3 * pk + 40
+    pos = torch.tensor([0, pk - 1, pk, pk + 1, 2 * pk, T - 1, T + 3],
+                       dtype=torch.int32, device=dev)
+    return T, pk, pos
+
+
 T_START = time.perf_counter()
 
 
@@ -586,8 +605,10 @@ def phase_engine_kernels(torch, nct, peaks: dict) -> dict:
                                bound_by=by, **extra))
         lib = "null" if lms is None else f"{lms:.4f}"
         tol_s = tol if isinstance(tol, str) else f"{tol:.1e}"
+        dev_s = (f" device_ms={extra['device_ms']:.4f}"
+                 if "device_ms" in extra else "")
         print(f"{kind} {label} max_abs_err={err:.3e} tol={tol_s} ok={ok} "
-              f"ms={ms:.4f} plain_ms={pms:.4f} library_ms={lib} "
+              f"ms={ms:.4f}{dev_s} plain_ms={pms:.4f} library_ms={lib} "
               f"bound_ms={bms:.4f} ({by})", flush=True)
 
     # K7: one layer's decode step of the contiguous engine
@@ -598,8 +619,9 @@ def phase_engine_kernels(torch, nct, peaks: dict) -> dict:
     ref = batched_decode_attn_plain(q, k, v, pos)
     torch.cuda.synchronize()
     err = float((out.float() - ref.float()).abs().max())
-    ms = timed_ms(torch, [lambda a=a, b=b: batched_decode_attn(q, a, b, pos)
-                          for a, b in kv], 200)
+    fns = [lambda a=a, b=b: batched_decode_attn(q, a, b, pos) for a, b in kv]
+    ms = timed_ms(torch, fns, 200)
+    dms = sum(profiled(torch, fns, names=SPLIT_KERNELS).values())
     pms = timed_ms(torch, [lambda: batched_decode_attn_plain(q, k, v, pos)], 5)
     lms = timed_ms(torch, [lambda a=a, b=b: sdpa(q4, a[:, :, :Lmax],
                                                   b[:, :, :Lmax],
@@ -608,7 +630,7 @@ def phase_engine_kernels(torch, nct, peaks: dict) -> dict:
     record("batched", f"B={B} H={H} Hkv={Hkv} D={D} T={T} pos={SLOT_POS}",
            err, TOL["batched"], ms, pms, lms,
            2 * Hkv * n_vis * D * 2 + 2 * B * H * D * 2 + B * 4,
-           4 * H * n_vis * D)
+           4 * H * n_vis * D, device_ms=dms)
     del kv, k, v
 
     # K11 and K12 over pools of 128-row pages holding the same slots
@@ -698,6 +720,23 @@ def phase_engine_kernels(torch, nct, peaks: dict) -> dict:
     if bad:
         fail(f"engine kernel disagrees with its plain version: {bad}")
     return rows
+
+
+def boundary_fault(torch, label, got, want) -> str | None:
+    """A planted fault of the split (the kernel at position p - 1, p a
+    part's first key, against the plain version at p: the boundary key
+    lost): None when the outputs part outside ``kv_tol``, else a failure."""
+    torch.cuda.synchronize()
+    d = (got.float() - want.float()).abs()
+    caught = int((d > kv_tol(want)).sum())
+    print(f"planted fault '{label}: a part's boundary key lost': "
+          f"{caught}/{d.numel()} outputs outside kv_tol", flush=True)
+    return None if caught else f"fault not flagged: {label}"
+
+
+def row_at(x, p):
+    """Row p[b] of each slot of x [B, Hkv, T, ...] -> [B, Hkv, ...]."""
+    return x[range(x.shape[0]), :, p.long()]
 
 
 def phase_envelope(torch, nct) -> None:
@@ -837,6 +876,28 @@ def phase_engine_envelope(torch) -> None:
               kernels.batched_decode_attn(q, k, v, pos),
               kernels.batched_decode_attn_plain(q, k, v, pos))
         n += 1
+    # K7's split of the keys: a cache of three parts and a tail, slots on
+    # the parts' boundaries, GQA and head widths to 512
+    T, pk, spos = split_positions(torch, "bf16", dev)
+    for H, Hkv, D in ((32, 32, 128), (16, 4, 64), (32, 2, 128), (8, 2, 256),
+                      (8, 2, 384), (12, 2, 512), (6, 2, 80)):
+        q = (randn(7, H, D).float() * 4).to(torch.bfloat16)
+        k, v = randn(7, Hkv, T, D), randn(7, Hkv, T, D)
+        check(f"batched split H={H} Hkv={Hkv} D={D} T={T} "
+              f"pos={spos.tolist()}", kernels.batched_decode_attn(q, k, v,
+                                                                  spos),
+              kernels.batched_decode_attn_plain(q, k, v, spos))
+        n += 1
+    # the planted fault: each slot's query is 8x its key at p, a part's
+    # first key, so that key carries the softmax
+    p = torch.tensor([pk, 2 * pk], dtype=torch.int32, device=dev)
+    k, v = randn(2, 4, T, 128), randn(2, 4, T, 128)
+    q = (row_at(k, p) * 8).repeat_interleave(4, dim=1)
+    miss = boundary_fault(torch, "k7 bf16",
+                          kernels.batched_decode_attn(q, k, v, p - 1),
+                          kernels.batched_decode_attn_plain(q, k, v, p))
+    if miss:
+        bad.append(miss)
     for (H, Hkv, D, page), quant in zip(
             ((16, 8, 128, 128), (16, 4, 64, 16), (16, 2, 256, 128),
              (8, 1, 32, 16), (32, 32, 128, 128), (8, 2, 64, 128)),
@@ -2044,7 +2105,7 @@ def phase_kv_kernels(torch, nct, peaks: dict) -> dict:
         return torch.randn(shape, generator=gen, device=dev).to(bf16)
 
     def record(kind, label, out, ref, ms, pms, lms, nbytes, ops, fmt,
-               exact=False):
+               exact=False, dms=None):
         torch.cuda.synchronize()
         d = (out.float() - ref.float()).abs()
         tol = torch.zeros_like(d) if exact else kv_tol(ref)
@@ -2055,11 +2116,12 @@ def phase_kv_kernels(torch, nct, peaks: dict) -> dict:
         bms, by = bound(nbytes, ops, peaks["bf16_s"], peaks)
         rows[kind].append(dict(label=label, fmt=fmt, err=err, tol_ratio=ratio,
                                ok=ok, ms=ms, plain_ms=pms, library_ms=lms,
-                               bound_ms=bms, bound_by=by))
+                               bound_ms=bms, bound_by=by, device_ms=dms))
         lib = "null" if lms is None else f"{lms:.4f}"
+        dev_s = "" if dms is None else f" device_ms={dms:.4f}"
         print(f"{kind} {label} max_abs_err={err:.3e} max d/tol={ratio:.3g} "
-              f"ok={ok} ms={ms:.4f} plain_ms={pms:.4f} library_ms={lib} "
-              f"bound_ms={bms:.4f} ({by})", flush=True)
+              f"ok={ok} ms={ms:.4f}{dev_s} plain_ms={pms:.4f} "
+              f"library_ms={lib} bound_ms={bms:.4f} ({by})", flush=True)
 
     def fault(kind, name, out, ref, exact=False):
         torch.cuda.synchronize()
@@ -2086,8 +2148,10 @@ def phase_kv_kernels(torch, nct, peaks: dict) -> dict:
             L = pos + 1
             out = K.decode_attn_quant(q, kn, vn, *c0, pos)
             ref = K.decode_attn_quant_plain(q, kn, vn, *c0, pos)
-            ms = timed_ms(torch, [lambda c=c: K.decode_attn_quant(
-                q, kn, vn, *c, pos) for c in caches], 200)
+            fns = [lambda c=c: K.decode_attn_quant(q, kn, vn, *c, pos)
+                   for c in caches]
+            ms = timed_ms(torch, fns, 200)
+            dms = sum(profiled(torch, fns, names=SPLIT_KERNELS).values())
             pms = timed_ms(torch, [lambda: K.decode_attn_quant_plain(
                 q, kn, vn, *c0, pos)], 10)
             deq = [(kq.kv_dequant(c[0][:, :, :L], c[1][:, :, :L], bf16),
@@ -2098,7 +2162,7 @@ def phase_kv_kernels(torch, nct, peaks: dict) -> dict:
             del deq
             record("k6", f"{fmt} B=1 H={H} D={D} T={T} pos={pos}", out, ref,
                    ms, pms, lms, 2 * H * D * 2 + 2 * Hkv * D * 2
-                   + 2 * Hkv * L * (D + 4), 4 * H * L * D, fmt)
+                   + 2 * Hkv * L * (D + 4), 4 * H * L * D, fmt, dms=dms)
         pos = UNIT_POS
         ref = K.decode_attn_quant_plain(kn, kn, vn, *c0, pos)
         # the new row carries the softmax (q = k_new); a K6 that attended
@@ -2131,8 +2195,10 @@ def phase_kv_kernels(torch, nct, peaks: dict) -> dict:
         kc, ks, vc, vs = caches[0]
         out = K.batched_decode_attn(q, kc, vc, pos, ks, vs)
         ref = K.batched_decode_attn_plain(q, kc, vc, pos, ks, vs)
-        ms = timed_ms(torch, [lambda c=c: K.batched_decode_attn(
-            q, c[0], c[2], pos, c[1], c[3]) for c in caches], 200)
+        fns = [lambda c=c: K.batched_decode_attn(q, c[0], c[2], pos, c[1],
+                                                 c[3]) for c in caches]
+        ms = timed_ms(torch, fns, 200)
+        dms = sum(profiled(torch, fns, names=SPLIT_KERNELS).values())
         pms = timed_ms(torch, [lambda: K.batched_decode_attn_plain(
             q, kc, vc, pos, ks, vs)], 5)
         deq = [(kq.kv_dequant(c[0][:, :, :Lmax], c[1][:, :, :Lmax], bf16),
@@ -2144,7 +2210,7 @@ def phase_kv_kernels(torch, nct, peaks: dict) -> dict:
         del deq
         record("k7q", f"{fmt} B={B} H={H} D={D} T={T} pos={SLOT_POS}", out,
                ref, ms, pms, lms, 2 * Hkv * n_vis * (D + 4) + 2 * B * H * D * 2
-               + B * 4, 4 * H * n_vis * D, fmt)
+               + B * 4, 4 * H * n_vis * D, fmt, dms=dms)
         fault("k7q", f"{fmt}: scales one token late",
               K.batched_decode_attn(q, kc, vc, pos, ks.roll(1, -1),
                                     vs.roll(1, -1)), ref)
@@ -2313,6 +2379,58 @@ def phase_kv_envelope(torch) -> None:
             check(f"k7q {tag}", K.batched_decode_attn(q, kc, vc, p, ks, vs),
                   K.batched_decode_attn_plain(q, kc, vc, p, ks, vs))
             n += 1
+
+    # the split of the keys: caches of three parts and a tail, slots on the
+    # parts' boundaries (K6's raw new row on them too), GQA, head widths;
+    # fp8 codes and scales at each K6 slot's pos made NaN, which K6 must
+    # not read (it attends the raw row there)
+    for fmt in ("int8", "fp8_e4m3"):
+        T, pk, spos = split_positions(torch, fmt, dev)
+        live = spos < T
+        for H, Hkv, D in ((32, 32, 128), (16, 2, 128), (8, 1, 32),
+                          (8, 2, 256), (32, 2, 64), (12, 2, 512)):
+            q = (randn(7, H, D).float() * 4).to(torch.bfloat16)
+            kc, ks = kq.kv_quant(with_zero_rows(randn(7, Hkv, T, D)), fmt)
+            vc, vs = kq.kv_quant(with_zero_rows(randn(7, Hkv, T, D)), fmt)
+            tag = f"H={H} Hkv={Hkv} D={D} T={T} {fmt} pos={spos.tolist()}"
+            check(f"k7q split {tag}",
+                  K.batched_decode_attn(q, kc, vc, spos, ks, vs),
+                  K.batched_decode_attn_plain(q, kc, vc, spos, ks, vs))
+            n += 1
+            if D > 256:
+                continue
+            kn, vn = randn(7, Hkv, D), randn(7, Hkv, D)
+            if fmt == "fp8_e4m3":
+                b_, t_ = torch.nonzero(live).flatten(), spos[live].long()
+                for c, sc in ((kc, ks), (vc, vs)):
+                    c.view(torch.uint8)[b_, :, t_] = 0x7F    # NaN codes
+                    sc[b_, :, t_] = float("nan")
+            check(f"k6 split {tag}",
+                  K.decode_attn_quant(q, kn, vn, kc, ks, vc, vs, spos),
+                  K.decode_attn_quant_plain(q, kn, vn, kc, ks, vc, vs, spos))
+            n += 1
+        # the planted faults: each slot's query is 8x its dequantized key
+        # at p - 1 (K6; p a part's first key) or at p (K7), so that key
+        # carries the softmax
+        p = torch.tensor([pk, 2 * pk], dtype=torch.int32, device=dev)
+        kc, ks = kq.kv_quant(randn(2, 4, T, 128), fmt)
+        vc, vs = kq.kv_quant(randn(2, 4, T, 128), fmt)
+        kd = kq.kv_dequant(kc, ks, torch.bfloat16)
+        kn, vn = randn(2, 4, 128), randn(2, 4, 128)
+        q6 = (row_at(kd, p - 1) * 8).repeat_interleave(4, dim=1)
+        q7 = (row_at(kd, p) * 8).repeat_interleave(4, dim=1)
+        for miss in (
+                boundary_fault(
+                    torch, f"k6 {fmt}",
+                    K.decode_attn_quant(q6, kn, vn, kc, ks, vc, vs, p - 1),
+                    K.decode_attn_quant_plain(q6, kn, vn, kc, ks, vc, vs,
+                                              p)),
+                boundary_fault(
+                    torch, f"k7 {fmt}",
+                    K.batched_decode_attn(q7, kc, vc, p - 1, ks, vs),
+                    K.batched_decode_attn_plain(q7, kc, vc, p, ks, vs))):
+            if miss:
+                bad.append(miss)
 
     # K11 and K12 over fp8 and int4 pools
     for (H, Hkv, D, page), fmt in zip(
@@ -6895,7 +7013,7 @@ def main() -> None:
          "neural_compressor_tpu/kernels/decode_attention.py:282 "
          "(_decode_attn_ro_impl, K5)", attn_u),
         ("batched_decode_attn",
-         "neural_compressor_tpu_torch/csrc/batched_decode_attention.cu",
+         "neural_compressor_tpu_torch/csrc/decode_split.cu",
          "neural_compressor_tpu/kernels/decode_attention.py:666 "
          "(_batched_attn_impl, K7)", batched_u),
         ("paged_attn", "neural_compressor_tpu_torch/csrc/paged_attention.cu",
@@ -6911,11 +7029,11 @@ def main() -> None:
          "neural_compressor_tpu/kernels/dequant_matmul.py:286 "
          "(_vpu_matvec_impl, K9)", k9_u),
         ("decode_attn_quant",
-         "neural_compressor_tpu_torch/csrc/decode_attention.cu",
+         "neural_compressor_tpu_torch/csrc/decode_split.cu",
          "neural_compressor_tpu/kernels/decode_attention.py:482 "
          "(_decode_attn_quant_ro_impl, K6)", k6_u),
         ("batched_decode_attn_quant",
-         "neural_compressor_tpu_torch/csrc/batched_decode_attention.cu",
+         "neural_compressor_tpu_torch/csrc/decode_split.cu",
          "neural_compressor_tpu/kernels/decode_attention.py:666 "
          "(_batched_attn_impl, K7, int8/fp8 branch)", k7q_u),
         ("paged_attn_fp8",
@@ -7001,7 +7119,9 @@ def main() -> None:
           "B=1 decode step (M = 1); fused_gemv = one decode "
           "step (32 x 4 + lm_head); decode_attn = one decode step at "
           "pos 517 (32 layers); batched_decode_attn = one 8-slot decode "
-          f"step at positions {SLOT_POS} (32 layers); paged_attn and "
+          f"step at positions {SLOT_POS} (32 layers; device_ms beside it, "
+          "and beside decode_attn_quant and batched_decode_attn_quant, "
+          "from torch.profiler); paged_attn and "
           "paged_write = the same step over the int8 pool of 128-row pages "
           "(32 layers; paged_write has no single library call for int8); "
           "dequant_gemm = one 8-slot W4A16 decode step (32 x 4 + lm_head "

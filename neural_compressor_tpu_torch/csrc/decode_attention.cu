@@ -1,11 +1,10 @@
 // B = 1 single-token decode attention over a head-major KV cache: bf16 rows
-// (K5), int8 / fp8-e4m3 codes with per-(token, head) float32 scales (K6),
-// and K16's variant that writes the new row inside the kernel (bf16 rows,
-// or int8 codes it quantizes itself).
+// (K5), and K16's variant that writes the new row inside the kernel (bf16
+// rows, or int8 codes it quantizes itself). K6, the same over int8 / fp8
+// codes, is split across blocks in csrc/decode_split.cu.
 //
 // Replaces: neural_compressor_tpu/kernels/decode_attention.py
-//   _decode_attn_ro_impl / _kernel_ro (K5),
-//   _decode_attn_quant_ro_impl / _kernel_q_ro (K6), and
+//   _decode_attn_ro_impl / _kernel_ro (K5), and
 //   _decode_attn_impl / _kernel and _decode_attn_quant_impl / _kernel_q
 //   (K16's in-kernel write, set_cache_write_mode("kernel")).
 //
@@ -17,16 +16,11 @@
 //   KV head; bf16 output. Per-slot positions are an int32 [B] tensor read
 //   on the device, as the TPU kernel's grid (B, Hkv) reads pos_ref[b]; at
 //   pos >= T all T rows are attended, as the TPU kernel's mask leaves them.
-// Semantics (as K6): the same over codes, with the RAW bf16 new row
-//   (k_new, v_new [B, Hkv, D]) at `pos` and scale 1 there, whatever the
-//   cache holds at pos (the port writes the row's codes after the launch);
-//   at pos >= T every code row is attended and no raw row is folded in:
-//   s = f32(q . k) * f32(k_scale * 1/sqrt(D)); p = f32(exp(s - m) / l) *
-//   v_scale, rounded to bf16 for PV. int8 and e4m3 codes convert to float
-//   exactly (e4m3 through Hopper's conversion to half).
 // Semantics (as K16's write): bf16 is K5 with row pos taken from k_new /
 //   v_new and stored into the cache by the kernel (attend.cuh); int8 is K6
-//   with the new row QUANTIZED in the kernel by the TPU kernel's own rule,
+//   (csrc/decode_split.cu: codes, s = f32(q . k) * f32(k_scale *
+//   1/sqrt(D)), p = bf16(f32(exp(s - m) / l) * v_scale)) with the new row
+//   QUANTIZED in the kernel by the TPU kernel's own rule,
 //   scale = f32(max(amax, 1e-6) * f32(1/127)) and codes clip(round(x /
 //   scale), -127, 127) (not _kv_quant's: amax <= 0 -> 1, clip to -128), the
 //   codes and scale stored at pos and the quantized row (codes times the
@@ -36,7 +30,7 @@
 //
 // Bound on this card: bytes. Each visited cache row is read once for
 //   2*rep*D flops: 2*Hkv*(pos+1)*D*2 bytes of K and V per layer for bf16,
-//   2*Hkv*min(pos+1, T)*(D+4) for codes and scales.
+//   2*Hkv*min(pos+1, T)*(D+4) for int8 codes and scales.
 //
 // Design: one block per (batch, KV head, group of query rows): the rep
 //   query rows of a KV head split into ng = ceil(rep / 8) groups of at most
@@ -127,16 +121,16 @@ int dispatch_bf16(const void* q, void* k, void* v, const void* kn,
   }
 }
 
-// K6 (QROW = false): the same walk over int8 / e4m3 codes (C), the raw new
-// row at pos. K16's int8 write (QROW = true, C = int8_t): the new row
-// quantized in the kernel, attended as codes times its new scale, and stored
-// at pos by the block of query group 0.
-template <int DPL, bool FULL, typename C, bool QROW>
+// K16's int8 write: K6's walk over int8 codes with the new row quantized in
+// the kernel, attended as codes times its new scale, and stored at pos by
+// the block of query group 0.
+template <int DPL, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ kn,
                               const __nv_bfloat16* __restrict__ vn,
-                              C* kc, float* ks, C* vc, float* vs,
+                              int8_t* kc, float* ks, int8_t* vc,
+                              float* vs,
                               __nv_bfloat16* __restrict__ out,
                               float* __restrict__ ws, int H, int Hkv, int T,
                               int D_, const int* __restrict__ pos_b,
@@ -155,14 +149,14 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   const size_t q0 = (size_t)b * H + (size_t)hk * rep + g0;  // first row
   double* sred = smem;                                // [WARPS][G][D]
   float* sq = reinterpret_cast<float*>(sred + WARPS * gs * D);  // [G][D]
-  float* snew = sq + gs * D;       // QROW: [2][D] the new row's codes, k, v
-  float* sscl = snew + 2 * D;      // QROW: [2] its scales; [2][WARPS] amax
+  float* snew = sq + gs * D;       // [2][D] the new row's codes, k, v
+  float* sscl = snew + 2 * D;      // [2] its scales; [2][WARPS] amax
   float* sp = ws + q0 * T;                            // [G][T]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t bh = (size_t)b * Hkv + hk;
-  C* kh = kc + bh * (size_t)T * D;
-  C* vh = vc + bh * (size_t)T * D;
+  int8_t* kh = kc + bh * (size_t)T * D;
+  int8_t* vh = vc + bh * (size_t)T * D;
   float* ksh = ks + bh * (size_t)T;
   float* vsh = vs + bh * (size_t)T;
   const __nv_bfloat16* knh = kn + bh * D;
@@ -170,65 +164,56 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qh = q + q0 * D;
 
   for (int i = tid; i < G * D; i += THREADS) sq[i] = __bfloat162float(qh[i]);
-  float nks = 1.0f, nvs = 1.0f;    // the scales at pos (raw row: 1)
-  if constexpr (QROW) {
-    // the TPU kernel's rule: scale = max(amax, 1e-6) / 127, codes
-    // clip(round(x / scale), -127, 127)
-    float ak = 0.f, av = 0.f;
+  // the new row's scales and codes by the TPU kernel's rule: scale =
+  // max(amax, 1e-6) / 127, codes clip(round(x / scale), -127, 127)
+  float ak = 0.f, av = 0.f;
+  for (int i = tid; i < D; i += THREADS) {
+    ak = fmaxf(ak, fabsf(__bfloat162float(knh[i])));
+    av = fmaxf(av, fabsf(__bfloat162float(vnh[i])));
+  }
+  ak = nctt::warp_max(ak);
+  av = nctt::warp_max(av);
+  if (lane == 0) {
+    sscl[2 + warp] = ak;
+    sscl[2 + WARPS + warp] = av;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < WARPS; ++w) {
+      ak = fmaxf(ak, sscl[2 + w]);
+      av = fmaxf(av, sscl[2 + WARPS + w]);
+    }
+    sscl[0] = fmaxf(ak, 1e-6f) * (1.0f / 127.0f);
+    sscl[1] = fmaxf(av, 1e-6f) * (1.0f / 127.0f);
+  }
+  __syncthreads();
+  const float nks = sscl[0], nvs = sscl[1];
+  for (int i = tid; i < D; i += THREADS) {
+    snew[i] = fminf(fmaxf(rintf(__fdiv_rn(__bfloat162float(knh[i]), nks)),
+                          -127.f), 127.f);
+    snew[D + i] =
+        fminf(fmaxf(rintf(__fdiv_rn(__bfloat162float(vnh[i]), nvs)),
+                    -127.f), 127.f);
+  }
+  __syncthreads();
+  if (blockIdx.z == 0 && pos >= 0 && pos < T) {
     for (int i = tid; i < D; i += THREADS) {
-      ak = fmaxf(ak, fabsf(__bfloat162float(knh[i])));
-      av = fmaxf(av, fabsf(__bfloat162float(vnh[i])));
+      kh[(size_t)pos * D + i] = (int8_t)(int)snew[i];
+      vh[(size_t)pos * D + i] = (int8_t)(int)snew[D + i];
     }
-    ak = nctt::warp_max(ak);
-    av = nctt::warp_max(av);
-    if (lane == 0) {
-      sscl[2 + warp] = ak;
-      sscl[2 + WARPS + warp] = av;
-    }
-    __syncthreads();
     if (tid == 0) {
-      for (int w = 1; w < WARPS; ++w) {
-        ak = fmaxf(ak, sscl[2 + w]);
-        av = fmaxf(av, sscl[2 + WARPS + w]);
-      }
-      sscl[0] = fmaxf(ak, 1e-6f) * (1.0f / 127.0f);
-      sscl[1] = fmaxf(av, 1e-6f) * (1.0f / 127.0f);
-    }
-    __syncthreads();
-    nks = sscl[0];
-    nvs = sscl[1];
-    for (int i = tid; i < D; i += THREADS) {
-      snew[i] = fminf(fmaxf(rintf(__fdiv_rn(__bfloat162float(knh[i]), nks)),
-                            -127.f), 127.f);
-      snew[D + i] =
-          fminf(fmaxf(rintf(__fdiv_rn(__bfloat162float(vnh[i]), nvs)),
-                      -127.f), 127.f);
-    }
-    __syncthreads();
-    if (blockIdx.z == 0 && pos >= 0 && pos < T) {
-      for (int i = tid; i < D; i += THREADS) {
-        kh[(size_t)pos * D + i] = (C)(int)snew[i];
-        vh[(size_t)pos * D + i] = (C)(int)snew[D + i];
-      }
-      if (tid == 0) {
-        ksh[pos] = nks;
-        vsh[pos] = nvs;
-      }
+      ksh[pos] = nks;
+      vsh[pos] = nvs;
     }
   }
   __syncthreads();
 
-  // a lane's DPL elements of the new row at pos
-  auto new_row = [&](const __nv_bfloat16* raw, const float* codes,
-                     float (&out_)[DPL]) {
-    if constexpr (QROW) {
+  // a lane's DPL elements of the new row's codes at pos
+  auto new_row = [&](const float* codes, float (&out_)[DPL]) {
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) {
-        const int i = lane * DPL + e;
-        out_[e] = i < D ? codes[i] : 0.0f;
-      }
-    } else {
-      nctt::load_lane<DPL>(raw, lane, D, out_);
+    for (int e = 0; e < DPL; ++e) {
+      const int i = lane * DPL + e;
+      out_[e] = i < D ? codes[i] : 0.0f;
     }
   };
 
@@ -236,7 +221,7 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = warp; t < L; t += WARPS) {
     float kv[DPL];
     if (t == pos)
-      new_row(knh, snew, kv);
+      new_row(snew, kv);
     else
       nctt::load_lane<DPL>(kh + (size_t)t * D, lane, D, kv);
     const float ksc = (t == pos ? nks : ksh[t]) * scale;
@@ -280,7 +265,7 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = warp; t < L; t += WARPS) {
     float vv[DPL];
     if (t == pos)
-      new_row(vnh, snew + D, vv);
+      new_row(snew + D, vv);
     else
       nctt::load_lane<DPL>(vh + (size_t)t * D, lane, D, vv);
 #pragma unroll
@@ -309,7 +294,7 @@ decode_attention_quant_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DPL, bool FULL, typename C, bool QROW>
+template <int DPL, bool FULL>
 int launch_quant(const void* q, const void* kn, const void* vn, void* kc,
                  void* ks, void* vc, void* vs, void* out, void* ws, int B,
                  int H, int Hkv, int T, int D, const int* pos, float scale,
@@ -318,39 +303,39 @@ int launch_quant(const void* q, const void* kn, const void* vn, void* kc,
   const int ng = nctt::attend_groups(rep);            // groups of rows
   const int gs = (rep + ng - 1) / ng;
   const size_t smem = nctt::attend_smem(gs, D) +
-      (QROW ? sizeof(float) * (2 * (size_t)D + 2 + 2 * WARPS) : 0);
+      sizeof(float) * (2 * (size_t)D + 2 + 2 * WARPS);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_quant_kernel<DPL, FULL, C, QROW>,
+        decode_attention_quant_kernel<DPL, FULL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_attention_quant_kernel<DPL, FULL, C, QROW>
+  decode_attention_quant_kernel<DPL, FULL>
       <<<dim3(Hkv, B, ng), THREADS, smem, stream>>>(
           (const __nv_bfloat16*)q, (const __nv_bfloat16*)kn,
-          (const __nv_bfloat16*)vn, (C*)kc, (float*)ks, (C*)vc, (float*)vs,
+          (const __nv_bfloat16*)vn, (int8_t*)kc, (float*)ks, (int8_t*)vc,
+          (float*)vs,
           (__nv_bfloat16*)out, (float*)ws, H, Hkv, T, D, pos, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename C, bool QROW>
 int dispatch_quant(const void* q, const void* kn, const void* vn, void* kc,
                    void* ks, void* vc, void* vs, void* out, void* ws, int B,
                    int H, int Hkv, int T, int D, const int* pos, float scale,
                    cudaStream_t s) {
-#define NCTT_K6(DPL_)                                                    \
+#define NCTT_K16(DPL_)                                                   \
   case DPL_:                                                             \
     return D == 32 * DPL_ && nctt::full_width(DPL_)                      \
-               ? launch_quant<DPL_, nctt::full_width(DPL_), C, QROW>(     \
+               ? launch_quant<DPL_, nctt::full_width(DPL_)>(              \
                      q, kn, vn, kc, ks, vc, vs, out, ws, B, H, Hkv, T, D, \
                      pos, scale, s)                                      \
-               : launch_quant<DPL_, false, C, QROW>(                      \
-                     q, kn, vn, kc, ks, vc, vs, out, ws, B, H, Hkv, T, D, \
-                     pos, scale, s);
+               : launch_quant<DPL_, false>(q, kn, vn, kc, ks, vc, vs, out, \
+                                           ws, B, H, Hkv, T, D, pos, scale, \
+                                           s);
   switch (D >= 1 ? (D + 31) / 32 : 0) {
-    NCTT_K6(1) NCTT_K6(2) NCTT_K6(3) NCTT_K6(4)
-    NCTT_K6(5) NCTT_K6(6) NCTT_K6(7) NCTT_K6(8)
-#undef NCTT_K6
+    NCTT_K16(1) NCTT_K16(2) NCTT_K16(3) NCTT_K16(4)
+    NCTT_K16(5) NCTT_K16(6) NCTT_K16(7) NCTT_K16(8)
+#undef NCTT_K16
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -367,30 +352,6 @@ NCTT_API int nctt_decode_attention(const void* q, void* k, void* v,
   return dispatch_bf16<false>(q, k, v, nullptr, nullptr, out, ws, B, H, Hkv,
                               T, D, (const int*)pos, scale,
                               (cudaStream_t)stream);
-}
-
-// q bf16 [B, H, D]; k_new/v_new bf16 [B, Hkv, D] (the raw new rows, folded
-// in at pos[b]); codes int8 (fp8 = 0) or e4m3 (fp8 = 1) [B, Hkv, T, D];
-// scales f32 [B, Hkv, T]; pos int32 [B] on the device (pos >= T: all T
-// code rows, no raw row); out bf16 [B, H, D]; ws f32 [B, H, T] scratch
-// for the score rows. 1 <= D <= 256; H % Hkv == 0.
-NCTT_API int nctt_decode_attention_quant(const void* q, const void* kn,
-                                         const void* vn, const void* kc,
-                                         const void* ks, const void* vc,
-                                         const void* vs, void* out, void* ws,
-                                         int B, int H, int Hkv, int T, int D,
-                                         const void* pos_b, int fp8,
-                                         float scale, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int* pos = (const int*)pos_b;
-  void *kc_ = const_cast<void*>(kc), *ks_ = const_cast<void*>(ks);
-  void *vc_ = const_cast<void*>(vc), *vs_ = const_cast<void*>(vs);
-  return fp8 ? dispatch_quant<nctt::fp8e4m3, false>(
-                   q, kn, vn, kc_, ks_, vc_, vs_, out, ws, B, H, Hkv, T, D,
-                   pos, scale, s)
-             : dispatch_quant<int8_t, false>(q, kn, vn, kc_, ks_, vc_, vs_,
-                                             out, ws, B, H, Hkv, T, D, pos,
-                                             scale, s);
 }
 
 // K16's in-kernel write: q bf16 [B, H, D]; k_new/v_new bf16 [B, Hkv, D];
@@ -412,7 +373,7 @@ NCTT_API int nctt_decode_attention_write(const void* q, const void* kn,
     return dispatch_bf16<true>(q, kc, vc, kn, vn, out, ws, B, H, Hkv, T, D,
                                pos, scale, s);
   if (fmt == 1)
-    return dispatch_quant<int8_t, true>(q, kn, vn, kc, ks, vc, vs, out, ws,
-                                        B, H, Hkv, T, D, pos, scale, s);
+    return dispatch_quant(q, kn, vn, kc, ks, vc, vs, out, ws, B, H, Hkv, T,
+                          D, pos, scale, s);
   return (int)cudaErrorInvalidValue;
 }

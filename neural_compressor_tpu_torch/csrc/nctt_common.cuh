@@ -66,6 +66,26 @@ __device__ __forceinline__ float to_float(fp8e4m3 x) {
       __half(__nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)x.bits, __NV_E4M3)));
 }
 
+// Exact float64 values of cache elements by bit moves and one float64
+// operation (Hopper issues these at the float64 rate; its float-to-double
+// conversion runs at a quarter of it): bf16 and e4m3 bits placed under a
+// double's exponent and rebiased by a power of two, int8 codes by the 2^52
+// magic number.
+__device__ __forceinline__ double bf16_bits(uint32_t b) {   // low 16 bits
+  return __hiloint2double(
+             (int)(((b & 0x7FFFu) << 13) | ((b & 0x8000u) << 16)), 0) *
+         0x1p896;
+}
+__device__ __forceinline__ double e4m3_bits(uint32_t b) {   // low 8 bits
+  return __hiloint2double((int)(((b & 0x7Fu) << 17) | ((b & 0x80u) << 24)),
+                          0) *
+         0x1p1016;
+}
+__device__ __forceinline__ double int8_bits(uint32_t b) {   // low 8 bits
+  return __hiloint2double(0x43300000, (int)((b & 0xFFu) ^ 0x80u)) -
+         4503599627370624.0;                                // 2^52 + 128
+}
+
 // float -> e4m3 bits, round to nearest even (the caller clips to +-448)
 __device__ __forceinline__ uint8_t to_e4m3(float x) {
   return (uint8_t)__nv_cvt_float_to_fp8(x, __NV_SATFINITE, __NV_E4M3);

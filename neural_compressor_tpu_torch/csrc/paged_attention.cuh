@@ -72,20 +72,9 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // exact float64 values of the codes, by bit moves and one float64 operation
-__device__ __forceinline__ double bf16_bits(uint32_t b) {   // low 16 bits
-  return __hiloint2double(
-             (int)(((b & 0x7FFFu) << 13) | ((b & 0x8000u) << 16)), 0) *
-         0x1p896;
-}
-__device__ __forceinline__ double e4m3_bits(uint32_t b) {   // low 8 bits
-  return __hiloint2double((int)(((b & 0x7Fu) << 17) | ((b & 0x80u) << 24)),
-                          0) *
-         0x1p1016;
-}
-__device__ __forceinline__ double int8_bits(uint32_t b) {   // low 8 bits
-  return __hiloint2double(0x43300000, (int)((b & 0xFFu) ^ 0x80u)) -
-         4503599627370624.0;                                // 2^52 + 128
-}
+using nctt::bf16_bits;
+using nctt::e4m3_bits;
+using nctt::int8_bits;
 __device__ __forceinline__ double nibble(uint32_t n) {      // 0..15
   return __hiloint2double(0x43300000, (int)n) - 4503599627370504.0;  // +8
 }

@@ -70,12 +70,14 @@ SIGNATURES = {
     # B, H, Hkv, page, PMAX, D, fmt (0 bf16, 1 int8, 2 fp8), scale, stream
     "nctt_paged_attention_v1": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _I, _F, _P],
-    # q, k_new, v_new, k_codes, k_scale, v_codes, v_scale, out, ws, B, H,
-    # Hkv, T, D, pos (int32 [B] on the device), fp8, scale, stream
-    "nctt_decode_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                    _I, _I, _I, _I, _P, _I, _F, _P],
-    # q, k_cache, v_cache, k_scale, v_scale, pos, out, ws, B, H, Hkv, T, D,
-    # code (0 bf16, 1 int8, 2 fp8), scale, stream
+    # q, k_new, v_new, k_codes, k_scale, v_codes, v_scale, pos (int32 [B]
+    # on the device), out, plan (the argument block of
+    # decode_attention.decode_workspace: scratch and plan), B, H, Hkv, T, D,
+    # fp8, scale, stream (K6)
+    "nctt_decode_attention_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_cache, v_cache, k_scale, v_scale, pos, out, plan, B, H, Hkv, T,
+    # D, code (0 bf16, 1 int8, 2 fp8), scale, stream (K7)
     "nctt_batched_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                       _I, _I, _I, _I, _F, _P],
     # q, k_pages, k_scales, k_offs, v_pages, v_scales, v_offs,
@@ -238,6 +240,9 @@ def stream_handle(device) -> int:
 def require(t, name: str, dtype, device, shape) -> None:
     """Validate one kernel operand: device, dtype, shape, contiguity and
     16-byte alignment (the kernels load 16-byte vectors)."""
+    if (t.device == device and t.dtype == dtype and t.shape == shape
+            and t.is_contiguous() and not t.data_ptr() % 16):
+        return                       # the launch path: one test
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -25,8 +25,9 @@ Ports ``neural_compressor_tpu/kernels/decode_attention.py``:
     decode runs here, as JAX's dispatch sends every B=1 call to K5. At
     ``pos >= T`` it attends all T rows.
   * K6, ``_decode_attn_quant_ro_impl`` / ``_kernel_q_ro``
-    (``decode_attn_quant``, a second entry of ``csrc/decode_attention.cu``):
-    K5 over int8 or fp8-e4m3 codes with per-(token, head) float32 scales.
+    (``decode_attn_quant``, ``csrc/decode_split.cu``, its keys split across
+    blocks by ``decode_plan``): K5 over int8 or fp8-e4m3 codes with
+    per-(token, head) float32 scales.
     The scores are ``f32(q . code) * f32(k_scale * D^-1/2)``, the
     normalised probabilities times ``v_scale`` are cast to bf16 for PV.
     The new row is folded in RAW (bf16, scale 1) at ``pos``: the kernel
@@ -37,7 +38,7 @@ Ports ``neural_compressor_tpu/kernels/decode_attention.py``:
     T code rows and no raw row, as the TPU kernel's mask leaves them.
   * K7, ``_batched_attn_impl`` / ``_kernel_batched``
     (``batched_decode_attn``, bf16 caches or int8/fp8 codes, its launches
-    counted per format; ``csrc/batched_decode_attention.cu``): per-slot
+    counted per format; ``csrc/decode_split.cu``, split as K6): per-slot
     ``pos`` [B] read on the device, and K7's order of operations, which
     normalises after PV (K5 normalises before the bf16 cast); scales
     multiply the scores before ``D^-1/2`` and the probabilities before
@@ -67,22 +68,30 @@ Ports ``neural_compressor_tpu/kernels/decode_attention.py``:
 The CUDA kernels keep each query row's float32 scores over the visited rows
 in a workspace in device memory (``score_workspace``), not in a block's
 shared memory, so they take contexts of any length, as the TPU kernels do
-(their chunked online softmax has no such limit either).
+(their chunked online softmax has no such limit either). K6 and K7 cut each
+slot's keys into parts of a fixed size (``decode_plan``) that blocks take in
+parallel: scores and part maxima, then p against the row's global maximum,
+float64 PV partials and their fold in ascending part order, so the split
+moves no bit (``tests/test_torch_decode_split.py`` emulates it).
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from . import _build
 
 
-# head widths the attention kernels take: a lane holds DPL = ceil(D / 32)
-# elements of a row, the tail past D masked (K5, K6 and K11 in
-# csrc/*attention.cu instantiate DPL 1-8: any D up to 256)
+# head widths the attention kernels take: any D up to 256 (K5's lanes hold
+# DPL = ceil(D / 32) elements of a row, DPL 1-8; K6, K7 and K11 stage whole
+# rows, D 128 and 256 with copies of their own)
 KERNEL_D = range(1, 257)
-# K7 also instantiates DPL 12 and 16, for the D % 128 == 0 widths 384 and
-# 512 that JAX's K7 dispatch runs
+# K7 also takes the widths around 384 and 512, the D % 128 == 0 widths that
+# JAX's K7 dispatch runs (four columns a PV thread)
 BATCHED_KERNEL_D = (*KERNEL_D, *range(353, 385), *range(481, 513))
 
 
@@ -359,6 +368,123 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
 
 
 # ---------------------------------------------------------------------------
+# K6 and K7's split of the keys (csrc/decode_split.cu)
+# ---------------------------------------------------------------------------
+
+
+class DecodePlan(NamedTuple):
+    """How K6 and K7 cut one call (``decode_plan``): query-row groups,
+    key parts, the blocks' ring and threads, and the scratch's sizes."""
+    groups: int          # ng: groups of query rows a (slot, KV head)
+    group_rows: int      # gs: rows a group, at most 8 (6 past D 384)
+    part_keys: int       # keys a part: whole 64-row tiles from key 0 on
+    parts: int           # parts over the cache's T rows
+    stages: int          # tiles of a block's cp.async ring
+    threads: int         # threads a block
+    lsum: int            # K6: 1 = a third launch sums each part's exp
+    grid: tuple          # (parts, Hkv * groups, B), every launch
+    scores: int          # float32 score rows, B * H * T
+    maxima: int          # float32 part maxima (K6's part sums: float64)
+    partials: int        # float64 partials: acc, then l
+    tickets: int         # int32 tickets, one a (slot, KV head, group)
+
+
+# keys a part holds where T <= MAX_PARTS * PART_KEYS (whole 64-row tiles);
+# longer caches take longer parts, so a slot has at most MAX_PARTS
+PART_KEYS = 128
+MAX_PARTS = 64
+RING_STAGES = 4        # tiles a block's ring holds at most
+THREADS_D128 = 128     # threads a block at D 128 with single-row groups
+LSUM_PARTS = 8         # K6: past this many parts, l's part sums launch apart
+_TILE = 64
+_MAX_DYN = 232448 - 8192   # csrc/decode_split.cuh MAX_DYN
+_ESIZE = {"bf16": 2, "int8": 1, "fp8_e4m3": 1}
+
+
+def _smem(D: int, esize: int, rows: int, stages: int, threads: int,
+          cpt: int) -> int:
+    """The larger of the two launches' dynamic shared memory
+    (``scores_smem`` and ``pv_smem`` in csrc/decode_split.cuh)."""
+    nc = -(-D * esize // 16)
+    ring = stages * _TILE * (nc | 1) * 16
+    if D in (128, 256):                 # the compile-time copies
+        ct = -(-D // cpt)               # columns, in whole warps
+        nsg = min(4, max(2, threads // (-(-ct // 32) * 32)))
+    else:
+        nsg = 2
+    scores = ring + 8 * (rows * nc * (16 // esize)
+                         + threads // 32 * rows * _TILE)
+    pv = max(ring, 8 * (nsg - 1) * rows * D) + 8 * rows * _TILE
+    return max(scores, pv)
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(B: int, H: int, Hkv: int, T: int, D: int, fmt: str,
+                k6: bool = False) -> DecodePlan:
+    """K6's (``k6``) or K7's plan for q [B, H, D] over a [B, Hkv, T, D]
+    cache of ``fmt`` ("bf16", "int8" or "fp8_e4m3"). A (slot, KV head)'s
+    H/Hkv query rows split into the fewest groups of at most 8 rows (6 past
+    D 384), as even as they go; a slot's keys into parts of ``part_keys``
+    keys. Part boundaries are absolute key positions that depend on T
+    alone, never on B, rep, the positions or the other slots, so a row's
+    terms are summed in the same order whatever else shares the launch."""
+    rep = H // Hkv
+    ng = -(-rep // (6 if D > 384 else 8))
+    gs = -(-rep // ng)
+    part_keys = max(PART_KEYS, -(-T // (MAX_PARTS * _TILE)) * _TILE)
+    parts = -(-T // part_keys)
+    threads = (THREADS_D128 if gs == 1 else 128) if D == 128 else 256
+    cpt = 4 if D > 256 else 2
+    stages = min(RING_STAGES, part_keys // _TILE)
+    while stages > 1 and _smem(D, _ESIZE[fmt], gs, stages, threads,
+                               cpt) > _MAX_DYN:
+        stages -= 1
+    return DecodePlan(ng, gs, part_keys, parts, stages, threads,
+                      int(k6 and parts > LSUM_PARTS), (parts, Hkv * ng, B),
+                      B * H * T, B * H * parts, B * H * parts * (D + 1),
+                      B * Hkv * ng)
+
+
+# device -> (sizes held, buffers, {plan: argument block}): K6's and K7's own
+# scratch, flat: score rows and part maxima (float32), partials and K6's
+# part sums (float64, the latter of the maxima's size) and tickets (int32,
+# kept zeroed), replaced by larger ones (and the argument blocks dropped)
+# when a call needs more. Calls on one stream run in order, so one call's
+# scratch is free when the next starts; the folding blocks reset their
+# tickets to 0.
+_SCRATCH: dict = {}
+
+
+def decode_workspace(plan: DecodePlan, device) -> int:
+    """The address of the argument block of K6's and K7's C entries for
+    ``plan`` on ``device``: eleven 64-bit words, the scratch's addresses
+    (score rows, part maxima, partials, K6's part sums, tickets) and the
+    plan (groups, part keys, parts, stages, threads, lsum). The scratch is
+    flat buffers of at least the plan's sizes kept per device between
+    calls; the blocks are cached per plan."""
+    have = _SCRATCH.get(device)
+    if have is not None:
+        block = have[2].get(plan)
+        if block is not None:
+            return block[1]
+    need = (plan.scores, plan.maxima, plan.partials, max(plan.tickets, 1024))
+    if have is None or any(h < n for h, n in zip(have[0], need)):
+        n = need if have is None else tuple(map(max, have[0], need))
+        bufs = (torch.empty(n[0], dtype=torch.float32, device=device),
+                torch.empty(n[1], dtype=torch.float32, device=device),
+                torch.empty(n[2], dtype=torch.float64, device=device),
+                torch.empty(n[1], dtype=torch.float64, device=device),
+                torch.zeros(n[3], dtype=torch.int32, device=device))
+        have = (n, bufs, {})
+        _SCRATCH[device] = have
+    words = (ctypes.c_int64 * 11)(
+        *(b.data_ptr() for b in have[1]), plan.groups, plan.part_keys,
+        plan.parts, plan.stages, plan.threads, plan.lsum)
+    have[2][plan] = (words, ctypes.addressof(words))
+    return have[2][plan][1]
+
+
+# ---------------------------------------------------------------------------
 # K6: B=1 attention over int8/fp8 codes, the raw new row folded in at pos
 # ---------------------------------------------------------------------------
 
@@ -377,6 +503,9 @@ def pos_vector(pos, B: int, device) -> torch.Tensor:
     int32 [B] tensor on ``device``; a tensor is not read back."""
     if not isinstance(pos, torch.Tensor):
         return torch.full((B,), int(pos), dtype=torch.int32, device=device)
+    if (pos.dtype == torch.int32 and pos.shape == (B,)
+            and pos.device == device and pos.is_contiguous()):
+        return pos                     # already what the kernels read
     return pos.reshape(-1).to(device=device,
                               dtype=torch.int32).expand(B).contiguous()
 
@@ -425,10 +554,11 @@ def decode_attn_quant_plain(q, k_new, v_new, k_codes, k_scale, v_codes,
 
 def decode_attn_quant(q, k_new, v_new, k_codes, k_scale, v_codes, v_scale,
                       pos) -> torch.Tensor:
-    """K6 on the card (``csrc/decode_attention.cu``,
-    ``nctt_decode_attention_quant``); the plain version for CPU tensors.
-    Arguments as in ``decode_attn_quant_plain``; ``pos`` stays on the
-    device (the kernel reads it, no host sync)."""
+    """K6 on the card (``csrc/decode_split.cu``,
+    ``nctt_decode_attention_quant``: two or three CUDA launches a call, as
+    ``decode_plan`` says); the plain version for CPU tensors. Arguments as
+    in ``decode_attn_quant_plain``; ``pos`` stays on the device (the kernel
+    reads it, no host sync)."""
     if q.device.type == "cpu":
         return decode_attn_quant_plain(q, k_new, v_new, k_codes, k_scale,
                                        v_codes, v_scale, pos)
@@ -451,14 +581,14 @@ def decode_attn_quant(q, k_new, v_new, k_codes, k_scale, v_codes, v_scale,
     _build.require(v_codes, "v_codes", cdt, dev, (B, Hkv, T, D))
     _build.require(k_scale, "k_scale", torch.float32, dev, (B, Hkv, T))
     _build.require(v_scale, "v_scale", torch.float32, dev, (B, Hkv, T))
+    fp8 = cdt == torch.float8_e4m3fn
+    plan = decode_plan(B, H, Hkv, T, D, "fp8_e4m3" if fp8 else "int8", True)
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
-    ws = score_workspace(B, H, T, dev)
     err = _build.library().nctt_decode_attention_quant(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_codes.data_ptr(),
         k_scale.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), B, H, Hkv, T, D, pos.data_ptr(),
-        int(cdt == torch.float8_e4m3fn), 1.0 / (D ** 0.5),
-        _build.stream_handle(dev))
+        pos.data_ptr(), out.data_ptr(), decode_workspace(plan, dev), B, H,
+        Hkv, T, D, int(fp8), 1.0 / (D ** 0.5), _build.stream_handle(dev))
     _build.check(err, "nctt_decode_attention_quant")
     decode_attn_quant.launches += 1
     return out
@@ -550,7 +680,7 @@ def batched_decode_attn_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, H, D).to(q.dtype)
 
 
-# cache dtype -> (format name, csrc/batched_decode_attention.cu's code)
+# cache dtype -> (format name, csrc/decode_split.cu's code)
 _K7_FORMATS = {torch.bfloat16: ("bf16", 0), torch.int8: ("int8", 1),
                torch.float8_e4m3fn: ("fp8_e4m3", 2)}
 
@@ -559,11 +689,12 @@ def batched_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor, pos: torch.Tensor,
                         k_scale: torch.Tensor | None = None,
                         v_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """K7 on the card (``csrc/batched_decode_attention.cu``) over bf16
-    caches, or int8/fp8-e4m3 codes with their scales; the plain version for
-    CPU tensors. Arguments as in ``batched_decode_attn_plain``; ``pos``
-    stays on the device (the kernel reads it, no host sync). Launches are
-    counted per cache format in ``batched_decode_attn.launches``."""
+    """K7 on the card (``csrc/decode_split.cu``, two CUDA launches a call)
+    over bf16 caches, or int8/fp8-e4m3 codes with their scales; the plain
+    version for CPU tensors. Arguments as in
+    ``batched_decode_attn_plain``; ``pos`` stays on the device (the kernel
+    reads it, no host sync). Launches are counted per cache format in
+    ``batched_decode_attn.launches``."""
     if q.device.type == "cpu":
         return batched_decode_attn_plain(q, k_cache, v_cache, pos, k_scale,
                                          v_scale)
@@ -590,15 +721,14 @@ def batched_decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
         _build.require(k_scale, "k_scale", torch.float32, dev, (B, Hkv, T))
         _build.require(v_scale, "v_scale", torch.float32, dev, (B, Hkv, T))
     _build.require(pos, "pos", torch.int32, dev, (B,))
+    plan = decode_plan(B, H, Hkv, T, D, fmt)
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
-    ws = score_workspace(B, H, T, dev)
     err = _build.library().nctt_batched_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_scale.data_ptr() if code else None,
         v_scale.data_ptr() if code else None, pos.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), B, H, Hkv, T, D, code,
-        1.0 / (D ** 0.5),
-        _build.stream_handle(dev))
+        out.data_ptr(), decode_workspace(plan, dev), B, H, Hkv, T, D, code,
+        1.0 / (D ** 0.5), _build.stream_handle(dev))
     _build.check(err, "nctt_batched_decode_attention")
     batched_decode_attn.launches[fmt] += 1
     return out

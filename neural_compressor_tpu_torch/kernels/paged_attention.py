@@ -290,7 +290,7 @@ _SCRATCH: dict = {}
 def split_workspace(plan: SplitPlan, device) -> tuple:
     """K11's workspaces for ``plan`` on ``device``: (scores, maxima,
     partials, tickets). The score rows [B * Hkv, ng * gs, PMAX*page] come
-    from ``decode_attention.score_workspace``, which K5, K6 and K7 share;
+    from ``decode_attention.score_workspace``, which K5 and K16 share;
     the part maxima, the float64 partials and the tickets are K11's own,
     flat buffers of at least ``plan``'s sizes kept per device between
     launches."""

@@ -1,0 +1,264 @@
+"""K6 (``decode_attn_quant``) and K7 (``batched_decode_attn``) at the
+llama2-7b shapes of the main paths, for choosing the split's plan and for
+comparing two checkouts on one card: each call against its plain version
+(bit for bit, and within ``chip_smoke.kv_tol``), its event ms
+(back-to-back calls, caches rotated through >200 MB of copies), its
+device ms (torch.profiler: the call's kernels summed, and each kernel
+apart), its back-to-back ms (calls queued behind a sleeping kernel, so
+none waits for the host), and the wrappers' host µs a call: the whole
+call, the C entry alone (its arguments' conversion by ctypes and the CUDA
+launches) and the Python around it.
+
+    python3 tools/decode_attn_sweep.py [--root <checkout>] [--sweep]
+
+Cases: K7 over 8 slots at ``chip_smoke.SLOT_POS`` (bf16, int8, fp8) and K6
+at B=1 at positions 0, 517 and 1023 (int8, fp8), all over 1024-row caches
+of 32 heads of 128. ``--root`` imports the port from another checkout (only
+the wrappers' public arguments are used), so run parent, change, change,
+parent in one call. ``--sweep`` (a checkout with ``decode_plan``) also runs
+every case at other plans: parts of 64, 128, 192 and 256 keys
+(``PART_KEYS``) at 128 and 256 threads a block at D 128
+(``THREADS_D128``), rings of 1 to 4 tiles (``RING_STAGES``) and K6's
+part sums in a third launch at every part count (``LSUM_PARTS`` 0), each
+constant set for the measurement and then restored.
+"""
+
+import argparse
+import importlib
+import itertools
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SLOT_POS = (0, 127, 128, 300, 517, 640, 901, 1023)
+K6_POS = (0, 517, 1023)
+H = HKV = 32
+D, T = 128, 1024
+NAMES = ("nctt_dsplit::", "batched_decode_attention_kernel",
+         "decode_attention_quant_kernel")
+
+
+def event_ms(torch, fns, iters):
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def backlog_ms(torch, fns, n=200):
+    """Device ms a call with the host far ahead: a sleeping kernel holds
+    the stream while n calls are enqueued, so they run back to back and no
+    launch waits for the host."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    a.record()
+    for i in range(n):
+        fns[i % len(fns)]()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def device_ms(torch, fns, n=40):
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if any(k in e.key for k in NAMES)) / 1e3 / n
+
+
+def by_kernel(torch, fns, n=40):
+    """Device ms a call of each kernel of ``fns`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fns[i % len(fns)]()
+        torch.cuda.synchronize()
+    return {e.key.split("<")[0].split("::")[-1]:
+            round(e.self_device_time_total / 1e3 / n, 4)
+            for e in prof.key_averages()
+            if any(k in e.key for k in NAMES)}
+
+
+def host_us(fn, n=2000):
+    for _ in range(50):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--sweep", action="store_true")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.root).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device")
+    from neural_compressor_tpu_torch import kernels as K
+    from neural_compressor_tpu_torch.ops import kv_quant as kq
+
+    da = importlib.import_module(
+        "neural_compressor_tpu_torch.kernels.decode_attention")
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), f"root={args.root}",
+          flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(53)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    def n_copies(nbytes):
+        return max(2, math.ceil(200e6 / nbytes))
+
+    # host µs a call, at a small shape where the device keeps up
+    q1, kn1, vn1 = randn(1, 8, D), randn(1, 8, D), randn(1, 8, D)
+    c1 = (*kq.kv_quant(randn(1, 8, 128, D), "int8"),
+          *kq.kv_quant(randn(1, 8, 128, D), "int8"))
+    p1 = torch.tensor([100], dtype=torch.int32, device=dev)
+    qb, pb = randn(8, 8, D), torch.tensor(SLOT_POS, dtype=torch.int32,
+                                          device=dev) % 128
+    kb, vb = randn(8, 8, 128, D), randn(8, 8, 128, D)
+    from neural_compressor_tpu_torch.kernels import _build
+
+    lib = _build.library()
+
+    class Recorder:         # the C entry a wrapper calls, and its arguments
+        def __getattr__(self, name):
+            def call(*a):
+                self.last = (getattr(lib, name), a)
+                return 0
+            return call
+
+    for label, fn in (
+            ("decode_attn_quant B=1 T=128", lambda: K.decode_attn_quant(
+                q1, kn1, vn1, *c1, p1)),
+            ("batched_decode_attn B=8 T=128", lambda: K.batched_decode_attn(
+                qb, kb, vb, pb))):
+        whole = host_us(fn)
+        torch.cuda.synchronize()
+        rec = Recorder()
+        _build._lib = rec
+        try:
+            python = host_us(fn)     # the C entry not called
+        finally:
+            _build._lib = lib
+        entry, a = rec.last
+        centry = host_us(lambda: entry(*a))
+        torch.cuda.synchronize()
+        print(f"host us a call, {label}: {whole:.2f} (C entry {centry:.2f}, "
+              f"its {len(a)} arguments; Python around it {python:.2f})",
+              flush=True)
+
+    cases = {}
+    q8 = randn(8, H, D)
+    pos8 = torch.tensor(SLOT_POS, dtype=torch.int32, device=dev)
+    for fmt in ("bf16", "int8", "fp8_e4m3"):
+        esize = 2 if fmt == "bf16" else 1
+        nb = 2 * 8 * HKV * T * (D * esize + (0 if fmt == "bf16" else 4))
+        if fmt == "bf16":
+            caches = [(randn(8, HKV, T, D), None, randn(8, HKV, T, D), None)
+                      for _ in range(n_copies(nb))]
+        else:
+            caches = [(*kq.kv_quant(randn(8, HKV, T, D), fmt),
+                       *kq.kv_quant(randn(8, HKV, T, D), fmt))
+                      for _ in range(n_copies(nb))]
+        cases[f"k7 {fmt} B=8 pos={SLOT_POS}"] = (
+            [lambda c=c: K.batched_decode_attn(q8, c[0], c[2], pos8, c[1],
+                                               c[3]) for c in caches],
+            lambda c=caches[0]: K.batched_decode_attn_plain(
+                q8.cpu(), c[0].cpu(), c[2].cpu(), pos8.cpu(),
+                *(None if t is None else t.cpu() for t in (c[1], c[3]))))
+    q1, kn1, vn1 = randn(1, H, D), randn(1, HKV, D), randn(1, HKV, D)
+    for fmt in ("int8", "fp8_e4m3"):
+        nb = 2 * HKV * T * (D + 4)
+        caches = [(*kq.kv_quant(randn(1, HKV, T, D), fmt),
+                   *kq.kv_quant(randn(1, HKV, T, D), fmt))
+                  for _ in range(n_copies(nb))]
+        for pos in K6_POS:
+            cases[f"k6 {fmt} B=1 pos={pos}"] = (
+                [lambda c=c, pos=pos: K.decode_attn_quant(q1, kn1, vn1, *c,
+                                                          pos)
+                 for c in caches],
+                lambda c=caches[0], pos=pos: K.decode_attn_quant_plain(
+                    q1.cpu(), kn1.cpu(), vn1.cpu(),
+                    *(t.cpu() for t in c), pos))
+    plans = [{}]
+    if args.sweep:
+        plans += [dict(PART_KEYS=pk, THREADS_D128=nt)
+                  for pk, nt in itertools.product((64, 128, 192, 256),
+                                                  (128, 256))]
+        plans += [dict(PART_KEYS=pk, RING_STAGES=st)
+                  for pk, st in ((192, 2), (256, 2), (256, 3))]
+        plans += [dict(RING_STAGES=1), dict(LSUM_PARTS=0)]
+    refs = {label: plain() for label, (_f, plain) in cases.items()}
+    bad = []
+    for plan in plans:
+        saved = {k: getattr(da, k) for k in plan}
+        for k, v in plan.items():
+            setattr(da, k, v)
+        if plan:
+            da.decode_plan.cache_clear()
+        try:
+            for label, (fns, _plain) in cases.items():
+                if "LSUM_PARTS" in plan and label.startswith("k7"):
+                    continue        # K7 has no third launch
+                out = fns[0]()
+                ref = refs[label]
+                torch.cuda.synchronize()
+                d = (out.float().cpu() - ref.float()).abs()
+                tol = 2.0 ** -7 * ref.float().abs() + 2.0 ** -20
+                equal = torch.equal(out.cpu(), ref)
+                if not equal:
+                    bad.append(f"{plan} {label}")
+                ms = event_ms(torch, fns, 100)
+                dms = device_ms(torch, fns)
+                bms = backlog_ms(torch, fns)
+                print(f"{plan or 'plan as committed'} {label}: equal={equal} "
+                      f"max_abs_err={float(d.max()):.3e} within kv_tol="
+                      f"{bool((d <= tol).all())} ms={ms:.4f} "
+                      f"device_ms={dms:.4f} back_to_back_ms={bms:.4f} "
+                      f"{by_kernel(torch, fns)}", flush=True)
+        finally:
+            for k, v in saved.items():
+                setattr(da, k, v)
+            if plan:
+                da.decode_plan.cache_clear()
+    print(f"not bit for bit: {bad}" if bad else "every case bit for bit",
+          flush=True)
+    sys.exit(1 if bad else 0)
+
+
+if __name__ == "__main__":
+    main()
