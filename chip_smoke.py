@@ -3892,6 +3892,25 @@ def phase_k11_profile(torch, part_keys=None) -> dict:
     return out
 
 
+def backlog_ms(torch, fns, n: int) -> float:
+    """Device ms a call with the host far ahead: a sleeping kernel holds the
+    stream while ``n`` calls of ``fns`` (cycled) are enqueued, so they run
+    back to back and no launch waits for the host; the device time a call
+    of kernels that overlap through dependent launches."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for i in range(n):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def profiled(torch, fns, n: int = 40,
              names=("scores_kernel", "pv_kernel")) -> dict:
     """Device ms a call of the kernels ``names`` (by default K11's two)
@@ -4408,6 +4427,15 @@ DS_LENGTHS = (1, 127, 128, 129, 1000, 2048, 3000, 4096)
 DS_MAX_LEN = 4096
 
 
+# K14's attention kernels (csrc/paged_latent.cuh), as torch.profiler names
+# them: the scores launch, PV, the fold
+LATENT_KERNELS = ("nctt_lat::scores_kernel", "nctt_lat::pv_kernel",
+                  "nctt_lat::fold_kernel")
+# the H100 SXM's dense float64 tensor-core rate (data sheet): K14's floor
+# for the float64 sums its tolerance rests on
+FP64_TENSOR_S = 67e12
+
+
 def lat_tol(ref):
     """Elementwise tolerance of K14's attention against its plain version:
     1e-5 of each slot's largest |output|. Both sum in float64 over exact
@@ -4451,9 +4479,13 @@ def phase_deepseek_kernels(torch, nct, peaks: dict) -> dict:
     against its plain version over the whole pool) and the attention
     (within ``lat_tol``), each timed with L2 cold beside its plain version,
     a yardstick (an index assignment; SDPA over the gathered rows) and its
-    bound. Planted faults, each of which the check must flag: the value
-    product over the wrong r columns (the rope part in the value), the
-    scale taken from C, lengths that leave out the current row, a write one
+    bound; the attention's device time a call back to back and its three
+    launches by torch.profiler, beside the float64 tensor-core floor of its
+    sums. Planted faults, each of which
+    the check must flag: the value product over the wrong r columns (the
+    rope part in the value), the scale taken from C, lengths that leave out
+    the current row, a lost part-boundary row (the kernel at length L - 1
+    against the plain version at L, row L - 1 a part's last), a write one
     row late, a write into another slot's page."""
     from neural_compressor_tpu_torch.kernels import paged_attention as pa
     from neural_compressor_tpu_torch.models.deepseek import DEEPSEEK_PRESETS
@@ -4515,8 +4547,11 @@ def phase_deepseek_kernels(torch, nct, peaks: dict) -> dict:
     tol = lat_tol(ref)
     err, ok_a = float(d.max()), bool((d <= tol).all()) and bool(
         torch.isfinite(out).all())
-    ms = timed_ms(torch, [lambda p=p: pa.paged_latent_attn(
-        q, p, bt, lengths, r, scale) for p in pools], 20)
+    fns = [lambda p=p: pa.paged_latent_attn(q, p, bt, lengths, r, scale)
+           for p in pools]
+    ms = timed_ms(torch, fns, 20)
+    dev_ms = profiled(torch, fns, names=LATENT_KERNELS)
+    b2b_ms = backlog_ms(torch, fns, 50)
     pms = timed_ms(torch, [lambda: pa.paged_latent_attn_plain(
         q, pools[0], bt, lengths, r, scale)], 2)
     sd = [latent_sdpa(torch, q, p, bt, lengths, r, scale) for p in pools[:2]]
@@ -4525,13 +4560,23 @@ def phase_deepseek_kernels(torch, nct, peaks: dict) -> dict:
     n_rows = int(lengths.sum())
     nbytes = n_rows * C * 2 + B * H * C * 2 + B * H * r * 4 + B * pmax * 4
     bms, by = bound(nbytes, 2 * H * n_rows * (C + r), peaks["bf16_s"], peaks)
+    f64_ms = 2 * H * n_rows * (C + r) / FP64_TENSOR_S * 1e3
+    plan = pa.latent_plan(B, H, C, r, PAGE, pmax)
     rows["attn"] = dict(err=err, ok=ok_a, ms=ms, plain_ms=pms,
-                        library_ms=lms, bound_ms=bms, bound_by=by)
+                        library_ms=lms, bound_ms=bms, bound_by=by,
+                        device_ms=b2b_ms)
     print(f"deepseek k14 attention B={B} H={H} C={C} r={r} page={PAGE} "
           f"lengths={DS_LENGTHS} max_abs_err={err:.3e} "
           f"max d/tol={float((d / tol).max()):.3g} ok={ok_a} ms={ms:.4f} "
+          f"device ms a call {b2b_ms:.4f} (back to back); torch.profiler "
+          f"a call: scores {dev_ms.get(LATENT_KERNELS[0], 0.0):.4f}, pv "
+          f"{dev_ms.get(LATENT_KERNELS[1], 0.0):.4f}, fold "
+          f"{dev_ms.get(LATENT_KERNELS[2], 0.0):.4f} (a dependent launch's "
+          f"time includes its wait for the one before) (plan: "
+          f"{pa.HEAD_GROUP} heads a group, parts of {plan.part_rows} rows) "
           f"plain_ms={pms:.4f} library_ms={lms:.4f} (SDPA over the gathered "
-          f"rows, Ev = r) bound_ms={bms:.5f} ({by})", flush=True)
+          f"rows, Ev = r) bound_ms={bms:.5f} ({by}); float64 tensor floor "
+          f"{f64_ms:.4f} ms", flush=True)
 
     # planted faults: each faulty reference must leave outputs outside the
     # tolerance (or pools unequal)
@@ -4549,10 +4594,19 @@ def phase_deepseek_kernels(torch, nct, peaks: dict) -> dict:
         "lengths without the current row": pa.paged_latent_attn_plain(
             q, pools[0], bt, lengths - 1, r, scale),
     }
+    # a lost part-boundary row: the kernel at length L - 1 against the
+    # plain version at L, the last attended row L - 1 a part's last row
+    pr = plan.part_rows
+    lb = torch.tensor([pr * (1 + i % 2) for i in range(B)],
+                      dtype=torch.int32, device=dev)
+    lost = {"a lost part-boundary row": (
+        pa.paged_latent_attn(q, pools[0], bt, lb - 1, r, scale),
+        pa.paged_latent_attn_plain(q, pools[0], bt, lb, r, scale))}
     missed = []
-    for name, faulty in faults.items():
+    for name, (got_f, faulty) in [*((n, (out, f)) for n, f in faults.items()),
+                                  *lost.items()]:
         torch.cuda.synchronize()
-        caught = int(((out - faulty).abs() > lat_tol(faulty)).sum())
+        caught = int(((got_f - faulty).abs() > lat_tol(faulty)).sum())
         print(f"deepseek k14 planted fault '{name}': {caught}/{out.numel()} "
               "outputs outside the tolerance", flush=True)
         if not caught:
@@ -4583,7 +4637,10 @@ def phase_deepseek_envelope(torch, nct) -> None:
     not a multiple of 4, zero-length slots and idle slots on the trash page
     (their duplicate writes, the last slot's row standing), lengths at page
     boundaries, and contexts of 16,384 and 32,768 rows at deepseek-v3's
-    widths. The repair: K5, K6 (int8, fp8), K7 (bf16, int8), K11 (bf16,
+    widths; K14's split at part boundaries (a part's last row, its first,
+    the row after, the full table) at deepseek-v3's widths, at a C that is
+    not a multiple of 8, and at an H that is not a multiple of the plan's
+    head group. The repair: K5, K6 (int8, fp8), K7 (bf16, int8), K11 (bf16,
     int8, int4) and K13 (bf16, int8, int4) at D 16, 80 and 96; K7 at D 384;
     K1 at group sizes 8, 16 and 24; K4 at K 262,144 (codes in global
     memory); and a 2-layer D-80 llama's B=1 greedy on the card against the
@@ -4660,6 +4717,30 @@ def phase_deepseek_envelope(torch, nct) -> None:
         ref = pa.paged_latent_attn_plain(q, pages, bt, lengths, r, 192 ** -0.5)
         check(f"k14 attention T={T}", pa.paged_latent_attn(
             q, pages, bt, lengths, r, 192 ** -0.5), ref, lat_tol(ref))
+        del pages, ref
+    # K14's split (latent_plan): lengths on part boundaries at deepseek-v3's
+    # widths (a part's last row, its first, the row after, a later part's,
+    # the full table; a zero-length slot), a C that is not a multiple of 8
+    # (scalar staging), and H not a multiple of the head group
+    for H, C, r, page in ((128, 576, 512, PAGE), (128, 576, 512, 16),
+                          (32, 150, 128, 64), (100, 576, 512, PAGE)):
+        B = 8
+        pr = pa.latent_plan(1, 1, 8, 8, page, 1).part_rows
+        pmax = -(-(3 * pr + 40) // page)
+        T = pmax * page
+        bt = ds_table(torch, B, pmax, H + page, dev)
+        pages = randn(B * pmax + 1, 1, page, C)
+        lengths = torch.tensor([pr, pr + 1, pr + 2, 2 * pr, 2 * pr + 1, T,
+                                0, 1], dtype=torch.int32, device=dev)
+        q = randn(B, H, C)
+        ref = pa.paged_latent_attn_plain(q, pages, bt, lengths, r, 0.125)
+        check(f"k14 attention part boundaries H={H} C={C} r={r} page={page} "
+              f"(groups of {pa.HEAD_GROUP}, parts of {pr})",
+              pa.paged_latent_attn(q, pages, bt, lengths, r, 0.125), ref,
+              lat_tol(ref))
+        if H == 100 and H % pa.HEAD_GROUP == 0:
+            bad.append(f"k14: H={H} is a multiple of its head group "
+                       f"{pa.HEAD_GROUP}")
         del pages, ref
 
     # the repair: any head width (K5, K6, K7, K11, K13)
@@ -4765,7 +4846,8 @@ def phase_deepseek_envelope(torch, nct) -> None:
         bad.append(f"D-80 llama B=1: card {got.tolist()} cpu "
                    f"{want.tolist()}, {calls} plain calls, {launched}")
     print(f"deepseek envelope: {n} cases (K14 at ragged H, pages 8/16/64, "
-          f"PMAX % 4, idle and zero-length slots, 16k-32k rows; K5/K6/K7/"
+          f"PMAX % 4, idle and zero-length slots, 16k-32k rows, part "
+          f"boundaries, C % 8, H % head group; K5/K6/K7/"
           f"K11/K13 at D 16/80/96, K7 at D 384, K1 at G 8/16/24, K4 at K "
           f"262144, a D-80 llama), card vs plain: "
           f"{'all within tolerance' if not bad else bad}", flush=True)

@@ -21,48 +21,83 @@
 //   Attention: q [B, H, C] bf16 (the absorbed query | the rotated rope
 //   query); lengths int32 [B] count the slot's rows, the new one included
 //   (written first); s = f32(sum_c q . lat) * scale over the rows t <
-//   lengths[b] (at most PMAX * page); e = exp(s - m), l = sum e
-//   unrounded; acc[c] = sum_t bf16(e) * lat[t, c] for c < r (the TPU
-//   kernel rounds its probabilities to the pages' dtype for PV); out f32
-//   [B, H, r] = acc / max(l, 1e-30); a zero-length slot gives zeros. The
-//   TPU kernel's online softmax over groups of kpp = min(4, PMAX) pages
-//   equals this one pass wherever one group covers the slot's pages or its
-//   running max does not move.
+//   lengths[b] (at most PMAX * page); m the maximum over the slot; e =
+//   exp(s - m) in float64, l = sum e unrounded; acc[c] = sum_t bf16(f32(e))
+//   * lat[t, c] for c < r (the TPU kernel rounds its probabilities to the
+//   pages' dtype for PV); out f32 [B, H, r] = f32(acc) / max(f32(l),
+//   1e-30); a zero-length slot gives zeros. The TPU kernel's online softmax
+//   over groups of kpp = min(4, PMAX) pages equals this one pass wherever
+//   one group covers the slot's pages or its running max does not move.
 //
 // Bound on this card: bytes at the main path's lengths. Each visited row
-//   is read once for all H heads: sum_b len_b * C * 2 bytes, plus
-//   q (B*H*C*2) and the float32 output (B*H*r*4); the operations,
-//   sum_b 2*H*len_b*(C + r), sit near the same time at H = 128, since all
-//   128 heads share the rows (MQA at rep 128, 256 operations a byte).
+//   is read once for all H heads: sum_b len_b * C * 2 bytes, plus q
+//   (B*H*C*2) and the float32 output (B*H*r*4). The operations, sum_b 2 * H
+//   * len_b * (C + r) (MLA is MQA at rep H: 256 operations a byte at H =
+//   128), take longer on the float64 units the sums need: 2.93 GFLOP at the
+//   check's lengths, 0.044 ms at the FP64 tensor cores' 67 TFLOP/s.
 //
 // Design: the write is one block a slot copying its C-wide row; the TPU
 //   kernel rewrites the slot's whole page block, this writes only the row.
 //   Each block first looks for a later slot with the same target and
 //   leaves the row to it, so one writer stands and the result is
-//   deterministic. The attention is one block a (head group of HB = 4
-//   heads, slot), 32 blocks a slot at H = 128, so a long slot's rows spread
-//   over 32 SMs. A block stages its slot's rows TT = 32 at a time in a
-//   shared tile (32 x 576 bf16 = 36 KiB, 16-byte loads, many in flight),
-//   which every head of the block reuses: scores a warp a row, its lanes
-//   holding the row's C elements in registers, one warp sum a head; PV a
-//   thread a (column, every head) pair, r columns over 256 threads, beside
-//   a shared tile of the probabilities. Each pass reads the rows again
-//   (from L2 for the second). The float32 score rows live in
-//   a workspace in device memory ([B, H, PMAX * page], allocated by the
-//   wrapper; they pass through L2), so no length is too long. Sums run in
-//   float64 over exact bf16 products and round once, so the kernel and its
-//   plain version (kernels/paged_attention.py) agree to float32 rounding.
-//   A simple first kernel: no wgmma, TMA or split of the keys across
-//   blocks.
-#include "nctt_common.cuh"
+//   deterministic. The attention (kernels in paged_latent.cuh) answers what
+//   held the one-pass kernel back: no split of a long slot's keys (its 32
+//   blocks of 4 heads walked all 4,096 rows twice, on at most 32 SMs),
+//   every row staged by 32 blocks in each pass, a float64 shuffle tree a
+//   (row, head), synchronous tile loads, and scalar float64 FMAs where the
+//   work is a matrix product.
+//   * Plan. kernels/paged_attention.py latent_plan cuts a slot's rows into
+//     parts of whole pages (part_rows, 512 at 128-row pages; absolute
+//     positions set by the page size alone, never by the lengths, B or H,
+//     so a row's terms are summed in the same order whatever shares the
+//     launch) and the H heads into groups of HG = 32: every head reads the
+//     same latent row, so a staged row serves HG heads. A block whose rows
+//     start past its slot's length exits at once.
+//   * Launch 1, scores and row-block maxima, grid (row blocks of 128 rows,
+//     head groups, B): S = q . lat^T for the group's heads and the
+//     block's rows as a float64 matrix product on the FP64 tensor cores
+//     (mma.sync m16n8k16 .f64; tools/dmma_probe.cu: m16n8k4-k16 run at 67
+//     TFLOP/s, m8n8k4 at half), 4096 sums held in registers (16 a thread)
+//     while 32-column stages of the rows (through the block table) and of
+//     the queries stream by 16-byte cp.async copies through a 3-stage ring
+//     in shared memory. Each bf16 converts to float64 exactly as its
+//     fragment is loaded (nctt::bf16_bits); a lane's eight columns of a
+//     stage are its k values of the stage's products, in an order A and B
+//     share. s = f32(S) * scale goes to the workspace [B, H, PMAX * page],
+//     each head's maximum over the block to pmax [B, H, row blocks].
+//   * Launch 2, PV, grid (parts, head groups x column passes of 256
+//     columns, B), a programmatic dependent launch: a block stages its
+//     first latent rows, waits for launch 1, takes each head's maximum over
+//     the slot's row blocks (fmaxf: order-free), forms p =
+//     bf16(f32(exp(s - m))) for the part's rows into shared memory and the
+//     part's l (each lane's rows in order, then a butterfly), then its
+//     pass's columns of acc = P . lat[:, :r] on the tensor cores (32 sums a
+//     thread) over 32-row stages of the rows, staged again (from L2). A
+//     slot of one part writes its output; the others' partials go to part
+//     [B, H, parts, r + 1] (acc, then l).
+//   * Launch 3, the fold, grid (r / 256, H, B), a dependent launch: a
+//     thread an output adds the parts' partials in ascending part order and
+//     writes f32(acc) / max(f32(l), 1e-30). The fold by each (slot, head
+//     group)'s last block, as K11 folds, left one SM to read up to 2 MB of
+//     partials after the parts ended (+0.07-0.16 ms a call at parts of
+//     128-512 rows, tools/latent_attn_sweep.py); spread over the card it
+//     takes its share of the bytes.
+//   * Numerics. Every product is exact in float64 (bf16 x bf16), so the
+//     sums of q . lat and of p . lat are exact in practice and their order
+//     (the tensor cores', the parts', the plain version's) does not show.
+//     The maximum is global before p is rounded: a flash-decoding fold of
+//     per-part maxima would round p against the wrong maximum. l's sum is
+//     the one inexact float64 sum; its order is fixed by the plan.
+//   * Host. One argument block (kernels/paged_attention.py
+//     latent_workspace: the scratch's addresses and the plan, cached per
+//     plan and device) keeps the C entry's arguments few; the score rows,
+//     row-block maxima and partials are flat buffers kept per device
+//     between calls.
+#include "paged_latent.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int HB = 4;         // heads a block
-constexpr int TT = 32;        // rows of a probability tile
-constexpr int MAX_CPL = 32;   // row elements a lane holds: C <= 1024
 
 __global__ void __launch_bounds__(THREADS)
 paged_latent_write_kernel(const __nv_bfloat16* __restrict__ row,
@@ -90,174 +125,6 @@ paged_latent_write_kernel(const __nv_bfloat16* __restrict__ row,
   for (int c = threadIdx.x; c < C; c += THREADS) dst[c] = src[c];
 }
 
-// rows t0 .. t0 + nt - 1 of slot btb's latent pages into the shared tile
-// [TT][C] (16-byte vectors where C % 8 == 0, so many loads are in flight)
-__device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
-                                          const __nv_bfloat16* pages,
-                                          const int* btb, int t0, int nt,
-                                          int page, int C) {
-  if (C % 8 == 0) {
-    const int vpr = C / 8;                  // vectors a row
-    for (int i = threadIdx.x; i < nt * vpr; i += THREADS) {
-      const int tt = i / vpr, v = i % vpr, t = t0 + tt;
-      const __nv_bfloat16* row =
-          pages + ((size_t)btb[t / page] * page + t % page) * C;
-      reinterpret_cast<uint4*>(tile + (size_t)tt * C)[v] =
-          reinterpret_cast<const uint4*>(row)[v];
-    }
-  } else {
-    for (int i = threadIdx.x; i < nt * C; i += THREADS) {
-      const int tt = i / C, c = i % C, t = t0 + tt;
-      tile[(size_t)tt * C + c] =
-          pages[((size_t)btb[t / page] * page + t % page) * C + c];
-    }
-  }
-}
-
-template <int NC>
-__global__ void __launch_bounds__(THREADS)
-paged_latent_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ pages,
-                              const int* __restrict__ bt,
-                              const int* __restrict__ lengths,
-                              float* __restrict__ out,
-                              float* __restrict__ ws, int H, int page,
-                              int PMAX, int C, int r, float scale) {
-  // float64 copies of the queries and probabilities, so the inner loops
-  // convert nothing but the latent elements, once each
-  extern __shared__ __align__(16) double smem[];
-  double* sq = smem;                      // [HB][C] the block's queries
-  double* sp = sq + HB * C;               // [HB][TT] a probability tile
-  __nv_bfloat16* tile =                   // [TT][C] a tile of latent rows
-      reinterpret_cast<__nv_bfloat16*>(sp + HB * TT);
-  __shared__ double sl[HB];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h0 = blockIdx.x * HB, b = blockIdx.y;
-  const int nh = H - h0 < HB ? H - h0 : HB;   // heads of this block
-  const int Tv = PMAX * page;
-  const int n = lengths[b];
-  const int L = n < 0 ? 0 : (n > Tv ? Tv : n);
-  const int* btb = bt + (size_t)b * PMAX;
-  float* outb = out + ((size_t)b * H + h0) * r;
-  if (L == 0) {
-    for (int i = tid; i < nh * r; i += THREADS) outb[i] = 0.0f;
-    return;
-  }
-  const __nv_bfloat16* qb = q + ((size_t)b * H + h0) * C;
-  for (int i = tid; i < nh * C; i += THREADS)
-    sq[i] = (double)__bfloat162float(qb[i]);
-  float* wsb = ws + ((size_t)b * H + h0) * Tv;   // [nh][Tv]
-
-  // pass 1: scores, a tile of rows at a time; a warp a row, every head of
-  // the block from the row's elements in registers
-  for (int t0 = 0; t0 < L; t0 += TT) {
-    const int nt = L - t0 < TT ? L - t0 : TT;
-    __syncthreads();
-    load_tile(tile, pages, btb, t0, nt, page, C);
-    __syncthreads();
-    for (int tt = warp; tt < nt; tt += WARPS) {
-      double lr[MAX_CPL];
-#pragma unroll
-      for (int i = 0; i < MAX_CPL; ++i) {
-        const int c = lane + 32 * i;
-        lr[i] = c < C ? (double)__bfloat162float(tile[(size_t)tt * C + c])
-                      : 0.0;
-      }
-      for (int h = 0; h < nh; ++h) {
-        double d = 0.0;
-#pragma unroll
-        for (int i = 0; i < MAX_CPL; ++i) {
-          const int c = lane + 32 * i;
-          if (c < C) d += sq[h * C + c] * lr[i];
-        }
-        d = nctt::warp_sum(d);
-        if (lane == 0)
-          wsb[(size_t)h * Tv + t0 + tt] = __fmul_rn((float)d, scale);
-      }
-    }
-  }
-  __syncthreads();
-
-  // softmax numerators, a warp a head: p = bf16(f32(exp(s - m))), l
-  // unrounded
-  for (int h = warp; h < nh; h += WARPS) {
-    float* row = wsb + (size_t)h * Tv;
-    float m = -INFINITY;
-    for (int t = lane; t < L; t += 32) m = fmaxf(m, row[t]);
-    m = nctt::warp_max(m);
-    double l = 0.0;
-    for (int t = lane; t < L; t += 32) {
-      const double e = exp((double)row[t] - (double)m);
-      l += e;
-      row[t] = __bfloat162float(__float2bfloat16_rn((float)e));
-    }
-    l = nctt::warp_sum(l);
-    if (lane == 0) sl[h] = l;
-  }
-  __syncthreads();
-
-  // pass 2: PV over the first r columns, a thread a column (NC of them)
-  // for every head, the rows and the probabilities a tile at a time in
-  // shared memory
-  double acc[HB][NC];
-#pragma unroll
-  for (int h = 0; h < HB; ++h)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[h][j] = 0.0;
-  for (int t0 = 0; t0 < L; t0 += TT) {
-    const int nt = L - t0 < TT ? L - t0 : TT;
-    __syncthreads();
-    load_tile(tile, pages, btb, t0, nt, page, C);
-    for (int i = tid; i < HB * TT; i += THREADS) {
-      const int h = i / TT, tt = i % TT;
-      sp[i] = h < nh && tt < nt ? (double)wsb[(size_t)h * Tv + t0 + tt]
-                                : 0.0;
-    }
-    __syncthreads();
-    for (int tt = 0; tt < nt; ++tt) {
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int c = tid + THREADS * j;
-        if (c >= r) break;
-        const double v = (double)__bfloat162float(tile[(size_t)tt * C + c]);
-#pragma unroll
-        for (int h = 0; h < HB; ++h) acc[h][j] += sp[h * TT + tt] * v;
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    const int c = tid + THREADS * j;
-    if (c >= r) break;
-#pragma unroll
-    for (int h = 0; h < HB; ++h)
-      if (h < nh)
-        outb[(size_t)h * r + c] =
-            __fdiv_rn((float)acc[h][j], fmaxf((float)sl[h], 1e-30f));
-  }
-}
-
-template <int NC>
-int launch_attention(const void* q, const void* pages, const void* bt,
-                     const void* lengths, void* out, void* ws, int B, int H,
-                     int page, int PMAX, int C, int r, float scale,
-                     cudaStream_t s) {
-  const size_t smem = sizeof(double) * ((size_t)HB * C + HB * TT) +
-      sizeof(__nv_bfloat16) * (size_t)TT * C;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_latent_attention_kernel<NC>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid((H + HB - 1) / HB, B);
-  paged_latent_attention_kernel<NC><<<grid, THREADS, smem, s>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)pages, (const int*)bt,
-      (const int*)lengths, (float*)out, (float*)ws, H, page, PMAX, C, r,
-      scale);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // row bf16 [B, C]; pages bf16 [P, 1, page, C]; block_tables int32
@@ -276,28 +143,45 @@ NCTT_API int nctt_paged_latent_write(const void* row, void* pages,
 }
 
 // q bf16 [B, H, C]; pages bf16 [P, 1, page, C]; block_tables int32
-// [B, PMAX]; lengths int32 [B]; out f32 [B, H, r]; ws f32
-// [B, H, PMAX * page] scratch for the score rows. 1 <= r <= C <= 1024,
-// r <= 1024.
+// [B, PMAX]; lengths int32 [B] on the device; out f32 [B, H, r]. `plan`,
+// five 64-bit words (kernels/paged_attention.py latent_workspace): the
+// scratch's addresses, ws f32 [B, H, PMAX * page] scores, pmax f32 [B, H,
+// row blocks], part f64 [B, H, parts, r + 1]; then the plan (latent_plan):
+// part_rows rows a part, `parts` parts over the table. 1 <= r <= C <=
+// 1024. Three launches on `stream`.
 NCTT_API int nctt_paged_latent_attention(const void* q, const void* pages,
                                          const void* bt, const void* lengths,
-                                         void* out, void* ws, int B, int H,
-                                         int P, int page, int PMAX, int C,
-                                         int r, float scale, void* stream) {
+                                         void* out, const void* plan, int B,
+                                         int H, int P, int page, int PMAX,
+                                         int C, int r, float scale,
+                                         void* stream) {
   (void)P;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (B < 1 || H < 1 || page < 1 || PMAX < 1 || r < 1 || r > C ||
-      C > 32 * MAX_CPL)
+  using namespace nctt_lat;
+  const long long* w = (const long long*)plan;
+  Args a;
+  a.q = (const __nv_bfloat16*)q;
+  a.pages = (const __nv_bfloat16*)pages;
+  a.bt = (const int*)bt;
+  a.lengths = (const int*)lengths;
+  a.out = (float*)out;
+  a.ws = (float*)w[0];
+  a.pmax = (float*)w[1];
+  a.part = (double*)w[2];
+  a.part_rows = (int)w[3];
+  a.parts = (int)w[4];
+  a.H = H;
+  a.page = page;
+  a.PMAX = PMAX;
+  a.C = C;
+  a.r = r;
+  a.scale = scale;
+  a.vec = C % 8 == 0 && ((uintptr_t)q & 15) == 0 &&
+          ((uintptr_t)pages & 15) == 0;
+  const long long Tv = (long long)PMAX * page;
+  if (B < 1 || H < 1 || page < 1 || PMAX < 1 || r < 1 || r > C || C > 1024 ||
+      a.part_rows < 1 || a.part_rows > MAX_PART_ROWS || a.parts < 1 ||
+      (long long)a.parts * a.part_rows < Tv ||
+      (long long)(a.parts - 1) * a.part_rows >= Tv)
     return (int)cudaErrorInvalidValue;
-  const int nc = (r + THREADS - 1) / THREADS;
-  switch (nc) {
-    case 1: return launch_attention<1>(q, pages, bt, lengths, out, ws, B, H,
-                                       page, PMAX, C, r, scale, s);
-    case 2: return launch_attention<2>(q, pages, bt, lengths, out, ws, B, H,
-                                       page, PMAX, C, r, scale, s);
-    case 3:
-    case 4: return launch_attention<4>(q, pages, bt, lengths, out, ws, B, H,
-                                       page, PMAX, C, r, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return launch(a, B, (cudaStream_t)stream);
 }

@@ -98,8 +98,9 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I, _P],
     # row, pages, block_tables, pos, B, P, page, PMAX, C, stream
     "nctt_paged_latent_write": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, pages, block_tables, lengths, out, ws, B, H, P, page, PMAX, C, r,
-    # scale, stream
+    # q, pages, block_tables, lengths, out, plan (the argument block of
+    # paged_attention.latent_workspace: scratch and plan), B, H, P, page,
+    # PMAX, C, r, scale, stream
     "nctt_paged_latent_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _I, _I, _F, _P],
     # x, w, scales, zeros, codebook, out, part, tickets, M, N, K, G, bits,

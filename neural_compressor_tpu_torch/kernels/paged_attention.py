@@ -74,6 +74,7 @@ nothing in K12, as JAX's scatter drops it, and attention visits at most
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -890,13 +891,108 @@ def paged_latent_attn_plain(q, lat_pages, block_tables, lengths, r: int,
                        torch.zeros((), device=dev))
 
 
+class LatentPlan(NamedTuple):
+    """How K14's attention cuts one call (``latent_plan``): parts of whole
+    pages, the scores launch's row blocks, the PV launch's column passes
+    and the scratch's sizes."""
+    part_rows: int       # rows a part: whole pages from row 0 on
+    parts: int           # parts over the block table's PMAX pages
+    row_blocks: int      # the scores launch's blocks of 4096 / HEAD_GROUP rows
+    passes: int          # the PV launch's blocks of 8192 / HEAD_GROUP columns
+    scores: int          # float32 score rows, B * H * PMAX * page
+    maxima: int          # float32 row-block maxima, B * H * row_blocks
+    partials: int        # float64 partials, B * H * parts * (r + 1)
+
+
+# rows a part of K14's split holds: whole pages, 4 pages of the engine's 128
+# rows (a page past it is a part of its own, cut at PART_ROWS rows)
+PART_ROWS = 512
+# heads a block (csrc/paged_latent.cuh HG). The grids' block counts do not
+# depend on it (a group twice as wide has half the rows a scores block and
+# half the columns a PV block); 32 measured fastest of 16-128
+# (tools/latent_attn_sweep.py)
+HEAD_GROUP = 32
+_LAT_STAGES = 3                # csrc/paged_latent.cuh NST
+_LAT_MAX_PART_ROWS = 1024      # csrc/paged_latent.cuh MAX_PART_ROWS
+_LAT_MAX_DYN = 232448 - 12288  # csrc/paged_latent.cuh MAX_DYN
+_LAT_KR = 32
+_LAT_NCC = 8192 // HEAD_GROUP  # columns of a PV pass (PvShape::NCC)
+
+
+def _latent_pv_smem(part_rows: int) -> int:
+    """The PV launch's dynamic shared memory, its ring and p's rows
+    (``pv_smem`` in csrc/paged_latent.cuh)."""
+    p_rows = HEAD_GROUP * (-(-part_rows // _LAT_KR) * _LAT_KR + 4) * 2
+    return _LAT_STAGES * _LAT_KR * (2 * _LAT_NCC + 32) + p_rows
+
+
+@functools.lru_cache(maxsize=256)
+def latent_plan(B: int, H: int, C: int, r: int, page: int,
+                PMAX: int) -> LatentPlan:
+    """K14's plan for q [B, H, C] over pages of ``page`` rows, PMAX a slot,
+    output width r. A slot's rows split into parts of ``max(1, PART_ROWS //
+    page)`` whole pages (PART_ROWS rows where a page is longer): absolute
+    row positions set by the page size alone, never by the lengths, B, H,
+    C or r, so a row's terms are summed in the same order whatever else
+    shares the launch. The heads split into groups of HEAD_GROUP; the
+    scores launch takes blocks of 4096 / HEAD_GROUP rows, the PV launch
+    passes of 8192 / HEAD_GROUP columns."""
+    part_rows = (max(1, PART_ROWS // page) * page if page <= PART_ROWS
+                 else PART_ROWS)
+    if (part_rows > _LAT_MAX_PART_ROWS
+            or _latent_pv_smem(part_rows) > _LAT_MAX_DYN):
+        raise ValueError(f"latent_plan: parts of {part_rows} rows do not "
+                         f"fit a block")
+    Tv = PMAX * page
+    parts = -(-Tv // part_rows)
+    row_blocks = -(-Tv // (4096 // HEAD_GROUP))
+    return LatentPlan(part_rows, parts, row_blocks, -(-r // _LAT_NCC),
+                      B * H * Tv, B * H * row_blocks,
+                      B * H * parts * (r + 1))
+
+
+# device -> (sizes held, buffers, {plan: argument block}): K14's attention
+# scratch, flat: score rows and row-block maxima (float32) and partials
+# (float64), replaced by larger ones (and the argument blocks dropped) when
+# a call needs more. Calls on one stream run in order, so one call's scratch
+# is free when the next starts.
+_LAT_SCRATCH: dict = {}
+
+
+def latent_workspace(plan: LatentPlan, device) -> int:
+    """The address of the argument block of K14's attention entry for
+    ``plan`` on ``device``: five 64-bit words, the scratch's addresses
+    (score rows, sized as ``decode_attention.score_workspace`` sizes them
+    but kept here so that the block stays valid, row-block maxima,
+    partials) and the plan (part rows, parts)."""
+    have = _LAT_SCRATCH.get(device)
+    if have is not None:
+        block = have[2].get(plan)
+        if block is not None:
+            return block[1]
+    need = (plan.scores, plan.maxima, plan.partials)
+    if have is None or any(h < n for h, n in zip(have[0], need)):
+        n = need if have is None else tuple(map(max, have[0], need))
+        bufs = (torch.empty(n[0], dtype=_F32, device=device),
+                torch.empty(n[1], dtype=_F32, device=device),
+                torch.empty(n[2], dtype=_F64, device=device))
+        have = (n, bufs, {})
+        _LAT_SCRATCH[device] = have
+    words = (ctypes.c_int64 * 5)(*(b.data_ptr() for b in have[1]),
+                                 plan.part_rows, plan.parts)
+    have[2][plan] = (words, ctypes.addressof(words))
+    return have[2][plan][1]
+
+
 def paged_latent_attn(q, lat_pages, block_tables, lengths, r: int,
                       scale: float) -> torch.Tensor:
     """K14's attention on the card (``csrc/paged_latent.cu``,
-    ``nctt_paged_latent_attention``) over a bf16 latent pool; the plain
-    version for CPU tensors. Arguments as in ``paged_latent_attn_plain``;
-    ``lengths`` stays on the device. Launches are counted in
-    ``paged_latent_attn.launches``."""
+    ``nctt_paged_latent_attention``: three CUDA launches a call over
+    ``latent_plan``'s row blocks, parts and head groups, scratch from
+    ``latent_workspace``) over a bf16 latent pool; the plain version for
+    CPU tensors. Arguments as in ``paged_latent_attn_plain``; ``lengths``
+    stays on the device. Launches are counted in
+    ``paged_latent_attn.launches``, one a call."""
     if q.device.type == "cpu":
         return paged_latent_attn_plain(q, lat_pages, block_tables, lengths,
                                        r, scale)
@@ -912,12 +1008,12 @@ def paged_latent_attn(q, lat_pages, block_tables, lengths, r: int,
                    (P, 1, page, C))
     _build.require(block_tables, "block_tables", torch.int32, dev, (B, PMAX))
     _build.require(lengths, "lengths", torch.int32, dev, (B,))
-    out = torch.empty((B, H, r), dtype=torch.float32, device=dev)
-    ws = score_workspace(B, H, PMAX * page, dev)
+    out = torch.empty((B, H, r), dtype=_F32, device=dev)
+    plan = latent_plan(B, H, C, r, page, PMAX)
     err = _build.library().nctt_paged_latent_attention(
         q.data_ptr(), lat_pages.data_ptr(), block_tables.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), ws.data_ptr(), B, H, P, page,
-        PMAX, C, r, float(scale), _build.stream_handle(dev))
+        lengths.data_ptr(), out.data_ptr(), latent_workspace(plan, dev), B,
+        H, P, page, PMAX, C, r, float(scale), _build.stream_handle(dev))
     _build.check(err, "nctt_paged_latent_attention")
     paged_latent_attn.launches += 1
     return out

@@ -7,7 +7,8 @@ device ms (torch.profiler: the call's kernels summed, and each kernel
 apart), its back-to-back ms (calls queued behind a sleeping kernel, so
 none waits for the host), and the wrappers' host µs a call: the whole
 call, the C entry alone (its arguments' conversion by ctypes and the CUDA
-launches) and the Python around it.
+launches) and the Python around it. The timers are ``chip_smoke.py``'s
+(``timed_ms``, ``backlog_ms``, ``profiled``).
 
     python3 tools/decode_attn_sweep.py [--root <checkout>] [--sweep]
 
@@ -32,75 +33,19 @@ import sys
 import time
 from pathlib import Path
 
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke  # noqa: E402  (its timers; it imports no kernel at load)
+
 SLOT_POS = (0, 127, 128, 300, 517, 640, 901, 1023)
 K6_POS = (0, 517, 1023)
 H = HKV = 32
 D, T = 128, 1024
-NAMES = ("nctt_dsplit::", "batched_decode_attention_kernel",
+# the kernels a case may launch, as torch.profiler names them (K6's and
+# K7's split, and the single-pass kernels of a parent checkout)
+NAMES = ("nctt_dsplit::scores_kernel", "nctt_dsplit::pv_kernel",
+         "nctt_dsplit::lsum_kernel", "batched_decode_attention_kernel",
          "decode_attention_quant_kernel")
-
-
-def event_ms(torch, fns, iters):
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for i in range(iters):
-        fns[i % len(fns)]()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
-def backlog_ms(torch, fns, n=200):
-    """Device ms a call with the host far ahead: a sleeping kernel holds
-    the stream while n calls are enqueued, so they run back to back and no
-    launch waits for the host."""
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(40_000_000)
-    a.record()
-    for i in range(n):
-        fns[i % len(fns)]()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / n
-
-
-def device_ms(torch, fns, n=40):
-    from torch.profiler import ProfilerActivity, profile
-
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if any(k in e.key for k in NAMES)) / 1e3 / n
-
-
-def by_kernel(torch, fns, n=40):
-    """Device ms a call of each kernel of ``fns`` (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for f in fns:
-        f()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(n):
-            fns[i % len(fns)]()
-        torch.cuda.synchronize()
-    return {e.key.split("<")[0].split("::")[-1]:
-            round(e.self_device_time_total / 1e3 / n, 4)
-            for e in prof.key_averages()
-            if any(k in e.key for k in NAMES)}
 
 
 def host_us(fn, n=2000):
@@ -114,7 +59,7 @@ def host_us(fn, n=2000):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--root", default=str(ROOT))
     ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -242,14 +187,16 @@ def main() -> None:
                 equal = torch.equal(out.cpu(), ref)
                 if not equal:
                     bad.append(f"{plan} {label}")
-                ms = event_ms(torch, fns, 100)
-                dms = device_ms(torch, fns)
-                bms = backlog_ms(torch, fns)
+                ms = chip_smoke.timed_ms(torch, fns, 100)
+                kern = chip_smoke.profiled(torch, fns, names=NAMES)
+                bms = chip_smoke.backlog_ms(torch, fns, 200)
                 print(f"{plan or 'plan as committed'} {label}: equal={equal} "
                       f"max_abs_err={float(d.max()):.3e} within kv_tol="
                       f"{bool((d <= tol).all())} ms={ms:.4f} "
-                      f"device_ms={dms:.4f} back_to_back_ms={bms:.4f} "
-                      f"{by_kernel(torch, fns)}", flush=True)
+                      f"device_ms={sum(kern.values()):.4f} "
+                      f"back_to_back_ms={bms:.4f} "
+                      f"{ {k: round(v, 4) for k, v in kern.items()} }",
+                      flush=True)
         finally:
             for k, v in saved.items():
                 setattr(da, k, v)
