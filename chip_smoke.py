@@ -25,7 +25,9 @@ non-zero:
      widths, ragged M, N and T, group 32, a bias, every W4A16 format,
      positions at 0, at page boundaries and past the end, all-zero K/V
      rows, int4 writes to both nibbles of a byte row, zero-length and idle
-     slots, a shared trash page) against their plain versions, and a small
+     slots, a shared trash page; K5's and K7's splits at the parts'
+     boundaries, with a lost part-boundary row planted in each) against
+     their plain versions, and a small
      GQA model's greedy tokens on the card against the CPU; the repaired
      envelope (phase 12's ``deepseek_envelope``): any head width in the
      attention kernels (D 16, 80, 96, K7's 384), K1 at group sizes 8, 16
@@ -121,8 +123,9 @@ non-zero:
      int8; the bulk-copied caches, ``set_ro_cache_space("hbm")``), K17
      (o + MLP in one cooperative launch, ``set_omlp_fused(True)``) and K18
      (attention inside the o-projection, ``ATTN_O_FUSED``): each against
-     its plain version at llama2-7b's shapes with planted faults
-     (``variant_kernels``); at rep 1/4/8, D 64/80, K17's tiles of h,
+     its plain version at llama2-7b's shapes with planted faults (K15's
+     split: the running maximum restarted at each part, a lost
+     part-boundary row) (``variant_kernels``); at rep 1/4/8, D 64/80, K17's tiles of h,
      K17's and K18's declines counted, and the repaired K5's per-slot
      positions (``variant_envelope``); a full-width 2-layer llama2-7b
      under each switch, card against CPU, and the v1 engine over paged
@@ -234,8 +237,12 @@ def n_copies(nbytes: int) -> int:
     return max(2, math.ceil(200e6 / max(nbytes, 1)))
 
 
-# K6's and K7's kernels (csrc/decode_split.cuh), as torch.profiler names them
+# K5's, K6's and K7's kernels (csrc/decode_split.cuh), as torch.profiler
+# names them
 SPLIT_KERNELS = ("nctt_dsplit::",)
+# K15's two kernels (K11's scores launch in its v1 form, csrc/
+# paged_attention_v1.cu's PV and fold)
+V1_KERNELS = ("nctt_k11::scores_kernel", "nctt_v1::pv_fold_kernel")
 
 
 def split_positions(torch, fmt, dev):
@@ -514,16 +521,18 @@ def phase_kernels(torch, nct, peaks: dict) -> dict:
           for _ in range(n_copies(2 * Hkv * T * D * 2))]
     k, v = kv[0]
     for pos in ATTN_POS:
-        # K5 reads the position on the device, as an int32 [B] tensor
+        # K5 reads the position on the device, as an int32 [B] tensor; its
+        # split keeps every bit of the plain version (max_abs_err 0)
         posd = torch.tensor([pos], dtype=torch.int32, device=dev)
         ok_ = decode_attn(q, k, v, posd)
         op = decode_attn_plain(q, k, v, posd)
         torch.cuda.synchronize()
         err = float((ok_.float() - op.float()).abs().max())
-        ok = math.isfinite(err) and err <= TOL["attn"]
+        ok = math.isfinite(err) and err <= TOL["attn"] and err == 0
         L = pos + 1
-        ms = timed_ms(torch, [lambda a=a, b=b: decode_attn(q, a, b, posd)
-                              for a, b in kv], 200)
+        fns = [lambda a=a, b=b: decode_attn(q, a, b, posd) for a, b in kv]
+        ms = timed_ms(torch, fns, 200)
+        dms = sum(profiled(torch, fns, names=SPLIT_KERNELS).values())
         pms = timed_ms(torch, [lambda: decode_attn_plain(q, k, v, posd)],
                        20)
         q4 = q[:, :, None]
@@ -533,12 +542,12 @@ def phase_kernels(torch, nct, peaks: dict) -> dict:
         nbytes = H * D * 2 * 2 + 2 * Hkv * L * D * 2
         bms, by = bound(nbytes, 4 * H * L * D, peaks["bf16_s"], peaks)
         rows["attn"].append(dict(pos=pos, err=err, tol=TOL["attn"], ok=ok,
-                                 ms=ms, plain_ms=pms, library_ms=lms,
-                                 bound_ms=bms, bound_by=by))
+                                 ms=ms, device_ms=dms, plain_ms=pms,
+                                 library_ms=lms, bound_ms=bms, bound_by=by))
         print(f"attn pos={pos:4d} T={T} H={H} Hkv={Hkv} D={D} "
               f"max_abs_err={err:.3e} tol={TOL['attn']:.1e} ok={ok} "
-              f"ms={ms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f} "
-              f"bound_ms={bms:.4f} ({by})", flush=True)
+              f"ms={ms:.4f} device_ms={dms:.4f} plain_ms={pms:.4f} "
+              f"library_ms={lms:.4f} bound_ms={bms:.4f} ({by})", flush=True)
     del kv
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
@@ -850,7 +859,9 @@ def phase_engine_envelope(torch) -> None:
     at 0, T - 1 and past the end, page boundaries (rows 0 and 127 of a
     page), a zero-length slot, an idle slot whose block table is all trash
     page, rows past the block table, and two slots writing one trash-page
-    row (that row excepted: the race leaves it unspecified)."""
+    row (that row excepted: the race leaves it unspecified). K7's and K5's
+    splits of the keys at positions on the parts' boundaries, each with a
+    planted fault: a lost part-boundary key."""
     from neural_compressor_tpu_torch import kernels
 
     dev = torch.device("cuda")
@@ -896,6 +907,25 @@ def phase_engine_envelope(torch) -> None:
     miss = boundary_fault(torch, "k7 bf16",
                           kernels.batched_decode_attn(q, k, v, p - 1),
                           kernels.batched_decode_attn_plain(q, k, v, p))
+    if miss:
+        bad.append(miss)
+    # K5 on K6's split over bf16 rows: the same boundaries, its plan's
+    # (decode_plan with k6), GQA and head widths to 256, then its own
+    # planted fault (a lost part-boundary row)
+    T, pk, spos = split_positions(torch, "bf16", dev)
+    for H, Hkv, D in ((32, 32, 128), (16, 4, 64), (32, 2, 128), (8, 2, 256),
+                      (6, 2, 80), (16, 1, 96)):
+        q = (randn(7, H, D).float() * 4).to(torch.bfloat16)
+        k, v = randn(7, Hkv, T, D), randn(7, Hkv, T, D)
+        check(f"k5 split H={H} Hkv={Hkv} D={D} T={T} pos={spos.tolist()}",
+              kernels.decode_attn(q, k, v, spos),
+              kernels.decode_attn_plain(q, k, v, spos))
+        n += 1
+    k, v = randn(2, 4, T, 128), randn(2, 4, T, 128)
+    q = (row_at(k, p) * 8).repeat_interleave(4, dim=1)
+    miss = boundary_fault(torch, "k5 bf16",
+                          kernels.decode_attn(q, k, v, p - 1),
+                          kernels.decode_attn_plain(q, k, v, p))
     if miss:
         bad.append(miss)
     for (H, Hkv, D, page), quant in zip(
@@ -1027,6 +1057,46 @@ def unpack_once(held=None):
             held.clear()
 
 
+@contextlib.contextmanager
+def quantized_on_card():
+    """Within the block, the quantize pass of ``build_quantized`` runs on
+    the card: each layer's float weights still come from the CPU's
+    generator, RTN's codes, scales and packed words are the same bits there
+    (exact elementwise IEEE operations and integer packing) in a fraction
+    of the CPU's time, and each layer comes back to the CPU."""
+    import importlib
+
+    qmod = importlib.import_module(
+        "neural_compressor_tpu_torch.quantization.quantize")
+    cpu_quantize = qmod.quantize
+
+    def quantize(model, quant_config, *args, **kw):
+        out = cpu_quantize(model.to("cuda"), quant_config, *args, **kw)
+        model.to("cpu")
+        return out
+
+    qmod.quantize = quantize
+    try:
+        yield
+    finally:
+        qmod.quantize = cpu_quantize
+
+
+def w4a8_pair(nct, cfg, quant_config, seed: int):
+    """A llama from ``seed`` (weights from the CPU's generator), RTN on the
+    card (``quantized_on_card``), fused for serving on "hopper_nk" with
+    fused B=1 decode on the card -> (CPU copy, card model), the same bits
+    as building, fusing and converting it on the CPU."""
+    with quantized_on_card():
+        model = nct.build_quantized(cfg, quant_config, seed=seed,
+                                    device="cpu")
+    model = model.to("cuda")
+    nct.fuse_for_serving(model)
+    nct.to_w4a8_serving(model)
+    nct.enable_fused_decode(model)
+    return copy.deepcopy(model).to("cpu"), model
+
+
 def set_kv_format(model, fmt) -> None:
     """Flag ``model``'s KV-cache format as ``KVCacheQuantConfig`` does;
     None for bf16 caches."""
@@ -1078,13 +1148,8 @@ def phase_engine_check(torch, nct) -> None:
     torch.set_num_threads(8)
     t0 = time.perf_counter()
     cfg = LlamaConfig(**dict(LLAMA_PRESETS["llama2-7b"], num_hidden_layers=2))
-    m_cpu = nct.build_quantized(
-        cfg, nct.RTNConfig(dtype="int4", group_size=G, quant_lm_head=True),
-        seed=4, device="cpu")
-    nct.fuse_for_serving(m_cpu)
-    nct.to_w4a8_serving(m_cpu)
-    nct.enable_fused_decode(m_cpu)
-    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    m_cpu, m_gpu = w4a8_pair(nct, cfg, nct.RTNConfig(
+        dtype="int4", group_size=G, quant_lm_head=True), seed=4)
     gen = torch.Generator().manual_seed(5)
     lens = (12, 20, 5, 33)
     prompts = [torch.randint(0, cfg.vocab_size, (P,), generator=gen).numpy()
@@ -1253,17 +1318,19 @@ def phase_model_check(torch, nct) -> None:
     torch.set_num_threads(8)
     params = dict(LLAMA_PRESETS["llama2-7b"], num_hidden_layers=2)
     cfg = LlamaConfig(**params)
-    m_cpu = nct.build_quantized(
-        cfg, nct.RTNConfig(dtype="int4", group_size=G, quant_lm_head=True)
-        + nct.KVCacheQuantConfig(dtype="fp8"), seed=1, device="cpu")
+    qc = (nct.RTNConfig(dtype="int4", group_size=G, quant_lm_head=True)
+          + nct.KVCacheQuantConfig(dtype="fp8"))
+    with quantized_on_card():
+        m_cpu = nct.build_quantized(cfg, qc, seed=1, device="cpu")
     if not (m_cpu.kv_cache_quantized and m_cpu.kv_cache_format == "fp8_e4m3"
             and type(m_cpu.lm_head).__name__ == "WOQLinear"):
         fail("RTNConfig + KVCacheQuantConfig did not quantize the lm_head "
              "and flag the fp8 cache")
-    nct.fuse_for_serving(m_cpu)
-    nct.to_w4a8_serving(m_cpu)
-    nct.enable_fused_decode(m_cpu)
-    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    m_gpu = m_cpu.to("cuda")
+    nct.fuse_for_serving(m_gpu)
+    nct.to_w4a8_serving(m_gpu)
+    nct.enable_fused_decode(m_gpu)
+    m_cpu = copy.deepcopy(m_gpu).to("cpu")
     gen = torch.Generator().manual_seed(1)
     ids = torch.randint(0, cfg.vocab_size, (1, 32), generator=gen)
     two_layer_check(torch, "model check W4A8", m_cpu, m_gpu, ids, woq=False)
@@ -3070,13 +3137,8 @@ def phase_spec_model_check(torch, nct) -> None:
     held = {}  # the CPU's unpacked weights, cleared with their models
 
     def w4a8(seed):
-        m = nct.build_quantized(
-            cfg, nct.RTNConfig(dtype="int4", group_size=G,
-                               quant_lm_head=True), seed=seed, device="cpu")
-        nct.fuse_for_serving(m)
-        nct.to_w4a8_serving(m)
-        nct.enable_fused_decode(m)
-        return m
+        return w4a8_pair(nct, cfg, nct.RTNConfig(
+            dtype="int4", group_size=G, quant_lm_head=True), seed)
 
     def both(fn, m_cpu, m_gpu, label, want_fn, woq=False):
         t1 = time.perf_counter()
@@ -3100,8 +3162,7 @@ def phase_spec_model_check(torch, nct) -> None:
                  f"{launched} != {want_l}")
 
     new = 8
-    m_cpu = w4a8(4)
-    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    m_cpu, m_gpu = w4a8(4)
     ids = loop_prompt(torch, nct, m_gpu, 51)
 
     def ngram(m):
@@ -3111,8 +3172,7 @@ def phase_spec_model_check(torch, nct) -> None:
 
     both(ngram, m_cpu, m_gpu, "ngram W4A8",
          lambda st: spec_launches(L, st["rounds"], 1, False))
-    d_cpu = w4a8(5)
-    d_gpu = copy.deepcopy(d_cpu).to("cuda")
+    d_cpu, d_gpu = w4a8(5)
 
     def draft(m):
         return nct.speculative_greedy_search(
@@ -5387,8 +5447,10 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
     by the port) and the bound:
       * K15 (``paged_attn_v1``) over the 8-slot pools of 128-row pages at
         ``SLOT_POS``, bf16, int8 and fp8 (yardstick: SDPA over the rows
-        gathered out of the pages); faults: one softmax over all pages (K11's
-        order), the v scale applied after the bf16 cast;
+        gathered out of the pages), also against a float64 emulation of
+        its split (``v1_split_emulated``); faults: one softmax over all
+        pages (K11's order), the v scale applied after the bf16 cast, the
+        running maximum restarted at each part, a lost part-boundary row;
       * K16's write (``decode_attn_write``) at B=1, T 1024, pos 0/517/1023,
         bf16 (equal to K5 plus the outside write bit for bit) and int8
         (codes and scales bit for bit, an all-zero row among the new ones;
@@ -5432,9 +5494,11 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
                                ms=ms, plain_ms=pms, library_ms=lms,
                                bound_ms=bms, bound_by=by, **extra))
         lib = "null" if lms is None else f"{lms:.4f}"
+        dev_s = (f" device_ms={extra['device_ms']:.4f}"
+                 if "device_ms" in extra else "")
         print(f"{kind} {label} max_abs_err={err:.3e} ulp_share={share:.2e} "
-              f"ok={ok} ms={ms:.4f} plain_ms={pms:.4f} library_ms={lib} "
-              f"bound_ms={bms:.4f} ({by})", flush=True)
+              f"ok={ok} ms={ms:.4f}{dev_s} plain_ms={pms:.4f} "
+              f"library_ms={lib} bound_ms={bms:.4f} ({by})", flush=True)
 
     def fault(label, out, faulty_ref, extra_flag=False):
         torch.cuda.synchronize()
@@ -5492,17 +5556,39 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
         lms = timed_ms(torch, [lambda a=a, b=b: sdpa(q4, a, b, attn_mask=mask)
                                for a, b in gk], 200)
         del gk
+        fns = [lambda p=p: K.paged_attn_v1(q, *p, bt, lengths)
+               for p in pools]
+        dms = sum(profiled(torch, fns, names=V1_KERNELS).values())
+        # the split's float64 emulation equals the kernel (ulp_check)
+        emu = v1_split_emulated(torch, q, kp, ks, vp, vs, bt, lengths)
         record("k15", f"{fmt} B={B} H={H} D={D} page={PAGE} pmax={pmax} "
                f"lengths={tuple(lengths.tolist())}", out, ref, ms, pms, lms,
                2 * Hkv * n_vis * (D * esize + (4 if ks is not None else 0))
                + 2 * B * H * D * 2 + B * pmax * 4 + B * 4,
-               4 * H * n_vis * D, fmt=fmt)
-        # faults: K11's one softmax over all pages; v scale after the cast
+               4 * H * n_vis * D, extra_ok=ulp_check(torch, out, emu)[2],
+               fmt=fmt, device_ms=dms)
+        # faults: K11's one softmax over all pages; v scale after the cast;
+        # the running maximum restarted at each part; a lost part-boundary
+        # row (the kernel at length L - 1 against the plain version at L,
+        # key L - 1 a part's first, carrying its slot's softmax)
         fault(f"k15 {fmt} one softmax over all pages", out,
               K.paged_attn_plain(q, kp, ks, vp, vs, bt, lengths))
         if ks is not None:
             fault(f"k15 {fmt} v scale after the bf16 cast", out,
                   v1_scale_after_cast(torch, q, kp, ks, vp, vs, bt, lengths))
+        fault(f"k15 {fmt} running maximum restarted at each part", out,
+              v1_split_emulated(torch, q, kp, ks, vp, vs, bt, lengths,
+                                "restart"))
+        pa = port_module("paged_attention")
+        pk = pa.v1_plan(B, H, Hkv, D, PAGE, pmax).part_keys
+        lb = torch.full((B,), pk + 1, dtype=torch.int32, device=dev)
+        kb = pa._gather_rows(kp, bt.long())[:, :, pk]        # [B, Hkv, D]
+        if ks is not None:
+            kb = kb * pa._gather_pages(ks, bt.long())[:, :, pk, None]
+        qb = (kb * 8).to(bf16).repeat_interleave(H // Hkv, dim=1)
+        fault(f"k15 {fmt} a lost part-boundary row",
+              K.paged_attn_v1(qb, kp, ks, vp, vs, bt, lb - 1),
+              K.paged_attn_v1_plain(qb, kp, ks, vp, vs, bt, lb))
         del pools, kp, ks, vp, vs
 
     # K16 at B=1, T 1024
@@ -5691,6 +5777,75 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
     if missed:
         fail(f"planted faults not flagged: {missed}")
     return rows
+
+
+def v1_split_emulated(torch, q, kp, ks, vp, vs, bt, lengths, fault=None):
+    """K15's split (``v1_plan``: scores and each page's maximum, the running
+    maximum up to each page, per-page partials, the fold replaying v1's
+    recurrence in page order) in float64 on the card -> out [B, H, D] bf16,
+    with a planted fault where ``fault`` is "restart" (the running maximum
+    restarted at each part, the parts rescaled to the global maximum and
+    added as flash decoding adds them)."""
+    pa = port_module("paged_attention")
+    f64, f32 = torch.float64, torch.float32
+    B, H, D = q.shape
+    Hkv, page = kp.shape[1], kp.shape[2]
+    pmax = bt.shape[1]
+    rep = H // Hkv
+    kpp = pa.v1_plan(B, H, Hkv, D, page, pmax).part_keys // page
+    btl = bt.long()
+    k, v = pa._gather_rows(kp, btl), pa._gather_rows(vp, btl)
+    T = k.shape[2]
+    n = lengths.long().clamp(max=T)
+    valid = (torch.arange(T, device=q.device)[None, :]
+             < n[:, None])[:, None, None, :]
+    qr = q.reshape(B, Hkv, rep, D).to(f64)
+    s = torch.einsum("bgrd,bgtd->bgrt", qr, k).to(f32)
+    scale = torch.tensor(1.0 / (D ** 0.5), dtype=f32, device=q.device)
+    s = s * ((pa._gather_pages(ks, btl) * scale)[:, :, None, :]
+             if ks is not None else scale)
+    pages = (B, Hkv, rep, pmax, page)
+    page_max = torch.where(valid, s, torch.tensor(-float("inf"),
+                                                  device=q.device)
+                           ).reshape(pages).amax(dim=-1)
+    run, prev = torch.empty_like(page_max), torch.empty_like(page_max)
+    m = torch.full(page_max.shape[:-1], -1e30, dtype=f32, device=q.device)
+    for pg in range(pmax):
+        if fault == "restart" and pg % kpp == 0:
+            m = torch.full_like(m, -1e30)
+        prev[..., pg] = m
+        m = torch.fmax(m, page_max[..., pg])
+        run[..., pg] = m
+    alpha = torch.exp(prev.to(f64) - run.to(f64))
+    e = torch.exp(s.to(f64).reshape(pages) - run.to(f64)[..., None]).to(f32)
+    e = torch.where(valid.reshape(B, 1, 1, pmax, page), e,
+                    torch.zeros((), dtype=f32, device=q.device))
+    l_p = e.to(f64).sum(dim=-1)
+    pe = e if vs is None else e * pa._gather_pages(vs, btl).reshape(
+        B, Hkv, 1, pmax, page)
+    S_p = torch.einsum("bgrjt,bgjtd->bgrjd", pe.to(torch.bfloat16).to(f64),
+                       v.reshape(B, Hkv, pmax, page, D))
+    on_page = (torch.arange(pmax, device=q.device)[None, :]
+               < ((n + page - 1) // page)[:, None])[:, None, None, :]
+    l = torch.zeros(qr.shape[:-1], dtype=f64, device=q.device)
+    acc = torch.zeros(qr.shape, dtype=f64, device=q.device)
+    span = kpp if fault == "restart" else pmax   # pages folded together
+    for p0 in range(0, pmax, span):
+        lp, ap = torch.zeros_like(l), torch.zeros_like(acc)
+        for pg in range(p0, min(p0 + span, pmax)):
+            on = on_page[..., pg]
+            lp = torch.where(on, lp * alpha[..., pg] + l_p[..., pg], lp)
+            ap = torch.where(on[..., None], ap * alpha[..., pg, None]
+                             + S_p[..., pg, :], ap)
+        if fault == "restart":   # each part rescaled to the global maximum
+            w = torch.exp(run[..., min(p0 + span, pmax) - 1].to(f64)
+                          - run.amax(dim=-1).to(f64))
+            lp, ap = lp * w, ap * w[..., None]
+        l, acc = l + lp, acc + ap
+    out = acc.to(f32) / l.to(f32).clamp_min(1e-30)[..., None]
+    out = torch.where((lengths > 0).reshape(B, 1, 1, 1), out,
+                      torch.zeros((), dtype=f32, device=q.device))
+    return out.reshape(B, H, D).to(torch.bfloat16)
 
 
 def v1_scale_after_cast(torch, q, kp, ks, vp, vs, bt, lengths):
@@ -5905,13 +6060,8 @@ def phase_variant_model_check(torch, nct) -> None:
 
     torch.set_num_threads(8)
     cfg = LlamaConfig(**dict(LLAMA_PRESETS["llama2-7b"], num_hidden_layers=2))
-    m_cpu = nct.build_quantized(
-        cfg, nct.RTNConfig(dtype="int4", group_size=G, quant_lm_head=True),
-        seed=7, device="cpu")
-    nct.fuse_for_serving(m_cpu)
-    nct.to_w4a8_serving(m_cpu)
-    nct.enable_fused_decode(m_cpu)
-    m_gpu = copy.deepcopy(m_cpu).to("cuda")
+    m_cpu, m_gpu = w4a8_pair(nct, cfg, nct.RTNConfig(
+        dtype="int4", group_size=G, quant_lm_head=True), seed=7)
     gen = torch.Generator().manual_seed(8)
     ids = torch.randint(0, cfg.vocab_size, (1, 32), generator=gen)
     held = {}  # the CPU's unpacked weights, shared by every check below
@@ -7091,7 +7241,7 @@ def main() -> None:
         ("fused_gemv", "neural_compressor_tpu_torch/csrc/fused_gemv.cu",
          "neural_compressor_tpu/kernels/fused_matvec.py:195 (_fused_impl, K4)",
          gemv_u),
-        ("decode_attn", "neural_compressor_tpu_torch/csrc/decode_attention.cu",
+        ("decode_attn", "neural_compressor_tpu_torch/csrc/decode_split.cu",
          "neural_compressor_tpu/kernels/decode_attention.py:282 "
          "(_decode_attn_ro_impl, K5)", attn_u),
         ("batched_decode_attn",
@@ -7202,8 +7352,9 @@ def main() -> None:
           "step (32 x 4 + lm_head); decode_attn = one decode step at "
           "pos 517 (32 layers); batched_decode_attn = one 8-slot decode "
           f"step at positions {SLOT_POS} (32 layers; device_ms beside it, "
-          "and beside decode_attn_quant and batched_decode_attn_quant, "
-          "from torch.profiler); paged_attn and "
+          "and beside decode_attn, decode_attn_quant, "
+          "batched_decode_attn_quant and paged_attn_v1, from "
+          "torch.profiler); paged_attn and "
           "paged_write = the same step over the int8 pool of 128-row pages "
           "(32 layers; paged_write has no single library call for int8); "
           "dequant_gemm = one 8-slot W4A16 decode step (32 x 4 + lm_head "

@@ -1,9 +1,9 @@
-// The B = 1 decode attention body over bf16 rows, shared by K5
-// (decode_attention.cu), K16's in-kernel write (decode_attention.cu) and
-// K18 (attn_o.cu): one (batch, KV head, group of query rows) work item,
-// run by a whole block.
+// The B = 1 decode attention body over bf16 rows, shared by K16's
+// in-kernel write (decode_attention.cu) and K18 (attn_o.cu): one (batch, KV
+// head, group of query rows) work item, run by a whole block. K5 itself
+// runs K6's split (decode_split.cu) with the same function.
 //
-// Semantics (K5, neural_compressor_tpu/kernels/decode_attention.py
+// Semantics (K5's, neural_compressor_tpu/kernels/decode_attention.py
 //   _kernel_ro): float32 scores s = f32(q . k) * 1/sqrt(D) over the rows
 //   t <= pos (the -1e30 mask makes the others contribute exactly 0; a
 //   position at or past T attends all T rows); per query row l = sum
@@ -11,13 +11,13 @@
 //   cast); o = f32(sum p * v). Sums run in float64 over exact products and
 //   are rounded once, so their order almost never shows.
 // Row sources:
-//   NEW = false: the cache already holds row pos (K5, K18: the port writes
-//     it before the launch);
+//   NEW = false: the cache already holds row pos (K18: the port writes it
+//     before the launch);
 //   NEW = true: row pos comes from k_new / v_new and the work item of
 //     query group 0 stores it into the cache (K16's write,
 //     _decode_attn_impl / _kernel): nothing reads the cache at pos, so the
 //     store races with no read; at pos >= T nothing is stored.
-// Output: bf16 rows (K5, K16), or float32 rows plus the amax of |o| over
+// Output: bf16 rows (K16), or float32 rows plus the amax of |o| over
 //   every row, by an atomicMax on the float bits (K18: non-negative floats
 //   order as their bits do).
 #pragma once

@@ -1,26 +1,24 @@
-// B = 1 single-token decode attention over a head-major KV cache: bf16 rows
-// (K5), and K16's variant that writes the new row inside the kernel (bf16
-// rows, or int8 codes it quantizes itself). K6, the same over int8 / fp8
-// codes, is split across blocks in csrc/decode_split.cu.
+// B = 1 single-token decode attention with the new row written inside the
+// kernel (K16, set_cache_write_mode("kernel")): bf16 rows, or int8 codes it
+// quantizes itself. K5, the read-only kernel over bf16 rows, and K6, the
+// same over int8 / fp8 codes, are split across blocks in
+// csrc/decode_split.cu.
 //
 // Replaces: neural_compressor_tpu/kernels/decode_attention.py
-//   _decode_attn_ro_impl / _kernel_ro (K5), and
 //   _decode_attn_impl / _kernel and _decode_attn_quant_impl / _kernel_q
 //   (K16's in-kernel write, set_cache_write_mode("kernel")).
 //
-// Semantics (as K5): q [B, H, D] against caches [B, Hkv, T, D] that already
-//   hold the new row at `pos` (the port writes it in place before the
-//   launch; K5 folds the same bf16 row in by a select); float32 scores times
-//   1/sqrt(D); keys t > pos masked out; softmax; probabilities cast to bf16
-//   before the PV product; float32 accumulation; rep = H/Hkv query heads per
-//   KV head; bf16 output. Per-slot positions are an int32 [B] tensor read
-//   on the device, as the TPU kernel's grid (B, Hkv) reads pos_ref[b]; at
-//   pos >= T all T rows are attended, as the TPU kernel's mask leaves them.
-// Semantics (as K16's write): bf16 is K5 with row pos taken from k_new /
-//   v_new and stored into the cache by the kernel (attend.cuh); int8 is K6
-//   (csrc/decode_split.cu: codes, s = f32(q . k) * f32(k_scale *
-//   1/sqrt(D)), p = bf16(f32(exp(s - m) / l) * v_scale)) with the new row
-//   QUANTIZED in the kernel by the TPU kernel's own rule,
+// Semantics (bf16): K5's (csrc/decode_split.cu): q [B, H, D] against caches
+//   [B, Hkv, T, D]; float32 scores times 1/sqrt(D); keys t > pos masked
+//   out; softmax; probabilities cast to bf16 before the PV product;
+//   float32 accumulation; rep = H/Hkv query heads per KV head; bf16
+//   output; row pos taken from k_new / v_new and stored into the cache by
+//   the kernel (attend.cuh). Per-slot positions are an int32 [B] tensor
+//   read on the device; at pos >= T all T rows are attended and nothing is
+//   stored, as the TPU kernel's mask leaves them.
+// Semantics (int8): K6 (csrc/decode_split.cu: codes, s = f32(q . k) *
+//   f32(k_scale * 1/sqrt(D)), p = bf16(f32(exp(s - m) / l) * v_scale)) with
+//   the new row QUANTIZED in the kernel by the TPU kernel's own rule,
 //   scale = f32(max(amax, 1e-6) * f32(1/127)) and codes clip(round(x /
 //   scale), -127, 127) (not _kv_quant's: amax <= 0 -> 1, clip to -128), the
 //   codes and scale stored at pos and the quantized row (codes times the
@@ -45,15 +43,12 @@
 //   copy with D a compile-time constant, nctt::full_width). Sums run in
 //   float64 over exact products and are rounded once, so their order
 //   almost never shows: the kernel and its plain version
-//   (kernels/decode_attention.py) agree bit for bit, and an int8
-//   activation quantization downstream sees the same values on the card
-//   and on the CPU. In order: scores into shared memory; per query row
-//   l = sum exp(f64(s) - m); p = bf16(f32(e / l) [* v_scale]);
-//   o = bf16(f32(sum p*v)) with a cross-warp sum in shared memory. The
-//   score rows live in a float32 workspace in device memory ([B, H, T],
-//   allocated by the wrapper; they pass through L2), so shared memory does
-//   not grow with T and any context length fits. A simple first kernel:
-//   only Hkv*B*ng blocks, no split of T across blocks.
+//   (kernels/decode_attention.py) agree bit for bit, and the bf16 write
+//   equals K5 plus the outside write. In order: scores into a float32
+//   workspace in device memory ([B, H, T], allocated by the wrapper); per
+//   query row l = sum exp(f64(s) - m); p = bf16(f32(e / l) [* v_scale]);
+//   o = bf16(f32(sum p*v)) with a cross-warp sum in shared memory. A
+//   simple kernel: only Hkv*B*ng blocks, no split of T across blocks.
 #include "attend.cuh"
 
 namespace {
@@ -62,8 +57,9 @@ constexpr int THREADS = nctt::ATT_THREADS;
 constexpr int WARPS = nctt::ATT_WARPS;
 constexpr int MAX_REP = nctt::ATT_MAX_REP;
 
-// K5 (NEW = false) and K16's bf16 write (NEW = true): one block a work item
-template <int DPL, bool FULL, bool NEW>
+// K16's bf16 write: K5's function with row pos from k_new / v_new, stored
+// by the kernel; one block a work item
+template <int DPL, bool FULL>
 __global__ void __launch_bounds__(THREADS)
 decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         __nv_bfloat16* kc, __nv_bfloat16* vc,
@@ -73,12 +69,12 @@ decode_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         float* __restrict__ ws, int H, int Hkv, int T,
                         int D, const int* __restrict__ pos_b, float scale) {
   extern __shared__ __align__(16) double smem[];
-  nctt::attend_bf16<DPL, FULL, NEW, false>(
+  nctt::attend_bf16<DPL, FULL, true, false>(
       q, kc, vc, kn, vn, out, ws, nullptr, H, Hkv, T, D, pos_b[blockIdx.y],
       scale, blockIdx.y, blockIdx.x, blockIdx.z, gridDim.z, smem);
 }
 
-template <int DPL, bool FULL, bool NEW>
+template <int DPL, bool FULL>
 int launch(const void* q, void* k, void* v, const void* kn, const void* vn,
            void* out, void* ws, int B, int H, int Hkv, int T, int D,
            const int* pos, float scale, cudaStream_t stream) {
@@ -88,35 +84,34 @@ int launch(const void* q, void* k, void* v, const void* kn, const void* vn,
   const size_t smem = nctt::attend_smem(gs, D);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        decode_attention_kernel<DPL, FULL, NEW>,
+        decode_attention_kernel<DPL, FULL>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  decode_attention_kernel<DPL, FULL, NEW><<<dim3(Hkv, B, ng), THREADS, smem,
-                                           stream>>>(
+  decode_attention_kernel<DPL, FULL><<<dim3(Hkv, B, ng), THREADS, smem,
+                                      stream>>>(
       (const __nv_bfloat16*)q, (__nv_bfloat16*)k, (__nv_bfloat16*)v,
       (const __nv_bfloat16*)kn, (const __nv_bfloat16*)vn,
       (__nv_bfloat16*)out, (float*)ws, H, Hkv, T, D, pos, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool NEW>
 int dispatch_bf16(const void* q, void* k, void* v, const void* kn,
                   const void* vn, void* out, void* ws, int B, int H, int Hkv,
                   int T, int D, const int* pos, float scale,
                   cudaStream_t s) {
-#define NCTT_K5(DPL_)                                                     \
+#define NCTT_K16W(DPL_)                                                     \
   case DPL_:                                                              \
     return D == 32 * DPL_ && nctt::full_width(DPL_)                       \
-               ? launch<DPL_, nctt::full_width(DPL_), NEW>(               \
+               ? launch<DPL_, nctt::full_width(DPL_)>(                    \
                      q, k, v, kn, vn, out, ws, B, H, Hkv, T, D, pos,     \
                      scale, s)                                            \
-               : launch<DPL_, false, NEW>(q, k, v, kn, vn, out, ws, B, H, \
-                                          Hkv, T, D, pos, scale, s);
+               : launch<DPL_, false>(q, k, v, kn, vn, out, ws, B, H, Hkv, \
+                                     T, D, pos, scale, s);
   switch (D >= 1 ? (D + 31) / 32 : 0) {
-    NCTT_K5(1) NCTT_K5(2) NCTT_K5(3) NCTT_K5(4)
-    NCTT_K5(5) NCTT_K5(6) NCTT_K5(7) NCTT_K5(8)
-#undef NCTT_K5
+    NCTT_K16W(1) NCTT_K16W(2) NCTT_K16W(3) NCTT_K16W(4)
+    NCTT_K16W(5) NCTT_K16W(6) NCTT_K16W(7) NCTT_K16W(8)
+#undef NCTT_K16W
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -342,18 +337,6 @@ int dispatch_quant(const void* q, const void* kn, const void* vn, void* kc,
 
 }  // namespace
 
-// q bf16 [B, H, D]; caches bf16 [B, Hkv, T, D] holding row pos[b]; pos
-// int32 [B] on the device (pos >= T: all T rows); out bf16 [B, H, D]; ws
-// f32 [B, H, T] scratch for the score rows. 1 <= D <= 256; H % Hkv == 0.
-NCTT_API int nctt_decode_attention(const void* q, void* k, void* v,
-                                   void* out, void* ws, int B, int H,
-                                   int Hkv, int T, int D, const void* pos,
-                                   float scale, void* stream) {
-  return dispatch_bf16<false>(q, k, v, nullptr, nullptr, out, ws, B, H, Hkv,
-                              T, D, (const int*)pos, scale,
-                              (cudaStream_t)stream);
-}
-
 // K16's in-kernel write: q bf16 [B, H, D]; k_new/v_new bf16 [B, Hkv, D];
 // fmt 0: caches bf16 [B, Hkv, T, D] (scales null); fmt 1: int8 codes
 // [B, Hkv, T, D] with scales f32 [B, Hkv, T]. The kernel stores each
@@ -370,8 +353,8 @@ NCTT_API int nctt_decode_attention_write(const void* q, const void* kn,
   cudaStream_t s = (cudaStream_t)stream;
   const int* pos = (const int*)pos_b;
   if (fmt == 0)
-    return dispatch_bf16<true>(q, kc, vc, kn, vn, out, ws, B, H, Hkv, T, D,
-                               pos, scale, s);
+    return dispatch_bf16(q, kc, vc, kn, vn, out, ws, B, H, Hkv, T, D, pos,
+                         scale, s);
   if (fmt == 1)
     return dispatch_quant(q, kn, vn, kc, ks, vc, vs, out, ws, B, H, Hkv, T,
                           D, pos, scale, s);

@@ -7,7 +7,7 @@
 //   cache into VMEM itself (make_async_copy and two semaphores), instead of
 //   letting XLA stage per-(b, h) blocks.
 //
-// Semantics: K5's (attend.cuh, decode_attention.cu): q [B, H, D] against
+// Semantics: K5's (csrc/decode_split.cu, attend.cuh): q [B, H, D] against
 //   bf16 caches [B, Hkv, T, D] that already hold row pos[b] (the port
 //   writes it before the launch, as for K5); pos int32 [B] on the device;
 //   rows t <= pos (all T at pos >= T); scores f32(q . k) / sqrt(D);
@@ -15,7 +15,7 @@
 //
 // Bound on this card: bytes, as K5: 2*Hkv*(pos+1)*D*2 bytes of K and V.
 //
-// Design: K5's grid (Hkv, B, query groups) and K5's math, with the rows
+// Design: attend.cuh's grid (Hkv, B, query groups) and math, with the rows
 //   coming through shared memory: thread 0 of each block issues
 //   cp.async.bulk global->shared copies of the slot's K rows (then its V
 //   rows) in tiles of R rows, completion on an mbarrier per stage, two tiles
@@ -23,10 +23,11 @@
 //   the bytes and counts them on the barrier); the block attends the tile
 //   that has landed while the next one is on its way. R is a multiple of the
 //   8 warps, so warp w attends the rows t = w (mod 8) in increasing order as
-//   in K5: every float64 sum is taken in K5's order and the output equals
-//   K5's bit for bit. Rows are 16-byte multiples (D % 8 == 0), as the bulk
-//   copy needs. A simple first kernel: the score rows live in K5's float32
-//   workspace in device memory, no split of T across blocks.
+//   in attend.cuh: every float64 sum is taken in its order, over exact
+//   products, so the output equals the plain version's and K5's bit for
+//   bit. Rows are 16-byte multiples (D % 8 == 0), as the bulk copy needs.
+//   A simple first kernel: the score rows live in a float32 workspace in
+//   device memory, no split of T across blocks.
 #include "attend.cuh"
 
 namespace {

@@ -1,11 +1,12 @@
 // Single-token decode attention over a contiguous head-major KV cache with
 // each slot's keys split into fixed parts: K7 (batched, bf16 rows or int8 /
-// fp8-e4m3 codes) and K6 (int8 / fp8 codes with the raw new row).
+// fp8-e4m3 codes), K6 (int8 / fp8 codes with the raw new row) and K5 (bf16
+// rows, the B=1 decode of every served model).
 //
 // Replaces: neural_compressor_tpu/kernels/decode_attention.py
 //   _batched_attn_impl / _kernel_batched (K7), bf16 caches and the quant
-//   branch (int8 / fp8 codes), and _decode_attn_quant_ro_impl /
-//   _kernel_q_ro (K6).
+//   branch (int8 / fp8 codes), _decode_attn_quant_ro_impl /
+//   _kernel_q_ro (K6) and _decode_attn_ro_impl / _kernel_ro (K5).
 //
 // Semantics (as K7): q [B, H, D] against caches [B, Hkv, T, D] that already
 //   hold each slot's new row at pos[b] (int32 [B], read on the device: no
@@ -22,10 +23,17 @@
 //   * f32(k_scale * 1/sqrt(D)); p = bf16(f32(exp(s - m) / l) * v_scale),
 //   normalised BEFORE the bf16 cast, so l is needed before PV; out =
 //   bf16(f32(acc)). int8 and e4m3 codes convert to float64 exactly.
+// Semantics (as K5): K6's over a bf16 cache that already holds the new row
+//   at pos (the port writes it in place first; the TPU kernel folds the
+//   same bf16 row in by a select), scales of 1 and no raw row: s = f32(q .
+//   k) * 1/sqrt(D), p = bf16(f32(exp(s - m) / l)), out = bf16(f32(acc)).
+//   Its launches are K6's (kernels/decode_attention.py decode_plan with
+//   k6, csrc/decode_split_k5.cu), with k_new null.
 //
 // Bound on this card: bytes. Each visited cache row is read once for
 //   2*rep*D flops: 2*Hkv*(pos[b]+1)*D*2 bytes of K and V a slot for bf16,
-//   2*Hkv*(pos[b]+1)*(D+4) for codes and scales. The design adds 4 bytes a
+//   2*Hkv*(pos[b]+1)*(D+4) for codes and scales (K5: bf16 rows, B = 1 in
+//   the decode step). The design adds 4 bytes a
 //   (query row, key) of float32 scores, written by launch 1 and read by
 //   launch 2 (through L2 at the engine's sizes).
 //
@@ -93,9 +101,9 @@
 //   * Copies: D 128 (single-row groups with the row count at compile time,
 //     at 128 or 256 threads as the plan says) and 256; any other D at run
 //     time (K7 to 512 with four columns a PV thread). This source holds
-//     the C entries and the bf16 copies; decode_split_int8.cu and
-//     decode_split_fp8.cu the quantized formats, so the build compiles the
-//     three in parallel.
+//     the C entries and K7's bf16 copies; decode_split_k5.cu K6's kernels
+//     over bf16 rows (K5), decode_split_int8.cu and decode_split_fp8.cu
+//     the quantized formats, so the build compiles the four in parallel.
 //   * Launch latency. Each block issues its first tiles' copies before its
 //     other loads (q; the maxima and scores). The PV launch, and K6's part
 //     sums, go out as programmatic dependent launches (Hopper's
@@ -192,6 +200,23 @@ NCTT_API int nctt_batched_decode_attention(
     case FP8: return dispatch_fp8(false, a, B, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K5. q bf16 [B, H, D]; caches bf16 [B, Hkv, T, D] holding row pos[b]; pos
+// int32 [B] on the device (pos >= T: all T rows); out bf16 [B, H, D].
+// `plan` as K6's (decode_plan with k6). 1 <= D <= 256; H % Hkv == 0. Two or
+// three launches on `stream`.
+NCTT_API int nctt_decode_attention(const void* q, const void* k,
+                                   const void* v, const void* pos,
+                                   void* out, const void* plan, int B, int H,
+                                   int Hkv, int T, int D, float scale,
+                                   void* stream) {
+  Args a;
+  if (!fill(a, q, k, v, nullptr, nullptr, pos, out, (const long long*)plan,
+            H, Hkv, T, D, 2, scale) ||
+      D > 256 || (!a.lsum && a.parts > LSUM_MAX))
+    return (int)cudaErrorInvalidValue;
+  return dispatch_k5(a, B, (cudaStream_t)stream);
 }
 
 // K6. q bf16 [B, H, D]; k_new/v_new bf16 [B, Hkv, D] (the raw new rows, at

@@ -1,8 +1,9 @@
-// K6's and K7's kernels over a contiguous head-major KV cache, shared by
-// the three sources that instantiate them: csrc/decode_split.cu (the C
-// entries, bf16 caches), csrc/decode_split_int8.cu and
-// csrc/decode_split_fp8.cu, so that the formats compile in parallel. The
-// design is described in decode_split.cu.
+// K5's, K6's and K7's kernels over a contiguous head-major KV cache, shared
+// by the four sources that instantiate them: csrc/decode_split.cu (the C
+// entries, K7's bf16 copies), csrc/decode_split_k5.cu (K5: K6's kernels
+// over bf16 rows), csrc/decode_split_int8.cu and csrc/decode_split_fp8.cu,
+// so that they compile in parallel. The design is described in
+// decode_split.cu.
 #pragma once
 
 #include "nctt_common.cuh"
@@ -28,7 +29,7 @@ struct Args {
   const uint8_t* vc;
   const float* ks;          // [B, Hkv, T] scales (null for bf16)
   const float* vs;
-  const __nv_bfloat16* kn;  // K6: the raw new rows [B, Hkv, D]
+  const __nv_bfloat16* kn;  // K6: the raw new rows [B, Hkv, D] (K5: null)
   const __nv_bfloat16* vn;
   const int* pos;           // [B]
   __nv_bfloat16* out;       // [B, H, D]
@@ -128,6 +129,7 @@ struct Block {
   int pos, L, np;                  // visited keys t < L, parts holding them
   int p, k0, k1, nt;               // this part's keys [k0, k1), its tiles
   int raw;                         // K6: the raw row's key here, or -1
+                                   // (K5: -1, its cache holds row pos)
   int rowbytes, srow, cw, cu, cdu;
 
   __device__ explicit Block(const Args& a) {
@@ -149,7 +151,7 @@ struct Block {
     k0 = p * a.part_keys;
     k1 = L < k0 + a.part_keys ? L : k0 + a.part_keys;
     nt = k1 > k0 ? (k1 - k0 + SLOTS - 1) / SLOTS : 0;
-    raw = K6 && pos >= k0 && pos < k1 ? pos : -1;
+    raw = K6 && a.kn && pos >= k0 && pos < k1 ? pos : -1;
     rowbytes = a.D * Fmt<FMT>::ESIZE;
     srow = staged_row(a.D, Fmt<FMT>::ESIZE);
     // 16-byte copies: chunk column cw of rows cu, cu + cdu, ... where the
@@ -427,8 +429,10 @@ __global__ void __launch_bounds__(NT, min_blocks<K6, NT, GP>())
     const int t = t0 + ks_;
     if (fin && t != k.raw) {
       // K7: s = f32(f32(q . k) [* k_scale]) * 1/sqrt(D); K6: s = f32(q . k)
-      // * f32(k_scale * 1/sqrt(D))
-      const float kscale = K6 ? __fmul_rn(ksc, a.scale) : 0.f;
+      // * f32(k_scale * 1/sqrt(D)); K5 (bf16 rows): s = f32(q . k) *
+      // 1/sqrt(D)
+      const float kscale =
+          K6 ? (F::QUANT ? __fmul_rn(ksc, a.scale) : a.scale) : 0.f;
 #pragma unroll
       for (int r = 0; r < MAX_REP; ++r) {
         if (r >= G) break;
@@ -575,7 +579,7 @@ __global__ void __launch_bounds__(NT, min_blocks<K6, NT, GP>())
     const int nu = k.k1 - t0 < SLOTS ? k.k1 - t0 : SLOTS;
     // K7: p = bf16(f32(exp(s - m)) [* v_scale]) and the tile's sums of exp
     // over 32 slots by a fixed butterfly; K6: p = bf16(f32(exp(s - m) / l)
-    // * v_scale), the raw row's p kept apart
+    // * v_scale), the raw row's p kept apart (K5: no scale, no raw row)
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int pi = j * NT + tid, r = pi / SLOTS;
@@ -843,8 +847,9 @@ int dispatch(const Args& a, int B, cudaStream_t s) {
 }
 
 // each quantized format's launches, defined in its own source (k6: K6's,
-// else K7's)
+// else K7's), and K5's: K6's kernels over bf16 rows (a.kn null)
 int dispatch_int8(bool k6, const Args& a, int B, cudaStream_t s);
 int dispatch_fp8(bool k6, const Args& a, int B, cudaStream_t s);
+int dispatch_k5(const Args& a, int B, cudaStream_t s);
 
 }  // namespace nctt_dsplit

@@ -2,7 +2,9 @@
 // csrc/paged_attention.cu (the entry, bf16 and int8 pools) and
 // csrc/paged_attention_fp8_int4.cu (fp8 and int4 pools), so that the
 // formats compile in parallel. The design is described in
-// paged_attention.cu.
+// paged_attention.cu. K15 (csrc/paged_attention_v1.cu) takes the scores
+// launch (V1: v1's scale and each page's maximum), Block, ring and the
+// format helpers.
 #pragma once
 
 #include "nctt_common.cuh"
@@ -41,8 +43,10 @@ struct Args {
   const int* lengths;
   __nv_bfloat16* out;
   float* ws;        // [B, Hkv, ng*gs, Tv] scores
-  float* pmax;      // [B, Hkv, ng*gs, parts] part maxima
-  double* part;     // [B, Hkv, ng*gs, parts, D + 2] partials
+  float* pmax;      // [B, Hkv, ng*gs, parts] part maxima (K15: page
+                    // maxima [B, Hkv, ng*gs, PMAX])
+  double* part;     // [B, Hkv, ng*gs, parts, D + 2] partials (K15: a
+                    // page's, [B, Hkv, ng*gs, PMAX, D + 2])
   int* tickets;     // [B, Hkv, ng]
   int H, Hkv, W, page, PMAX, D, ng, part_keys, parts, window, vec;
   float scale, cap, inv_cap;
@@ -297,8 +301,10 @@ __device__ __forceinline__ void ring(const Args& a, const Block<FMT>& k,
 // Launch A: the scores of the group's rows over this part's keys and each
 // row's maximum over the part. DC: D at compile time (0: at run time); GP:
 // the group's rows padded to a compile-time count, zero rows past G (0: G
-// at run time, each row behind a branch).
-template <int FMT, int NT, int DC, int GP>
+// at run time, each row behind a branch). V1 (K15, a single query, no band
+// or softcap): s = f32(q . k) * f32(k_scale * scale), and each row's
+// maximum over each page's valid keys instead of the part's.
+template <int FMT, int NT, int DC, int GP, bool V1 = false>
 __global__ void __launch_bounds__(NT) scores_kernel(const Args a) {
   using F = Fmt<FMT>;
   constexpr int NST = ring_stages<FMT, DC>();
@@ -420,16 +426,43 @@ __global__ void __launch_bounds__(NT) scores_kernel(const Args a) {
         for (int hh = 1; hh < NS; ++hh)
           d += spart[(hh * RS + r) * SLOTS + ks_];
         float s = (float)d;
-        if constexpr (F::QUANT) s = __fmul_rn(s, ksc);
-        if constexpr (F::AFFINE) s = __fadd_rn(s, __fmul_rn(sqsum[r], kof));
-        s = __fmul_rn(s, a.scale);
-        if (a.cap > 0.f)  // gemma's logit softcap, before the mask
-          s = __fmul_rn(a.cap, (float)tanh((double)__fmul_rn(s, a.inv_cap)));
+        if constexpr (V1) {
+          s = __fmul_rn(s, F::QUANT ? __fmul_rn(ksc, a.scale) : a.scale);
+        } else {
+          if constexpr (F::QUANT) s = __fmul_rn(s, ksc);
+          if constexpr (F::AFFINE)
+            s = __fadd_rn(s, __fmul_rn(sqsum[r], kof));
+          s = __fmul_rn(s, a.scale);
+          if (a.cap > 0.f)  // gemma's logit softcap, before the mask
+            s = __fmul_rn(a.cap,
+                          (float)tanh((double)__fmul_rn(s, a.inv_cap)));
+        }
         a.ws[(size_t)(k.row0 + r) * k.Tv + t] = s;
         mx[r] = fmaxf(mx[r], s);
       }
     }
+    if constexpr (V1) {
+      // the page's maximum at its last visited tile (a tile holds rows of
+      // one page), through smx: the trailing barrier of the ring's step
+      // orders its reads before the next page's writes
+      if (i + 1 == k.i_hi || (i + 1) % k.tpp == 0) {
+        if (tid < SLOTS) {
+#pragma unroll
+          for (int r = 0; r < MAX_REP; ++r) {
+            if (r >= G) break;
+            const float m = nctt::warp_max(mx[r]);
+            if ((tid & 31) == 0) smx[tid >> 5][r] = m;
+            mx[r] = -INFINITY;
+          }
+        }
+        __syncthreads();
+        if (tid < G)
+          a.pmax[(size_t)(k.row0 + tid) * a.PMAX + kb / a.page] =
+              fmaxf(smx[0][tid], smx[1][tid]);
+      }
+    }
   });
+  if constexpr (V1) return;
 
   if (tid < SLOTS) {
 #pragma unroll

@@ -46,11 +46,13 @@ SIGNATURES = {
     # codes, scl (global scratch past MAX_K, else null), stream
     "nctt_fused_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _P, _P, _P],
-    # q, k_cache, v_cache, out, ws (f32 score rows), B, H, Hkv, T, D, pos
-    # (int32 [B] on the device), scale, stream
-    "nctt_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _F,
+    # q, k_cache, v_cache, pos (int32 [B] on the device), out, plan (the
+    # argument block of decode_attention.decode_workspace: scratch and
+    # plan), B, H, Hkv, T, D, scale, stream (K5)
+    "nctt_decode_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                               _P],
-    # the same entry's arguments, K16's bulk-copy kernel
+    # q, k_cache, v_cache, out, ws (f32 score rows), B, H, Hkv, T, D, pos
+    # (int32 [B] on the device), scale, stream (K16's bulk-copy kernel)
     "nctt_decode_attention_hbm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                   _F, _P],
     # q, k_new, v_new, k_cache, k_scale, v_cache, v_scale (scales null for
@@ -67,9 +69,11 @@ SIGNATURES = {
     "nctt_omlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                   _I, _I, _I, _I, _F, _I, _P],
     # q, k_pages, k_scales, v_pages, v_scales, block_tables, lengths, out,
-    # B, H, Hkv, page, PMAX, D, fmt (0 bf16, 1 int8, 2 fp8), scale, stream
-    "nctt_paged_attention_v1": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _I, _F, _P],
+    # plan (the argument block of paged_attention.v1_workspace: scratch and
+    # plan), B, H, Hkv, P, page, PMAX, D, fmt (0 bf16, 1 int8, 2 fp8),
+    # scale, stream (K15)
+    "nctt_paged_attention_v1": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k_new, v_new, k_codes, k_scale, v_codes, v_scale, pos (int32 [B]
     # on the device), out, plan (the argument block of
     # decode_attention.decode_workspace: scratch and plan), B, H, Hkv, T, D,

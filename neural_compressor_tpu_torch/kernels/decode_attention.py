@@ -13,8 +13,9 @@ than float32's rounding).
 
 Ports ``neural_compressor_tpu/kernels/decode_attention.py``:
   * K5, ``_decode_attn_ro_impl`` / ``_kernel_ro`` (``decode_attn``,
-    ``csrc/decode_attention.cu``). The TPU kernel reads the cache
-    read-only and folds the new K/V row in by a select at ``pos``; JAX
+    ``csrc/decode_split.cu``: K6's split of the keys over bf16 rows, its
+    plan ``decode_plan(..., "bf16", k6=True)``). The TPU kernel reads the
+    cache read-only and folds the new K/V row in by a select at ``pos``; JAX
     writes that row into the cache right after the kernel. The port writes
     the row into the cache first, in place, and then attends: the kernel
     sees the same values (the select uses the row cast to the cache
@@ -66,13 +67,14 @@ Ports ``neural_compressor_tpu/kernels/decode_attention.py``:
     The port reads the switches at call time (JAX at trace time).
 
 The CUDA kernels keep each query row's float32 scores over the visited rows
-in a workspace in device memory (``score_workspace``), not in a block's
-shared memory, so they take contexts of any length, as the TPU kernels do
-(their chunked online softmax has no such limit either). K6 and K7 cut each
-slot's keys into parts of a fixed size (``decode_plan``) that blocks take in
-parallel: scores and part maxima, then p against the row's global maximum,
-float64 PV partials and their fold in ascending part order, so the split
-moves no bit (``tests/test_torch_decode_split.py`` emulates it).
+in a workspace in device memory (``score_workspace``, or the split's
+scratch), not in a block's shared memory, so they take contexts of any
+length, as the TPU kernels do (their chunked online softmax has no such
+limit either). K5, K6 and K7 cut each slot's keys into parts of a fixed
+size (``decode_plan``) that blocks take in parallel: scores and part
+maxima, then p against the row's global maximum, float64 PV partials and
+their fold in ascending part order, so the split moves no bit
+(``tests/test_torch_decode_split.py`` emulates it).
 """
 
 from __future__ import annotations
@@ -151,9 +153,11 @@ def _check_b1(name: str, q, k_cache, D_ok) -> tuple:
 
 def decode_attn(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 pos) -> torch.Tensor:
-    """K5 on the card (``csrc/decode_attention.cu``); the plain version for
-    CPU tensors. Arguments as in ``decode_attn_plain``; the positions go to
-    the kernel as an int32 [B] tensor on the device (an int is made one; a
+    """K5 on the card (``csrc/decode_split.cu``, ``nctt_decode_attention``:
+    K6's two or three CUDA launches a call over bf16 rows, as
+    ``decode_plan(..., "bf16", k6=True)`` says); the plain version for CPU
+    tensors. Arguments as in ``decode_attn_plain``; the positions go to the
+    kernel as an int32 [B] tensor on the device (an int is made one; a
     tensor is not read back)."""
     if q.device.type == "cpu":
         return decode_attn_plain(q, k_cache, v_cache, pos)
@@ -164,12 +168,12 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     _build.require(q, "q", torch.bfloat16, dev, (B, H, D))
     _build.require(k_cache, "k_cache", torch.bfloat16, dev, (B, Hkv, T, D))
     _build.require(v_cache, "v_cache", torch.bfloat16, dev, (B, Hkv, T, D))
+    plan = decode_plan(B, H, Hkv, T, D, "bf16", True)
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
-    ws = score_workspace(B, H, T, dev)
     err = _build.library().nctt_decode_attention(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), B, H, Hkv, T, D, pos.data_ptr(), 1.0 / (D ** 0.5),
-        _build.stream_handle(dev))
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), decode_workspace(plan, dev), B, H, Hkv, T, D,
+        1.0 / (D ** 0.5), _build.stream_handle(dev))
     _build.check(err, "nctt_decode_attention")
     decode_attn.launches += 1
     return out
@@ -368,12 +372,12 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
 
 
 # ---------------------------------------------------------------------------
-# K6 and K7's split of the keys (csrc/decode_split.cu)
+# K5's, K6's and K7's split of the keys (csrc/decode_split.cu)
 # ---------------------------------------------------------------------------
 
 
 class DecodePlan(NamedTuple):
-    """How K6 and K7 cut one call (``decode_plan``): query-row groups,
+    """How K5, K6 and K7 cut one call (``decode_plan``): query-row groups,
     key parts, the blocks' ring and threads, and the scratch's sizes."""
     groups: int          # ng: groups of query rows a (slot, KV head)
     group_rows: int      # gs: rows a group, at most 8 (6 past D 384)
@@ -381,7 +385,7 @@ class DecodePlan(NamedTuple):
     parts: int           # parts over the cache's T rows
     stages: int          # tiles of a block's cp.async ring
     threads: int         # threads a block
-    lsum: int            # K6: 1 = a third launch sums each part's exp
+    lsum: int            # K5, K6: 1 = a third launch sums each part's exp
     grid: tuple          # (parts, Hkv * groups, B), every launch
     scores: int          # float32 score rows, B * H * T
     maxima: int          # float32 part maxima (K6's part sums: float64)
@@ -395,7 +399,7 @@ PART_KEYS = 128
 MAX_PARTS = 64
 RING_STAGES = 4        # tiles a block's ring holds at most
 THREADS_D128 = 128     # threads a block at D 128 with single-row groups
-LSUM_PARTS = 8         # K6: past this many parts, l's part sums launch apart
+LSUM_PARTS = 8         # K5, K6: past this many parts, l's sums launch apart
 _TILE = 64
 _MAX_DYN = 232448 - 8192   # csrc/decode_split.cuh MAX_DYN
 _ESIZE = {"bf16": 2, "int8": 1, "fp8_e4m3": 1}
@@ -421,11 +425,11 @@ def _smem(D: int, esize: int, rows: int, stages: int, threads: int,
 @functools.lru_cache(maxsize=256)
 def decode_plan(B: int, H: int, Hkv: int, T: int, D: int, fmt: str,
                 k6: bool = False) -> DecodePlan:
-    """K6's (``k6``) or K7's plan for q [B, H, D] over a [B, Hkv, T, D]
-    cache of ``fmt`` ("bf16", "int8" or "fp8_e4m3"). A (slot, KV head)'s
-    H/Hkv query rows split into the fewest groups of at most 8 rows (6 past
-    D 384), as even as they go; a slot's keys into parts of ``part_keys``
-    keys. Part boundaries are absolute key positions that depend on T
+    """K6's (``k6``; K5's at "bf16") or K7's plan for q [B, H, D] over a
+    [B, Hkv, T, D] cache of ``fmt`` ("bf16", "int8" or "fp8_e4m3"). A
+    (slot, KV head)'s H/Hkv query rows split into the fewest groups of at
+    most 8 rows (6 past D 384), as even as they go; a slot's keys into
+    parts of ``part_keys`` keys. Part boundaries are absolute key positions that depend on T
     alone, never on B, rep, the positions or the other slots, so a row's
     terms are summed in the same order whatever else shares the launch."""
     rep = H // Hkv

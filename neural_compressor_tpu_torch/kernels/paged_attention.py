@@ -49,10 +49,14 @@ Ports ``neural_compressor_tpu/kernels/paged_attention.py``:
     running max moves page by page; ``exp(s - m_cur)`` [times ``v_scale``]
     is cast to bf16 for PV unnormalised, and divided by ``l`` only at the
     end, so it rounds in its own places, not K11's. Wrapper
-    ``paged_attn_v1``, its launches counted per pool format; CUDA kernel
-    ``csrc/paged_attention_v1.cu``. int4 pools stay on K11 (v1 has no int4
-    branch), and gemma's ``window``/``softcap`` raise ``NotImplementedError``
-    under v1, as in JAX.
+    ``paged_attn_v1``, its launches counted per pool format; CUDA kernels
+    ``csrc/paged_attention_v1.cu``, two launches a call over K11's parts
+    of whole pages (``v1_plan``: K11's scores launch with each page's
+    maximum, then p against the running maximum up to its page, per-page
+    partials and their fold replaying v1's recurrence in page order), with
+    its scratch from ``v1_workspace``. int4 pools stay on K11 (v1 has no
+    int4 branch), and gemma's ``window``/``softcap`` raise
+    ``NotImplementedError`` under v1, as in JAX.
   * K13, ``paged_write_window`` (``_paged_write_window_impl`` with
     ``_write_kernel_bf16_w``, ``_write_kernel_quant_w`` and
     ``_write_kernel_int4_w``): W consecutive rows a slot, which may cross
@@ -674,12 +678,80 @@ def _as_rows(pages: torch.Tensor, fmt: str) -> torch.Tensor:
     return pages.to(_F64)
 
 
+class V1Plan(NamedTuple):
+    """How K15 cuts one call (``v1_plan``): query-row groups, parts of
+    whole pages, the grid of both of its launches and its scratch's
+    sizes."""
+    groups: int          # ng: groups of query rows a (slot, KV head)
+    group_rows: int      # gs: rows a group, at most 8
+    part_keys: int       # keys a part: whole pages from key 0 on
+    parts: int           # parts over the block table's PMAX pages
+    grid: tuple          # (parts, Hkv * groups, B), both launches
+    scores: int          # float32 score rows, B * Hkv * ng * gs * PMAX*page
+    maxima: int          # float32 page maxima, B * Hkv * ng * gs * PMAX
+    partials: int        # float64 page partials: S_p [D], l_p, alpha_p
+    tickets: int         # int32 tickets, one a (slot, KV head, group)
+
+
+@functools.lru_cache(maxsize=256)
+def v1_plan(B: int, H: int, Hkv: int, D: int, page: int,
+            PMAX: int) -> V1Plan:
+    """K15's plan for q [B, H, D] over pages of ``page`` tokens, PMAX a
+    slot: K11's cut (``split_plan`` at W = 1: groups of at most 8 query
+    rows, parts of ``max(1, PART_KEYS // page)`` whole pages at absolute
+    key positions set by the page size alone), with each page's maximum
+    and each page's partials kept, so that the fold replays v1's page by
+    page recurrence."""
+    sp = split_plan(B, H, Hkv, 1, D, page, PMAX)
+    rows = B * Hkv * sp.groups * sp.group_rows
+    return V1Plan(sp.groups, sp.group_rows, sp.part_keys, sp.parts, sp.grid,
+                  rows * PMAX * page, rows * PMAX, rows * PMAX * (D + 2),
+                  sp.tickets)
+
+
+# device -> (sizes held, buffers, {plan: argument block}): K15's scratch,
+# flat: score rows and page maxima (float32), page partials (float64) and
+# tickets (int32, kept zeroed), replaced by larger ones (and the argument
+# blocks dropped) when a call needs more. Calls on one stream run in order,
+# so one call's scratch is free when the next starts; the folding blocks
+# reset their tickets to 0.
+_V1_SCRATCH: dict = {}
+
+
+def v1_workspace(plan: V1Plan, device) -> int:
+    """The address of the argument block of K15's entry for ``plan`` on
+    ``device``: seven 64-bit words, the scratch's addresses (score rows,
+    page maxima, page partials, tickets) and the plan (groups, part keys,
+    parts). The scratch is flat buffers of at least the plan's sizes kept
+    per device between calls; the blocks are cached per plan."""
+    have = _V1_SCRATCH.get(device)
+    if have is not None:
+        block = have[2].get(plan)
+        if block is not None:
+            return block[1]
+    need = (plan.scores, plan.maxima, plan.partials, max(plan.tickets, 1024))
+    if have is None or any(h < n for h, n in zip(have[0], need)):
+        n = need if have is None else tuple(map(max, have[0], need))
+        bufs = (torch.empty(n[0], dtype=_F32, device=device),
+                torch.empty(n[1], dtype=_F32, device=device),
+                torch.empty(n[2], dtype=_F64, device=device),
+                torch.zeros(n[3], dtype=torch.int32, device=device))
+        have = (n, bufs, {})
+        _V1_SCRATCH[device] = have
+    words = (ctypes.c_int64 * 7)(*(b.data_ptr() for b in have[1]),
+                                 plan.groups, plan.part_keys, plan.parts)
+    have[2][plan] = (words, ctypes.addressof(words))
+    return have[2][plan][1]
+
+
 def paged_attn_v1(q, k_pages, k_scales, v_pages, v_scales, block_tables,
                   lengths) -> torch.Tensor:
-    """K15 on the card (``csrc/paged_attention_v1.cu``) over bf16, int8 and
-    fp8-e4m3 pools; the plain version for CPU tensors. Arguments as in
-    ``paged_attn_v1_plain``. Launches are counted per pool format in
-    ``paged_attn_v1.launches``."""
+    """K15 on the card (``csrc/paged_attention_v1.cu``,
+    ``nctt_paged_attention_v1``: two CUDA launches a call over
+    ``v1_plan``'s parts of whole pages, scratch from ``v1_workspace``)
+    over bf16, int8 and fp8-e4m3 pools; the plain version for CPU tensors.
+    Arguments as in ``paged_attn_v1_plain``. Launches are counted per pool
+    format in ``paged_attn_v1.launches``, one a call."""
     if q.device.type == "cpu":
         return paged_attn_v1_plain(q, k_pages, k_scales, v_pages, v_scales,
                                    block_tables, lengths)
@@ -702,11 +774,12 @@ def paged_attn_v1(q, k_pages, k_scales, v_pages, v_scales, block_tables,
     _build.require(block_tables, "block_tables", torch.int32, dev, (B, PMAX))
     _build.require(lengths, "lengths", torch.int32, dev, (B,))
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
+    plan = v1_plan(B, H, Hkv, D, page, PMAX)
     err = _build.library().nctt_paged_attention_v1(
         q.data_ptr(), k_pages.data_ptr(), _ptr(k_scales), v_pages.data_ptr(),
         _ptr(v_scales), block_tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, Hkv, page, PMAX, D, _FMT_CODE[fmt],
-        1.0 / (D ** 0.5), _build.stream_handle(dev))
+        out.data_ptr(), v1_workspace(plan, dev), B, H, Hkv, P, page, PMAX, D,
+        _FMT_CODE[fmt], 1.0 / (D ** 0.5), _build.stream_handle(dev))
     _build.check(err, "nctt_paged_attention_v1")
     paged_attn_v1.launches[fmt] += 1
     return out

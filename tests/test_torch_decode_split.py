@@ -1,12 +1,14 @@
-"""K6's and K7's split of the keys, on the CPU: a float64 emulation of the
-plan ``kernels.decode_attention.decode_plan`` gives (scores and maxima per
-part, the global maximum, p, per-part partials of acc and l, the fold in
-ascending part order; K6's l summed part by part before p), held bit for
-bit against the plain versions ``batched_decode_attn_plain`` (K7) and
-``decode_attn_quant_plain`` (K6), which the other tests hold against JAX.
-Every cache format, rep 1 to 16, head widths 32 to 512, over a cache of
-three parts and a tail, at positions 0, a part's last key, its first, the
-key after, T - 1 and past T (K6's raw new row on those boundaries too).
+"""K5's, K6's and K7's split of the keys, on the CPU: a float64 emulation
+of the plan ``kernels.decode_attention.decode_plan`` gives (scores and
+maxima per part, the global maximum, p, per-part partials of acc and l, the
+fold in ascending part order; K5's and K6's l summed part by part before
+p), held bit for bit against the plain versions
+``batched_decode_attn_plain`` (K7), ``decode_attn_quant_plain`` (K6) and
+``decode_attn_plain`` (K5: K6's split over bf16 rows, no raw row), which
+the other tests hold against JAX. Every cache format, rep 1 to 16, head
+widths 32 to 512, over a cache of three parts and a tail, at positions 0,
+a part's last key, its first, the key after, T - 1 and past T (K6's raw
+new row on those boundaries too).
 
 ``csrc/decode_split.cu`` runs this arithmetic on the card, where
 ``chip_smoke.py`` holds it to the plain versions; here the emulation shows
@@ -56,21 +58,23 @@ def _case(seed, fmt, rep, D, quant=True):
     return q, kn, vn, cache, torch.tensor(POS, dtype=torch.int32)
 
 
-def split_emulated(q, k, ks, v, vs, pos, k_new=None, v_new=None):
-    """K7 (``k_new`` None) or K6 as the kernels compute them, part by part,
-    in float64 -> (out [B, H, D] bf16, the parts' key ranges, valid)."""
+def split_emulated(q, k, ks, v, vs, pos, k_new=None, v_new=None, k6=None):
+    """K7 (``k_new`` None), K6 or K5 (``k6`` over bf16 rows, no ``k_new``)
+    as the kernels compute them, part by part, in float64 -> (out [B, H, D]
+    bf16, the parts' key ranges, valid)."""
     B, H, D = q.shape
     Hkv, Tc = k.shape[1], k.shape[2]
     rep = H // Hkv
     fmt = {v_: k_ for k_, v_ in FORMATS.items()}[k.dtype]
-    k6 = k_new is not None
+    raw_row = k_new is not None
+    k6 = raw_row if k6 is None else k6
     plan = da.decode_plan(B, H, Hkv, Tc, D, fmt, k6)
     p64 = pos.to(torch.int64)
     t = torch.arange(Tc)
     valid = (t[None, :] <= p64.clamp(0, Tc - 1)[:, None])[:, None, None]
     kf, vf = da._as_f64(k), da._as_f64(v)
     scale = torch.tensor(1.0 / (D ** 0.5), dtype=F32)
-    if k6:   # the raw new row at pos, scale 1 (none at pos >= T)
+    if raw_row:   # the raw new row at pos, scale 1 (none at pos >= T)
         raw = (t[None, :] == p64[:, None])[:, None, :]           # [B, 1, T]
         kf = torch.where(raw[..., None], k_new.to(F64)[:, :, None], kf)
         vf = torch.where(raw[..., None], v_new.to(F64)[:, :, None], vf)
@@ -80,7 +84,7 @@ def split_emulated(q, k, ks, v, vs, pos, k_new=None, v_new=None):
     qr = q.reshape(B, Hkv, rep, D).to(F64)
     s = torch.einsum("bgrd,bgtd->bgrt", qr, kf).to(F32)
     if k6:
-        s = s * (ks * scale)[:, :, None, :]
+        s = s * (scale if ks is None else (ks * scale)[:, :, None, :])
     else:
         if ks is not None:
             s = s * ks[:, :, None, :]
@@ -134,10 +138,24 @@ def test_k7_split_equals_plain(fmt, D, rep):
 
 @pytest.mark.parametrize("rep", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("D", [32, 128, 256])
-@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3"])
+@pytest.mark.parametrize("fmt", ["int8", "fp8_e4m3", "bf16"])
 def test_k6_split_equals_plain(fmt, D, rep):
-    seed = 7000 + 100 * (fmt == "int8") + D + rep
+    """K6 over int8 and fp8 codes; "bf16" is K5, K6's split over the bf16
+    rows of a cache that already holds the new row (no raw row)."""
+    seed = 7000 + 100 * (fmt == "int8") + 200 * (fmt == "bf16") + D + rep
     q, kn, vn, (k, ks, v, vs), pos = _case(seed, fmt, rep, D)
+    if fmt == "bf16":
+        got, cuts, valid = split_emulated(q, k, ks, v, vs, pos, k6=True)
+        assert torch.equal(got, da.decode_attn_plain(q, k, v, pos)), (D, rep)
+        _cover(cuts, valid)
+        # the row at a part's first key carries the softmax where q is 8x
+        # it: a split that lost that boundary row would not match
+        p = torch.tensor([PK, 2 * PK] * 4, dtype=torch.int32)[:len(POS)]
+        qk = k[range(len(POS)), :, p.long()].repeat_interleave(rep, dim=1)
+        qk = (qk.float() * 8).to(torch.bfloat16)
+        got, _, _ = split_emulated(qk, k, ks, v, vs, p, k6=True)
+        assert torch.equal(got, da.decode_attn_plain(qk, k, v, p))
+        return
     got, cuts, valid = split_emulated(q, k, ks, v, vs, pos, kn, vn)
     want = da.decode_attn_quant_plain(q, kn, vn, k, ks, v, vs, pos)
     assert torch.equal(got, want), (fmt, D, rep)
@@ -174,7 +192,7 @@ def test_plan_depends_on_T_alone():
                                                          fmt, k6)
                  for B in (1, 8) for H, Hkv in ((32, 32), (16, 8), (32, 2))
                  for D in (32, 128, 256) for fmt in FORMATS
-                 for k6 in ((False, True) if fmt != "bf16" else (False,))}
+                 for k6 in (False, True)}
         keys = {p.part_keys for p in plans.values()}
         assert len(keys) == 1, (Tc, keys)
         pk = keys.pop()
@@ -191,11 +209,14 @@ def test_plan_depends_on_T_alone():
             assert p.lsum == int(k6 and p.parts > da.LSUM_PARTS)
             assert p.tickets == B * Hkv * p.groups
             assert p.partials == B * H * p.parts * (D + 1)
-    # the main paths: llama2-7b's B=1 step at pos 517 (K6) runs 5 of 8
-    # parts on each of 32 heads, 160 blocks for 132 SMs
-    plan = da.decode_plan(1, 32, 32, 1024, 128, "int8", True)
-    assert (plan.part_keys, plan.parts, plan.grid) == (128, 8, (8, 32, 1))
-    assert 32 * -(-518 // plan.part_keys) > 132
+    # the main paths: llama2-7b's B=1 step at pos 517 (K6, and K5 over
+    # bf16 rows) runs 5 of 8 parts on each of 32 heads, 160 blocks for 132
+    # SMs
+    for fmt in ("int8", "bf16"):
+        plan = da.decode_plan(1, 32, 32, 1024, 128, fmt, True)
+        assert (plan.part_keys, plan.parts, plan.grid) == (128, 8,
+                                                           (8, 32, 1))
+        assert 32 * -(-518 // plan.part_keys) > 132
     # at D 512 a group holds at most 6 rows, and the ring still fits
     plan = da.decode_plan(4, 48, 2, 1024, 512, "bf16")
     assert (plan.groups, plan.group_rows) == (4, 6) and plan.stages >= 1

@@ -115,7 +115,8 @@ def test_every_kernel_has_a_source_and_a_c_entry():
     assert sources == {"w4a8_gemm.cu", "w4a8_gemm_strided.cu",
                        "fused_gemv.cu", "decode_attention.cu",
                        "decode_split.cu", "decode_split_int8.cu",
-                       "decode_split_fp8.cu", "paged_attention.cu",
+                       "decode_split_fp8.cu", "decode_split_k5.cu",
+                       "paged_attention.cu",
                        "paged_attention_fp8_int4.cu", "paged_write.cu", "dequant_matmul.cu",
                        "paged_latent.cu", "paged_attention_v1.cu",
                        "decode_attention_hbm.cu", "omlp.cu", "attn_o.cu",

@@ -1,27 +1,30 @@
-"""K6 (``decode_attn_quant``) and K7 (``batched_decode_attn``) at the
-llama2-7b shapes of the main paths, for choosing the split's plan and for
-comparing two checkouts on one card: each call against its plain version
-(bit for bit, and within ``chip_smoke.kv_tol``), its event ms
-(back-to-back calls, caches rotated through >200 MB of copies), its
-device ms (torch.profiler: the call's kernels summed, and each kernel
-apart), its back-to-back ms (calls queued behind a sleeping kernel, so
-none waits for the host), and the wrappers' host µs a call: the whole
-call, the C entry alone (its arguments' conversion by ctypes and the CUDA
-launches) and the Python around it. The timers are ``chip_smoke.py``'s
-(``timed_ms``, ``backlog_ms``, ``profiled``).
+"""K5 (``decode_attn``), K6 (``decode_attn_quant``) and K7
+(``batched_decode_attn``) at the llama2-7b shapes of the main paths, for
+choosing the split's plan and for comparing two checkouts on one card:
+each call against its plain version (bit for bit, and within
+``chip_smoke.kv_tol``), its event ms (back-to-back calls, caches rotated
+through >200 MB of copies), its device ms (torch.profiler: the call's
+kernels summed, and each kernel apart), its back-to-back ms (calls queued
+behind a sleeping kernel, so none waits for the host), and the wrappers'
+host µs a call: the whole call, the C entry alone (its arguments'
+conversion by ctypes and the CUDA launches) and the Python around it. The
+timers are ``chip_smoke.py``'s (``timed_ms``, ``backlog_ms``,
+``profiled``).
 
     python3 tools/decode_attn_sweep.py [--root <checkout>] [--sweep]
 
-Cases: K7 over 8 slots at ``chip_smoke.SLOT_POS`` (bf16, int8, fp8) and K6
-at B=1 at positions 0, 517 and 1023 (int8, fp8), all over 1024-row caches
-of 32 heads of 128. ``--root`` imports the port from another checkout (only
-the wrappers' public arguments are used), so run parent, change, change,
-parent in one call. ``--sweep`` (a checkout with ``decode_plan``) also runs
-every case at other plans: parts of 64, 128, 192 and 256 keys
-(``PART_KEYS``) at 128 and 256 threads a block at D 128
-(``THREADS_D128``), rings of 1 to 4 tiles (``RING_STAGES``) and K6's
-part sums in a third launch at every part count (``LSUM_PARTS`` 0), each
-constant set for the measurement and then restored.
+Cases: K7 over 8 slots at ``chip_smoke.SLOT_POS`` (bf16, int8, fp8), K6 at
+B=1 at positions 0, 517 and 1023 (int8, fp8) and K5 at B=1 at the same
+positions (bf16), all over 1024-row caches of 32 heads of 128; beside K5,
+its yardstick SDPA over the visited rows (event, device and back-to-back
+ms). ``--root`` imports the port from another checkout (only the wrappers'
+public arguments are used), so run parent, change, change, parent in one
+call. ``--sweep`` (a checkout with ``decode_plan``) also runs every case at
+other plans: parts of 64, 128, 192 and 256 keys (``PART_KEYS``) at 128 and
+256 threads a block at D 128 (``THREADS_D128``), rings of 1 to 4 tiles
+(``RING_STAGES``) and K5's and K6's part sums in a third launch at every
+part count (``LSUM_PARTS`` 0), each constant set for the measurement and
+then restored.
 """
 
 import argparse
@@ -41,11 +44,21 @@ SLOT_POS = (0, 127, 128, 300, 517, 640, 901, 1023)
 K6_POS = (0, 517, 1023)
 H = HKV = 32
 D, T = 128, 1024
-# the kernels a case may launch, as torch.profiler names them (K6's and
-# K7's split, and the single-pass kernels of a parent checkout)
+# the kernels a case may launch, as torch.profiler names them (K5's, K6's
+# and K7's split, and the single-pass kernels of a parent checkout)
 NAMES = ("nctt_dsplit::scores_kernel", "nctt_dsplit::pv_kernel",
          "nctt_dsplit::lsum_kernel", "batched_decode_attention_kernel",
-         "decode_attention_quant_kernel")
+         "decode_attention_quant_kernel", "::decode_attention_kernel<")
+
+
+def yardstick(torch, label, fns):
+    """A library call's event, device (every kernel torch.profiler sees)
+    and back-to-back ms."""
+    ms = chip_smoke.timed_ms(torch, fns, 100)
+    dev = sum(chip_smoke.profiled(torch, fns, names=("",)).values())
+    b2b = chip_smoke.backlog_ms(torch, fns, 200)
+    print(f"{label}: ms={ms:.4f} device_ms={dev:.4f} "
+          f"back_to_back_ms={b2b:.4f}", flush=True)
 
 
 def host_us(fn, n=2000):
@@ -106,7 +119,10 @@ def main() -> None:
                 return 0
             return call
 
+    k1b, v1b = randn(1, 8, 128, D), randn(1, 8, 128, D)
     for label, fn in (
+            ("decode_attn B=1 T=128", lambda: K.decode_attn(q1, k1b, v1b,
+                                                             p1)),
             ("decode_attn_quant B=1 T=128", lambda: K.decode_attn_quant(
                 q1, kn1, vn1, *c1, p1)),
             ("batched_decode_attn B=8 T=128", lambda: K.batched_decode_attn(
@@ -159,6 +175,22 @@ def main() -> None:
                 lambda c=caches[0], pos=pos: K.decode_attn_quant_plain(
                     q1.cpu(), kn1.cpu(), vn1.cpu(),
                     *(t.cpu() for t in c), pos))
+    caches = [(randn(1, HKV, T, D), randn(1, HKV, T, D))
+              for _ in range(n_copies(2 * HKV * T * D * 2))]
+    for pos in K6_POS:
+        pos1 = torch.tensor([pos], dtype=torch.int32, device=dev)
+        cases[f"k5 bf16 B=1 pos={pos}"] = (
+            [lambda c=c, p=pos1: K.decode_attn(q1, c[0], c[1], p)
+             for c in caches],
+            lambda c=caches[0], p=pos1: K.decode_attn_plain(
+                q1.cpu(), c[0].cpu(), c[1].cpu(), p.cpu()))
+    # the yardstick of K5's rows (never used by the port): SDPA over the
+    # visited rows, its event, device and back-to-back ms
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for pos in K6_POS:
+        fns = [lambda c=c, n=pos + 1: sdpa(q1[:, :, None], c[0][:, :, :n],
+                                          c[1][:, :, :n]) for c in caches]
+        yardstick(torch, f"sdpa beside k5 B=1 pos={pos}", fns)
     plans = [{}]
     if args.sweep:
         plans += [dict(PART_KEYS=pk, THREADS_D128=nt)
