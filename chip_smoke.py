@@ -5454,15 +5454,20 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
       * K16's write (``decode_attn_write``) at B=1, T 1024, pos 0/517/1023,
         bf16 (equal to K5 plus the outside write bit for bit) and int8
         (codes and scales bit for bit, an all-zero row among the new ones;
-        faults: the raw row attended, ``_kv_quant``'s rule); K16's bulk
-        copies (``decode_attn_hbm``, equal to K5 bit for bit); yardstick
-        SDPA over the visited rows;
+        faults: the raw row attended, ``_kv_quant``'s rule, and in both
+        formats a part's boundary key lost: the new row at a part's first
+        key carrying the softmax, against the plain version without it);
+        K16's bulk copies (``decode_attn_hbm``, equal to K5 bit for bit);
+        yardstick SDPA over the visited rows; the write's rows also give
+        back-to-back ms (``backlog_ms``) beside SDPA's;
       * K17 (``omlp``) at o 4096x4096, gate_up 4096x22016, down 11008x4096,
         with and without o (yardstick: three ``torch.matmul`` of the bf16
         weights); faults: one h scale a token, x1 through bf16;
       * K18 (``attn_o``) at H 32, D 128, T 1024 (yardstick: SDPA and a
-        ``torch.matmul``); faults: the bf16-rounded output quantized, one
-        scale a head.
+        ``torch.matmul``, back to back beside the kernel's too); faults:
+        the bf16-rounded output quantized, one scale a head, one amax a
+        part (the rows one PV block emits, not all heads'), a part's
+        boundary key lost.
     Outputs within ``ulp_check``; every planted fault must fail it."""
     from neural_compressor_tpu_torch import kernels as K
     from neural_compressor_tpu_torch.kernels.decode_attention import \
@@ -5496,6 +5501,10 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
         lib = "null" if lms is None else f"{lms:.4f}"
         dev_s = (f" device_ms={extra['device_ms']:.4f}"
                  if "device_ms" in extra else "")
+        if "b2b_ms" in extra:
+            dev_s += (f" back_to_back_ms={extra['b2b_ms']:.4f} "
+                      f"library_back_to_back_ms="
+                      f"{extra['library_b2b_ms']:.4f}")
         print(f"{kind} {label} max_abs_err={err:.3e} ulp_share={share:.2e} "
               f"ok={ok} ms={ms:.4f}{dev_s} plain_ms={pms:.4f} "
               f"library_ms={lib} bound_ms={bms:.4f} ({by})", flush=True)
@@ -5609,16 +5618,20 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
         torch.cuda.synchronize()
         same = (torch.equal(out, ref) and torch.equal(k1, k2)
                 and torch.equal(v1, v2))
-        ms = timed_ms(torch, [lambda a=a, b=b: K.decode_attn_write(
-            q1, kn, vn, a, None, b, None, posd) for a, b in kv], 200)
+        fns = [lambda a=a, b=b: K.decode_attn_write(
+            q1, kn, vn, a, None, b, None, posd) for a, b in kv]
+        ms = timed_ms(torch, fns, 200)
         pms = timed_ms(torch, [lambda: K.decode_attn_write_plain(
             q1, kn, vn, k2.clone(), None, v2.clone(), None, posd)], 5)
-        lms = timed_ms(torch, [lambda a=a, b=b: sdpa(
-            q1[:, :, None], a[:, :, :L1], b[:, :, :L1]) for a, b in kv], 200)
+        lfns = [lambda a=a, b=b: sdpa(q1[:, :, None], a[:, :, :L1],
+                                      b[:, :, :L1]) for a, b in kv]
+        lms = timed_ms(torch, lfns, 200)
         nb = 2 * Hkv * L1 * D * 2 + H * D * 2 * 2 + 2 * Hkv * D * 2 * 2
         record("k16w", f"bf16 pos={p_} T={T} H={H} D={D} (== K5 + write: "
                f"{same})", out, ref, ms, pms, lms, nb, 4 * H * L1 * D,
-               extra_ok=same, fmt="bf16", pos=p_)
+               extra_ok=same, fmt="bf16", pos=p_,
+               b2b_ms=backlog_ms(torch, fns, 300),
+               library_b2b_ms=backlog_ms(torch, lfns, 300))
         # the bulk-copy kernel: equal to K5 bit for bit
         out = K.decode_attn_hbm(q1, k2, v2, posd)
         torch.cuda.synchronize()
@@ -5644,19 +5657,23 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
         same = all(torch.equal(a, b) for a, b in zip(c_k, c_p))
         copies = [[t.clone() for t in cache]
                   for _ in range(n_copies(2 * Hkv * T * (D + 4)))]
-        ms = timed_ms(torch, [lambda c=c: K.decode_attn_write(
-            q1, kn8, vn, *c, posd) for c in copies], 200)
+        fns = [lambda c=c: K.decode_attn_write(q1, kn8, vn, *c, posd)
+               for c in copies]
+        ms = timed_ms(torch, fns, 200)
         pms = timed_ms(torch, [lambda: K.decode_attn_write_plain(
             q1, kn8, vn, *[t.clone() for t in cache], posd)], 5)
         deq = [(kq.kv_dequant(c[0], c[1], bf16), kq.kv_dequant(c[2], c[3],
                                                                bf16))
                for c in copies[:2]]
-        lms = timed_ms(torch, [lambda a=a, b=b: sdpa(
-            q1[:, :, None], a[:, :, :L1], b[:, :, :L1]) for a, b in deq], 200)
+        lfns = [lambda a=a, b=b: sdpa(q1[:, :, None], a[:, :, :L1],
+                                      b[:, :, :L1]) for a, b in deq]
+        lms = timed_ms(torch, lfns, 200)
         record("k16w", f"int8 pos={p_} T={T} H={H} D={D} (codes and scales "
                f"bit-equal: {same})", out, ref, ms, pms, lms,
                2 * Hkv * L1 * (D + 4) + H * D * 4 + 2 * Hkv * (D * 3 + 4),
-               4 * H * L1 * D, extra_ok=same, fmt="int8", pos=p_)
+               4 * H * L1 * D, extra_ok=same, fmt="int8", pos=p_,
+               b2b_ms=backlog_ms(torch, fns, 300),
+               library_b2b_ms=backlog_ms(torch, lfns, 300))
         # faults: the raw row attended (K6); _kv_quant's rule (its scale
         # of 1 on the all-zero row)
         raw = K.decode_attn_quant_plain(q1, kn8, vn, *cache, posd)
@@ -5667,6 +5684,24 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
               f"{float(c_k[1][0, 1, p_]):.3e})", out, ref,
               extra_flag=not torch.equal(kvq_scale, c_k[1][0, 1, p_]))
         del copies, deq, cache, c_k, c_p
+
+    # K16's write on the split: the new row at a part's first key carries
+    # the softmax (q is 8x it); the plain version without that key (at
+    # pos - 1 over the written cache) must disagree with the kernel
+    pk = port_module("decode_attention").decode_plan(
+        1, H, Hkv, T, D, "bf16", True).part_keys
+    for pb in (pk, 4 * pk):
+        posd = torch.tensor([pb], dtype=torch.int32, device=dev)
+        kn, vn = randn(1, Hkv, D), randn(1, Hkv, D)
+        qb = (kn.float() * 8).to(bf16).repeat_interleave(H // Hkv, dim=1)
+        k, v = randn(1, Hkv, T, D), randn(1, Hkv, T, D)
+        out = K.decode_attn_write(qb, kn, vn, k, None, v, None, posd)
+        fault(f"k16w bf16 pos={pb} a part's boundary key lost", out,
+              K.decode_attn_plain(qb, k, v, posd - 1))
+        cache = (*kq.kv_quant(k, "int8"), *kq.kv_quant(v, "int8"))
+        out = K.decode_attn_write(qb, kn, vn, *cache, posd)
+        fault(f"k16w int8 pos={pb} a part's boundary key lost", out,
+              K.decode_attn_quant_plain(qb, None, None, *cache, posd - 1))
 
     # K17 and K18: llama2-7b's projections
     def hopper(K_, N_):
@@ -5739,8 +5774,8 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
         k, v = kv[0][:2]
         out = K.attn_o(qh, k, v, p_, pwo.packed, pwo.scales, res)
         ref = K.attn_o_plain(qh, k, v, p_, pwo.packed, pwo.scales, res)
-        ms = timed_ms(torch, [lambda c=c: K.attn_o(qh, *c[:2], p_, *c[2:],
-                                                   res) for c in kv], 200)
+        fns = [lambda c=c: K.attn_o(qh, *c[:2], p_, *c[2:], res) for c in kv]
+        ms = timed_ms(torch, fns, 200)
         pms = timed_ms(torch, [lambda: K.attn_o_plain(
             qh, k, v, p_, pwo.packed, pwo.scales, res)], 5)
 
@@ -5748,11 +5783,14 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
             o = sdpa(qh[None, :, None], a[None, :, :L1], b[None, :, :L1])
             return torch.matmul(o.reshape(1, H * D), wo)
 
-        lms = timed_ms(torch, [lambda c=c: lib(*c[:2]) for c in kv], 200)
+        lfns = [lambda c=c: lib(*c[:2]) for c in kv]
+        lms = timed_ms(torch, lfns, 200)
         nb = (pwo.packed.numel() + pwo.scales.numel() * 4
               + 2 * Hkv * L1 * D * 2 + H * D * 2 + N * 2 * 2)
         record("k18", f"pos={p_} H={H} D={D} T={T} N={N}", out, ref, ms, pms,
-               lms, nb, 2 * H * D * N + 4 * H * L1 * D, pos=p_)
+               lms, nb, 2 * H * D * N + 4 * H * L1 * D, pos=p_,
+               b2b_ms=backlog_ms(torch, fns, 300),
+               library_b2b_ms=backlog_ms(torch, lfns, 300))
         o32 = _attend_plain(qh[None], k[None], v[None], p_).reshape(-1)
         fm = port_module("fused_matvec")
         if p_:  # at pos 0 the output is V's row 0, already bf16
@@ -5770,7 +5808,24 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
                           gmul=s_h)
         fault(f"k18 pos={p_} one scale a head", out,
               (yh + res.float()).to(bf16))
+        # one amax a part: the rows one PV block emits (a KV head's query
+        # group; the one whose rows reach the least), not every head's
+        a_p = oh.reshape(Hkv, -1).abs().amax(dim=1).min()
+        s_p = a_p * (1.0 / 127)
+        codes = torch.clamp(torch.round(oh / s_p), -128, 127)
+        yp = fm.group_dot(codes.reshape(-1), pwo.packed, pwo.scales)
+        fault(f"k18 pos={p_} one amax a part (one KV head's rows, "
+              f"{float(a_p):.4f} of {float(oh.abs().max()):.4f})", out,
+              (yp * s_p + res.float()).to(bf16))
         del kv
+    # K18's split: a part's first key carries the softmax; the plain
+    # version without it (pos - 1) must disagree with the kernel
+    for pb in (128, 512):
+        k, v = randn(Hkv, T, D), randn(Hkv, T, D)
+        qb = (k[:, pb].float() * 8).to(bf16)
+        fault(f"k18 pos={pb} a part's boundary key lost",
+              K.attn_o(qb, k, v, pb, pwo.packed, pwo.scales, res),
+              K.attn_o_plain(qb, k, v, pb - 1, pwo.packed, pwo.scales, res))
     bad = [r for rs in rows.values() for r in rs if not r["ok"]]
     if bad:
         fail(f"a variant kernel disagrees with its plain version: {bad}")
@@ -5874,6 +5929,12 @@ def phase_variant_envelope(torch, nct) -> None:
       * K15 and K16 (write bf16 and int8, bulk copies) at rep 1, 4 and 8 and
         D 64 and 80; K15 with zero-length and idle slots (every entry on
         trash page 0) and a PMAX not a multiple of 4;
+      * K16's write at rep 16 over a 1,500-row cache (12 key parts: the
+        split's third launch), on the parts' boundaries and past T: bf16
+        equal to K5 plus the outside write, int8's codes and scales bit for
+        bit; K18 over 1,500 rows at rep 4, at D 256, rep 8, and at H*D
+        81,920 (its o-projection reading the weights from global memory),
+        within ``ulp_check`` of ``attn_o_plain``;
       * K17 at I with tn_i 128, 256 and 512, and declining where tn_i is
         not a multiple of the down projection's group (counted in
         ``omlp_fused.declined``);
@@ -5957,6 +6018,44 @@ def phase_variant_envelope(torch, nct) -> None:
                       K.paged_attn_v1_plain(qb, *pool, bt, lengths))
                 check(f"k15 {fmt} {tag} zero-length slot", out[0],
                       torch.zeros_like(out[0]), exact=True)
+
+    # K16's write at rep 16 past eight parts, and K18 off llama2-7b's shapes
+    H, Hkv, D, T = 16, 1, 128, 1500
+    q1 = randn(1, H, D)
+    k, v = randn(1, Hkv, T, D), randn(1, Hkv, T, D)
+    c8 = (*kq.kv_quant(k, "int8"), *kq.kv_quant(v, "int8"))
+    for p_ in (0, 127, 128, 129, 1023, T - 1, T + 3):
+        posd = torch.tensor([p_], dtype=torch.int32, device=dev)
+        kn, vn = randn(1, Hkv, D), randn(1, Hkv, D)
+        a = [t.clone() for t in (k, v)]
+        b = [t.clone() for t in (k, v)]
+        out = K.decode_attn_write(q1, kn, vn, a[0], None, a[1], None, posd)
+        if p_ < T:
+            b[0][:, :, p_], b[1][:, :, p_] = kn, vn
+        check(f"k16w bf16 rep=16 T={T} pos={p_} == K5 + write", out,
+              K.decode_attn(q1, b[0], b[1], posd), exact=True)
+        check(f"k16w bf16 rep=16 T={T} pos={p_} caches", torch.cat(a),
+              torch.cat(b), exact=True)
+        a8 = [t.clone() for t in c8]
+        b8 = [t.clone() for t in c8]
+        check(f"k16w int8 rep=16 T={T} pos={p_}",
+              K.decode_attn_write(q1, kn, vn, *a8, posd),
+              K.decode_attn_write_plain(q1, kn, vn, *b8, posd))
+        for x, y, what in zip(a8, b8, ("kc", "ks", "vc", "vs")):
+            check(f"k16w int8 rep=16 {what} pos={p_}", x, y, exact=True)
+    fm_ = port_module("fused_matvec")
+    for H, Hkv, D, T, N in ((32, 8, 128, 1500, 1024), (16, 2, 256, 300, 512),
+                            (640, 80, 128, 64, 256)):
+        w = randn(H * D, N, dtype=torch.float32) * (H * D) ** -0.5
+        pw = to_hopper(pack_qtensor(quantize_tensor(w, bits=4,
+                                                    group_size=D)))
+        res = randn(N)
+        for p_ in (0, 127, 128, 129, T - 1, T + 2):
+            qh = randn(H, D)
+            k, v = randn(Hkv, T, D), randn(Hkv, T, D)
+            check(f"k18 H={H} Hkv={Hkv} D={D} T={T} N={N} pos={p_}",
+                  K.attn_o(qh, k, v, p_, pw.packed, pw.scales, res),
+                  fm_.attn_o_plain(qh, k, v, p_, pw.packed, pw.scales, res))
 
     # the repaired K5: per-slot positions in one launch, and pos >= T
     H, Hkv, D, T = 8, 2, 128, 200

@@ -7,7 +7,7 @@
 //   cache into VMEM itself (make_async_copy and two semaphores), instead of
 //   letting XLA stage per-(b, h) blocks.
 //
-// Semantics: K5's (csrc/decode_split.cu, attend.cuh): q [B, H, D] against
+// Semantics: K5's (csrc/decode_split.cu): q [B, H, D] against
 //   bf16 caches [B, Hkv, T, D] that already hold row pos[b] (the port
 //   writes it before the launch, as for K5); pos int32 [B] on the device;
 //   rows t <= pos (all T at pos >= T); scores f32(q . k) / sqrt(D);
@@ -15,26 +15,34 @@
 //
 // Bound on this card: bytes, as K5: 2*Hkv*(pos+1)*D*2 bytes of K and V.
 //
-// Design: attend.cuh's grid (Hkv, B, query groups) and math, with the rows
-//   coming through shared memory: thread 0 of each block issues
-//   cp.async.bulk global->shared copies of the slot's K rows (then its V
-//   rows) in tiles of R rows, completion on an mbarrier per stage, two tiles
-//   in flight (the raw-bytes bulk copy: no tensor map, the hardware moves
-//   the bytes and counts them on the barrier); the block attends the tile
-//   that has landed while the next one is on its way. R is a multiple of the
-//   8 warps, so warp w attends the rows t = w (mod 8) in increasing order as
-//   in attend.cuh: every float64 sum is taken in its order, over exact
-//   products, so the output equals the plain version's and K5's bit for
-//   bit. Rows are 16-byte multiples (D % 8 == 0), as the bulk copy needs.
-//   A simple first kernel: the score rows live in a float32 workspace in
-//   device memory, no split of T across blocks.
-#include "attend.cuh"
+// Design: one block per (KV head, slot, group of at most 8 query rows), grid
+//   (Hkv, B, groups), the one-block-a-head walk K5 ran before its split,
+//   with the rows coming through shared memory: thread 0 of each block
+//   issues cp.async.bulk global->shared copies of the slot's K rows (then
+//   its V rows) in tiles of R rows, completion on an mbarrier per stage,
+//   two tiles in flight (the raw-bytes bulk copy: no tensor map, the
+//   hardware moves the bytes and counts them on the barrier); the block
+//   attends the tile that has landed while the next one is on its way. R is
+//   a multiple of the 8 warps, so warp w attends the rows t = w (mod 8) in
+//   increasing order: float64 sums over exact products, rounded once, so
+//   the output equals the plain version's and K5's bit for bit. Rows are
+//   16-byte multiples (D % 8 == 0), as the bulk copy needs. A simple first
+//   kernel: the score rows live in a float32 workspace in device memory, no
+//   split of T across blocks.
+#include "nctt_common.cuh"
 
 namespace {
 
-constexpr int THREADS = nctt::ATT_THREADS;
-constexpr int WARPS = nctt::ATT_WARPS;
-constexpr int MAX_REP = nctt::ATT_MAX_REP;
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_REP = 8;
+
+// dynamic shared memory of a block past its tile ring: the cross-warp
+// partials [WARPS][gs][D] doubles and the q rows [gs][D] floats
+inline size_t attend_smem(int gs, int D) {
+  return sizeof(double) * (size_t)WARPS * gs * D +
+         sizeof(float) * (size_t)gs * D;
+}
 
 // rows a tile: about 8 KiB of bf16, a multiple of WARPS
 __host__ __device__ inline int tile_rows(int D) {
@@ -225,10 +233,10 @@ int launch(const void* q, const void* k, const void* v, void* out, void* ws,
            int B, int H, int Hkv, int T, int D, const int* pos, float scale,
            cudaStream_t stream) {
   const int rep = H / Hkv;
-  const int ng = nctt::attend_groups(rep);
+  const int ng = (rep + MAX_REP - 1) / MAX_REP;     // groups of rows
   const int gs = (rep + ng - 1) / ng;
   const size_t ring = (2 * (size_t)tile_rows(D) * D * 2 + 7) / 8 * 8;
-  const size_t smem = ring + nctt::attend_smem(gs, D);
+  const size_t smem = ring + attend_smem(gs, D);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         decode_attention_hbm_kernel<DPL, FULL>,

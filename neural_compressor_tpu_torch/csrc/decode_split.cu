@@ -1,7 +1,9 @@
 // Single-token decode attention over a contiguous head-major KV cache with
 // each slot's keys split into fixed parts: K7 (batched, bf16 rows or int8 /
 // fp8-e4m3 codes), K6 (int8 / fp8 codes with the raw new row) and K5 (bf16
-// rows, the B=1 decode of every served model).
+// rows, the B=1 decode of every served model). K16's in-kernel write (its C
+// entry in csrc/decode_attention.cu) and K18's attention (csrc/attn_o.cu)
+// run K5's and K6's launches too.
 //
 // Replaces: neural_compressor_tpu/kernels/decode_attention.py
 //   _batched_attn_impl / _kernel_batched (K7), bf16 caches and the quant
@@ -116,6 +118,16 @@
 //     part's V rows into L2 by the scores blocks measured slower
 //     (tools/decode_attn_sweep.py): the two streams contend for DRAM, and
 //     PV is bound by its chain of dependent steps, not by its bytes.
+//   * K16's write and K18 (their sources say more). K16's bf16 write
+//     stages k_new / v_new in place of the cache's row pos and group 0's
+//     scores block stores them there: K5's arithmetic over a cache that
+//     holds the row, bit for bit by construction. Its int8 write quantizes
+//     the row in launch 1 (every block whose part holds pos), scores it as
+//     codes times the new scale, and group 0's block stores codes and
+//     scales; the PV block holding pos stages its tiles after launch 1 and
+//     reads them from the cache. K18's PV stores float32 rows and takes one
+//     atomicMax of |o| a block into a word that launch 1 zeroes; one more
+//     launch quantizes and projects them.
 //   * Host. One argument block (kernels/decode_attention.py
 //     decode_workspace: the scratch's addresses and the plan, cached per
 //     plan and device) keeps the C entry's arguments as few as the
@@ -126,18 +138,15 @@
 
 using namespace nctt_dsplit;
 
-namespace {
-
 // The arguments of a call; 0 where they are not valid. `plan` holds the
 // scratch's addresses and the plan (kernels/decode_attention.py
-// decode_workspace): ws, pmax, part, lpart, tickets, then ng, part_keys,
-// parts, stages, threads, lsum.
-int fill(Args& a, const void* q, const void* kc, const void* vc,
-         const void* ks, const void* vs, const void* pos, void* out,
-         const long long* plan, int H, int Hkv, int T, int D, int esize,
-         float scale) {
-  const int ng = (int)plan[5], part_keys = (int)plan[6];
-  const int parts = (int)plan[7];
+// decode_workspace), in PlanWord's order.
+int nctt_dsplit::fill(Args& a, const void* q, const void* kc, const void* vc,
+                      const void* ks, const void* vs, const void* pos,
+                      void* out, const long long* plan, int H, int Hkv, int T,
+                      int D, int esize, float scale) {
+  const int ng = (int)plan[W_NG], part_keys = (int)plan[W_PART_KEYS];
+  const int parts = (int)plan[W_PARTS];
   if (D < 1 || D > 512 || Hkv < 1 || H % Hkv || T < 1 || ng < 1 ||
       part_keys < SLOTS || part_keys % SLOTS || parts < 1 ||
       (long long)parts * part_keys < T)
@@ -150,11 +159,13 @@ int fill(Args& a, const void* q, const void* kc, const void* vc,
   a.kn = a.vn = nullptr;
   a.pos = (const int*)pos;
   a.out = (__nv_bfloat16*)out;
-  a.ws = (float*)plan[0];
-  a.pmax = (float*)plan[1];
-  a.part = (double*)plan[2];
-  a.lpart = (double*)plan[3];
-  a.tickets = (int*)plan[4];
+  a.ws = (float*)plan[W_WS];
+  a.pmax = (float*)plan[W_PMAX];
+  a.part = (double*)plan[W_PART];
+  a.lpart = (double*)plan[W_LPART];
+  a.tickets = (int*)plan[W_TICKETS];
+  a.att = nullptr;
+  a.amax = nullptr;
   a.H = H;
   a.Hkv = Hkv;
   a.T = T;
@@ -162,28 +173,27 @@ int fill(Args& a, const void* q, const void* kc, const void* vc,
   a.ng = ng;
   a.part_keys = part_keys;
   a.parts = parts;
-  a.stages = (int)plan[8];
-  a.threads = (int)plan[9];
-  a.lsum = (int)plan[10];
+  a.stages = (int)plan[W_STAGES];
+  a.threads = (int)plan[W_THREADS];
+  a.lsum = (int)plan[W_LSUM];
   a.vec = (D * esize) % 16 == 0 && ((uintptr_t)kc & 15) == 0 &&
           ((uintptr_t)vc & 15) == 0;
+  a.write = 0;
   a.scale = scale;
   return 1;
 }
 
-}  // namespace
-
 // K7. q bf16 [B, H, D]; caches [B, Hkv, T, D] holding each slot's row
 // pos[b]: bf16 (code 0; ks/vs null), int8 (code 1) or e4m3 (code 2) with
-// scales f32 [B, Hkv, T]; pos int32 [B]; out bf16 [B, H, D]. `plan`, eleven
-// 64-bit words (kernels/decode_attention.py decode_workspace): the
+// scales f32 [B, Hkv, T]; pos int32 [B]; out bf16 [B, H, D]. `plan`,
+// thirteen 64-bit words (kernels/decode_attention.py decode_workspace): the
 // scratch's addresses, ws f32 [B, H, T] scores, pmax f32 [B, H, parts],
 // part f64 [B, H, parts, D + 1], lpart (K6's), tickets int32 [B*Hkv*ng]
-// zeroed (each call leaves them zeroed); then the plan (decode_plan): ng
-// groups of query rows, parts of part_keys keys (a multiple of 64),
-// `parts` of them over T, a ring of `stages` tiles, `threads` a block,
-// lsum (K6's). 1 <= D <= 256, or D = 353..384 or 481..512; H % Hkv == 0.
-// Two launches on `stream`.
+// zeroed (each call leaves them zeroed), K18's att and amax (unused here);
+// then the plan (decode_plan): ng groups of query rows, parts of part_keys
+// keys (a multiple of 64), `parts` of them over T, a ring of `stages`
+// tiles, `threads` a block, lsum (K6's). 1 <= D <= 256, or D = 353..384 or
+// 481..512; H % Hkv == 0. Two launches on `stream`.
 NCTT_API int nctt_batched_decode_attention(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* pos, void* out, const void* plan, int B,

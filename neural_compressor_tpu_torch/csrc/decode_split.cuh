@@ -2,8 +2,10 @@
 // by the four sources that instantiate them: csrc/decode_split.cu (the C
 // entries, K7's bf16 copies), csrc/decode_split_k5.cu (K5: K6's kernels
 // over bf16 rows), csrc/decode_split_int8.cu and csrc/decode_split_fp8.cu,
-// so that they compile in parallel. The design is described in
-// decode_split.cu.
+// so that they compile in parallel. K16's in-kernel write
+// (csrc/decode_attention.cu) runs K5's copies (bf16) and K6's int8 copies;
+// K18's attention (csrc/attn_o.cu) runs K5's with a float32 output. The
+// design is described in decode_split.cu.
 #pragma once
 
 #include "nctt_common.cuh"
@@ -29,8 +31,8 @@ struct Args {
   const uint8_t* vc;
   const float* ks;          // [B, Hkv, T] scales (null for bf16)
   const float* vs;
-  const __nv_bfloat16* kn;  // K6: the raw new rows [B, Hkv, D] (K5: null)
-  const __nv_bfloat16* vn;
+  const __nv_bfloat16* kn;  // the new rows [B, Hkv, D]: K6's raw rows,
+  const __nv_bfloat16* vn;  // K16's written rows (K5, K7, K18: null)
   const int* pos;           // [B]
   __nv_bfloat16* out;       // [B, H, D]
   float* ws;                // [B, H, T] scores
@@ -38,9 +40,26 @@ struct Args {
   double* part;             // [B, H, parts, D + 1] partials: acc, then l
   double* lpart;            // K6: [B, H, parts] part sums of exp
   int* tickets;             // [B * Hkv * ng], zeroed
+  float* att;               // K18: [B, H, D] float32 out (else null)
+  unsigned* amax;           // K18: max |att| as float bits, one word
   int H, Hkv, T, D, ng, part_keys, parts, stages, threads, lsum, vec;
+  int write;                // K16: store the new rows at pos (kc..vs)
   float scale;
 };
+
+// The argument block of a call (kernels/decode_attention.py
+// decode_workspace): the scratch's addresses, then the plan
+enum PlanWord {
+  W_WS, W_PMAX, W_PART, W_LPART, W_TICKETS, W_ATT, W_AMAX,
+  W_NG, W_PART_KEYS, W_PARTS, W_STAGES, W_THREADS, W_LSUM
+};
+
+// The arguments of a call with no new rows, no float32 output; 0 where they
+// are not valid (csrc/decode_split.cu). esize: bytes an element.
+int fill(Args& a, const void* q, const void* kc, const void* vc,
+         const void* ks, const void* vs, const void* pos, void* out,
+         const long long* plan, int H, int Hkv, int T, int D, int esize,
+         float scale);
 
 template <int FMT>
 struct Fmt {
@@ -128,11 +147,14 @@ struct Block {
   int b, hk, g, G, rows, q0, bh;   // q0: the group's first q row
   int pos, L, np;                  // visited keys t < L, parts holding them
   int p, k0, k1, nt;               // this part's keys [k0, k1), its tiles
-  int raw;                         // K6: the raw row's key here, or -1
-                                   // (K5: -1, its cache holds row pos)
+  int newk;                        // the new row's key here, or -1 (no
+                                   // new rows, or pos outside the part)
+  int raw;                         // the key scored apart, or -1: K6's raw
+                                   // row; K16's int8 row (launch 1 only)
   int rowbytes, srow, cw, cu, cdu;
 
-  __device__ explicit Block(const Args& a) {
+  // pv: the PV launch (K16's int8 row is read from the cache there)
+  __device__ Block(const Args& a, bool pv) {
     p = blockIdx.x;
     hk = blockIdx.y / a.ng;
     g = blockIdx.y - hk * a.ng;
@@ -151,7 +173,10 @@ struct Block {
     k0 = p * a.part_keys;
     k1 = L < k0 + a.part_keys ? L : k0 + a.part_keys;
     nt = k1 > k0 ? (k1 - k0 + SLOTS - 1) / SLOTS : 0;
-    raw = K6 && a.kn && pos >= k0 && pos < k1 ? pos : -1;
+    newk = K6 && a.kn && pos >= k0 && pos < k1 ? pos : -1;
+    // K16's bf16 write stages the new row in place of the cache's row pos,
+    // so that it is scored and summed where K5 takes it from the cache
+    raw = FMT == BF16 || (pv && a.write) ? -1 : newk;
     rowbytes = a.D * Fmt<FMT>::ESIZE;
     srow = staged_row(a.D, Fmt<FMT>::ESIZE);
     // 16-byte copies: chunk column cw of rows cu, cu + cdu, ... where the
@@ -166,29 +191,36 @@ struct Block {
 
 
   // issue the copies of tile i of `cache` (rows k0 + 64i ..) into `dst`:
-  // one contiguous slab of the slot's rows
+  // one contiguous slab of the slot's rows. Row `sk` (-1: none) is not
+  // read from the cache: it comes from `nrow`, or is left as it is where
+  // `nrow` is null (a row the block never reads).
   __device__ void stage(const Args& a, const uint8_t* cache, int i,
-                        uint8_t* dst) const {
+                        uint8_t* dst, int sk = -1,
+                        const uint8_t* nrow = nullptr) const {
     const int t0 = k0 + i * SLOTS;
     const int nu = k1 - t0 < SLOTS ? k1 - t0 : SLOTS;
+    const int us = sk - t0;                  // its slot in this tile
     const uint8_t* src = cache + ((size_t)bh * a.T + t0) * rowbytes;
+    auto row = [&](int u) {
+      return u == us ? nrow : src + (size_t)u * rowbytes;
+    };
     if (a.vec && cdu) {
       for (int u = cu; u < nu; u += cdu)
-        nctt::cp_async<16>(dst + u * srow + cw * 16,
-                           src + (size_t)u * rowbytes + cw * 16);
+        if (u != us || nrow)
+          nctt::cp_async<16>(dst + u * srow + cw * 16, row(u) + cw * 16);
     } else if (a.vec) {
       const int cpr = rowbytes >> 4, m = nu * cpr;
       for (int c = threadIdx.x; c < m; c += blockDim.x) {
-        const int u = c / cpr;
-        nctt::cp_async<16>(dst + u * srow + (c - u * cpr) * 16,
-                           src + (size_t)c * 16);
+        const int u = c / cpr, w = c - u * cpr;
+        if (u != us || nrow)
+          nctt::cp_async<16>(dst + u * srow + w * 16, row(u) + w * 16);
       }
     } else {   // rows of no whole 16-byte chunks: scalars, tail zeroed
       const int rb = ((rowbytes + 15) >> 4) * 16, m = nu * rb;
       for (int c = threadIdx.x; c < m; c += blockDim.x) {
         const int u = c / rb, w = c - u * rb;
-        dst[u * srow + w] =
-            w < rowbytes ? __ldg(src + (size_t)u * rowbytes + w) : (uint8_t)0;
+        if (u != us || nrow)
+          dst[u * srow + w] = w < rowbytes ? __ldg(row(u) + w) : (uint8_t)0;
       }
     }
   }
@@ -302,6 +334,44 @@ __device__ __forceinline__ void global_max(const Args& a, int q0, int G,
   }
 }
 
+// K16's int8 write: the TPU kernel's rule for the new row x [D] (bf16) of
+// one (slot, KV head), by the block's NT threads: scale = f32(max(amax,
+// 1e-6) * f32(1/127)), codes clip(rint(x / scale), -127, 127), an all-zero
+// row included (not _kv_quant's rule: amax 0 -> 1, clip to -128). The codes
+// go to c [D]; every thread gets the scale. sred: NT / 32 floats.
+template <int NT>
+__device__ float quant_row(const __nv_bfloat16* x, int D, float* c,
+                           float* sred) {
+  float m = 0.f;
+  for (int i = threadIdx.x; i < D; i += NT)
+    m = fmaxf(m, fabsf(__bfloat162float(x[i])));
+  m = nctt::warp_max(m);
+  if ((threadIdx.x & 31) == 0) sred[threadIdx.x >> 5] = m;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) m = fmaxf(m, sred[w]);   // order-free
+  const float sc = __fmul_rn(fmaxf(m, 1e-6f), 1.0f / 127.0f);
+  for (int i = threadIdx.x; i < D; i += NT)
+    c[i] = fminf(fmaxf(rintf(__fdiv_rn(__bfloat162float(x[i]), sc)), -127.f),
+                 127.f);
+  __syncthreads();
+  return sc;
+}
+
+// K18: the block's max |o| into *amax by one atomicMax on the float bits
+// (non-negative floats order as their bits). sred: NT / 32 floats.
+template <int NT>
+__device__ void amax_out(unsigned* amax, float m, float* sred) {
+  m = nctt::warp_max(m);
+  if ((threadIdx.x & 31) == 0) sred[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int w = 1; w < NT / 32; ++w) m = fmaxf(m, sred[w]);
+    atomicMax(amax, __float_as_uint(m));
+  }
+}
+
 // Launch 1: the scores of the group's rows over this part's keys and each
 // row's maximum over the part. DC: D at compile time (0: at run time); GP:
 // the group's rows at compile time, zero rows past G (0: G at run time).
@@ -323,8 +393,15 @@ __global__ void __launch_bounds__(NT, min_blocks<K6, NT, GP>())
                           ? (DC * F::ESIZE + 15) / 16 / NS : 0;
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ float smx[2][MAX_REP], sraw[MAX_REP];
+  // K16's int8 write: the new row's k and v codes, the block's maxima
+  constexpr int QD = K6 && FMT == INT8 ? 256 : 1;
+  __shared__ float sck[QD], scv[QD], sqr[NT / 32];
   if constexpr (K6) allow_next_launch();   // one slot: a wave or less
-  const Block<FMT, K6> k(a);
+  // K18: the amax word zeroed for this call's PV blocks, which take it
+  // after this launch has finished (the call before has finished with it)
+  if (a.amax && blockIdx.x + blockIdx.y + blockIdx.z + threadIdx.x == 0)
+    *a.amax = 0u;
+  const Block<FMT, K6> k(a, false);
   if (!k.active()) return;
   const int D = DC ? DC : a.D;
   const int nc = (D * F::ESIZE + 15) / 16;
@@ -336,8 +413,15 @@ __global__ void __launch_bounds__(NT, min_blocks<K6, NT, GP>())
   double* spart = sq + RS * DQ;            // [NS][RS][SLOTS]
   const int nst = a.stages < k.nt ? a.stages : k.nt;
   const int tile_bytes = SLOTS * k.srow;
+  // K16's write: the cache's row pos is not read (bf16: the new row is
+  // staged in its place; int8: it is scored apart)
+  const int sk = a.write ? k.newk : -1;
+  const uint8_t* nrow =
+      FMT == BF16 && sk >= 0
+          ? reinterpret_cast<const uint8_t*>(a.kn + (size_t)k.bh * D)
+          : nullptr;
   auto stage = [&](int i, int s) {
-    k.stage(a, a.kc, i, buf + s * tile_bytes);
+    k.stage(a, a.kc, i, buf + s * tile_bytes, sk, nrow);
   };
   ring_begin(k.nt, nst, stage);            // the K tiles' copies first
   for (int i = tid; i < RS * DQ; i += NT) {
@@ -348,16 +432,58 @@ __global__ void __launch_bounds__(NT, min_blocks<K6, NT, GP>())
   if (tid < MAX_REP) sraw[tid] = -INFINITY;
   __syncthreads();
   if constexpr (K6) {
-    // the raw new row at pos, scale 1: s = f32(q . k_new) * 1/sqrt(D)
+    // K16's write: group 0's block stores the new row at pos (bf16; the
+    // int8 codes and scales below); nothing in this call reads it there
+    if constexpr (FMT == BF16) {
+      if (sk >= 0 && k.g == 0) {
+        const size_t at = ((size_t)k.bh * a.T + sk) * D;
+        const __nv_bfloat16* kn = a.kn + (size_t)k.bh * D;
+        const __nv_bfloat16* vn = a.vn + (size_t)k.bh * D;
+        __nv_bfloat16* kc = (__nv_bfloat16*)a.kc;   // the written cache
+        __nv_bfloat16* vc = (__nv_bfloat16*)a.vc;
+        for (int e = tid; e < D; e += NT) {
+          kc[at + e] = kn[e];
+          vc[at + e] = vn[e];
+        }
+      }
+    }
+    // the new row at pos, scored apart: K6's raw row, scale 1, s = f32(q .
+    // k_new) * 1/sqrt(D); K16's int8 row as its codes times the new scale,
+    // s = f32(q . codes) * f32(k_scale * 1/sqrt(D))
     if (k.raw >= 0) {
       const __nv_bfloat16* kn = a.kn + (size_t)k.bh * D;
+      float rscale = a.scale;
+      bool codes = false;
+      if constexpr (FMT == INT8) {
+        if (a.write) {
+          const float ksc = quant_row<NT>(kn, D, sck, sqr);
+          rscale = __fmul_rn(ksc, a.scale);
+          codes = true;
+          if (k.g == 0) {   // the stored codes and scales
+            const float vsc =
+                quant_row<NT>(a.vn + (size_t)k.bh * D, D, scv, sqr);
+            const size_t at = (size_t)k.bh * a.T + k.raw;
+            int8_t* kc = (int8_t*)a.kc;               // the written cache
+            int8_t* vc = (int8_t*)a.vc;
+            for (int e = tid; e < D; e += NT) {
+              kc[at * D + e] = (int8_t)sck[e];
+              vc[at * D + e] = (int8_t)scv[e];
+            }
+            if (tid == 0) {
+              ((float*)a.ks)[at] = ksc;
+              ((float*)a.vs)[at] = vsc;
+            }
+          }
+        }
+      }
       for (int r = tid >> 5; r < G; r += NS) {
         double d = 0.0;
         for (int e = tid & 31; e < D; e += 32)
-          d += sq[r * DQ + e] * (double)__bfloat162float(kn[e]);
+          d += sq[r * DQ + e] *
+               (codes ? (double)sck[e] : (double)__bfloat162float(kn[e]));
         d = nctt::warp_sum(d);
         if ((tid & 31) == 0) {
-          const float s = __fmul_rn((float)d, a.scale);
+          const float s = __fmul_rn((float)d, rscale);
           a.ws[(size_t)(k.q0 + r) * a.T + k.raw] = s;
           sraw[r] = s;
         }
@@ -475,7 +601,7 @@ __global__ void __launch_bounds__(NT) lsum_kernel(const Args a) {
   __shared__ float sm[MAX_REP];
   __shared__ double sred[1][NT / 32][MAX_REP];
   allow_next_launch();
-  const Block<FMT, true> k(a);
+  const Block<FMT, true> k(a, false);
   if (!k.active()) return;
   wait_prior_launch();
   global_max(a, k.q0, k.G, k.np, sm);
@@ -504,8 +630,13 @@ __global__ void __launch_bounds__(NT, min_blocks<K6, NT, GP>())
   __shared__ double sl[MAX_REP], sraw_p[MAX_REP];
   __shared__ double se[MAX_REP * SLOTS / 32];
   __shared__ double sred[K6 ? LSUM_MAX : 1][NT / 32][MAX_REP];
+  __shared__ float sam[NT / 32];
   __shared__ int last;
-  const Block<FMT, K6> k(a);
+  // a dependent launch after this one may start now: K18's o-projection
+  // stage in the design the sweep measures (fused_matvec.ATTN_O_DEPENDENT);
+  // K5, K6, K7 and the shipped K18 launch nothing that way after PV
+  allow_next_launch();
+  const Block<FMT, K6> k(a, true);
   if (!k.active()) return;
   const int D = DC ? DC : a.D;
   const int G = k.G, tid = threadIdx.x;
@@ -515,13 +646,22 @@ __global__ void __launch_bounds__(NT, min_blocks<K6, NT, GP>())
       buf + pv_ring(a.D, F::ESIZE, RS, a.stages, NSG));   // [RS][SLOTS]
   const int nst = a.stages < k.nt ? a.stages : k.nt;
   const int tile_bytes = SLOTS * k.srow;
+  // K16's write: bf16 stages v_new in place of the cache's row pos; the
+  // int8 codes at pos are stored by launch 1, so the block holding them
+  // stages its tiles only once that launch has finished
+  const int sk = a.write && FMT == BF16 ? k.newk : -1;
+  const uint8_t* nrow =
+      sk >= 0 ? reinterpret_cast<const uint8_t*>(a.vn + (size_t)k.bh * D)
+              : nullptr;
+  const bool late = F::QUANT && a.write && k.newk >= 0;
   auto stage = [&](int i, int s) {
-    k.stage(a, a.vc, i, buf + s * tile_bytes);
+    k.stage(a, a.vc, i, buf + s * tile_bytes, sk, nrow);
   };
-  ring_begin(k.nt, nst, stage);            // the V tiles' copies first
+  if (!late) ring_begin(k.nt, nst, stage);  // the V tiles' copies first
   for (int i = G * SLOTS + tid; i < RS * SLOTS; i += NT)
     sp[i] = 0.0;       // the padded rows' p: never written, always read
   wait_prior_launch();                     // the scores and part maxima
+  if (late) ring_begin(k.nt, nst, stage);
   // the scores and v scales of a tile's (row, slot) pairs, fetched a tile
   // ahead so that their loads overlap the PV products (the first tile's
   // beside the maxima)
@@ -695,10 +835,18 @@ __global__ void __launch_bounds__(NT, min_blocks<K6, NT, GP>())
       }
     }
   }
+  // the output: bf16, or K18's float32 rows and the block's max |o|
+  float omax = 0.f;
   auto emit = [&](int r, int col, double acc, float l) {
     float v = (float)acc;
     if constexpr (!K6) v = __fdiv_rn(v, l);   // K7 normalises after PV
-    a.out[(size_t)(k.q0 + r) * D + col] = __float2bfloat16_rn(v);
+    const size_t i = (size_t)(k.q0 + r) * D + col;
+    if (a.att) {
+      a.att[i] = v;
+      omax = fmaxf(omax, fabsf(v));
+    } else {
+      a.out[i] = __float2bfloat16_rn(v);
+    }
   };
   if (k.np == 1) {   // the only part holding keys: no fold
     if (hs == 0 && c < CT) {
@@ -712,6 +860,7 @@ __global__ void __launch_bounds__(NT, min_blocks<K6, NT, GP>())
         }
       }
     }
+    if (a.att) amax_out<NT>(a.amax, omax, sam);
     return;
   }
   // this part's partials, then the fold by the group's last block, parts
@@ -763,13 +912,14 @@ __global__ void __launch_bounds__(NT, min_blocks<K6, NT, GP>())
     emit(r, d, acc, sfl[r]);
   }
   if (tid == 0) *ticket = 0;
+  if (a.att) amax_out<NT>(a.amax, omax, sam);
 }
 
 // a launch that may start while the one before it on the stream drains
 // (it waits in wait_prior_launch before it reads that launch's output)
-inline cudaError_t dependent_launch(void (*kernel)(Args), dim3 grid, int nt,
-                                    size_t smem, cudaStream_t stream,
-                                    const Args& a) {
+template <typename A>
+cudaError_t dependent_launch(void (*kernel)(A), dim3 grid, int nt,
+                             size_t smem, cudaStream_t stream, const A& a) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;

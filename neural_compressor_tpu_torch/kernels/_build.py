@@ -56,13 +56,16 @@ SIGNATURES = {
     "nctt_decode_attention_hbm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                                   _F, _P],
     # q, k_new, v_new, k_cache, k_scale, v_cache, v_scale (scales null for
-    # bf16), out, ws, B, H, Hkv, T, D, pos, fmt (0 bf16, 1 int8), scale,
-    # stream
-    "nctt_decode_attention_write": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                    _I, _I, _I, _I, _P, _I, _F, _P],
-    # q, k_cache, v_cache, pos, w, scales, residual, y, att (f32 scratch),
-    # amax (u32, zeroed), ws, H, Hkv, T, D, N, scale, stream
-    "nctt_attn_o": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+    # bf16), pos (int32 [B] on the device), out, plan (decode_workspace's
+    # argument block), B, H, Hkv, T, D, fmt (0 bf16, 1 int8), scale, stream
+    # (K16's in-kernel write)
+    "nctt_decode_attention_write": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_cache, v_cache, pos, w, scales, residual, y, plan
+    # (decode_workspace's argument block: scratch, att, amax), H, Hkv, T, D,
+    # N, cols (of an o-projection block), dependent (1: the o-projection a
+    # dependent launch), scale, stream (K18)
+    "nctt_attn_o": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                     _I, _I, _F, _P],
     # x, residual, rms_w, ow, osc, guw, gusc, dw, dsc, y, x1s, hs (f32
     # scratch), Ko, Kh, I, Go, Gg, Gd, tn_i, eps, has_o, stream

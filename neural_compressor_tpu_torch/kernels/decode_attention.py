@@ -49,9 +49,10 @@ Ports ``neural_compressor_tpu/kernels/decode_attention.py``:
     ``set_ro_cache_space``):
       - ``"kernel"`` write mode: ``_decode_attn_impl`` / ``_kernel``
         (bf16) and ``_decode_attn_quant_impl`` / ``_kernel_q`` (int8),
-        ``decode_attn_write``, a third entry of
-        ``csrc/decode_attention.cu``. The kernel stores the new row at
-        ``pos`` and attends it from its inputs. bf16 equals K5 plus the
+        ``decode_attn_write`` (``csrc/decode_attention.cu``): K5's launches
+        (bf16) or K6's (int8) on ``decode_plan(..., k6=True)``. The kernel
+        stores the new row at ``pos`` and attends it from its inputs. bf16
+        stages the new row in place of the cache's and equals K5 plus the
         outside write bit for bit. int8 quantizes the row by the TPU
         kernel's own rule, ``scale = max(amax, 1e-6) / 127`` and codes
         clipped to +-127 (``_kv_quant`` takes ``amax <= 0 -> 1`` and
@@ -67,14 +68,18 @@ Ports ``neural_compressor_tpu/kernels/decode_attention.py``:
     The port reads the switches at call time (JAX at trace time).
 
 The CUDA kernels keep each query row's float32 scores over the visited rows
-in a workspace in device memory (``score_workspace``, or the split's
-scratch), not in a block's shared memory, so they take contexts of any
-length, as the TPU kernels do (their chunked online softmax has no such
-limit either). K5, K6 and K7 cut each slot's keys into parts of a fixed
-size (``decode_plan``) that blocks take in parallel: scores and part
-maxima, then p against the row's global maximum, float64 PV partials and
-their fold in ascending part order, so the split moves no bit
-(``tests/test_torch_decode_split.py`` emulates it).
+in a workspace in device memory (the split's scratch, or
+``score_workspace`` for K16's bulk copies), not in a block's shared
+memory, so they take contexts of any length, as the TPU kernels do (their
+chunked online softmax has no such limit either). K5, K6, K7, K16's write
+and K18's attention (``kernels/fused_matvec.py`` ``attn_o``) cut each
+slot's keys into parts of a fixed size (``decode_plan``) that blocks take
+in parallel: scores and part maxima, then p against the row's global
+maximum, float64 PV partials and their fold in ascending part order, so
+the split moves no bit (``tests/test_torch_decode_split.py`` and
+``tests/test_torch_variant_split.py`` emulate it). Their scratch and the
+C entries' argument block come from ``decode_workspace``, cached per plan
+and device: a call allocates its output and nothing else.
 """
 
 from __future__ import annotations
@@ -98,9 +103,9 @@ BATCHED_KERNEL_D = (*KERNEL_D, *range(353, 385), *range(481, 513))
 
 
 def score_workspace(B: int, rows: int, T: int, device) -> torch.Tensor:
-    """The float32 score rows [B, rows, T] the attention kernels keep in
-    device memory instead of shared memory, so that no context length is
-    too long for a block."""
+    """The float32 score rows [B, rows, T] that K16's bulk-copy kernel and
+    K11 keep in device memory instead of shared memory, so that no context
+    length is too long for a block."""
     return torch.empty((B, rows, T), dtype=torch.float32, device=device)
 
 
@@ -296,10 +301,12 @@ _K16_FORMATS = {torch.bfloat16: ("bf16", 0), torch.int8: ("int8", 1)}
 def decode_attn_write(q, k_new, v_new, k_cache, k_scale, v_cache, v_scale,
                       pos) -> torch.Tensor:
     """K16's in-kernel write on the card (``csrc/decode_attention.cu``,
-    ``nctt_decode_attention_write``); the plain version for CPU tensors.
-    Arguments as in ``decode_attn_write_plain``; the positions stay on the
-    device. Launches are counted per cache format in
-    ``decode_attn_write.launches``."""
+    ``nctt_decode_attention_write``: K5's two or three CUDA launches a call
+    for bf16, K6's for int8, as ``decode_plan(..., k6=True)`` says, the
+    new rows stored by the launches; scratch from ``decode_workspace``);
+    the plain version for CPU tensors. Arguments as in
+    ``decode_attn_write_plain``; the positions stay on the device. Launches
+    are counted per cache format in ``decode_attn_write.launches``."""
     if q.device.type == "cpu":
         return decode_attn_write_plain(q, k_new, v_new, k_cache, k_scale,
                                        v_cache, v_scale, pos)
@@ -320,13 +327,13 @@ def decode_attn_write(q, k_new, v_new, k_cache, k_scale, v_cache, v_scale,
     if code:
         _build.require(k_scale, "k_scale", torch.float32, dev, (B, Hkv, T))
         _build.require(v_scale, "v_scale", torch.float32, dev, (B, Hkv, T))
+    plan = decode_plan(B, H, Hkv, T, D, fmt, True)
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
-    ws = score_workspace(B, H, T, dev)
     err = _build.library().nctt_decode_attention_write(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_cache.data_ptr(),
         k_scale.data_ptr() if code else None, v_cache.data_ptr(),
-        v_scale.data_ptr() if code else None, out.data_ptr(), ws.data_ptr(),
-        B, H, Hkv, T, D, pos.data_ptr(), code, 1.0 / (D ** 0.5),
+        v_scale.data_ptr() if code else None, pos.data_ptr(), out.data_ptr(),
+        decode_workspace(plan, dev), B, H, Hkv, T, D, code, 1.0 / (D ** 0.5),
         _build.stream_handle(dev))
     _build.check(err, "nctt_decode_attention_write")
     decode_attn_write.launches[fmt] += 1
@@ -377,8 +384,9 @@ def decode_attention(q, k_new, v_new, k_cache, v_cache, pos):
 
 
 class DecodePlan(NamedTuple):
-    """How K5, K6 and K7 cut one call (``decode_plan``): query-row groups,
-    key parts, the blocks' ring and threads, and the scratch's sizes."""
+    """How K5, K6, K7, K16's write and K18's attention cut one call
+    (``decode_plan``): query-row groups, key parts, the blocks' ring and
+    threads, and the scratch's sizes."""
     groups: int          # ng: groups of query rows a (slot, KV head)
     group_rows: int      # gs: rows a group, at most 8 (6 past D 384)
     part_keys: int       # keys a part: whole 64-row tiles from key 0 on
@@ -391,6 +399,7 @@ class DecodePlan(NamedTuple):
     maxima: int          # float32 part maxima (K6's part sums: float64)
     partials: int        # float64 partials: acc, then l
     tickets: int         # int32 tickets, one a (slot, KV head, group)
+    outputs: int         # K18's float32 attention rows, B * H * D
 
 
 # keys a part holds where T <= MAX_PARTS * PART_KEYS (whole 64-row tiles);
@@ -446,42 +455,48 @@ def decode_plan(B: int, H: int, Hkv: int, T: int, D: int, fmt: str,
     return DecodePlan(ng, gs, part_keys, parts, stages, threads,
                       int(k6 and parts > LSUM_PARTS), (parts, Hkv * ng, B),
                       B * H * T, B * H * parts, B * H * parts * (D + 1),
-                      B * Hkv * ng)
+                      B * Hkv * ng, B * H * D)
 
 
-# device -> (sizes held, buffers, {plan: argument block}): K6's and K7's own
+# device -> (sizes held, buffers, {plan: argument block}): the split's own
 # scratch, flat: score rows and part maxima (float32), partials and K6's
-# part sums (float64, the latter of the maxima's size) and tickets (int32,
-# kept zeroed), replaced by larger ones (and the argument blocks dropped)
-# when a call needs more. Calls on one stream run in order, so one call's
-# scratch is free when the next starts; the folding blocks reset their
-# tickets to 0.
+# part sums (float64, the latter of the maxima's size), tickets (int32,
+# kept zeroed), K18's float32 attention rows and its amax word (zeroed by
+# each call's first launch), replaced by larger ones (and the argument
+# blocks dropped) when a call needs more. Calls on one stream run in order,
+# so one call's scratch is free when the next starts; the folding blocks
+# reset their tickets to 0.
 _SCRATCH: dict = {}
 
 
 def decode_workspace(plan: DecodePlan, device) -> int:
-    """The address of the argument block of K6's and K7's C entries for
-    ``plan`` on ``device``: eleven 64-bit words, the scratch's addresses
-    (score rows, part maxima, partials, K6's part sums, tickets) and the
-    plan (groups, part keys, parts, stages, threads, lsum). The scratch is
-    flat buffers of at least the plan's sizes kept per device between
-    calls; the blocks are cached per plan."""
+    """The address of the argument block of the split's C entries (K5, K6,
+    K7, K16's write, K18) for ``plan`` on ``device``: thirteen 64-bit
+    words, the scratch's addresses (score rows, part maxima, partials, K6's
+    part sums, tickets, K18's attention rows and amax word) and the plan
+    (groups, part keys, parts, stages, threads, lsum), in the order of
+    ``PlanWord`` in csrc/decode_split.cuh. The scratch is flat buffers of
+    at least the plan's sizes kept per device between calls; the blocks
+    are cached per plan."""
     have = _SCRATCH.get(device)
     if have is not None:
         block = have[2].get(plan)
         if block is not None:
             return block[1]
-    need = (plan.scores, plan.maxima, plan.partials, max(plan.tickets, 1024))
+    need = (plan.scores, plan.maxima, plan.partials, max(plan.tickets, 1024),
+            plan.outputs)
     if have is None or any(h < n for h, n in zip(have[0], need)):
         n = need if have is None else tuple(map(max, have[0], need))
         bufs = (torch.empty(n[0], dtype=torch.float32, device=device),
                 torch.empty(n[1], dtype=torch.float32, device=device),
                 torch.empty(n[2], dtype=torch.float64, device=device),
                 torch.empty(n[1], dtype=torch.float64, device=device),
-                torch.zeros(n[3], dtype=torch.int32, device=device))
+                torch.zeros(n[3], dtype=torch.int32, device=device),
+                torch.empty(n[4], dtype=torch.float32, device=device),
+                torch.zeros(4, dtype=torch.int32, device=device))
         have = (n, bufs, {})
         _SCRATCH[device] = have
-    words = (ctypes.c_int64 * 11)(
+    words = (ctypes.c_int64 * 13)(
         *(b.data_ptr() for b in have[1]), plan.groups, plan.part_keys,
         plan.parts, plan.stages, plan.threads, plan.lsum)
     have[2][plan] = (words, ctypes.addressof(words))

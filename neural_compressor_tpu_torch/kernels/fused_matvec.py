@@ -211,6 +211,17 @@ def fused_matvec(x: torch.Tensor, pw: PackedWeight, *, rms_w=None,
 # read at call time by LlamaDecoderLayer._fused_call
 ATTN_O_FUSED = False
 
+# output columns a block of K18's o-projection stage (csrc/attn_o.cu
+# oproj_kernel): 256 blocks at llama2-7b's N = 4096
+ATTN_O_COLS = 16
+# 0: K18's o-projection stage is an ordinary launch after the attention's
+# PV launch. 1, a design the sweep measures (tools/decode_attn_sweep.py
+# --sweep): a programmatic dependent launch, its weight copies issued while
+# the attention runs; they contend with PV's reads, and at llama2-7b's shapes
+# the call measured slower than with the ordinary launch (PERF.md)
+ATTN_O_DEPENDENT = 0
+
+
 
 def attn_o_plain(q, k_cache, v_cache, pos, w, scales, residual,
                  out_dtype=torch.bfloat16) -> torch.Tensor:
@@ -234,13 +245,17 @@ def attn_o_plain(q, k_cache, v_cache, pos, w, scales, residual,
 
 
 def attn_o(q, k_cache, v_cache, pos, w, scales, residual) -> torch.Tensor:
-    """K18 on the card (``csrc/attn_o.cu``, one cooperative launch); the
+    """K18 on the card (``csrc/attn_o.cu``): K5's launches over the bf16
+    caches (``decode_attention.decode_plan(1, H, Hkv, T, D, "bf16",
+    k6=True)``) with float32 rows and one amax, then the o-projection stage,
+    ``ATTN_O_COLS`` columns a block; scratch, the
+    rows and the amax word from ``decode_attention.decode_workspace``. The
     plain version for CPU tensors. Arguments as in ``attn_o_plain``; the
     position stays on the device."""
     if q.device.type == "cpu":
         return attn_o_plain(q, k_cache, v_cache, pos, w, scales, residual,
                             q.dtype)
-    from .decode_attention import pos_vector, score_workspace
+    from .decode_attention import decode_plan, decode_workspace, pos_vector
 
     dev = q.device
     H, D = q.shape
@@ -260,15 +275,13 @@ def attn_o(q, k_cache, v_cache, pos, w, scales, residual) -> torch.Tensor:
     _build.require(scales, "scales", torch.float32, dev, (K // D, N))
     residual = residual.reshape(N)
     _build.require(residual, "residual", torch.bfloat16, dev, (N,))
+    plan = decode_plan(1, H, Hkv, T, D, "bf16", True)
     y = torch.empty(N, dtype=torch.bfloat16, device=dev)
-    att = torch.empty(K, dtype=torch.float32, device=dev)
-    amax = torch.zeros(1, dtype=torch.int32, device=dev)
-    ws = score_workspace(1, H, T, dev)
     err = _build.library().nctt_attn_o(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         w.data_ptr(), scales.data_ptr(), residual.data_ptr(), y.data_ptr(),
-        att.data_ptr(), amax.data_ptr(), ws.data_ptr(), H, Hkv, T, D, N,
-        1.0 / (D ** 0.5), _build.stream_handle(dev))
+        decode_workspace(plan, dev), H, Hkv, T, D, N, ATTN_O_COLS,
+        ATTN_O_DEPENDENT, 1.0 / (D ** 0.5), _build.stream_handle(dev))
     _build.check(err, "nctt_attn_o")
     attn_o.launches += 1
     return y
@@ -279,7 +292,7 @@ attn_o.launches = 0
 
 def attn_o_fused(q, k_new, v_new, cache, pos, pw_o: PackedWeight, residual,
                  out_dtype=None):
-    """B=1 decode attention and the o-projection in one launch (K18).
+    """B=1 decode attention and the o-projection in one call of K18.
 
     q [1, H, 1, D] (rope applied); ``k_new``/``v_new`` [1, Hkv, 1, D];
     ``cache`` a ``KVCache`` ([1, Hkv, T, D] tensors); ``pos`` an int or a

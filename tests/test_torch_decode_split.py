@@ -58,10 +58,13 @@ def _case(seed, fmt, rep, D, quant=True):
     return q, kn, vn, cache, torch.tensor(POS, dtype=torch.int32)
 
 
-def split_emulated(q, k, ks, v, vs, pos, k_new=None, v_new=None, k6=None):
+def split_emulated(q, k, ks, v, vs, pos, k_new=None, v_new=None, k6=None,
+                   out_dtype=torch.bfloat16, partials=None):
     """K7 (``k_new`` None), K6 or K5 (``k6`` over bf16 rows, no ``k_new``)
     as the kernels compute them, part by part, in float64 -> (out [B, H, D]
-    bf16, the parts' key ranges, valid)."""
+    in ``out_dtype``: bf16, or K18's float32 rows; the parts' key ranges;
+    valid). ``partials``, a list, receives each part's float64 PV sums
+    [B, H, D] in part order."""
     B, H, D = q.shape
     Hkv, Tc = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -107,12 +110,14 @@ def split_emulated(q, k, ks, v, vs, pos, k_new=None, v_new=None, k6=None):
     p = pe.to(torch.bfloat16).to(F64)
     acc = torch.zeros(qr.shape, dtype=F64)
     for a, b in cuts:
-        acc = acc + torch.einsum("bgrt,bgtd->bgrd", p[..., a:b],
-                                 vf[:, :, a:b])
+        pv = torch.einsum("bgrt,bgtd->bgrd", p[..., a:b], vf[:, :, a:b])
+        if partials is not None:
+            partials.append(pv.reshape(B, H, D))
+        acc = acc + pv
     out = acc.to(F32)
     if not k6:                             # K7 normalises after PV
         out = out / l.to(F32)[..., None]
-    return out.reshape(B, H, D).to(torch.bfloat16), cuts, valid
+    return out.reshape(B, H, D).to(out_dtype), cuts, valid
 
 
 def _cover(cuts, valid):

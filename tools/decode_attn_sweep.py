@@ -1,5 +1,6 @@
-"""K5 (``decode_attn``), K6 (``decode_attn_quant``) and K7
-(``batched_decode_attn``) at the llama2-7b shapes of the main paths, for
+"""K5 (``decode_attn``), K6 (``decode_attn_quant``), K7
+(``batched_decode_attn``), K16's in-kernel write (``decode_attn_write``)
+and K18 (``attn_o``) at the llama2-7b shapes of the main paths, for
 choosing the split's plan and for comparing two checkouts on one card:
 each call against its plain version (bit for bit, and within
 ``chip_smoke.kv_tol``), its event ms (back-to-back calls, caches rotated
@@ -14,17 +15,24 @@ timers are ``chip_smoke.py``'s (``timed_ms``, ``backlog_ms``,
     python3 tools/decode_attn_sweep.py [--root <checkout>] [--sweep]
 
 Cases: K7 over 8 slots at ``chip_smoke.SLOT_POS`` (bf16, int8, fp8), K6 at
-B=1 at positions 0, 517 and 1023 (int8, fp8) and K5 at B=1 at the same
-positions (bf16), all over 1024-row caches of 32 heads of 128; beside K5,
-its yardstick SDPA over the visited rows (event, device and back-to-back
-ms). ``--root`` imports the port from another checkout (only the wrappers'
-public arguments are used), so run parent, change, change, parent in one
-call. ``--sweep`` (a checkout with ``decode_plan``) also runs every case at
-other plans: parts of 64, 128, 192 and 256 keys (``PART_KEYS``) at 128 and
-256 threads a block at D 128 (``THREADS_D128``), rings of 1 to 4 tiles
-(``RING_STAGES``) and K5's and K6's part sums in a third launch at every
-part count (``LSUM_PARTS`` 0), each constant set for the measurement and
-then restored.
+B=1 at positions 0, 517 and 1023 (int8, fp8), K5 and K16's write (bf16 and
+int8, an all-zero new k row in the int8 case) at B=1 at the same positions
+and K18 there with the o-projection of N 4096, all over 1024-row caches of
+32 heads of 128; beside K5 and K16's write, the yardstick SDPA over the
+visited rows, beside K18 SDPA then ``torch.matmul`` of the bf16 weights
+(event, device and back-to-back ms). Every case must equal its plain
+version bit for bit but K18's, which is held to ``chip_smoke.ulp_check``
+(its plain version sums the o-projection's groups in another order). ``--root`` imports the port from another checkout
+(only the wrappers' public arguments are used), so run parent, change,
+change, parent in one call. ``--sweep`` (a checkout with ``decode_plan``)
+also runs every case at other plans: parts of 64, 128, 192 and 256 keys
+(``PART_KEYS``) at 128 and 256 threads a block at D 128
+(``THREADS_D128``), rings of 1 to 4 tiles (``RING_STAGES``), K5's and
+K6's part sums in a third launch at every part count (``LSUM_PARTS`` 0),
+and K18's o-projection stage at 8, 32 and 64 columns a block
+(``fused_matvec.ATTN_O_COLS``) and as a programmatic dependent launch of
+PV (``fused_matvec.ATTN_O_DEPENDENT`` 1), each constant set for the
+measurement and then restored.
 """
 
 import argparse
@@ -44,11 +52,14 @@ SLOT_POS = (0, 127, 128, 300, 517, 640, 901, 1023)
 K6_POS = (0, 517, 1023)
 H = HKV = 32
 D, T = 128, 1024
-# the kernels a case may launch, as torch.profiler names them (K5's, K6's
-# and K7's split, and the single-pass kernels of a parent checkout)
+N_O = 4096                       # K18's o-projection: [H*D, N_O]
+# the kernels a case may launch, as torch.profiler names them (the split's,
+# K18's o-projection stage, and the single-pass kernels of a parent
+# checkout)
 NAMES = ("nctt_dsplit::scores_kernel", "nctt_dsplit::pv_kernel",
-         "nctt_dsplit::lsum_kernel", "batched_decode_attention_kernel",
-         "decode_attention_quant_kernel", "::decode_attention_kernel<")
+         "nctt_dsplit::lsum_kernel", "oproj_kernel", "attn_o_kernel",
+         "batched_decode_attention_kernel", "decode_attention_quant_kernel",
+         "::decode_attention_kernel<")
 
 
 def yardstick(torch, label, fns):
@@ -81,10 +92,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("no CUDA device")
     from neural_compressor_tpu_torch import kernels as K
+    from neural_compressor_tpu_torch.ops import (dequantize_packed,
+                                                 pack_qtensor,
+                                                 quantize_tensor, to_hopper)
     from neural_compressor_tpu_torch.ops import kv_quant as kq
 
     da = importlib.import_module(
         "neural_compressor_tpu_torch.kernels.decode_attention")
+    fm = importlib.import_module(
+        "neural_compressor_tpu_torch.kernels.fused_matvec")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), f"root={args.root}",
@@ -120,13 +136,23 @@ def main() -> None:
             return call
 
     k1b, v1b = randn(1, 8, 128, D), randn(1, 8, 128, D)
+    wo = to_hopper(pack_qtensor(quantize_tensor(
+        torch.randn(8 * D, 1024, generator=gen, device=dev) * 0.03, bits=4,
+        group_size=D)))
+    r1 = randn(1024)
     for label, fn in (
             ("decode_attn B=1 T=128", lambda: K.decode_attn(q1, k1b, v1b,
                                                              p1)),
             ("decode_attn_quant B=1 T=128", lambda: K.decode_attn_quant(
                 q1, kn1, vn1, *c1, p1)),
             ("batched_decode_attn B=8 T=128", lambda: K.batched_decode_attn(
-                qb, kb, vb, pb))):
+                qb, kb, vb, pb)),
+            ("decode_attn_write bf16 B=1 T=128", lambda: K.decode_attn_write(
+                q1, kn1, vn1, k1b, None, v1b, None, p1)),
+            ("decode_attn_write int8 B=1 T=128", lambda: K.decode_attn_write(
+                q1, kn1, vn1, *c1, p1)),
+            ("attn_o H=8 T=128 N=1024", lambda: K.attn_o(
+                q1[0], k1b[0], v1b[0], p1, wo.packed, wo.scales, r1))):
         whole = host_us(fn)
         torch.cuda.synchronize()
         rec = Recorder()
@@ -184,13 +210,74 @@ def main() -> None:
              for c in caches],
             lambda c=caches[0], p=pos1: K.decode_attn_plain(
                 q1.cpu(), c[0].cpu(), c[1].cpu(), p.cpu()))
+    # K16's write, over caches of its own: its calls store the same row at
+    # pos each time (a case's reference is taken before its first call)
+    wcaches = [(a.clone(), b.clone()) for a, b in caches]
+    for pos in K6_POS:
+        pos1 = torch.tensor([pos], dtype=torch.int32, device=dev)
+        cases[f"k16w bf16 B=1 pos={pos}"] = (
+            [lambda c=c, p=pos1: K.decode_attn_write(q1, kn1, vn1, c[0],
+                                                     None, c[1], None, p)
+             for c in wcaches],
+            lambda c=wcaches[0], p=pos1: K.decode_attn_write_plain(
+                q1.cpu(), kn1.cpu(), vn1.cpu(), c[0].cpu(), None,
+                c[1].cpu(), None, p.cpu()))
+    kz = kn1.clone()
+    kz[0, 1] = 0                     # an all-zero new row
+    caches8 = [(*kq.kv_quant(randn(1, HKV, T, D), "int8"),
+                *kq.kv_quant(randn(1, HKV, T, D), "int8"))
+               for _ in range(n_copies(2 * HKV * T * (D + 4)))]
+    for pos in K6_POS:
+        pos1 = torch.tensor([pos], dtype=torch.int32, device=dev)
+        cases[f"k16w int8 B=1 pos={pos}"] = (
+            [lambda c=c, p=pos1: K.decode_attn_write(q1, kz, vn1, *c, p)
+             for c in caches8],
+            lambda c=caches8[0], p=pos1: K.decode_attn_write_plain(
+                q1.cpu(), kz.cpu(), vn1.cpu(), *(t.cpu() for t in c),
+                p.cpu()))
+    # K18: the caches above as one slot's, the o weights in copies
+    pw = to_hopper(pack_qtensor(quantize_tensor(
+        torch.randn(H * D, N_O, generator=gen, device=dev) * (H * D) ** -0.5,
+        bits=4, group_size=D)))
+    wbytes = pw.packed.numel() + pw.scales.numel() * 4
+    wcs = [(pw.packed.clone(), pw.scales.clone())
+           for _ in range(n_copies(wbytes))]
+    qh, res = q1[0], randn(N_O)
+    n18 = max(len(caches), len(wcs))
+    for pos in K6_POS:
+        pos1 = torch.tensor([pos], dtype=torch.int32, device=dev)
+        cases[f"k18 B=1 pos={pos} N={N_O}"] = (
+            [lambda i=i, p=pos1: K.attn_o(
+                qh, caches[i % len(caches)][0][0],
+                caches[i % len(caches)][1][0], p, *wcs[i % len(wcs)], res)
+             for i in range(n18)],
+            lambda p=pos1: K.attn_o_plain(
+                qh.cpu(), caches[0][0][0].cpu(), caches[0][1][0].cpu(),
+                p.cpu(), pw.packed.cpu(), pw.scales.cpu(), res.cpu()))
     # the yardstick of K5's rows (never used by the port): SDPA over the
     # visited rows, its event, device and back-to-back ms
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for pos in K6_POS:
         fns = [lambda c=c, n=pos + 1: sdpa(q1[:, :, None], c[0][:, :, :n],
                                           c[1][:, :, :n]) for c in caches]
-        yardstick(torch, f"sdpa beside k5 B=1 pos={pos}", fns)
+        yardstick(torch, f"sdpa beside k5 and k16w bf16 B=1 pos={pos}", fns)
+        deq = [(kq.kv_dequant(c[0], c[1], torch.bfloat16),
+                kq.kv_dequant(c[2], c[3], torch.bfloat16))
+               for c in caches8[:4]]
+        fns = [lambda c=c, n=pos + 1: sdpa(q1[:, :, None], c[0][:, :, :n],
+                                          c[1][:, :, :n]) for c in deq]
+        yardstick(torch, f"sdpa beside k16w int8 B=1 pos={pos}", fns)
+        # K18's: SDPA then torch.matmul of the o weights in bf16
+        wds = [dequantize_packed(pw, torch.bfloat16)] + [
+            dequantize_packed(pw, torch.bfloat16).clone()
+            for _ in range(n_copies(H * D * N_O * 2) - 1)]
+        fns = [lambda i=i, n=pos + 1: torch.matmul(sdpa(
+            qh[None, :, None], caches[i % len(caches)][0][:, :, :n],
+            caches[i % len(caches)][1][:, :, :n]).reshape(1, H * D),
+            wds[i % len(wds)]) for i in range(max(len(caches), len(wds)))]
+        yardstick(torch, f"sdpa + torch.matmul beside k18 B=1 pos={pos}",
+                  fns)
+        del wds
     plans = [{}]
     if args.sweep:
         plans += [dict(PART_KEYS=pk, THREADS_D128=nt)
@@ -199,25 +286,36 @@ def main() -> None:
         plans += [dict(PART_KEYS=pk, RING_STAGES=st)
                   for pk, st in ((192, 2), (256, 2), (256, 3))]
         plans += [dict(RING_STAGES=1), dict(LSUM_PARTS=0)]
-    refs = {label: plain() for label, (_f, plain) in cases.items()}
+        if hasattr(fm, "ATTN_O_COLS"):      # K18's o-projection stage
+            plans += [dict(ATTN_O_COLS=c) for c in (8, 32, 64)]
+            plans += [dict(ATTN_O_DEPENDENT=1)]
+    refs = {}
     bad = []
     for plan in plans:
-        saved = {k: getattr(da, k) for k in plan}
+        k18_only = any(k.startswith("ATTN_O_") for k in plan)
+        mod = fm if k18_only else da
+        saved = {k: getattr(mod, k) for k in plan}
         for k, v in plan.items():
-            setattr(da, k, v)
+            setattr(mod, k, v)
         if plan:
             da.decode_plan.cache_clear()
         try:
-            for label, (fns, _plain) in cases.items():
+            for label, (fns, plain) in cases.items():
                 if "LSUM_PARTS" in plan and label.startswith("k7"):
                     continue        # K7 has no third launch
+                if k18_only and not label.startswith("k18"):
+                    continue
+                if label not in refs:
+                    refs[label] = plain()
                 out = fns[0]()
                 ref = refs[label]
                 torch.cuda.synchronize()
                 d = (out.float().cpu() - ref.float()).abs()
                 tol = 2.0 ** -7 * ref.float().abs() + 2.0 ** -20
                 equal = torch.equal(out.cpu(), ref)
-                if not equal:
+                ok = (chip_smoke.ulp_check(torch, out.cpu(), ref)[2]
+                      if label.startswith("k18") else equal)
+                if not ok:
                     bad.append(f"{plan} {label}")
                 ms = chip_smoke.timed_ms(torch, fns, 100)
                 kern = chip_smoke.profiled(torch, fns, names=NAMES)
@@ -231,11 +329,11 @@ def main() -> None:
                       flush=True)
         finally:
             for k, v in saved.items():
-                setattr(da, k, v)
+                setattr(mod, k, v)
             if plan:
                 da.decode_plan.cache_clear()
-    print(f"not bit for bit: {bad}" if bad else "every case bit for bit",
-          flush=True)
+    print(f"off their plain versions: {bad}" if bad else
+          "every case bit for bit (K18 within ulp_check)", flush=True)
     sys.exit(1 if bad else 0)
 
 
