@@ -20,7 +20,9 @@ non-zero:
      and the quantized-cache kernels also on planted faults (zeros
      dropped, scales a group or a token late, a K6 that attends the
      quantized new row, a K11 without int4 offsets, a K12 that writes the
-     wrong nibble), each of which the tolerance must flag;
+     wrong nibble; K9 with a group lost or counted twice at a block
+     boundary and a split's partial dropped), each of which the tolerance
+     must flag;
   3. the kernels at shapes llama2-7b does not give them (GQA, other head
      widths, ragged M, N and T, group 32, a bias, every W4A16 format,
      positions at 0, at page boundaries and past the end, all-zero K/V
@@ -139,8 +141,10 @@ non-zero:
      (``w4a8_gemm_strided``, the repair) at M 4, 8 and 128, and K10
      (``vpu_int8act``, the all-integer M = 1 matvec) at the B=1 step's
      shapes in sym and asym int4, int2 and with a row permutation, bit for
-     bit against their plain versions, with planted faults
-     (``hybrid_kernels``); their envelope and its declines
+     bit against their plain versions (K10's device ms beside its event
+     ms, every K10 launch repeated bit for bit), with planted faults
+     (``hybrid_kernels``; K10's include its block boundaries and tiles
+     folded out of order); their envelope and its declines
      (``hybrid_envelope``); and llama2-7b at full width, ``HYB_LAYERS`` = 2
      of its 32 layers, calibrated on the card by ``quantize(...,
      HybridGPTQConfig(...), run_fn=calibration_forward)`` over 8 random
@@ -1563,7 +1567,8 @@ WOQ_PREFILL_M = 128             # K8's second unit: one 128-token prefill chunk
 # K8's kernels in a profile (its small path, its tile path and the tile
 # path's split fold) and K9's
 K8_KERNELS = ("dequant_small_kernel", "dequant_gemm_kernel", "splitk_reduce")
-K9_KERNELS = ("vpu_gemv_kernel", "splitk_reduce")
+K9_KERNELS = ("vpu_gemv_kernel",)
+K10_KERNELS = ("vpu_int8act_kernel",)
 # DeepSeek-V3's routed experts (K8's few column tiles: K split across blocks)
 EXPERT_SHAPES = {"expert_up": (7168, 2048), "expert_down": (2048, 7168)}
 
@@ -1646,6 +1651,22 @@ def woq_faults(pw):
             ("word rows 0 and 1 swapped", swapped, s, z))
 
 
+def split_faults(torch, pw, plan):
+    """Faults at the boundaries of a K9 or K10 plan's blocks (``gemv_plan``
+    splits K into blocks of ``per`` units of ``ngk`` groups), planted in
+    the scales the kernel is given: (name, scales). The first group of the
+    second block lost (its scale 0) or counted twice (doubled); the second
+    block's whole partial dropped (its groups' scales 0)."""
+    g = plan.per * plan.ngk
+    lost, twice, dropped = (pw.scales.clone() for _ in range(3))
+    lost[g] = 0.0
+    twice[g] *= 2.0
+    dropped[g:2 * g] = 0.0
+    return (("a group lost at a block boundary", lost),
+            ("a group counted twice at a block boundary", twice),
+            ("a split's partial dropped", dropped))
+
+
 def phase_woq_kernels(torch, nct, peaks: dict) -> dict:
     """K8 and K9 at the llama2-7b asym-int4 g128 shapes of the W4A16 path:
     K9 at M = 1, K8 at M = 8, 100, 128 and 256, each against its plain
@@ -1655,10 +1676,11 @@ def phase_woq_kernels(torch, nct, peaks: dict) -> dict:
     yardstick ``torch.matmul`` of the bf16-dequantized weight
     (dequantization not timed; never called by the port) and the bound.
     At M = 1 and 8 the kernel also runs on faulty operands
-    (``woq_faults``), and the tolerance must flag each fault; every K8
-    launch is repeated and must give the same bits. K8 at DeepSeek-V3's
-    expert shapes (few column tiles: K split across blocks) is checked the
-    same way, untimed."""
+    (``woq_faults``; at M = 1 where K9's plan splits K also
+    ``split_faults``), and the tolerance must flag each fault; every K8
+    and K9 launch is repeated and must give the same bits. K8 at
+    DeepSeek-V3's expert shapes (few column tiles: K split across blocks)
+    is checked the same way, untimed."""
     from neural_compressor_tpu_torch.kernels import dequant_matmul as dm
     from neural_compressor_tpu_torch.ops import dequantize_packed
 
@@ -1668,7 +1690,13 @@ def phase_woq_kernels(torch, nct, peaks: dict) -> dict:
     missed, unequal = [], []
 
     def faults(name, M, x, pw, yp, tol, kw):
-        for fault, fw, fs, fz in woq_faults(pw):
+        planted = list(woq_faults(pw))
+        if M == 1:
+            plan = dm.gemv_plan(pw.scales.shape[1], pw.orig_shape[0], G, 4)
+            if plan.splits > 1:
+                planted += [(f, pw.packed, fs, pw.zeros)
+                            for f, fs in split_faults(torch, pw, plan)]
+        for fault, fw, fs, fz in planted:
             yf = (dm.vpu_gemv(x, fw, fs, fz, **kw) if M == 1
                   else dm.dequant_gemm(x, fw, fs, fz, None, **kw))
             df = (yf.float() - yp.float()).abs()
@@ -1697,6 +1725,9 @@ def phase_woq_kernels(torch, nct, peaks: dict) -> dict:
                 kw = dict(bits=4, group_size=G, out_dtype=torch.bfloat16)
                 yk = dm.vpu_gemv(x, *woq_operands(pw), **kw)
                 yp = dm.vpu_gemv_plain(x, *woq_operands(pw), **kw)
+                if not torch.equal(dm.vpu_gemv(x, *woq_operands(pw), **kw),
+                                   yk):
+                    unequal.append(f"{name} M=1")
                 run = [lambda c=c: dm.vpu_gemv(x, *c, **kw) for c in cps]
                 plain = [lambda: dm.vpu_gemv_plain(x, *woq_operands(pw),
                                                    **kw)]
@@ -1722,8 +1753,8 @@ def phase_woq_kernels(torch, nct, peaks: dict) -> dict:
             if M in (1, WOQ_UNIT_M):
                 faults(name, M, x, pw, yp, tol, kw)
             kind = "k9" if M == 1 else "k8"
-            plan = ("" if M == 1 else
-                    str(dm.dequant_plan(M, N, K, G, 4, "tpu_strided")))
+            plan = str(dm.gemv_plan(N, K, G, 4) if M == 1 else
+                       dm.dequant_plan(M, N, K, G, 4, "tpu_strided"))
             if not timed:
                 rows["k8_untimed"].append(dict(shape=name, M=M, err=err,
                                                ok=ok))
@@ -1756,7 +1787,7 @@ def phase_woq_kernels(torch, nct, peaks: dict) -> dict:
     if missed:
         fail(f"the K8/K9 tolerance missed planted faults: {missed}")
     if unequal:
-        fail(f"a repeated K8 launch gave other bits: {unequal}")
+        fail(f"a repeated K8/K9 launch gave other bits: {unequal}")
     return rows
 
 
@@ -3972,10 +4003,10 @@ def backlog_ms(torch, fns, n: int) -> float:
 
 
 def profiled(torch, fns, n: int = 40,
-             names=("scores_kernel", "pv_kernel")) -> dict:
+             names=("scores_kernel", "pv_kernel"), counts=None) -> dict:
     """Device ms a call of the kernels ``names`` (by default K11's two)
     over ``n`` calls of ``fns`` (cycled), from torch.profiler: {name:
-    ms}."""
+    ms}; ``counts``, a dict, receives the launches it saw of each."""
     from torch.profiler import ProfilerActivity, profile
 
     for f in fns:
@@ -3991,6 +4022,8 @@ def profiled(torch, fns, n: int = 40,
             if kname in e.key:
                 dev_ms[kname] = (dev_ms.get(kname, 0.0)
                                  + e.self_device_time_total / 1e3 / n)
+                if counts is not None:
+                    counts[kname] = counts.get(kname, 0) + e.count
     return dev_ms
 
 
@@ -6457,9 +6490,12 @@ def phase_hybrid_kernels(torch, nct, peaks: dict) -> dict:
         int4, int2, and through ``vpu_matvec_int8act`` with a row
         permutation;
     and planted faults, each of which must be flagged: a flipped nibble and
-    a wrong scale (K2, K1's loader, K10), a wrong zero (K10), and the
+    a wrong scale (K2, K1's loader, K10), a wrong zero (K10), the
     reference's xs one float32 ulp high or low (K10 with float32 outputs,
-    also held bit-equal to its plain version)."""
+    also held bit-equal to its plain version), at the boundaries of K10's
+    blocks (``split_faults``) and the reference's first two tiles folded in
+    the other order. Every K10 launch is repeated and must give the same
+    bits; K10's device ms (torch.profiler) stands beside its event ms."""
     from neural_compressor_tpu_torch.kernels import (
         s4_gemm, s4_gemm_plain, vpu_int8act, vpu_int8act_plain, w4a8_gemm,
         w4a8_gemm_strided, w4a8_gemm_strided_plain)
@@ -6491,10 +6527,11 @@ def phase_hybrid_kernels(torch, nct, peaks: dict) -> dict:
               f"{' '.join(f'{k}={v}' for k, v in extra.items())}",
               flush=True)
 
-    def fault(label, yk, yp):
+    def fault(label, yk, yp, want_flagged=True):
         flagged = not bool(torch.equal(yk, yp))
-        faults.append((label, flagged))
-        print(f"planted fault {label}: flagged={flagged}", flush=True)
+        faults.append((label, flagged == want_flagged))
+        print(f"{'planted fault' if want_flagged else 'check'} {label}: "
+              f"flagged={flagged}", flush=True)
 
     for name, (K, N) in SHAPES.items():
         pw = hyb_weights(torch, gen, K, N)
@@ -6539,18 +6576,52 @@ def phase_hybrid_kernels(torch, nct, peaks: dict) -> dict:
         args = dict(bits=4, group_size=G, tk=tk, out_dtype=torch.bfloat16)
         yk = vpu_int8act(x, pw.packed, sc, None, **args)
         yp = vpu_int8act_plain(x, pw.packed, sc, None, **args)
+        again = vpu_int8act(x, pw.packed, sc, None, **args)
         torch.cuda.synchronize()
+        fault(f"k10 {name} a repeated launch giving other bits",
+              again, yk, want_flagged=False)
         cps = copies(pw.packed, sc)
-        ms = timed_ms(torch, [lambda w_=w_, s_=s_: vpu_int8act(
-            x, w_, s_, None, **args) for w_, s_ in cps], 200)
-        del cps
+        run = [lambda w_=w_, s_=s_: vpu_int8act(x, w_, s_, None, **args)
+               for w_, s_ in cps]
+        ms = timed_ms(torch, run, 200)
+        # the profiler can lose launches late in a long process (it saw a
+        # sixth of K10's in one full run): then the back-to-back time
+        seen = {}
+        dms = sum(profiled(torch, run, names=K10_KERNELS,
+                           counts=seen).values())
+        if sum(seen.values()) < 40:
+            dms = backlog_ms(torch, run, 200)
+            print(f"k10 {name}: torch.profiler saw {sum(seen.values())} of "
+                  f"40 launches; device_ms is the back-to-back time",
+                  flush=True)
+        del cps, run
         pms = timed_ms(torch, [lambda: vpu_int8act_plain(
             x, pw.packed, sc, None, **args)], 3)
         x2 = x.reshape(1, K)
         lms = timed_ms(torch, [lambda: torch.matmul(x2, wbf)], 200)
         record("k10", name, 1, yk, yp, ms, pms, lms,
-               wbytes + K * 2 + N * 2, 2 * K * N, fmt="sym_int4", tk=tk)
+               wbytes + K * 2 + N * 2, 2 * K * N, fmt="sym_int4", tk=tk,
+               device_ms=dms)
         if name == "o":
+            dm = port_module("dequant_matmul")
+            plan = dm.gemv_plan(N, K, G, 4, tk)
+            for label, bad in (split_faults(torch, pw, plan)
+                               if plan.splits > 1 else ()):
+                fault(f"k10 {label}",
+                      vpu_int8act(x, pw.packed, bad, None, **args), yp)
+            # the reference's tiles 0 and 1 folded in the other order, float32
+            # outputs: its operands with those tiles swapped (the same
+            # parts, chained swapped; max|x| and so xs unchanged)
+            nt = K // tk
+
+            def swap01(n):   # 0..n-1 in nt blocks, the first two swapped
+                i = torch.arange(n, device=HYB_DEV).reshape(nt, -1)
+                return i[[1, 0] + list(range(2, nt))].reshape(-1)
+            a32 = dict(args, out_dtype=torch.float32)
+            fault("k10 the reference's tiles 0 and 1 folded swapped",
+                  vpu_int8act(x, pw.packed, sc, None, **a32),
+                  vpu_int8act_plain(x[swap01(K)], pw.packed[swap01(K // 8)],
+                                    sc[swap01(K // G)], None, **a32))
             fault("k10 flipped nibble",
                   vpu_int8act(x, flip_nibbles(torch, pw.packed), sc, None,
                               **args), yp)
@@ -6621,9 +6692,10 @@ def phase_hybrid_kernels(torch, nct, peaks: dict) -> dict:
         fail(f"a hybrid kernel disagrees with its plain version: {bad}")
     missed = [label for label, flagged in faults if not flagged]
     if missed:
-        fail(f"planted faults not flagged: {missed}")
+        fail(f"planted faults not flagged (or repeats unequal): {missed}")
     print(f"hybrid kernels: {sum(len(r) for r in rows.values())} checks "
-          f"bit-equal, {len(faults)} planted faults flagged", flush=True)
+          f"bit-equal, {len(faults)} planted faults flagged and repeats "
+          f"equal", flush=True)
     return rows
 
 
@@ -7356,7 +7428,7 @@ def main() -> None:
         ("dequant_gemm", "neural_compressor_tpu_torch/csrc/dequant_matmul.cu",
          "neural_compressor_tpu/kernels/dequant_matmul.py:397 "
          "(_dequant_matmul_impl, K8)", k8_u),
-        ("vpu_gemv", "neural_compressor_tpu_torch/csrc/dequant_matmul.cu",
+        ("vpu_gemv", "neural_compressor_tpu_torch/csrc/vpu_gemv.cu",
          "neural_compressor_tpu/kernels/dequant_matmul.py:286 "
          "(_vpu_matvec_impl, K9)", k9_u),
         ("decode_attn_quant",

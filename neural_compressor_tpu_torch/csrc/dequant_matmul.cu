@@ -58,19 +58,8 @@
 //     waves, K is split across blocks into float32 partials that
 //     splitk_reduce adds in split order in a second launch.
 //
-// K9, vpu_gemv: the M == 1 product in float32 without rounding the weight,
-//   factored per group as the TPU kernel computes it:
-//     y_n = sum_g s_gn * (sum_k u_kn x_k - (2^(b-1) + z_gn) * sum_k x_k)
-//   over offset-binary "tpu_strided" int2/int4 fields u.
-//   Replaces: neural_compressor_tpu/kernels/dequant_matmul.py
-//   _vpu_matvec_impl (kernel body _make_vpu_kernel).
-//   Bound on this card: bytes (each weight word is read once).
-//   Design: a thread owns 4 neighbouring columns and streams their words
-//   down its range of K as 16-byte loads, coalesced across the warp; the
-//   two per-group sums are folded once a group. K is split across blocks
-//   (blockIdx.y) into float32 partials added by the same ordered second
-//   pass, so the card gives the same bits from run to run.
-#include <algorithm>
+// K9 (vpu_gemv, the M == 1 product in float32) is csrc/vpu_gemv.cu, on the
+// streaming core it shares with K10 (csrc/vpu_gemv.cuh).
 #include <type_traits>
 
 #include "nctt_common.cuh"
@@ -788,77 +777,6 @@ int launch_gemm_f32(const GemmArgs& a, dim3 grid, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------------- K9
-constexpr int GEMV_THREADS = 128;  // 4 columns each: 512 columns a block
-
-template <typename XT>
-__device__ __forceinline__ float ldx(const XT* x, int k);
-template <>
-__device__ __forceinline__ float ldx<float>(const float* x, int k) {
-  return __ldg(x + k);
-}
-template <>
-__device__ __forceinline__ float ldx<__nv_bfloat16>(const __nv_bfloat16* x,
-                                                    int k) {
-  return __bfloat162float(x[k]);
-}
-
-template <typename XT, int BITS>
-__global__ void __launch_bounds__(GEMV_THREADS)
-vpu_gemv_kernel(const XT* __restrict__ x, const uint32_t* __restrict__ w,
-                const float* __restrict__ scales,
-                const float* __restrict__ zeros, void* out, float* part,
-                int N, int K, int G, int groups_per_split, int splits,
-                int out_bf16) {
-  constexpr int P = 32 / BITS;
-  constexpr uint32_t MASK = (1u << BITS) - 1u;
-  const int n = (blockIdx.x * GEMV_THREADS + threadIdx.x) * 4;
-  if (n >= N) return;
-  const int WPG = G / P, ng = K / G;
-  const float half = (float)(1 << (BITS - 1));
-  const int g0 = blockIdx.y * groups_per_split;
-  const int g1 = min(g0 + groups_per_split, ng);
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int g = g0; g < g1; ++g) {
-    float sa[4] = {0.f, 0.f, 0.f, 0.f};
-    float sb = 0.f;
-    const uint32_t* wg = w + (size_t)g * WPG * N + n;
-    const int kg = g * G;
-#pragma unroll 4
-    for (int i = 0; i < WPG; ++i) {
-      const uint4 pk = __ldg(reinterpret_cast<const uint4*>(wg + (size_t)i * N));
-#pragma unroll
-      for (int s = 0; s < P; ++s) {
-        const float xv = ldx<XT>(x, kg + s * WPG + i);
-        const int sh = BITS * s;
-        sb += xv;
-        sa[0] = fmaf((float)((pk.x >> sh) & MASK), xv, sa[0]);
-        sa[1] = fmaf((float)((pk.y >> sh) & MASK), xv, sa[1]);
-        sa[2] = fmaf((float)((pk.z >> sh) & MASK), xv, sa[2]);
-        sa[3] = fmaf((float)((pk.w >> sh) & MASK), xv, sa[3]);
-      }
-    }
-    const size_t sidx = (size_t)g * N + n;
-    const float4 sc = __ldg(reinterpret_cast<const float4*>(scales + sidx));
-    float4 zr = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (zeros) zr = __ldg(reinterpret_cast<const float4*>(zeros + sidx));
-    const float s4[4] = {sc.x, sc.y, sc.z, sc.w};
-    const float z4[4] = {zr.x, zr.y, zr.z, zr.w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float off = half + z4[j];
-      acc[j] += s4[j] * (sa[j] - off * sb);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    if (splits == 1)
-      store_out(out, n + j, acc[j], out_bf16);
-    else
-      part[(size_t)blockIdx.y * N + n + j] = acc[j];
-  }
-}
-
 int cdiv(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 // K8's plan (kernels/dequant_matmul.py dequant_plan): its paths, as the
@@ -899,24 +817,6 @@ bool plan_ok(const Plan& p, int M, int N, int K, int G, int bits, int int8,
 }
 
 }  // namespace
-
-// K9's launch plan: 0 and the split of K (*splits blocks along K,
-// *groups_per_split groups each), enough blocks for four waves of the
-// n_sm SMs; or cudaErrorInvalidValue for a shape K9 does not take
-// (bits other than 2 and 4, K % G, G % (32 / bits), N % 4).
-NCTT_API int nctt_vpu_gemv_plan(int N, int K, int G, int bits, int n_sm,
-                                int* splits, int* groups_per_split) {
-  const int P = bits == 2 || bits == 4 ? 32 / bits : 0;
-  if (!P || N < 4 || N % 4 || G < 1 || K % G || G % P)
-    return (int)cudaErrorInvalidValue;
-  const int ng = K / G;
-  const int blocks = cdiv(N / 4, GEMV_THREADS);
-  const int s = std::max(1, std::min(ng, cdiv(4LL * n_sm, blocks)));
-  const int per = cdiv(ng, s);
-  *groups_per_split = per;
-  *splits = cdiv(ng, per);
-  return 0;
-}
 
 // K8. x bf16 (x_f32 = 0: bf16 weights on the tensor cores) or f32 (x_f32 =
 // 1: f32 weights and FMAs) [M, K]; w uint32 [K/P, N] ("tpu_strided",
@@ -984,32 +884,5 @@ NCTT_API int nctt_dequant_gemm(const void* x, const void* w,
   }
   if (err || splits == 1) return err;
   return launch_reduce((const float*)part, out, splits, (long long)M * N,
-                       out_bf16, st);
-}
-
-// K9. x [K] bf16 (x_bf16) or f32; w uint32 [K/P, N] ("tpu_strided" int2
-// or int4); scales (zeros) f32 [K/G, N]; out [N] bf16 (out_bf16) or f32;
-// part f32 [splits, N] when splits > 1, each split taking
-// groups_per_split groups. Needs N % 4 == 0, K % G == 0, G % P == 0.
-NCTT_API int nctt_vpu_gemv(const void* x, const void* w, const void* scales,
-                           const void* zeros, void* out, void* part, int N,
-                           int K, int G, int bits, int x_bf16, int out_bf16,
-                           int splits, int groups_per_split, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid((N / 4 + GEMV_THREADS - 1) / GEMV_THREADS, splits);
-#define NCTT_K9(XT_, B_)                                                  \
-  vpu_gemv_kernel<XT_, B_><<<grid, GEMV_THREADS, 0, st>>>(                \
-      (const XT_*)x, (const uint32_t*)w, (const float*)scales,            \
-      (const float*)zeros, out, (float*)part, N, K, G, groups_per_split,   \
-      splits, out_bf16)
-  if (x_bf16 && bits == 4) NCTT_K9(__nv_bfloat16, 4);
-  else if (x_bf16 && bits == 2) NCTT_K9(__nv_bfloat16, 2);
-  else if (!x_bf16 && bits == 4) NCTT_K9(float, 4);
-  else if (!x_bf16 && bits == 2) NCTT_K9(float, 2);
-  else return (int)cudaErrorInvalidValue;
-#undef NCTT_K9
-  int err = (int)cudaGetLastError();
-  if (err || splits == 1) return err;
-  return launch_reduce((const float*)part, out, splits, (long long)N,
                        out_bf16, st);
 }

@@ -29,9 +29,9 @@ COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_L, _IP = ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
-# C entry -> argument types; every launching entry returns
-# cudaGetLastError(), every "_plan" entry 0 or cudaErrorInvalidValue
+_L = ctypes.c_longlong
+# C entry -> argument types; every entry returns cudaGetLastError() (or
+# cudaErrorInvalidValue for a plan or shape it refuses)
 SIGNATURES = {
     # xq, w, scales, x_scale, y, M, N, K, G, then the plan (path, mt, bn,
     # ku, stages), stream (K1 on "hopper_nk" and "tpu_strided" words, K2 on
@@ -115,14 +115,11 @@ SIGNATURES = {
     # smem, stream (the plan from dequant_matmul.dequant_plan)
     "nctt_dequant_gemm": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, w, scales, zeros, out, part, N, K, G, bits, x_bf16, out_bf16,
-    # splits, groups_per_split, stream
-    "nctt_vpu_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                      _P],
-    # N, K, G, bits, n_sm -> splits, groups_per_split
-    "nctt_vpu_gemv_plan": [_I, _I, _I, _I, _I, _IP, _IP],
-    # x, w, scales, zeros, out, ws (f32 tile sums + xs), N, K, G, bits, tk,
-    # x_bf16, out_bf16, stream
+    # x, w, scales, zeros, out, plan (the argument block of
+    # dequant_matmul.gemv_workspace: workspace and plan), N, K, G, bits,
+    # x_bf16, out_bf16, stream (K9)
+    "nctt_vpu_gemv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # the same with tk (the K tile) after bits (K10)
     "nctt_vpu_int8act": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P],
 }

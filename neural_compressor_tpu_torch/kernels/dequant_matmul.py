@@ -19,12 +19,15 @@ The counterpart of ``neural_compressor_tpu/kernels/dequant_matmul.py``:
     force K9 / K8 (their plain versions for CPU tensors), as JAX's ``impl=``
     runs its Pallas kernels in interpret mode.
 
-The CUDA kernels (``csrc/dequant_matmul.cu``, K10's
-``csrc/vpu_int8act.cu``) read the "tpu_strided"
-words and "int8" codes as the JAX package stores them. K8's path and tiles
-come from ``dequant_plan`` (cached per shape; the C entry checks the plan
-it is given), K9's split from its C plan entry. Dequantize-then-matmul is
-no kernel: ``dequant_dot`` counts its calls in ``.calls``.
+The CUDA kernels (K8's ``csrc/dequant_matmul.cu``; K9's
+``csrc/vpu_gemv.cu`` and K10's ``csrc/vpu_int8act.cu`` on their shared
+streaming core, ``csrc/vpu_gemv.cuh``) read the "tpu_strided" words and
+"int8" codes as the JAX package stores them. K8's path and tiles come from
+``dequant_plan``, K9's and K10's strips, splits and rings from
+``gemv_plan`` (both cached per shape; the C entries check the plan they
+are given), their scratch and argument blocks from ``gemv_workspace``.
+Dequantize-then-matmul is no kernel: ``dequant_dot`` counts its calls in
+``.calls``.
 """
 
 from __future__ import annotations
@@ -65,16 +68,6 @@ def _rows(x: torch.Tensor) -> int:
 
 def _on_card(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
-
-
-def _plan(plan_fn, name: str, *args) -> tuple[int, int]:
-    """K9's split of K, (splits, groups per split), from its C plan
-    entry: its tiling lives in ``csrc/dequant_matmul.cu``."""
-    splits, per = ctypes.c_int(), ctypes.c_int()
-    err = plan_fn(*args, ctypes.byref(splits), ctypes.byref(per))
-    if err:
-        raise ValueError(f"{name} refused {args}")
-    return splits.value, per.value
 
 
 @functools.lru_cache(maxsize=None)
@@ -427,11 +420,147 @@ def vpu_gemv_plain(x, packed, scales, zeros, *, bits: int, group_size: int,
     return (scales * (a - off * b)).sum(dim=0).to(out_dtype)
 
 
+# K9's and K10's plan (their streaming core, csrc/vpu_gemv.cuh). The C
+# entries check every plan they are given against the same rules
+# (``plan_ok``) and refuse the rest.
+GEMV_BN = 128                 # a block's columns: 32 lanes x 4
+GEMV_WARPS = 4                # a block's warps (4 or 8)
+GEMV_STAGES = 2               # ring slots a warp (2 to 4)
+GEMV_MAX_ROWS = 16            # word rows a ring slot, at most
+SM_SMEM = 233472              # an H100 SM's shared memory (228 KB) ...
+SM_BLOCK_SMEM = 1024          # ... less 1 KB the runtime keeps a block
+SM_THREADS = 2048             # an SM's resident threads
+_GEMV_MAX_WARPS = 8
+
+
+class GemvPlan(NamedTuple):
+    """How K9 or K10 runs one product: blocks of ``warps`` warps over strips
+    of 128 columns (``grid`` = (strips, splits)); each block takes
+    ``per`` units of K (K9: groups; K10: tiles of ``ngk`` groups), its warps
+    a contiguous share of the block's groups each, streamed through rings
+    of ``stages`` slots of ``rows`` word rows; ``smem`` the launch's dynamic
+    shared memory; where ``splits`` > 1, ``partials`` float32 partials (K9
+    a split's sums, K10 a tile's parts, N each) and ``tickets`` int32
+    tickets (a strip's) in the workspace."""
+    warps: int
+    stages: int
+    rows: int
+    splits: int
+    per: int
+    ngk: int
+    grid: tuple
+    smem: int
+    partials: int
+    tickets: int
+
+
+def gemv_smem(k10: bool, G: int, warps: int, stages: int, rows: int,
+              groups: int) -> int:
+    """``layout().total`` of ``csrc/vpu_gemv.cuh``: the warps' rings (slots
+    of ``rows`` word rows of 128 columns, a scale row and a zero row), x
+    of the block's ``groups`` groups (K9 float32, K10 int8 codes), their
+    sums, the fold (K9 a warp's sums; K10 each group's af and scale), a
+    word a warp; each part 16-byte aligned."""
+    def up16(b):
+        return -(-b // 16) * 16
+    xs = warps * stages * (rows + 2) * GEMV_BN * 4
+    gsum = xs + up16(groups * G * (1 if k10 else 4))
+    fold = gsum + up16(groups * 4)
+    red = fold + (2 * groups if k10 else warps) * GEMV_BN * 4
+    return red + _GEMV_MAX_WARPS * 4
+
+
+@functools.lru_cache(maxsize=4096)
+def gemv_plan(N: int, K: int, G: int, bits: int, tk: int = 0,
+              n_sm: int = N_SM) -> GemvPlan:
+    """K9's plan (``tk`` 0) or K10's (``tk`` its K tile, ``_vpu_tiles``'s:
+    a block takes whole tiles). Raises ValueError on a shape the kernels do
+    not take (bits other than 2 and 4, N % 4, K % G, G % (32 / bits), K %
+    tk, tk % G) or whose unit of K does not fit a block's shared memory.
+
+    Strips of 128 columns, ``GEMV_WARPS`` warps a block, rings of
+    ``GEMV_STAGES`` slots of the largest divisor of G / P up to
+    ``GEMV_MAX_ROWS`` word rows; of the splits of K whose x fits
+    (``gemv_smem``), the most whose blocks all fit on the card at once
+    (``n_sm`` SMs, by shared memory and threads) with a group for every
+    warp; one split where the strips alone exceed that."""
+    P = LANE_BITS // bits if bits in (2, 4) else 0
+    if not (P and N >= 4 and N % 4 == 0 and G >= P and G % P == 0
+            and K >= G and K % G == 0
+            and (tk == 0 or (tk % G == 0 and K % tk == 0))):
+        raise ValueError(f"K9/K10 need int2/int4 words, N % 4 == 0, K % G "
+                         f"== 0, G % (32 / bits) == 0 and whole tiles (N={N},"
+                         f" K={K}, G={G}, bits={bits}, tk={tk})")
+    k10 = tk > 0
+    ngk = tk // G if k10 else 1
+    nunits = K // G // ngk
+    wpg = G // P
+    rows = max(r for r in range(1, GEMV_MAX_ROWS + 1) if wpg % r == 0)
+    warps, stages = GEMV_WARPS, GEMV_STAGES
+    strips = -(-N // GEMV_BN)
+    pick, seen = None, set()
+    for s in range(1, nunits + 1):
+        per = -(-nunits // s)
+        splits = -(-nunits // per)
+        smem = gemv_smem(k10, G, warps, stages, rows, per * ngk)
+        if splits in seen or smem > MAX_DYN_SMEM:
+            continue
+        seen.add(splits)
+        resident = n_sm * min(SM_SMEM // (smem + SM_BLOCK_SMEM),
+                              SM_THREADS // (32 * warps))
+        if pick is None or (strips * splits <= resident
+                            and per * ngk >= warps):
+            pick = (splits, per, smem)
+    if pick is None:
+        raise ValueError(f"K9/K10: x of one unit of K ({ngk} groups of {G})"
+                         f" does not fit a block's shared memory")
+    splits, per, smem = pick
+    partials = (0 if splits == 1 else
+                N * (nunits if k10 else splits))
+    return GemvPlan(warps, stages, rows, splits, per, ngk,
+                    (strips, splits), smem, partials,
+                    strips if splits > 1 else 0)
+
+
+# device -> (sizes held, (partials, tickets), {plan: argument block}): K9's
+# and K10's workspace, float32 partials and int32 tickets (kept zeroed:
+# the folding block resets its strip's), replaced by larger ones (and the
+# argument blocks dropped) when a plan needs more. Calls on one stream run
+# in order, so one call's partials are free when the next starts.
+_GEMV_SCRATCH: dict = {}
+
+
+def gemv_workspace(plan: GemvPlan, device) -> int:
+    """The address of the argument block of ``nctt_vpu_gemv`` and
+    ``nctt_vpu_int8act`` for ``plan`` on ``device``: nine 64-bit words, the
+    workspace's addresses (partials, tickets) and the plan (warps, stages,
+    rows, splits, per, ngk, smem), in the order of ``PlanWord`` in
+    csrc/vpu_gemv.cuh. The workspace is kept per device between calls; the
+    blocks are cached per plan."""
+    have = _GEMV_SCRATCH.get(device)
+    if have is not None:
+        block = have[2].get(plan)
+        if block is not None:
+            return block[1]
+    need = (plan.partials, max(plan.tickets, 1024))
+    if have is None or any(h < n for h, n in zip(have[0], need)):
+        n = need if have is None else tuple(map(max, have[0], need))
+        bufs = (torch.empty(max(n[0], 1), dtype=torch.float32, device=device),
+                torch.zeros(n[1], dtype=torch.int32, device=device))
+        have = (n, bufs, {})
+        _GEMV_SCRATCH[device] = have
+    words = (ctypes.c_int64 * 9)(
+        *(b.data_ptr() for b in have[1]), plan.warps, plan.stages,
+        plan.rows, plan.splits, plan.per, plan.ngk, plan.smem)
+    have[2][plan] = (words, ctypes.addressof(words))
+    return have[2][plan][1]
+
+
 def vpu_gemv(x, packed, scales, zeros, *, bits: int, group_size: int,
              out_dtype) -> torch.Tensor:
-    """K9 on the card (``csrc/dequant_matmul.cu``); the plain version for
-    CPU tensors. Arguments as in ``vpu_gemv_plain``; on the card x is bf16
-    or f32."""
+    """K9 on the card (``csrc/vpu_gemv.cu``, one launch on ``gemv_plan``'s
+    plan); the plain version for CPU tensors. Arguments as in
+    ``vpu_gemv_plain``; on the card x is bf16 or f32."""
     if x.device.type == "cpu":
         return vpu_gemv_plain(x, packed, scales, zeros, bits=bits,
                               group_size=group_size, out_dtype=out_dtype)
@@ -455,17 +584,14 @@ def vpu_gemv(x, packed, scales, zeros, *, bits: int, group_size: int,
     if zeros is not None:
         _build.require(zeros, "zeros", torch.float32, dev, (ng, N))
     lib = _build.library()
-    splits, per = _plan(lib.nctt_vpu_gemv_plan, "nctt_vpu_gemv_plan", N, K,
-                        G, bits, _sm_count(dev))
+    plan = gemv_plan(N, K, G, bits, 0, _sm_count(dev))
     y = torch.empty(N, dtype=out_dtype, device=dev)
-    part = (torch.empty((splits, N), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
     err = lib.nctt_vpu_gemv(
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
         None if zeros is None else zeros.data_ptr(), y.data_ptr(),
-        None if part is None else part.data_ptr(), N, K, G, bits,
+        gemv_workspace(plan, dev), N, K, G, bits,
         int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        splits, per, _build.stream_handle(dev))
+        _build.stream_handle(dev))
     _build.check(err, "nctt_vpu_gemv")
     vpu_gemv.launches += 1
     return y
@@ -577,9 +703,9 @@ def vpu_int8act_plain(x, packed, scales, zeros, *, bits: int, group_size: int,
 
 def vpu_int8act(x, packed, scales, zeros, *, bits: int, group_size: int,
                 tk: int, out_dtype) -> torch.Tensor:
-    """K10 on the card (``csrc/vpu_int8act.cu``); the plain version for
-    CPU tensors. Arguments as in ``vpu_int8act_plain``; on the card x is
-    bf16 or f32."""
+    """K10 on the card (``csrc/vpu_int8act.cu``, one launch on
+    ``gemv_plan``'s plan for ``tk``); the plain version for CPU tensors.
+    Arguments as in ``vpu_int8act_plain``; on the card x is bf16 or f32."""
     if x.device.type == "cpu":
         return vpu_int8act_plain(x, packed, scales, zeros, bits=bits,
                                  group_size=group_size, tk=tk,
@@ -605,13 +731,15 @@ def vpu_int8act(x, packed, scales, zeros, *, bits: int, group_size: int,
     _build.require(scales, "scales", torch.float32, dev, (ng, N))
     if zeros is not None:
         _build.require(zeros, "zeros", torch.float32, dev, (ng, N))
+    lib = _build.library()
+    plan = gemv_plan(N, K, G, bits, tk, _sm_count(dev))
     y = torch.empty(N, dtype=out_dtype, device=dev)
-    ws = torch.empty((K // tk) * N + 4, dtype=torch.float32, device=dev)
-    err = _build.library().nctt_vpu_int8act(
+    err = lib.nctt_vpu_int8act(
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
         None if zeros is None else zeros.data_ptr(), y.data_ptr(),
-        ws.data_ptr(), N, K, G, bits, tk, int(x.dtype == torch.bfloat16),
-        int(out_dtype == torch.bfloat16), _build.stream_handle(dev))
+        gemv_workspace(plan, dev), N, K, G, bits, tk,
+        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        _build.stream_handle(dev))
     _build.check(err, "nctt_vpu_int8act")
     vpu_int8act.launches += 1
     return y

@@ -120,7 +120,7 @@ def test_every_kernel_has_a_source_and_a_c_entry():
                        "paged_attention_fp8_int4.cu", "paged_write.cu", "dequant_matmul.cu",
                        "paged_latent.cu", "paged_attention_v1.cu",
                        "decode_attention_hbm.cu", "omlp.cu", "attn_o.cu",
-                       "s4_gemm.cu", "vpu_int8act.cu"}
+                       "s4_gemm.cu", "vpu_gemv.cu", "vpu_int8act.cu"}
     text = "".join((_build.CSRC / s).read_text() for s in sources)
     for entry in _build.SIGNATURES:
         assert f"NCTT_API int {entry}(" in text
