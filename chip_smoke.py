@@ -22,7 +22,12 @@ non-zero:
      quantized new row, a K11 without int4 offsets, a K12 that writes the
      wrong nibble; K9 with a group lost or counted twice at a block
      boundary and a split's partial dropped), each of which the tolerance
-     must flag;
+     must flag; K4 in its five forms bit for bit (a repeated launch too),
+     with device and back-to-back ms beside its event ms, and against
+     faulty plain versions that must differ from its bits (a tile's last
+     column lost, a group's scale from the neighbouring column, the norm's
+     factor left out of the activation scale, silu's u from the gate
+     half, float32 group sums on cancelling groups);
   3. the kernels at shapes llama2-7b does not give them (GQA, other head
      widths, ragged M, N and T, group 32, a bias, every W4A16 format,
      positions at 0, at page boundaries and past the end, all-zero K/V
@@ -405,6 +410,143 @@ def gemm_faults(torch, xq, pw, xs, yk, yp):
     return out
 
 
+# K4's kernels (csrc/fused_gemv.cu) and K17's (csrc/omlp.cu), as
+# torch.profiler names them
+K4_KERNELS = ("fused_gemv_kernel", "fused_gemv_quant_kernel")
+K17_KERNELS = ("omlp_kernel",)
+
+
+def device_ms(torch, fns, names, label: str, n: int = 40) -> float:
+    """Device ms a call of the kernels ``names`` over ``n`` calls of
+    ``fns`` (torch.profiler); where the profiler saw fewer launches than it
+    ran (it loses some late in a long process), the back-to-back time, and
+    says so."""
+    seen = {}
+    dms = sum(profiled(torch, fns, n, names=names, counts=seen).values())
+    if sum(seen.values()) < n:
+        print(f"{label}: torch.profiler saw {sum(seen.values())} of {n} "
+              f"launches; device_ms is the back-to-back time", flush=True)
+        dms = backlog_ms(torch, fns, 10 * n)
+    return dms
+
+
+def k4_reference(torch, x, rms_w, w, scales, res, *, eps, silu,
+                 fault=None):
+    """``fused_gemv_plain`` step by step (bias-free), or with a planted
+    fault: "f32 sums" (each group's product rounded to float32 and added in
+    group order in float32, the TPU kernel's own arithmetic), "no norm
+    factor" (the activation scale without rsqrt(mean(x^2) + eps)), "u from
+    the gate half" (silu's u read from column n instead of n + N/2)."""
+    from neural_compressor_tpu_torch.kernels.fused_matvec import (act_codes,
+                                                                  group_dot)
+    from neural_compressor_tpu_torch.ops.packing import \
+        unpack_codes_hopper_f32
+
+    f32, f64 = torch.float32, torch.float64
+    xf = x.reshape(-1).float()
+    K = xf.numel()
+    inv = torch.ones((), dtype=f32, device=x.device)
+    z = xf
+    if rms_w is not None:
+        ss = torch.sum(xf.to(f64) * xf.to(f64))
+        eps64 = torch.tensor(eps, dtype=f32).to(f64)
+        if fault != "no norm factor":
+            inv = (1.0 / torch.sqrt(ss / K + eps64)).to(f32)
+        z = xf * rms_w
+    s, codes = act_codes(z)
+    if fault == "f32 sums":
+        ng, N = scales.shape
+        wq = unpack_codes_hopper_f32(w).reshape(ng, K // ng, N)
+        d = torch.bmm(codes.reshape(ng, 1, K // ng), wq)[:, 0] * scales
+        acc = torch.zeros(N, dtype=f32, device=x.device)
+        for g in range(ng):
+            acc = acc + d[g]
+    else:
+        acc = group_dot(codes, w, scales)
+    ssc = s * inv
+    if silu:
+        n_out = acc.numel() // 2
+        g = acc[:n_out] * ssc
+        u = (acc[:n_out] if fault == "u from the gate half"
+             else acc[n_out:]) * ssc
+        y = g * (1.0 / (1.0 + torch.exp(-g.to(f64)))).to(f32) * u
+    else:
+        y = acc * ssc
+    if res is not None:
+        y = y + res.reshape(-1).float()
+    return y.to(torch.bfloat16)
+
+
+def k4_faults(torch, label, x, rms_w, pw, res, yk, args) -> list:
+    """K4 (``yk``) against faulty plain versions, each of which must differ
+    from the kernel's bits: a tile's last column lost (the first tile of
+    ``w4a8_gemv_plan``'s first block), a group's scale from the
+    neighbouring column, and with the norm the activation scale without
+    its factor, with silu u from the gate half. The step-by-step reference
+    they are planted in must equal the kernel bit for bit (else the phase
+    fails). Returns [(label, flagged)]."""
+    fm = port_module("fused_matvec")
+    K, N = pw.orig_shape
+    silu = args["silu"]
+    n_out = N // 2 if silu else N
+    kw = dict(eps=args["eps"], silu=silu)
+    ref = k4_reference(torch, x, rms_w, pw.packed, pw.scales, res, **kw)
+    if not torch.equal(ref, yk):
+        fail(f"k4 {label}: the step-by-step reference differs from K4")
+    plan = fm.w4a8_gemv_plan(K, N, G, n_out, silu)
+    lost = ref.clone()
+    lost[min(plan.cols, n_out) - 1] = 0
+    sc = pw.scales.clone()
+    g, n = sc.shape[0] // 2, 5
+    sc[g, n] = pw.scales[g, n + 1]
+    faulty = [("a tile's last column lost", lost),
+              ("a group's scale from the neighbouring column",
+               k4_reference(torch, x, rms_w, pw.packed, sc, res, **kw))]
+    if rms_w is not None:
+        faulty.append(("the activation scale without the norm's factor",
+                       k4_reference(torch, x, rms_w, pw.packed, pw.scales,
+                                    res, fault="no norm factor", **kw)))
+    if silu:
+        faulty.append(("silu's u from the gate half",
+                       k4_reference(torch, x, rms_w, pw.packed, pw.scales,
+                                    res, fault="u from the gate half",
+                                    **kw)))
+    return [(f"k4 {label} {f}", not torch.equal(yk, y)) for f, y in faulty]
+
+
+def k4_f32_fault(torch, gen, K, N) -> tuple:
+    """Float32 group sums, planted where they show: every column's first
+    and last groups cancel (negated int4 codes against equal activation
+    codes, their scales 2^20 times the others'), so a float32 sum loses the
+    groups between them and a float64 sum rounded once keeps them. K4 on
+    that input must equal the plain version bit for bit (else the phase
+    fails) and differ from the float32 sums. Returns (label, flagged)."""
+    from neural_compressor_tpu_torch.kernels import fused_gemv
+    from neural_compressor_tpu_torch.ops.packing import pack_codes_hopper
+
+    dev = torch.device("cuda")
+    codes = torch.randint(-7, 8, (K, N), generator=gen, device=dev,
+                          dtype=torch.int8)
+    codes[-G:] = -codes[:G]
+    sc = torch.rand(K // G, N, generator=gen, device=dev) * 0.02 + 0.002
+    sc[-1] = sc[0] = sc[0] * 2.0 ** 20
+    x = torch.randn(K, generator=gen, device=dev)
+    x[-G:] = x[:G]
+    x = x.to(torch.bfloat16)
+    res = torch.randn(N, generator=gen, device=dev).to(torch.bfloat16)
+    w = pack_codes_hopper(codes)
+    kw = dict(eps=1e-5, silu=False)
+    yk = fused_gemv(x, None, w, sc, None, res, out_dtype=torch.bfloat16,
+                    **kw)
+    if not torch.equal(yk, k4_reference(torch, x, None, w, sc, res, **kw)):
+        fail("k4: the crafted cancelling groups differ from the plain "
+             "version")
+    y32 = k4_reference(torch, x, None, w, sc, res, fault="f32 sums", **kw)
+    return (f"k4 K={K} N={N} float32 group sums (cancelling groups, "
+            f"{int((y32 != yk).sum())} of {N} outputs differ)",
+            not torch.equal(yk, y32))
+
+
 def phase_kernels(torch, nct, peaks: dict) -> dict:
     from neural_compressor_tpu_torch.kernels import (decode_attn,
                                                      decode_attn_plain,
@@ -476,10 +618,14 @@ def phase_kernels(torch, nct, peaks: dict) -> dict:
     if missed:
         fail(f"planted faults not flagged: {missed}")
 
-    # GEMV: the five epilogue forms of the decode step
+    # GEMV: the five epilogue forms of the decode step, bit for bit (and
+    # within the relative tolerance), a repeated launch bit for bit; event,
+    # device (torch.profiler) and back-to-back ms; planted faults at o and
+    # gate_up
     forms = {"qkv": dict(rms=True), "o": dict(res=True),
              "gate_up": dict(rms=True, silu=True), "down": dict(res=True),
              "lm_head": dict(rms=True)}
+    k4_planted = []
     for name, form in forms.items():
         pw, wbf = weights[name]
         K, N = pw.orig_shape
@@ -491,14 +637,22 @@ def phase_kernels(torch, nct, peaks: dict) -> dict:
         res = randn(n_out) if form.get("res") else None
         args = dict(eps=1e-5, silu=silu, out_dtype=torch.bfloat16)
         yk = fused_gemv(x, rms_w, pw.packed, pw.scales, None, res, **args)
+        again = fused_gemv(x, rms_w, pw.packed, pw.scales, None, res, **args)
         yp = fused_gemv_plain(x, rms_w, pw.packed, pw.scales, None, res, **args)
         torch.cuda.synchronize()
         err = float((yk.float() - yp.float()).abs().max())
         ref = float(yp.float().abs().max())
-        ok = math.isfinite(err) and err <= TOL["gemv"] * ref
+        bit = bool(torch.equal(yk, yp))
+        ok = (math.isfinite(err) and err <= TOL["gemv"] * ref and bit
+              and bool(torch.equal(yk, again)))
+        if name in ("o", "gate_up"):
+            k4_planted += k4_faults(torch, name, x, rms_w, pw, res, yk, args)
         cps = wcopies(pw)
-        ms = timed_ms(torch, [lambda p=p, s=s: fused_gemv(
-            x, rms_w, p, s, None, res, **args) for p, s in cps], 200)
+        fns = [lambda p=p, s=s: fused_gemv(x, rms_w, p, s, None, res, **args)
+               for p, s in cps]
+        ms = timed_ms(torch, fns, 200)
+        dms = device_ms(torch, fns, K4_KERNELS, f"gemv {name}")
+        b2b = backlog_ms(torch, fns, 400)
         pms = timed_ms(torch, [lambda: fused_gemv_plain(
             x, rms_w, pw.packed, pw.scales, None, res, **args)], 5)
         x2 = x.reshape(1, K)
@@ -508,14 +662,23 @@ def phase_kernels(torch, nct, peaks: dict) -> dict:
                   + n_out * 2)
         bms, by = bound(nbytes, 2 * K * N, peaks["int8_s"], peaks)
         rows["gemv"].append(dict(shape=name, K=K, N=N, err=err,
-                                 tol=TOL["gemv"] * ref, ok=ok, ms=ms,
+                                 tol=TOL["gemv"] * ref, bit_equal=bit, ok=ok,
+                                 ms=ms, device_ms=dms, b2b_ms=b2b,
                                  plain_ms=pms, library_ms=lms, bound_ms=bms,
                                  bound_by=by))
         print(f"gemv {name:8s} {'+'.join(form):9s} K={K:5d} N={N:5d} "
-              f"max_abs_err={err:.3e} tol={TOL['gemv'] * ref:.3e} ok={ok} "
-              f"ms={ms:.4f} plain_ms={pms:.4f} library_ms={lms:.4f} "
+              f"bit_equal={bit} max_abs_err={err:.3e} "
+              f"tol={TOL['gemv'] * ref:.3e} ok={ok} ms={ms:.4f} "
+              f"device_ms={dms:.4f} back_to_back_ms={b2b:.4f} "
+              f"plain_ms={pms:.4f} library_ms={lms:.4f} "
               f"bound_ms={bms:.4f} ({by})", flush=True)
         del cps
+    k4_planted.append(k4_f32_fault(torch, gen, *SHAPES["o"]))
+    for label, flagged in k4_planted:
+        print(f"planted fault {label}: flagged={flagged}", flush=True)
+    missed = [label for label, flagged in k4_planted if not flagged]
+    if missed:
+        fail(f"planted faults not flagged: {missed}")
 
     # decode attention: llama2-7b heads over a 1024-row cache
     H = Hkv = HEADS
@@ -5494,8 +5657,11 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
         yardstick SDPA over the visited rows; the write's rows also give
         back-to-back ms (``backlog_ms``) beside SDPA's;
       * K17 (``omlp``) at o 4096x4096, gate_up 4096x22016, down 11008x4096,
-        with and without o (yardstick: three ``torch.matmul`` of the bf16
-        weights); faults: one h scale a token, x1 through bf16;
+        with and without o, with device and back-to-back ms, a repeated
+        launch bit for bit (yardstick: three ``torch.matmul`` of the bf16
+        weights, event and back-to-back ms); faults: one h scale a
+        token, x1 through bf16, x1's sum of squares from one block's slot
+        only, h's first tile scaled by its neighbour's maximum;
       * K18 (``attn_o``) at H 32, D 128, T 1024 (yardstick: SDPA and a
         ``torch.matmul``, back to back beside the kernel's too); faults:
         the bf16-rounded output quantized, one scale a head, one amax a
@@ -5763,8 +5929,12 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
                       dw_, dsc, eps=1e-5, tn_i=tn_i)
 
         out = call(wcopies[0])
+        again = call(wcopies[0])
         ref = call(wcopies[0], K.omlp_plain)
-        ms = timed_ms(torch, [lambda c=c: call(c) for c in wcopies], 50)
+        fns = [lambda c=c: call(c) for c in wcopies]
+        ms = timed_ms(torch, fns, 50)
+        dms = device_ms(torch, fns, K17_KERNELS, f"k17 has_o={has_o}")
+        b2b = backlog_ms(torch, fns, 100)
         pms = timed_ms(torch, [lambda: call(wcopies[0], K.omlp_plain)], 3)
         x2 = xin.reshape(1, Kh)
 
@@ -5778,7 +5948,23 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
                         + pwo.scales.numel() * 4) + Kh * 2 * 3 + Kh * 4)
         ops = 2 * ((Kh * Kh if has_o else 0) + Kh * 2 * I + I * Kh)
         record("k17", f"{'o+' if has_o else ''}gate_up+down Kh={Kh} I={I} "
-               f"tn_i={tn_i}", out, ref, ms, pms, lms, nb, ops, has_o=has_o)
+               f"tn_i={tn_i} (repeat bit-equal: "
+               f"{bool(torch.equal(out, again))})", out, ref, ms, pms, lms,
+               nb, ops, extra_ok=bool(torch.equal(out, again)), has_o=has_o,
+               device_ms=dms, b2b_ms=b2b,
+               library_b2b_ms=backlog_ms(torch, [lib], 100))
+        # faults of the fold: x1's sum of squares from one block's slot
+        # only; h's first tile scaled by its neighbour's maximum
+        kargs = (xin, res if has_o else None, rms_w,
+                 pwo.packed if has_o else None,
+                 pwo.scales if has_o else None, pwg.packed, pwg.scales,
+                 pwd.packed, pwd.scales)
+        if not torch.equal(k17_reference(torch, *kargs, eps=1e-5,
+                                         tn_i=tn_i), ref):
+            fail("k17: the step-by-step reference differs from omlp_plain")
+        for f in ("one block's slot", "tile max from the neighbour"):
+            fault(f"k17 has_o={has_o} {f}", out, k17_reference(
+                torch, *kargs, eps=1e-5, tn_i=tn_i, fault=f))
         # faults: one h scale a token; x1 through bf16
         fault(f"k17 has_o={has_o} one h scale a token", out,
               K.omlp_plain(xin, res if has_o else None, rms_w,
@@ -5865,6 +6051,48 @@ def phase_variant_kernels(torch, nct, peaks: dict) -> dict:
     if missed:
         fail(f"planted faults not flagged: {missed}")
     return rows
+
+
+def k17_reference(torch, x, residual, rms_w, ow, osc, guw, gusc, dw, dsc, *,
+                  eps, tn_i, fault=None):
+    """``omlp_plain`` step by step, or with a planted fault of K17's folds:
+    "one block's slot" (x1's sum of squares over the columns of the first
+    block of ``omlp_plan``'s grid only), "tile max from the neighbour" (h's
+    first tile scaled by the second tile's maximum)."""
+    fm, om = port_module("fused_matvec"), port_module("omlp_matvec")
+    f64, f32 = torch.float64, torch.float32
+    if ow is not None:
+        s, codes = fm.act_codes(x.reshape(-1).to(f32))
+        x1 = (fm.group_dot(codes, ow, osc) * s
+              + residual.reshape(-1).to(f32))
+    else:
+        x1 = x.reshape(-1).to(f32)
+    Kh = x1.numel()
+    I = guw.shape[0] // 2
+    sq = x1.to(f64) * x1.to(f64)
+    if fault == "one block's slot":
+        Ko = x.numel() if ow is not None else Kh
+        plan = om.omlp_plan(Ko, Kh, I, Ko // (osc.shape[0] if ow is not None
+                                              else gusc.shape[0]),
+                            Kh // gusc.shape[0], I // dsc.shape[0], tn_i,
+                            ow is not None)
+        sq = sq[:4 * ((Kh + 3) // 4 // plan.blocks)]
+    ss = torch.sum(sq)
+    inv = (1.0 / torch.sqrt(ss / Kh + torch.tensor(eps, dtype=f32).to(f64))
+           ).to(f32)
+    s2, codes2 = fm.act_codes(x1 * rms_w)
+    acc = fm.group_dot(codes2, guw, gusc) * (s2 * inv)
+    g, u = acc[:I], acc[I:]
+    h = g * (1.0 / (1.0 + torch.exp(-g.to(f64)))).to(f32) * u
+    hm = h.reshape(I // tn_i, tn_i).abs().amax(dim=1)
+    if fault == "tile max from the neighbour":
+        hm[0] = hm[1]
+    hs = hm * (1.0 / 127)
+    hs = torch.where(hs <= 0, torch.ones_like(hs), hs)
+    hq = torch.clamp(torch.round(h / hs.repeat_interleave(tn_i)), -128, 127)
+    y = fm.group_dot(hq, dw, dsc,
+                     gmul=hs.repeat_interleave(dsc.shape[0] // hs.numel()))
+    return (y + x1).to(torch.bfloat16)
 
 
 def v1_split_emulated(torch, q, kp, ks, vp, vs, bt, lengths, fault=None):

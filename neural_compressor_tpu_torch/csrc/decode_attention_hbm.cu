@@ -50,44 +50,9 @@ __host__ __device__ inline int tile_rows(int D) {
   return r < WARPS ? WARPS : r;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// one thread: expect `bytes` on `bar`, then copy them global -> shared
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
+using nctt::bulk_load;
+using nctt::mbar_init;
+using nctt::mbar_wait;
 
 template <int DPL, bool FULL>
 __global__ void __launch_bounds__(THREADS)
@@ -124,7 +89,7 @@ decode_attention_hbm_kernel(const __nv_bfloat16* __restrict__ q,
   if (tid == 0) {
     mbar_init(&bar[0], 1);
     mbar_init(&bar[1], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    nctt::mbar_fence_init();
   }
   // tile k of the two passes (k < nt: K rows, else V rows) into stage k & 1
   auto issue = [&](int k) {

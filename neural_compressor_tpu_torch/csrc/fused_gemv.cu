@@ -13,190 +13,155 @@
 //
 // Design: the TPU kernel quantizes the activation once, at grid step 0,
 //   into scratch that later steps reuse, because a TPU grid runs in order.
-//   Hopper blocks run in parallel and in no order, so every block recomputes
-//   the sum of squares, the max and the int8 codes of the whole activation
-//   (K bytes of codes in shared memory, up to MAX_K; x comes from L2).
-//   Past MAX_K one block of a first launch quantizes the activation once
-//   into global memory and the GEMV blocks read the codes from there (L2
-//   holds them), so K has no cap. Then
-//   each warp owns 4 output columns: lanes read consecutive 16-byte vectors
-//   (32 codes) of a column, dot them with __dp4a against the shared codes,
-//   sum each group's 4 vectors exactly in int32 with two shuffles, and
-//   add group partial * scale (an exact product) in float64, rounded once
-//   to float32. With the sum of squares also in float64, the sums carry
-//   29 bits more than the float32 result, so their order almost never
-//   shows: the kernel and its plain version (kernels/fused_matvec.py)
-//   agree bit for bit on the main path's inputs. silu pairs column n with
-//   column n + N/2 of the same concatenated gate_up weight.
-#include "gemv_dot.cuh"
+//   Here one launch of a persistent grid streams the weights through the
+//   column stream of w4a8_gemv.cuh (a producer warp's bulk copies into a
+//   ring of slots, tiles of consecutive columns, eight consumer warps; the
+//   plan from kernels/fused_matvec.py w4a8_gemv_plan). Each block first
+//   issues the ring's first copies, then quantizes the activation while
+//   they fly: the sum of squares in float64, max |z|, z = x * w_rms, and
+//   the K int8 codes of z in shared memory, once a block. Past the plan's
+//   limit on K one block of a first launch quantizes the activation once
+//   into global memory (scratch of the plan's argument block) and the
+//   consumers read the codes from there (L2 holds them), so K has no cap.
+//   Group sums are exact in int32, summed over groups in float64 and
+//   rounded once, as kernels/fused_matvec.py fused_gemv_plain does: the
+//   sums carry 29 bits more than the float32 result, so their order almost
+//   never shows, and kernel and plain version agree bit for bit on the main
+//   path's inputs. silu pairs column n with column n + N/2 of the same
+//   concatenated gate_up weight. The epilogue rounds each operation on its
+//   own (no fused multiply-add), as the plain version does.
+#include "w4a8_gemv.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int COLS_PER_WARP = 4;
-constexpr int TN = WARPS * COLS_PER_WARP;  // output columns per block
-// the activation codes a block keeps in shared memory: 227 KiB less the
-// static reductions
-constexpr int MAX_K = 227 * 1024 - 1024;
+using namespace nctt_w4g;
 
-// The prologue, run by a whole block: RMSNorm's sum of squares and the max
-// |z|, z = x * w_rms, then the K int8 codes of z into `codes` (shared or
-// global memory) and the two scales into scl: [0] the activation scale,
-// [1] it times rsqrt(mean(x^2) + eps).
-__device__ __forceinline__ void quantize_activation(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ rms_w,
-    int K, float eps, int8_t* codes, float* scl) {
-  __shared__ double red_ss[WARPS];
-  __shared__ float red_am[WARPS];
-  __shared__ float s_scale;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+struct Args {
+  const __nv_bfloat16* x;
+  const float* rms_w;          // or null
+  const uint8_t* w;
+  const float* scales;
+  const float* bias;           // or null
+  const __nv_bfloat16* residual;   // or null
+  __nv_bfloat16* y;
+  K4Plan p;
+  int K, N, G, n_out, silu;
+  float eps;
+};
 
-  // pass 1: sum of x^2 (RMSNorm) and max |z|
-  double ss = 0.0;
-  float am = 0.f;
-  for (int k = tid; k < K; k += THREADS) {
-    const float xf = __bfloat162float(x[k]);
-    const float z = rms_w ? xf * rms_w[k] : xf;
-    ss += (double)xf * (double)xf;
-    am = fmaxf(am, fabsf(z));
-  }
-  ss = nctt::warp_sum(ss);
-  am = nctt::warp_max(am);
-  if (lane == 0) {
-    red_ss[warp] = ss;
-    red_am[warp] = am;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    ss = lane < WARPS ? red_ss[lane] : 0.0;
-    am = lane < WARPS ? red_am[lane] : 0.f;
-    ss = nctt::warp_sum(ss);
-    am = nctt::warp_max(am);
-    if (lane == 0) {
-      float s = am * (1.0f / 127.0f);  // as XLA compiles amax / 127
-      if (s <= 0.f) s = 1.0f;
-      const float inv =
-          rms_w ? (float)(1.0 / sqrt(ss / K + (double)eps)) : 1.0f;
-      s_scale = s;
-      scl[0] = s;
-      scl[1] = s * inv;
-    }
-  }
-  __syncthreads();
-  const float s = s_scale;
-  // pass 2: int8 codes, round half to even as jnp.round / torch.round
-  for (int k = tid; k < K; k += THREADS) {
-    const float xf = __bfloat162float(x[k]);
-    const float z = rms_w ? xf * rms_w[k] : xf;
-    const float q = fminf(fmaxf(rintf(__fdiv_rn(z, s)), -128.f), 127.f);
-    codes[k] = (int8_t)q;
-  }
-  __syncthreads();
+// the activation's codes, sums per 128 and scales (s, s times the norm's
+// factor) by the block's consumers, into E/O/gsum
+__device__ void quantize_activation(const Args& a, uint32_t* E, uint32_t* O,
+                                    int* gsum, uint8_t* red, float& s,
+                                    float& ssc) {
+  double ss;
+  quantize_x(a.x, a.rms_w, a.K, red, E, O, gsum, ss, s);
+  const float inv =
+      a.rms_w ? (float)(1.0 / sqrt(ss / a.K + (double)a.eps)) : 1.0f;
+  ssc = s * inv;
 }
 
-// K past MAX_K: one block quantizes the activation once into global memory
-// (codes [K] int8, scl [2] f32), which the GEMV blocks then read from L2
-__global__ void __launch_bounds__(THREADS)
-fused_gemv_quant_kernel(const __nv_bfloat16* __restrict__ x,
-                        const float* __restrict__ rms_w, int K, float eps,
-                        int8_t* __restrict__ codes, float* __restrict__ scl) {
-  quantize_activation(x, rms_w, K, eps, codes, scl);
+// K past the plan's limit: one block of CTHREADS quantizes the activation
+// once into the plan's global scratch
+__global__ void __launch_bounds__(CTHREADS)
+fused_gemv_quant_kernel(const Args a) {
+  __shared__ __align__(16) uint8_t red[RED_BYTES];
+  float s, ssc;
+  quantize_activation(a, a.p.codes, a.p.codes + a.K / 8, a.p.gsum, red, s,
+                      ssc);
+  if (threadIdx.x == 0) {
+    a.p.scl[0] = s;
+    a.p.scl[1] = ssc;
+  }
 }
 
 // GLOBAL: the codes and scales come from fused_gemv_quant_kernel in global
 // memory; otherwise each block quantizes the activation into its own
 // shared memory
 template <bool GLOBAL>
-__global__ void __launch_bounds__(THREADS)
-fused_gemv_kernel(const __nv_bfloat16* __restrict__ x,
-                  const float* __restrict__ rms_w,
-                  const uint8_t* __restrict__ w,
-                  const float* __restrict__ scales,
-                  const float* __restrict__ bias,
-                  const __nv_bfloat16* __restrict__ residual,
-                  __nv_bfloat16* __restrict__ y, int K, int N, int G,
-                  int n_out, int silu, float eps,
-                  const int8_t* __restrict__ gcodes,
-                  const float* __restrict__ gscl) {
-  extern __shared__ __align__(16) int8_t sx[];  // K int8 activation codes
-  __shared__ float s_scl[2];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int8_t* codes;
+__global__ void __launch_bounds__(THREADS, 1)
+fused_gemv_kernel(const Args a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const K4Layout L = k4_layout(a.K, a.p.stages, a.p.slot, GLOBAL);
+  const Ring R = make_ring(smem, a.p.stages, a.p.slot);
+  const Stream st = make_stream(a.w, a.scales, a.K, a.G, a.N, a.n_out,
+                                a.silu, a.p.cols, a.p.upc);
+  init_ring(R);
+  __syncthreads();
+  int q = 0;
+  if (threadIdx.x >= CTHREADS) {               // the producer warp
+    produce(R, st, 0, st.slots(), q);
+    return;
+  }
+  Codes x;
   float ssc;
   if constexpr (GLOBAL) {
-    codes = gcodes;
-    ssc = gscl[1];
+    x = Codes{a.p.codes, a.p.codes + a.K / 8, a.p.gsum};
+    ssc = a.p.scl[1];
   } else {
-    quantize_activation(x, rms_w, K, eps, sx, s_scl);
-    codes = sx;
-    ssc = s_scl[1];
+    uint32_t* E = reinterpret_cast<uint32_t*>(smem + L.xe);
+    uint32_t* O = reinterpret_cast<uint32_t*>(smem + L.xo);
+    int* gs = reinterpret_cast<int*>(smem + L.gsum);
+    float s;
+    quantize_activation(a, E, O, gs, smem + L.red, s, ssc);
+    consumers_sync();
+    x = Codes{E, O, gs};
   }
-
-  const size_t wrow = (size_t)K / 2;
-  for (int j = 0; j < COLS_PER_WARP; ++j) {
-    const int n = blockIdx.x * TN + warp * COLS_PER_WARP + j;
-    if (n >= n_out) break;  // uniform across the warp
-    const float g = nctt::dot_column(w + (size_t)n * wrow, codes, scales, n,
-                                     N, K, G, lane);
-    float u = 0.f;
-    if (silu)
-      u = nctt::dot_column(w + (size_t)(n + n_out) * wrow, codes, scales,
-                           n + n_out, N, K, G, lane);
-    if (lane == 0) {
-      float v;
-      if (silu) {
-        const float ga = g * ssc, ua = u * ssc;
-        v = ga * (float)(1.0 / (1.0 + exp(-(double)ga))) * ua;
-      } else {
-        v = g * ssc;
-      }
-      if (bias) v += bias[n];
-      if (residual) v += __bfloat162float(residual[n]);
-      y[n] = __float2bfloat16_rn(v);
+  consume(R, st, x, nullptr, q, [&](int n, float g, float u) {
+    float v;
+    if (a.silu) {
+      const float ga = __fmul_rn(g, ssc), ua = __fmul_rn(u, ssc);
+      const float sig = (float)(1.0 / (1.0 + exp(-(double)ga)));
+      v = __fmul_rn(__fmul_rn(ga, sig), ua);
+    } else {
+      v = __fmul_rn(g, ssc);
     }
+    if (a.bias) v = __fadd_rn(v, a.bias[n]);
+    if (a.residual) v = __fadd_rn(v, __bfloat162float(a.residual[n]));
+    a.y[n] = __float2bfloat16_rn(v);
+  });
+}
+
+template <bool GLOBAL>
+int launch(const Args& a, cudaStream_t st) {
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_gemv_kernel<GLOBAL>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, nctt::MAX_DYN_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    opted_in = true;
   }
+  fused_gemv_kernel<GLOBAL><<<a.p.blocks, THREADS, a.p.smem, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x bf16 [K]; rms_w f32 [K] or null; w uint8 [N, K/2]; scales f32 [K/G, N];
 // bias f32 [n_out] or null; residual bf16 [n_out] or null; y bf16 [n_out].
-// n_out = N/2 with silu, else N. Needs K % 128 == 0 and G % 128 == 0. Up
-// to MAX_K the codes live in each block's shared memory; past it, codes
-// (int8 [K]) and scl (f32 [2]) are global scratch the wrapper allocates,
-// filled by a first launch of one block.
+// n_out = N/2 with silu, else N. plan: the argument block of the wrapper's
+// w4a8_gemv_workspace (the plan of w4a8_gemv_plan, in K4Word's order, and
+// past the plan's limit on K the global scratch for the codes). Needs K %
+// 128 == 0 and G % 128 == 0; a plan that does not fit is refused
+// (cudaErrorInvalidValue), not run. One launch on `stream` (two past the
+// limit on K).
 NCTT_API int nctt_fused_gemv(const void* x, const void* rms_w, const void* w,
                              const void* scales, const void* bias,
-                             const void* residual, void* y, int K, int N,
-                             int G, int n_out, int silu, float eps,
-                             void* codes, void* scl, void* stream) {
+                             const void* residual, void* y, const void* plan,
+                             int K, int N, int G, int n_out, int silu,
+                             float eps, void* stream) {
+  if (!plan) return (int)cudaErrorInvalidValue;
+  const K4Plan p = read_k4_plan(plan);
+  if (!k4_plan_ok(p, K, N, G, n_out, silu)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const int blocks = (n_out + TN - 1) / TN;
-  if (K > MAX_K) {
-    if (!codes || !scl) return (int)cudaErrorInvalidValue;
-    fused_gemv_quant_kernel<<<1, THREADS, 0, s>>>(
-        (const __nv_bfloat16*)x, (const float*)rms_w, K, eps, (int8_t*)codes,
-        (float*)scl);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    fused_gemv_kernel<true><<<blocks, THREADS, 0, s>>>(
-        (const __nv_bfloat16*)x, (const float*)rms_w, (const uint8_t*)w,
-        (const float*)scales, (const float*)bias,
-        (const __nv_bfloat16*)residual, (__nv_bfloat16*)y, K, N, G, n_out,
-        silu, eps, (const int8_t*)codes, (const float*)scl);
-    return (int)cudaGetLastError();
-  }
-  if (K > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fused_gemv_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        K);
-    if (e != cudaSuccess) return (int)e;
-  }
-  fused_gemv_kernel<false><<<blocks, THREADS, K, s>>>(
-      (const __nv_bfloat16*)x, (const float*)rms_w, (const uint8_t*)w,
-      (const float*)scales, (const float*)bias,
-      (const __nv_bfloat16*)residual, (__nv_bfloat16*)y, K, N, G, n_out, silu,
-      eps, nullptr, nullptr);
-  return (int)cudaGetLastError();
+  const Args a{(const __nv_bfloat16*)x, (const float*)rms_w,
+               (const uint8_t*)w, (const float*)scales, (const float*)bias,
+               (const __nv_bfloat16*)residual, (__nv_bfloat16*)y, p, K, N, G,
+               n_out, silu, eps};
+  if (!p.global) return launch<false>(a, s);
+  fused_gemv_quant_kernel<<<1, CTHREADS, 0, s>>>(a);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return launch<true>(a, s);
 }

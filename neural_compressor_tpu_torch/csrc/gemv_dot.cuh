@@ -1,5 +1,6 @@
-// One output column of a W4A8 GEMV on "hopper_nk" weights, shared by K4
-// (fused_gemv.cu), K17 (omlp.cu) and K18 (attn_o.cu).
+// One output column of a W4A8 GEMV on "hopper_nk" weights: K18's
+// o-projection stage (attn_o.cu). K4 and K17 stream their columns through
+// w4a8_gemv.cuh, with the same arithmetic.
 #pragma once
 
 #include "nctt_common.cuh"

@@ -211,6 +211,87 @@ __device__ __forceinline__ void cp_wait(int n) {
 }
 
 
+// ------------------------------------------ mbarriers and bulk copies
+// (TMA's 1-D bulk copy: no tensor map, the hardware moves the bytes and
+// counts them on an mbarrier in shared memory)
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+// the inits visible to the async proxy (the bulk copies) and the block
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// wait for the phase of parity `parity` to complete; a pipeline that never
+// completes it traps (a launch error) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (long long spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1ll << 26)) __trap();
+  }
+}
+// one arrival on `bar` that also expects `bytes` more of bulk copies
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) global ->
+// shared, counted on `bar` as they land
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// expect `bytes` more of bulk copies on `bar` (no arrival)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// one thread: expect `bytes` on `bar`, then copy them global -> shared
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  mbar_arrive_expect_tx(bar, bytes);
+  bulk_copy(dst, src, bytes, bar);
+}
+// an arrival on `bar` once this thread's cp.async copies issued so far
+// have landed; it adds itself to the arrivals the barrier's phase awaits
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// a barrier among the first `threads` threads of the block (id > 0: the
+// block's __syncthreads keeps id 0)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+
 // x / d and x % d by a shift and a mask where d is a power of 2 (the main
 // path's group sizes), by division elsewhere
 struct Div {

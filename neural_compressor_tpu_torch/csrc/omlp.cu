@@ -6,7 +6,8 @@
 // Replaces: neural_compressor_tpu/kernels/omlp_matvec.py
 //   _omlp_impl / _make_kernel (K17, OMLP_FUSED). On the TPU the three
 //   projections are phases of one sequential grid; x1 and the codes of h
-//   live in VMEM scratch between them.
+//   live in VMEM scratch between them, and each phase's first weight blocks
+//   are fetched while the previous phase ends.
 //
 // Semantics (the TPU kernel's, which differ from the split K4 path):
 //   o:  s = f32(max |x| * f32(1/127)) (1 where it is 0), codes of x / s;
@@ -21,176 +22,288 @@
 //       f32(max |h_tile| * f32(1/127)) (the split path has one a token);
 //   d:  y = bf16(f32(sum_r dot_r * f32(dsc[r] * hs[tile of r])) + x1).
 //   Group sums run in float64 over exact products, rounded once (the TPU
-//   sums in float32), as K4 does; the sum of squares in float64.
-//   Without the o-projection the input is x1 itself (bf16).
+//   sums in float32), as K4 does; the sum of squares in float64. Each
+//   float32 operation rounds on its own (no fused multiply-add), as
+//   kernels/omlp_matvec.py omlp_plain does. Without the o-projection the
+//   input is x1 itself (bf16).
 //
 // Bound on this card: bytes. At llama2-7b: o 8.4 MB, gate_up 45.1 MB and
 //   down 22.5 MB of int4 weights plus 4.75 MB of float32 scales a launch.
 //
-// Design: one cooperative persistent kernel (cudaLaunchCooperativeKernel,
-//   the grid sized from the occupancy so every block is resident), phases
-//   split by grid-wide barriers (cooperative_groups::this_grid().sync()):
-//     1. o: every block quantizes the attention output into its shared
-//        memory (Ko bytes; it comes from L2), its warps take x1's columns
-//        in turn (K4's column dot, gemv_dot.cuh) and write x1 in float32
-//        to a global scratch; barrier;
-//     2. gate_up: every block reduces the sum of squares and the amax of z
-//        over x1 (from L2), quantizes z into shared memory, and its warps
-//        take h's columns in turn (gate column n, up column n + I), h in
-//        float32 to a global scratch; barrier;
-//     3. down: every block takes the amax of each tn_i tile of h, the
-//        tile's scale and the int8 codes of h into shared memory, then its
-//        warps take the output columns in turn, each group's scale times
-//        its tile's scale, plus x1.
+// Design: one cooperative launch of a persistent grid (every block
+//   resident; kernels/omlp_matvec.py omlp_plan), the phases split by
+//   grid-wide barriers of the consumer warps (grid_barrier), each
+//   phase's weights streamed through the column stream of w4a8_gemv.cuh
+//   (a producer warp's bulk copies into one ring of slots shared by the
+//   phases, tiles of consecutive columns, eight consumer warps):
+//     1. o: the consumers quantize the attention output into shared memory
+//        (once a block), then x1 = o(x) * s + residual for the block's
+//        columns, in float32 to the workspace; each block leaves its
+//        float64 sum of x1^2 and its max |x1 * w_rms| in its own slot;
+//     2. gate_up: every block folds the blocks' slots (a fixed order: lane
+//        l of a warp takes slots l, l + 32, ... in order, then the warp's
+//        shuffles), reads x1 once for z's codes, and writes h for its
+//        columns (gate column n, up column n + I); each tn_i tile's max |h|
+//        goes into a word of the workspace by atomicMax on the bits of the
+//        non-negative float (exact in any order), from the block's own
+//        maxima in shared memory;
+//     3. down: every block reads the tile words and h once for h's codes,
+//        each group's scale times its tile's scale, plus x1.
+//   The weights do not depend on the activations: the producer warp never
+//   waits at a barrier, it streams o's, gate_up's and down's slots in turn
+//   as the ring frees, so each barrier and the next prologue overlap the
+//   next phase's first copies (the TPU kernel's cross-phase pipelining; a
+//   grid sync that every thread of a block joins, cooperative_groups',
+//   also waited for the producer, and measured slower on the H100;
+//   PERF.md). The tile words come in two sets: a launch
+//   takes the set of its generation's parity (a word of the workspace that
+//   every block reads before the first barrier and block 0 advances after
+//   the last one) and block 0 zeroes the other set for the next launch.
 //   tn_i is the TPU kernel's tile (_pick_tiles), numerics here rather than
-//   a memory choice. The grid barrier needs no relocatable device code
-//   (-rdc) since CUDA 11: the kernel links into the port's one shared
-//   library as the others do. A simple first kernel: the next phase's
-//   weights are not prefetched across a barrier (the TPU kernel's
-//   cross-phase pipelining), and the activations are quantized again by
-//   every block.
-#include <cooperative_groups.h>
-
-#include "gemv_dot.cuh"
-
-namespace cg = cooperative_groups;
+//   a memory choice.
+#include "w4a8_gemv.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
+using namespace nctt_w4g;
 
-// the block's amax of |f(i)| over i < n, and optionally its sum of f(i)^2
-// in float64; valid in every thread
-template <typename F>
-__device__ __forceinline__ float block_amax(int n, F f, double* ss) {
-  __shared__ float red_f[WARPS];
-  __shared__ double red_d[WARPS];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float am = 0.f;
-  double s = 0.0;
-  for (int i = tid; i < n; i += THREADS) {
-    const float v = f(i);
-    am = fmaxf(am, fabsf(v));
-    if (ss) s += (double)v * (double)v;
-  }
-  am = nctt::warp_max(am);
-  s = nctt::warp_sum(s);
-  if (lane == 0) {
-    red_f[warp] = am;
-    red_d[warp] = s;
-  }
-  __syncthreads();
-  am = 0.f;
-  s = 0.0;
-  for (int w = 0; w < WARPS; ++w) {
-    am = fmaxf(am, red_f[w]);
-    s += red_d[w];
-  }
-  if (ss) *ss = s;
-  __syncthreads();  // red_* are free again
-  return am;
+// The words of the argument block (kernels/omlp_matvec.py omlp_workspace),
+// 64 bits each: the workspace's addresses, then the plan
+enum PlanWord {
+  W_X1S, W_HS, W_SS, W_AM, W_TILES, W_GEN, W_BAR, W_COLS, W_STAGES,
+  W_UPC_O, W_UPC_G, W_UPC_D, W_BLOCKS, W_SLOT, W_SMEM, PLAN_WORDS
+};
+
+struct Plan {
+  float* x1s;        // [Kh] float32 x1
+  float* hs;         // [I] float32 h
+  double* ss;        // [blocks] the blocks' sums of x1^2
+  float* am;         // [blocks] the blocks' max |x1 * w_rms|
+  unsigned* tiles;   // [2][I / tn_i] tile maxima (bits), zero between calls
+  unsigned* gen;     // the launches' generation
+  unsigned long long* bar;   // the grid barrier's arrivals, never reset
+  int cols, stages, upc_o, upc_g, upc_d, blocks, slot, smem;
+};
+
+Plan read_plan(const void* block) {
+  const long long* w = static_cast<const long long*>(block);
+  return Plan{reinterpret_cast<float*>(w[W_X1S]),
+              reinterpret_cast<float*>(w[W_HS]),
+              reinterpret_cast<double*>(w[W_SS]),
+              reinterpret_cast<float*>(w[W_AM]),
+              reinterpret_cast<unsigned*>(w[W_TILES]),
+              reinterpret_cast<unsigned*>(w[W_GEN]),
+              reinterpret_cast<unsigned long long*>(w[W_BAR]), (int)w[W_COLS],
+              (int)w[W_STAGES], (int)w[W_UPC_O], (int)w[W_UPC_G],
+              (int)w[W_UPC_D], (int)w[W_BLOCKS], (int)w[W_SLOT],
+              (int)w[W_SMEM]};
 }
 
-__device__ __forceinline__ float act_scale(float amax) {
-  const float s = amax * (1.0f / 127.0f);   // as XLA compiles amax / 127
-  return s <= 0.f ? 1.0f : s;
+// dynamic shared memory, byte offsets: the ring and its barriers, the even
+// and odd codes and the sums per 128 of the widest activation, h's tile
+// scales, the block's tile maxima and h's scale for each unit of 128
+// codes, the consumers' reductions
+struct Layout {
+  int xe, xo, gsum, hsc, tmax, hsu, red, total;
+};
+
+__host__ __device__ inline Layout layout(int kmax, int n_i, int stages,
+                                         int slot) {
+  Layout L;
+  L.xe = stages * slot + 16 * stages;
+  L.xo = L.xe + kmax / 2;
+  L.gsum = L.xo + kmax / 2;
+  L.hsc = up16(L.gsum + kmax / 32);
+  L.tmax = L.hsc + 4 * n_i;
+  L.hsu = L.tmax + 4 * n_i;
+  L.red = up16(L.hsu + kmax / 32);
+  L.total = L.red + RED_BYTES;
+  return L;
+}
+
+struct Args {
+  const __nv_bfloat16* x;
+  const __nv_bfloat16* residual;
+  const float* rms_w;
+  const uint8_t* ow;
+  const float* osc;
+  const uint8_t* guw;
+  const float* gusc;
+  const uint8_t* dw;
+  const float* dsc;
+  __nv_bfloat16* y;
+  Plan p;
+  int Ko, Kh, I, Go, Gg, Gd, tn_i, kmax;
+  float eps;
+};
+
+// The grid barrier of the consumer warps: the producer warps never wait at
+// it, they stream the next phases' slots as the ring frees. Every block is
+// resident (a cooperative launch); the counter only grows, so an arrival's
+// generation is its count over the blocks. A barrier that never completes
+// traps (a launch error) instead of hanging the card.
+__device__ void grid_barrier(unsigned long long* bar) {
+  consumers_sync();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const unsigned long long nb = gridDim.x;
+    const unsigned long long target = (atomicAdd(bar, 1ull) / nb + 1) * nb;
+    for (long long spins = 0;; ++spins) {
+      unsigned long long v;
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
+                   : "=l"(v)
+                   : "l"(bar)
+                   : "memory");
+      if (v >= target) break;
+      if (spins > (1ll << 28)) __trap();
+    }
+  }
+  consumers_sync();
 }
 
 template <bool HAS_O>
-__global__ void __launch_bounds__(THREADS)
-omlp_kernel(const __nv_bfloat16* __restrict__ x,
-            const __nv_bfloat16* __restrict__ residual,
-            const float* __restrict__ rms_w, const uint8_t* __restrict__ ow,
-            const float* __restrict__ osc, const uint8_t* __restrict__ guw,
-            const float* __restrict__ gusc, const uint8_t* __restrict__ dw,
-            const float* __restrict__ dsc, __nv_bfloat16* __restrict__ y,
-            float* x1s, float* hs, int Ko, int Kh, int I, int Go, int Gg,
-            int Gd, int tn_i, int codes_bytes, float eps) {
-  extern __shared__ __align__(16) int8_t sx[];   // codes, then tile scales
-  float* hsc = reinterpret_cast<float*>(sx + codes_bytes);
-  cg::grid_group grid = cg::this_grid();
+__global__ void __launch_bounds__(THREADS, 1) omlp_kernel(const Args a) {
+  extern __shared__ __align__(128) uint8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gw = blockIdx.x * WARPS + warp, nw = gridDim.x * WARPS;
-
-  // phase 1: x1 = o(x) * s + residual, float32, to the scratch
-  if constexpr (HAS_O) {
-    const float s = act_scale(block_amax(
-        Ko, [&](int i) { return __bfloat162float(x[i]); }, nullptr));
-    for (int i = tid; i < Ko; i += THREADS)
-      sx[i] = nctt::act_code(__bfloat162float(x[i]), s);
-    __syncthreads();
-    for (int n = gw; n < Kh; n += nw) {
-      const float g = nctt::dot_column(ow + (size_t)n * (Ko / 2), sx, osc, n,
-                                       Kh, Ko, Go, lane);
-      if (lane == 0) x1s[n] = g * s + __bfloat162float(residual[n]);
-    }
-    grid.sync();
+  const int n_i = a.I / a.tn_i;
+  const Layout L = layout(a.kmax, n_i, a.p.stages, a.p.slot);
+  const Ring R = make_ring(smem, a.p.stages, a.p.slot);
+  const Stream so = make_stream(a.ow, a.osc, a.Ko, a.Go, a.Kh, a.Kh, false,
+                                a.p.cols, a.p.upc_o);
+  const Stream sg = make_stream(a.guw, a.gusc, a.Kh, a.Gg, 2 * a.I, a.I,
+                                true, a.p.cols, a.p.upc_g);
+  const Stream sd = make_stream(a.dw, a.dsc, a.I, a.Gd, a.Kh, a.Kh, false,
+                                a.p.cols, a.p.upc_d);
+  uint32_t* E = reinterpret_cast<uint32_t*>(smem + L.xe);
+  uint32_t* O = reinterpret_cast<uint32_t*>(smem + L.xo);
+  int* gs = reinterpret_cast<int*>(smem + L.gsum);
+  float* hsc = reinterpret_cast<float*>(smem + L.hsc);
+  float* hsu = reinterpret_cast<float*>(smem + L.hsu);
+  unsigned* tmax = reinterpret_cast<unsigned*>(smem + L.tmax);
+  uint8_t* red = smem + L.red;
+  const Codes codes{E, O, gs};
+  const bool producer = tid >= CTHREADS;
+  const int b = blockIdx.x;
+  // this launch's tile words (read before the first barrier)
+  const unsigned par = *reinterpret_cast<volatile unsigned*>(a.p.gen) & 1u;
+  unsigned* tw = a.p.tiles + par * n_i;
+  init_ring(R);
+  __syncthreads();
+  int q = 0;
+  if (producer) {   // every phase's slots, the ring permitting
+    if (HAS_O) produce(R, so, 0, so.slots(), q);
+    produce(R, sg, 0, sg.slots(), q);
+    produce(R, sd, 0, sd.slots(), q);
+    return;
   }
-  auto x1 = [&](int i) {
-    return HAS_O ? __ldcg(x1s + i) : __bfloat162float(x[i]);
-  };
+
+  // phase 1: x1 = o(x) * s + residual, float32, to the workspace; the
+  // block's sum of x1^2 and max |x1 * w_rms| to its slots
+  if constexpr (HAS_O) {
+    {
+      double ss;
+      float s;
+      quantize_x(a.x, (const float*)nullptr, a.Ko, red, E, O, gs, ss, s);
+      consumers_sync();
+      double wss = 0.0;
+      float wam = 0.f;
+      consume(R, so, codes, nullptr, q, [&](int n, float g, float) {
+        const float x1 = __fadd_rn(__fmul_rn(g, s),
+                                   __bfloat162float(a.residual[n]));
+        a.p.x1s[n] = x1;
+        wss += (double)x1 * (double)x1;
+        wam = fmaxf(wam, fabsf(x1 * a.rms_w[n]));
+      });
+      double* rd = reinterpret_cast<double*>(red);
+      float* rf = reinterpret_cast<float*>(red + CWARPS * 8);
+      if (lane == 0) {
+        rd[warp] = wss;
+        rf[warp] = wam;
+      }
+      consumers_sync();
+      if (tid == 0) {
+        double bs = rd[0];
+        float bm = rf[0];
+        for (int w = 1; w < CWARPS; ++w) {
+          bs += rd[w];
+          bm = fmaxf(bm, rf[w]);
+        }
+        a.p.ss[b] = bs;
+        a.p.am[b] = bm;
+      }
+    }
+    grid_barrier(a.p.bar);
+  }
 
   // phase 2: RMSNorm folded into the act scale, h = silu(g) * u
-  double ss = 0.0;
-  block_amax(Kh, x1, &ss);
-  const float s2 = act_scale(
-      block_amax(Kh, [&](int i) { return x1(i) * rms_w[i]; }, nullptr));
-  const float inv = (float)(1.0 / sqrt(ss / Kh + (double)eps));
-  const float ssc = s2 * inv;
-  for (int i = tid; i < Kh; i += THREADS)
-    sx[i] = nctt::act_code(x1(i) * rms_w[i], s2);
-  __syncthreads();
-  const size_t gwrow = (size_t)Kh / 2;
-  for (int n = gw; n < I; n += nw) {
-    const float g = nctt::dot_column(guw + (size_t)n * gwrow, sx, gusc, n,
-                                     2 * I, Kh, Gg, lane);
-    const float u = nctt::dot_column(guw + (size_t)(n + I) * gwrow, sx, gusc,
-                                     n + I, 2 * I, Kh, Gg, lane);
-    if (lane == 0) {
-      const float ga = g * ssc, ua = u * ssc;
-      hs[n] = ga * (float)(1.0 / (1.0 + exp(-(double)ga))) * ua;
+  {
+    double ss;
+    float s2;
+    if constexpr (HAS_O) {   // the blocks' slots, in a fixed order
+      ss = 0.0;
+      float am = 0.f;
+      for (int i = lane; i < gridDim.x; i += 32) {
+        ss += __ldcg(a.p.ss + i);
+        am = fmaxf(am, __ldcg(a.p.am + i));
+      }
+      ss = nctt::warp_sum(ss);
+      s2 = act_scale(nctt::warp_max(am));
+      store_codes(a.p.x1s, a.rms_w, a.Kh, [s2](int) { return s2; }, E, O,
+                  gs);
+    } else {
+      quantize_x(a.x, a.rms_w, a.Kh, red, E, O, gs, ss, s2);
     }
+    const float inv = (float)(1.0 / sqrt(ss / a.Kh + (double)a.eps));
+    const float ssc = s2 * inv;
+    for (int t = tid; t < n_i; t += CTHREADS) tmax[t] = 0u;
+    if (b == 0)   // the next launch's tile words
+      for (int t = tid; t < n_i; t += CTHREADS)
+        a.p.tiles[(par ^ 1u) * n_i + t] = 0u;
+    consumers_sync();
+    consume(R, sg, codes, nullptr, q, [&](int n, float g, float u) {
+      const float ga = __fmul_rn(g, ssc), ua = __fmul_rn(u, ssc);
+      const float sig = (float)(1.0 / (1.0 + exp(-(double)ga)));
+      const float h = __fmul_rn(__fmul_rn(ga, sig), ua);
+      a.p.hs[n] = h;
+      atomicMax(&tmax[n / a.tn_i], __float_as_uint(fabsf(h)));
+    });
+    consumers_sync();
+    if (sg.c1 > sg.c0)
+      for (int t = sg.c0 / a.tn_i + tid; t <= (sg.c1 - 1) / a.tn_i;
+           t += CTHREADS)
+        atomicMax(&tw[t], tmax[t]);
   }
-  grid.sync();
+  grid_barrier(a.p.bar);
 
   // phase 3: h's codes, one scale a tn_i tile, then down + x1
-  const int n_i = I / tn_i;
-  for (int t = warp; t < n_i; t += WARPS) {
-    float am = 0.f;
-    for (int j = lane; j < tn_i; j += 32)
-      am = fmaxf(am, fabsf(__ldcg(hs + (size_t)t * tn_i + j)));
-    am = nctt::warp_max(am);
-    if (lane == 0) hsc[t] = act_scale(am);
-  }
-  __syncthreads();
-  for (int i = tid; i < I; i += THREADS)
-    sx[i] = nctt::act_code(__ldcg(hs + i), hsc[i / tn_i]);
-  __syncthreads();
-  const size_t dwrow = (size_t)I / 2;
-  for (int n = gw; n < Kh; n += nw) {
-    const float acc = nctt::dot_column(dw + (size_t)n * dwrow, sx, dsc, n,
-                                       Kh, I, Gd, lane, hsc, tn_i / Gd);
-    if (lane == 0) y[n] = __float2bfloat16_rn(acc + x1(n));
-  }
+  for (int t = tid; t < n_i; t += CTHREADS)
+    hsc[t] = act_scale(__uint_as_float(__ldcg(tw + t)));
+  consumers_sync();
+  const int upt = a.tn_i / 128;                // units of 128 codes a tile
+  for (int u = tid; u < a.I / 128; u += CTHREADS) hsu[u] = hsc[u / upt];
+  const int tn8 = a.tn_i / 8;
+  store_codes(a.p.hs, (const float*)nullptr, a.I,
+              [&](int c) { return hsc[c / tn8]; }, E, O, gs);
+  consumers_sync();
+  consume(R, sd, codes, hsu, q, [&](int n, float acc, float) {
+    const float x1 = HAS_O ? __ldcg(a.p.x1s + n)
+                           : __bfloat162float(a.x[n]);
+    a.y[n] = __float2bfloat16_rn(__fadd_rn(acc, x1));
+  });
+  if (b == 0 && tid == 0) atomicAdd(a.p.gen, 1u);
 }
 
 template <bool HAS_O>
-int launch(const void* x, const void* residual, const void* rms_w,
-           const void* ow, const void* osc, const void* guw,
-           const void* gusc, const void* dw, const void* dsc, void* y,
-           void* x1s, void* hs, int Ko, int Kh, int I, int Go, int Gg,
-           int Gd, int tn_i, float eps, cudaStream_t stream) {
-  int codes = max(max(HAS_O ? Ko : 0, Kh), I);
-  codes = (codes + 15) / 16 * 16;
-  const size_t smem = (size_t)codes + sizeof(float) * (size_t)(I / tn_i);
+int launch(const Args& a, cudaStream_t stream) {
   auto kernel = omlp_kernel<HAS_O>;
+  static bool opted_in = false;
   cudaError_t e;
-  if (smem > 48 * 1024) {
+  if (!opted_in) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             nctt::MAX_DYN_SMEM);
     if (e != cudaSuccess) return (int)e;
+    opted_in = true;
   }
   int dev = 0, nsm = 0, occ = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -198,53 +311,70 @@ int launch(const void* x, const void* residual, const void* rms_w,
                                   dev)) != cudaSuccess)
     return (int)e;
   if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &occ, kernel, THREADS, smem)) != cudaSuccess)
+           &occ, kernel, THREADS, a.p.smem)) != cudaSuccess)
     return (int)e;
-  if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  // two blocks an SM: each block quantizes every phase's activation again,
-  // so more blocks would read more of L2 than the weights take
-  const int grid = nsm * min(occ, 2);
-  const __nv_bfloat16* x_ = (const __nv_bfloat16*)x;
-  const __nv_bfloat16* r_ = (const __nv_bfloat16*)residual;
-  const float* rw_ = (const float*)rms_w;
-  const uint8_t* ow_ = (const uint8_t*)ow;
-  const float* osc_ = (const float*)osc;
-  const uint8_t* guw_ = (const uint8_t*)guw;
-  const float* gusc_ = (const float*)gusc;
-  const uint8_t* dw_ = (const uint8_t*)dw;
-  const float* dsc_ = (const float*)dsc;
-  __nv_bfloat16* y_ = (__nv_bfloat16*)y;
-  float* x1_ = (float*)x1s;
-  float* hs_ = (float*)hs;
-  void* args[] = {&x_, &r_, &rw_, &ow_, &osc_, &guw_, &gusc_, &dw_, &dsc_,
-                  &y_, &x1_, &hs_, &Ko, &Kh, &I, &Go, &Gg, &Gd, &tn_i,
-                  &codes, &eps};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(grid),
-                                  dim3(THREADS), args, smem, stream);
+  // every block resident, or the grid barrier would wait forever
+  if (occ * nsm < a.p.blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {const_cast<Args*>(&a)};
+  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(a.p.blocks),
+                                  dim3(THREADS), args, a.p.smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// Whether a plan fits the shape (kernels/omlp_matvec.py omlp_plan makes
+// them): tiles of 8 or 16 columns, each phase's slots of units of 128
+// codes within the slot, the layout within the block's shared memory
+bool plan_ok(const Plan& p, int Ko, int Kh, int I, int tn_i, int has_o,
+             int kmax) {
+  if (!p.x1s || !p.hs || !p.ss || !p.am || !p.tiles || !p.gen || !p.bar ||
+      !(p.cols == 8 || p.cols == 16) || p.stages < 2 ||
+      p.stages > MAX_STAGES || p.blocks < 1)
+    return false;
+  const int K[3] = {Ko, Kh, I};
+  const int upc[3] = {p.upc_o, p.upc_g, p.upc_d}, runs[3] = {1, 2, 1};
+  for (int i = has_o ? 0 : 1; i < 3; ++i) {
+    if (upc[i] < 1 || upc[i] > K[i] / 128 ||
+        slot_bytes(runs[i], p.cols, upc[i]) > p.slot)
+      return false;
+  }
+  const Layout L = layout(kmax, I / tn_i, p.stages, p.slot);
+  return p.slot % 16 == 0 && p.smem == L.total &&
+         L.total <= nctt::MAX_DYN_SMEM;
 }
 
 }  // namespace
 
 // has_o = 1: x bf16 [Ko] (the attention output), residual bf16 [Kh], o
 // weights uint8 "hopper_nk" [Kh, Ko/2] with scales f32 [Ko/Go, Kh]; has_o
-// = 0: x bf16 [Kh] is x1 itself (ow, osc, residual, x1s unused). rms_w f32
+// = 0: x bf16 [Kh] is x1 itself (ow, osc, residual unused). rms_w f32
 // [Kh]; gate_up uint8 [2I, Kh/2] with scales f32 [Kh/Gg, 2I]; down uint8
-// [Kh, I/2] with scales f32 [I/Gd, Kh]; y bf16 [Kh]; x1s f32 [Kh] and hs f32
-// [I] scratch. Every K and group a multiple of 128; I % tn_i == 0 and
-// tn_i % Gd == 0.
+// [Kh, I/2] with scales f32 [I/Gd, Kh]; y bf16 [Kh]; plan: the argument
+// block of the wrapper's omlp_workspace (the workspace and omlp_plan's plan,
+// in PlanWord's order). Every K and group a multiple of 128; I % tn_i == 0
+// and tn_i % Gd == 0; a plan that does not fit is refused
+// (cudaErrorInvalidValue), not run.
 NCTT_API int nctt_omlp(const void* x, const void* residual, const void* rms_w,
                        const void* ow, const void* osc, const void* guw,
                        const void* gusc, const void* dw, const void* dsc,
-                       void* y, void* x1s, void* hs, int Ko, int Kh, int I,
+                       void* y, const void* plan, int Ko, int Kh, int I,
                        int Go, int Gg, int Gd, int tn_i, float eps,
                        int has_o, void* stream) {
+  if (!plan || tn_i <= 0 || I % tn_i || tn_i % Gd || tn_i % 128)
+    return (int)cudaErrorInvalidValue;
+  const int ks[6] = {Ko, Kh, I, Go, Gg, Gd};
+  for (int k : ks)
+    if (k < 128 || k % 128) return (int)cudaErrorInvalidValue;
+  if (Ko % Go || Kh % Gg || I % Gd) return (int)cudaErrorInvalidValue;
+  const Plan p = read_plan(plan);
+  const int kmax = max(max(has_o ? Ko : 0, Kh), I);
+  if (!plan_ok(p, Ko, Kh, I, tn_i, has_o, kmax))
+    return (int)cudaErrorInvalidValue;
+  const Args a{(const __nv_bfloat16*)x, (const __nv_bfloat16*)residual,
+               (const float*)rms_w, (const uint8_t*)ow, (const float*)osc,
+               (const uint8_t*)guw, (const float*)gusc, (const uint8_t*)dw,
+               (const float*)dsc, (__nv_bfloat16*)y, p, Ko, Kh, I, Go, Gg,
+               Gd, tn_i, kmax, eps};
   cudaStream_t s = (cudaStream_t)stream;
-  if (tn_i <= 0 || I % tn_i || tn_i % Gd) return (int)cudaErrorInvalidValue;
-  return has_o ? launch<true>(x, residual, rms_w, ow, osc, guw, gusc, dw, dsc,
-                              y, x1s, hs, Ko, Kh, I, Go, Gg, Gd, tn_i, eps, s)
-               : launch<false>(x, residual, rms_w, ow, osc, guw, gusc, dw,
-                               dsc, y, x1s, hs, Ko, Kh, I, Go, Gg, Gd, tn_i,
-                               eps, s);
+  return has_o ? launch<true>(a, s) : launch<false>(a, s);
 }

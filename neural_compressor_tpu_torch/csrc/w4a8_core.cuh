@@ -103,34 +103,10 @@ __device__ __forceinline__ void for_items(int tid, F&& f) {
   }
 }
 
-// mbarriers of the wgmma path's pipeline
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-// wait for the phase of parity `parity` to complete; a pipeline that never
-// completes it traps (a launch error) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  for (long long spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1ll << 26)) __trap();
-  }
-}
+// mbarriers of the wgmma path's pipeline (nctt_common.cuh)
+using nctt::mbar_arrive;
+using nctt::mbar_init;
+using nctt::mbar_wait;
 
 // c += a * b, a unsigned int8 (the weights' codes plus 8), b signed int8
 __device__ __forceinline__ void mma_u8(int (&c)[4], const uint32_t (&a)[4],

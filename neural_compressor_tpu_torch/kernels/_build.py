@@ -42,10 +42,11 @@ SIGNATURES = {
                                _I, _I, _I, _P],
     "nctt_s4_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _P],
-    # x, rms_w, w, scales, bias, residual, y, K, N, G, n_out, silu, eps,
-    # codes, scl (global scratch past MAX_K, else null), stream
-    "nctt_fused_gemv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                        _P, _P, _P],
+    # x, rms_w, w, scales, bias, residual, y, plan (the argument block of
+    # fused_matvec.w4a8_gemv_workspace: the plan and, past MAX_K, the
+    # codes' global scratch), K, N, G, n_out, silu, eps, stream (K4)
+    "nctt_fused_gemv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _F, _P],
     # q, k_cache, v_cache, pos (int32 [B] on the device), out, plan (the
     # argument block of decode_attention.decode_workspace: scratch and
     # plan), B, H, Hkv, T, D, scale, stream (K5)
@@ -67,10 +68,11 @@ SIGNATURES = {
     # dependent launch), scale, stream (K18)
     "nctt_attn_o": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                     _I, _I, _F, _P],
-    # x, residual, rms_w, ow, osc, guw, gusc, dw, dsc, y, x1s, hs (f32
-    # scratch), Ko, Kh, I, Go, Gg, Gd, tn_i, eps, has_o, stream
-    "nctt_omlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                  _I, _I, _I, _I, _F, _I, _P],
+    # x, residual, rms_w, ow, osc, guw, gusc, dw, dsc, y, plan (the
+    # argument block of omlp_matvec.omlp_workspace: workspace and plan), Ko,
+    # Kh, I, Go, Gg, Gd, tn_i, eps, has_o, stream (K17)
+    "nctt_omlp": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                  _I, _I, _I, _F, _I, _P],
     # q, k_pages, k_scales, v_pages, v_scales, block_tables, lengths, out,
     # plan (the argument block of paged_attention.v1_workspace: scratch and
     # plan), B, H, Hkv, P, page, PMAX, D, fmt (0 bf16, 1 int8, 2 fp8),

@@ -13,22 +13,176 @@ In this order, in one launch:
 
 Ports ``neural_compressor_tpu/kernels/fused_matvec.py`` ``_fused_impl``
 (K4, kernel body ``_make_kernel``). The CUDA kernel is
-``csrc/fused_gemv.cu``; eligibility (``fused_ok``, ``_pick_tn``) follows
-the JAX module exactly, minus its TPU check.
+``csrc/fused_gemv.cu``, on the column stream of ``csrc/w4a8_gemv.cuh``
+with the plan of ``w4a8_gemv_plan``; eligibility (``fused_ok``,
+``_pick_tn``) follows the JAX module exactly, minus its TPU check.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from ..ops.packing import HOPPER_LAYOUT, PackedWeight
 from . import _build
+from .dequant_matmul import N_SM, SM_BLOCK_SMEM, SM_SMEM, SM_THREADS
+from .w4a8_matmul import MAX_DYN_SMEM
 
-# the activation codes a block of the kernel keeps in shared memory
-# (``MAX_K`` in csrc/fused_gemv.cu): 227 KiB less its static reductions.
-# Past it one first launch quantizes the activation into global memory,
-# where every block reads the codes (from L2): K has no cap.
-MAX_K = 227 * 1024 - 1024
+# K4's plan: the column stream of csrc/w4a8_gemv.cuh (K17's phases share
+# it, kernels/omlp_matvec.py omlp_plan). The C entry checks every plan it is
+# given against the same rules (``k4_plan_ok``) and refuses the rest.
+W4A8_COLS = 8                 # a tile's columns: one a consumer warp (16: two)
+W4A8_RING = 96 * 1024         # bytes a block aims to keep in flight
+W4A8_SLOT = 48 * 1024         # a ring slot's bytes, at most
+W4A8_MAX_STAGES = 8
+W4A8_BLOCKS_PER_SM = 1        # resident blocks an SM
+W4A8_THREADS = 288            # eight consumer warps and the producer warp
+_MIN_RING = 32 * 1024         # the least ring beside codes in shared memory
+_RED_BYTES = 96               # the consumers' reductions
+
+# the largest K whose activation codes (and their sums per 128 codes) a
+# block keeps in shared memory beside a ring of _MIN_RING. Past it one first
+# launch quantizes the activation into global memory, where every block
+# reads the codes (from L2): K has no cap.
+MAX_K = ((MAX_DYN_SMEM - _RED_BYTES - 16 * W4A8_MAX_STAGES - _MIN_RING)
+         * 32 // 33 // 128 * 128)
+
+
+def _up16(b: int) -> int:
+    return -(-b // 16) * 16
+
+
+def w4a8_slot_bytes(runs: int, cols: int, upc: int) -> int:
+    """A ring slot of the column stream (``slot_bytes`` in
+    csrc/w4a8_gemv.cuh): ``runs`` x ``cols`` columns of ``upc`` units of
+    128 codes (64 bytes each), then a float32 scale a unit and column."""
+    return _up16(runs * cols * upc * (64 + 4))
+
+
+def k4_smem(K: int, stages: int, slot: int, codes_global: bool) -> int:
+    """K4's dynamic shared memory (``k4_layout(...).total``): the ring and
+    its two mbarriers a slot, the even and odd activation codes and their
+    sums per 128 (none where they live in global memory), the reductions."""
+    codes = 0 if codes_global else K
+    return (_up16(stages * slot + 16 * stages + codes + codes // 32)
+            + _RED_BYTES)
+
+
+class W4A8Plan(NamedTuple):
+    """How K4 runs one product: ``blocks`` resident blocks, each owning a
+    contiguous share of the output columns, walked in tiles of ``cols``
+    columns, each tile in ``chunks`` slots of ``upc`` units of 128 codes,
+    streamed through a ring of ``stages`` slots of ``slot`` bytes; ``smem``
+    the launch's dynamic shared memory. ``codes_bytes`` > 0 (K past
+    ``MAX_K``): a first launch writes the activation codes to global
+    scratch of that many bytes."""
+    cols: int
+    stages: int
+    upc: int
+    chunks: int
+    blocks: int
+    slot: int
+    smem: int
+    codes_bytes: int
+
+
+def ring_plan(runs: int, nu: int, avail: int):
+    """(upc, slot, stages) of a ring in ``avail`` bytes of shared memory for
+    products of ``runs`` runs of ``nu`` units: the largest slot up to
+    ``W4A8_SLOT`` of which two fit, of whole K where it can; as many slots
+    as take ``W4A8_RING`` bytes (2 to ``W4A8_MAX_STAGES``), as fit."""
+    per_unit = w4a8_slot_bytes(runs, W4A8_COLS, 1)
+    upc = max(1, min(nu, min(W4A8_SLOT, avail // 2) // per_unit))
+    slot = w4a8_slot_bytes(runs, W4A8_COLS, upc)
+    stages = min(W4A8_MAX_STAGES, max(2, -(-W4A8_RING // slot)),
+                 avail // slot)
+    return upc, slot, stages
+
+
+def resident_blocks(smem: int, n_sm: int) -> int:
+    """The blocks of ``smem`` bytes the card holds at once, at most
+    ``W4A8_BLOCKS_PER_SM`` an SM."""
+    return n_sm * max(1, min(W4A8_BLOCKS_PER_SM,
+                             SM_SMEM // (smem + SM_BLOCK_SMEM),
+                             SM_THREADS // W4A8_THREADS))
+
+
+@functools.lru_cache(maxsize=4096)
+def w4a8_gemv_plan(K: int, N: int, G: int, n_out: int, silu: bool,
+                   n_sm: int = N_SM) -> W4A8Plan:
+    """K4's plan for x [K] against "hopper_nk" words [N, K/2] in groups of
+    G, ``n_out`` outputs (N/2 with silu). Raises ValueError on a shape the
+    kernel does not take (K % 128, G % 128, K % G).
+
+    Tiles of ``W4A8_COLS`` columns; the ring of ``ring_plan`` in what the
+    codes leave of the block's shared memory; the codes in global memory
+    past ``MAX_K``; a block an SM (``W4A8_BLOCKS_PER_SM``), no more blocks
+    than tiles."""
+    if not (K >= 128 and K % 128 == 0 and G >= 128 and G % 128 == 0
+            and K % G == 0 and n_out >= 1
+            and N == (2 * n_out if silu else n_out)):
+        raise ValueError(f"K4 needs K % 128 == 0, G % 128 == 0, K % G == 0 "
+                         f"and N = n_out (2 n_out with silu) (K={K}, N={N}, "
+                         f"G={G}, n_out={n_out}, silu={silu})")
+    codes_global = K > MAX_K
+    avail = (MAX_DYN_SMEM - k4_smem(K, 0, 0, codes_global)
+             - 16 * W4A8_MAX_STAGES)
+    nu = K // 128
+    upc, slot, stages = ring_plan(2 if silu else 1, nu, avail)
+    smem = k4_smem(K, stages, slot, codes_global)
+    blocks = min(resident_blocks(smem, n_sm), -(-n_out // W4A8_COLS))
+    return W4A8Plan(W4A8_COLS, stages, upc, -(-nu // upc), blocks, slot,
+                    smem, K if codes_global else 0)
+
+
+# device -> (codes bytes held, (codes, sums, scales), {plan: argument
+# block}): the global scratch of K4 past MAX_K, replaced by a larger one
+# (and the argument blocks dropped) when a plan needs more. Calls on one
+# stream run in order, so one call's codes are free when the next starts.
+_K4_SCRATCH: dict = {}
+
+
+def w4a8_gemv_workspace(plan: W4A8Plan, device) -> int:
+    """The address of ``nctt_fused_gemv``'s argument block for ``plan`` on
+    ``device``: ten 64-bit words, the global scratch (codes, sums per 128,
+    two scales; null where the codes stay in shared memory) and the plan
+    (cols, stages, upc, blocks, slot, smem, global), in the order of
+    ``K4Word`` in csrc/w4a8_gemv.cuh; cached per plan and device."""
+    have = _K4_SCRATCH.get(device)
+    if have is not None:
+        block = have[2].get(plan)
+        if block is not None:
+            return block[1]
+    if have is None or have[0] < plan.codes_bytes:
+        _K4_BLOCKS.clear()
+        n = max(plan.codes_bytes, 0 if have is None else have[0])
+        bufs = ((torch.empty(n // 4, dtype=torch.int32, device=device),
+                 torch.empty(n // 128, dtype=torch.int32, device=device),
+                 torch.empty(2, dtype=torch.float32, device=device))
+                if n else None)
+        have = (n, bufs, {})
+        _K4_SCRATCH[device] = have
+    ptrs = ((0, 0, 0) if not plan.codes_bytes
+            else tuple(b.data_ptr() for b in have[1]))
+    words = (ctypes.c_int64 * 10)(
+        *ptrs, plan.cols, plan.stages, plan.upc, plan.blocks, plan.slot,
+        plan.smem, int(plan.codes_bytes > 0))
+    have[2][plan] = (words, ctypes.addressof(words))
+    return have[2][plan][1]
+
+
+# (device, K, N, G, silu) -> the argument block's address: a call's plan
+# and workspace in one lookup (the blocks live in _K4_SCRATCH; a plan that
+# grows the scratch there drops the blocks, and this map with them)
+_K4_BLOCKS: dict = {}
+
+
+@functools.lru_cache(maxsize=64)
+def _n_sm(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def fused_ok(pw: PackedWeight, n_batch_tokens: int = 1) -> bool:
@@ -120,8 +274,9 @@ def fused_gemv_plain(x, rms_w, w, scales, bias, residual, *, eps: float,
 
 def fused_gemv(x, rms_w, w, scales, bias, residual, *, eps: float,
                silu: bool, out_dtype) -> torch.Tensor:
-    """The fused GEMV on the card (``csrc/fused_gemv.cu``); the plain
-    version for CPU tensors. Arguments as in ``fused_gemv_plain``."""
+    """The fused GEMV on the card (``csrc/fused_gemv.cu``, one launch on
+    ``w4a8_gemv_plan``'s plan, two past ``MAX_K``); the plain version for
+    CPU tensors. Arguments as in ``fused_gemv_plain``."""
     if x.device.type == "cpu":
         return fused_gemv_plain(x, rms_w, w, scales, bias, residual, eps=eps,
                                 silu=silu, out_dtype=out_dtype)
@@ -136,31 +291,33 @@ def fused_gemv(x, rms_w, w, scales, bias, residual, *, eps: float,
                          f"(K={K}, G={G}, N={N})")
     if out_dtype != torch.bfloat16:
         raise ValueError(f"fused_gemv stores bf16, not {out_dtype}")
-    x = x.reshape(K)
-    _build.require(x, "x", torch.bfloat16, dev, (K,))
-    _build.require(w, "w", torch.uint8, dev, (N, K // 2))
-    _build.require(scales, "scales", torch.float32, dev, (ng, N))
-    ptrs = []
-    for t, name, dtype, shape in ((rms_w, "rms_w", torch.float32, (K,)),
-                                  (bias, "bias", torch.float32, (n_out,)),
-                                  (residual, "residual", torch.bfloat16,
-                                   (n_out,))):
-        if t is None:
-            ptrs.append(None)
-        else:
-            t = t.reshape(shape)
-            _build.require(t, name, dtype, dev, shape)
-            ptrs.append(t.data_ptr())
+    if x.dim() != 1:
+        x = x.reshape(K)
+    req = _build.require
+    req(x, "x", torch.bfloat16, dev, (K,))
+    req(w, "w", torch.uint8, dev, (N, K // 2))
+    req(scales, "scales", torch.float32, dev, (ng, N))
+    ptrs = [None, None, None]
+    for i, (t, name, dtype, n) in enumerate((
+            (rms_w, "rms_w", torch.float32, K),
+            (bias, "bias", torch.float32, n_out),
+            (residual, "residual", torch.bfloat16, n_out))):
+        if t is not None:
+            if t.dim() != 1:
+                t = t.reshape(n)
+            req(t, name, dtype, dev, (n,))
+            ptrs[i] = t.data_ptr()
+    lib = _build.library()
+    key = (dev, K, N, G, silu)
+    block = _K4_BLOCKS.get(key)
+    if block is None:
+        block = _K4_BLOCKS[key] = w4a8_gemv_workspace(
+            w4a8_gemv_plan(K, N, G, n_out, bool(silu), _n_sm(dev)), dev)
     y = torch.empty(n_out, dtype=torch.bfloat16, device=dev)
-    codes = scl = None
-    if K > MAX_K:  # the codes in global memory: [K] int8 and two scales
-        codes = torch.empty(K, dtype=torch.int8, device=dev)
-        scl = torch.empty(2, dtype=torch.float32, device=dev)
-    err = _build.library().nctt_fused_gemv(
+    err = lib.nctt_fused_gemv(
         x.data_ptr(), ptrs[0], w.data_ptr(), scales.data_ptr(), ptrs[1],
-        ptrs[2], y.data_ptr(), K, N, G, n_out, int(silu), float(eps),
-        None if codes is None else codes.data_ptr(),
-        None if scl is None else scl.data_ptr(), _build.stream_handle(dev))
+        ptrs[2], y.data_ptr(), block, K, N, G, n_out, int(silu), float(eps),
+        _build.stream_handle(dev))
     _build.check(err, "nctt_fused_gemv")
     fused_gemv.launches += 1
     return y
